@@ -1,0 +1,21 @@
+"""brush_tpu_torch — the PyTorch + CUDA port of brush_tpu for NVIDIA Hopper.
+
+The package mirrors brush_tpu's layout module for module. Plain tensor
+code is PyTorch; every Pallas TPU kernel on a ported path is a CUDA C++
+kernel under csrc/, built at first use (ops/cuda/build.py), with a plain
+PyTorch version beside it that CPU tensors take.
+
+Ported so far (slice 1): the inference render and evaluation path —
+projection, SH colour, tile masks, the record pipeline with the expand and
+rasterize_fwd kernels, SSIM/PSNR evaluation and PLY import. Gradients and
+training are slice 2 onward.
+
+The package imports torch and numpy only: never jax, never brush_tpu.
+Loaders and constructors default to device="cuda" and raise when CUDA is
+absent; tests pass device="cpu".
+"""
+
+__version__ = "0.1.0"
+
+from brush_tpu_torch.camera import Camera  # noqa: F401
+from brush_tpu_torch.splats import Splats  # noqa: F401

@@ -1,0 +1,192 @@
+"""Gaussian projection: world-space 3D gaussians -> screen-space 2D splats.
+
+Port of brush_tpu/ops/projection.py (reference: helpers.wgsl:119-218,
+project_forward.wgsl culling). Dense over the padded splat array with a
+validity mask, in float32, with the same expanded scalar form of
+T V T^T so the sums round as the reference's do. Culled splats still get
+finite values (a safe depth and an identity covariance), and a covariance
+with det < 0 gives a finite conic (the rasterizer skips sigma < 0).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from brush_tpu_torch.constants import COV_BLUR, NEAR_PLANE_Z, TILE_WIDTH
+
+
+class Projection(NamedTuple):
+    """Per-splat screen-space quantities (all padded to N with `visible`)."""
+
+    xy: torch.Tensor        # (N, 2) projected means, pixels
+    depth: torch.Tensor     # (N,) view-space z
+    conic: torch.Tensor     # (N, 3) inverse 2D covariance (a, b, c)
+    radius: torch.Tensor    # (N,) int32 pixel radius of the 3-sigma bound
+    tile_min: torch.Tensor  # (N, 2) int32 inclusive tile bbox min (x, y)
+    tile_max: torch.Tensor  # (N, 2) int32 exclusive tile bbox max (x, y)
+    visible: torch.Tensor   # (N,) bool — survives culling
+
+
+def calc_cov2d(focal, img_size, pixel_center, viewmat, p_view, scales,
+               quats) -> torch.Tensor:
+    """Projected 2D covariance (c00, c01, c11) incl. COV_BLUR
+    (helpers.wgsl:124-158): EWA projection with the frustum-clamped
+    tangent point."""
+    img = torch.tensor([float(img_size[0]), float(img_size[1])],
+                       dtype=torch.float32, device=p_view.device)
+    tan_fov = 0.5 * img / focal
+    lims_pos = (img - pixel_center) / focal + 0.3 * tan_fov
+    lims_neg = pixel_center / focal + 0.3 * tan_fov
+
+    pz = p_view[:, 2]
+    rz = 1.0 / pz
+    rz2 = rz * rz
+    tx = pz * torch.clamp(p_view[:, 0] * rz, -lims_neg[0], lims_pos[0])
+    ty = pz * torch.clamp(p_view[:, 1] * rz, -lims_neg[1], lims_pos[1])
+
+    qw, qx, qy, qz = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
+    x2, y2, z2 = qx * qx, qy * qy, qz * qz
+    xy_, xz_, yz_ = qx * qy, qx * qz, qy * qz
+    wx_, wy_, wz_ = qw * qx, qw * qy, qw * qz
+    s0, s1, s2 = scales[:, 0], scales[:, 1], scales[:, 2]
+    # m_ij = R_ij * s_j  (M = R @ diag(s))
+    m00 = (1.0 - 2.0 * (y2 + z2)) * s0
+    m01 = (2.0 * (xy_ - wz_)) * s1
+    m02 = (2.0 * (xz_ + wy_)) * s2
+    m10 = (2.0 * (xy_ + wz_)) * s0
+    m11 = (1.0 - 2.0 * (x2 + z2)) * s1
+    m12 = (2.0 * (yz_ - wx_)) * s2
+    m20 = (2.0 * (xz_ - wy_)) * s0
+    m21 = (2.0 * (yz_ + wx_)) * s1
+    m22 = (1.0 - 2.0 * (x2 + y2)) * s2
+    # V = M M^T, symmetric (6 unique entries)
+    v00 = m00 * m00 + m01 * m01 + m02 * m02
+    v01 = m00 * m10 + m01 * m11 + m02 * m12
+    v02 = m00 * m20 + m01 * m21 + m02 * m22
+    v11 = m10 * m10 + m11 * m11 + m12 * m12
+    v12 = m10 * m20 + m11 * m21 + m12 * m22
+    v22 = m20 * m20 + m21 * m21 + m22 * m22
+    # J rows: [fx*rz, 0, -fx*tx*rz2], [0, fy*rz, -fy*ty*rz2]
+    ja = focal[0] * rz
+    jc0 = -focal[0] * tx * rz2
+    jb = focal[1] * rz
+    jc1 = -focal[1] * ty * rz2
+    # T = J @ W (W constant 3x3), rows t0, t1
+    w = viewmat[:3, :3]
+    t00 = ja * w[0, 0] + jc0 * w[2, 0]
+    t01 = ja * w[0, 1] + jc0 * w[2, 1]
+    t02 = ja * w[0, 2] + jc0 * w[2, 2]
+    t10 = jb * w[1, 0] + jc1 * w[2, 0]
+    t11 = jb * w[1, 1] + jc1 * w[2, 1]
+    t12 = jb * w[1, 2] + jc1 * w[2, 2]
+    # cov = T V T^T
+    u0 = v00 * t00 + v01 * t01 + v02 * t02
+    u1 = v01 * t00 + v11 * t01 + v12 * t02
+    u2 = v02 * t00 + v12 * t01 + v22 * t02
+    c00 = t00 * u0 + t01 * u1 + t02 * u2
+    c01 = t10 * u0 + t11 * u1 + t12 * u2
+    q0 = v00 * t10 + v01 * t11 + v02 * t12
+    q1 = v01 * t10 + v11 * t11 + v12 * t12
+    q2 = v02 * t10 + v12 * t11 + v22 * t12
+    c11 = t10 * q0 + t11 * q1 + t12 * q2
+
+    return torch.stack([c00 + COV_BLUR, c01, c11 + COV_BLUR], dim=-1)
+
+
+def cov_to_conic(cov2d: torch.Tensor) -> torch.Tensor:
+    """Invert the symmetric 2x2 covariance (helpers.wgsl:160-164)."""
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+    inv_det = 1.0 / det
+    return torch.stack(
+        [cov2d[:, 2] * inv_det, -cov2d[:, 1] * inv_det,
+         cov2d[:, 0] * inv_det], dim=-1,
+    )
+
+
+def _f32_to_i32(v: torch.Tensor) -> torch.Tensor:
+    """Saturating float -> int32 with NaN -> 0, as XLA converts.
+
+    A plain .to(int32) of NaN or an out-of-range float is undefined in
+    PyTorch; the bounds here are past any tile bbox, which clips anyway.
+    """
+    v = torch.nan_to_num(v, nan=0.0, posinf=2.0 ** 30, neginf=-(2.0 ** 30))
+    return torch.clamp(v, -(2.0 ** 30), 2.0 ** 30).to(torch.int32)
+
+
+def radius_from_conic(conic: torch.Tensor) -> torch.Tensor:
+    """Conservative integer pixel radius (helpers.wgsl:192-202), opacity
+    fixed at 1 as in the reference (project_forward.wgsl:53)."""
+    det = 1.0 / (conic[:, 0] * conic[:, 2] - conic[:, 1] * conic[:, 1])
+    cov_x = conic[:, 2] * det
+    cov_z = conic[:, 0] * det
+    b = 0.5 * (cov_x + cov_z)
+    disc = torch.sqrt(torch.clamp(b * b - det, min=0.1))
+    v1 = b + disc
+    v2 = b - disc
+    radius = 3.0 * torch.sqrt(torch.clamp(torch.maximum(v1, v2), min=0.0))
+    return _f32_to_i32(torch.ceil(radius))
+
+
+def tile_bbox(xy: torch.Tensor, radius: torch.Tensor, tile_bounds):
+    """Inclusive-min / exclusive-max tile bbox (helpers.wgsl:55-71)."""
+    tiles_x, tiles_y = tile_bounds
+    bounds = torch.tensor([float(tiles_x), float(tiles_y)],
+                          dtype=torch.float32, device=xy.device)
+    zero = torch.zeros_like(bounds)
+    center = xy / float(TILE_WIDTH)
+    rad = radius.to(torch.float32)[:, None] / float(TILE_WIDTH)
+    tmin = torch.clamp(torch.floor(center - rad), zero, bounds)
+    tmax = torch.clamp(torch.floor(center + rad + 1.0), zero, bounds)
+    return _f32_to_i32(tmin), _f32_to_i32(tmax)
+
+
+def project_splats(means, log_scales, quats, viewmat, focal, pixel_center,
+                   img_size, active=None) -> Projection:
+    """Project all splats and compute visibility (project_forward.wgsl:
+    near plane, zero covariance determinant, empty tile bbox).
+
+    means/log_scales: (N, 3); quats: (N, 4) wxyz, normalized; viewmat
+    (4, 4) world-to-view; focal/pixel_center (2,); img_size (w, h) ints;
+    active: optional (N,) bool mask of live splats.
+    """
+    w = viewmat[:3, :3]
+    t = viewmat[:3, 3]
+    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
+    px = mx * w[0, 0] + my * w[0, 1] + mz * w[0, 2] + t[0]
+    py = mx * w[1, 0] + my * w[1, 1] + mz * w[1, 2] + t[1]
+    depth = mx * w[2, 0] + my * w[2, 1] + mz * w[2, 2] + t[2]
+
+    visible = depth > NEAR_PLANE_Z
+    if active is not None:
+        visible = visible & active
+
+    z_safe = torch.where(visible, depth, torch.ones_like(depth))
+    p_view = torch.stack([px, py, z_safe], dim=-1)
+
+    scales = torch.exp(log_scales)
+    cov2d = calc_cov2d(focal, img_size, pixel_center, viewmat, p_view,
+                       scales, quats)
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] * cov2d[:, 1]
+    visible = visible & (det != 0.0)
+    ident = torch.tensor([1.0, 0.0, 1.0], dtype=cov2d.dtype,
+                         device=cov2d.device)
+    cov2d_safe = torch.where(visible[:, None], cov2d, ident)
+
+    conic = cov_to_conic(cov2d_safe)
+    xy = p_view[:, :2] / p_view[:, 2:3] * focal + pixel_center
+    radius = torch.where(visible, radius_from_conic(conic),
+                         torch.zeros((), dtype=torch.int32,
+                                     device=means.device))
+
+    tiles_x = -(-int(img_size[0]) // TILE_WIDTH)
+    tiles_y = -(-int(img_size[1]) // TILE_WIDTH)
+    tmin, tmax = tile_bbox(xy, radius, (tiles_x, tiles_y))
+    visible = (visible & (tmax[:, 0] > tmin[:, 0])
+               & (tmax[:, 1] > tmin[:, 1]))
+
+    return Projection(
+        xy=xy, depth=depth, conic=conic, radius=radius,
+        tile_min=tmin, tile_max=tmax, visible=visible,
+    )

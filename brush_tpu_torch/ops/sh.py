@@ -1,0 +1,71 @@
+"""Spherical-harmonics colour evaluation, degrees 0-4 (port of
+brush_tpu/ops/sh.py; reference: project_visible.wgsl:51-147)."""
+
+from __future__ import annotations
+
+import torch
+
+from brush_tpu_torch.constants import SH_C0, sh_coeffs_for_degree
+
+
+def sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
+    """(..., 3) unit directions -> (..., (degree+1)^2) basis, band-major."""
+    if not 0 <= degree <= 4:
+        raise ValueError(f"SH degree must be in [0, 4], got {degree}")
+
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    bases = [torch.full_like(x, SH_C0)]
+
+    if degree >= 1:
+        f0a = 0.48860251190292
+        bases += [-f0a * y, f0a * z, -f0a * x]
+
+    if degree >= 2:
+        z2 = z * z
+        f0b = -1.092548430592079 * z
+        f1a = 0.5462742152960395
+        fc1 = x * x - y * y
+        fs1 = 2.0 * x * y
+        p6 = 0.9461746957575601 * z2 - 0.3153915652525201
+        bases += [f1a * fs1, f0b * y, p6, f0b * x, f1a * fc1]
+
+    if degree >= 3:
+        f0c = -2.285228997322329 * z2 + 0.4570457994644658
+        f1b = 1.445305721320277 * z
+        f2a = -0.5900435899266435
+        fc2 = x * fc1 - y * fs1
+        fs2 = x * fs1 + y * fc1
+        p12 = z * (1.865881662950577 * z2 - 1.119528997770346)
+        bases += [f2a * fs2, f1b * fs1, f0c * y, p12, f0c * x, f1b * fc1,
+                  f2a * fc2]
+
+    if degree >= 4:
+        f0d = z * (-4.683325804901025 * z2 + 2.007139630671868)
+        f1c = 3.31161143515146 * z2 - 0.47308734787878
+        f2b = -1.770130769779931 * z
+        f3a = 0.6258357354491763
+        fc3 = x * fc2 - y * fs2
+        fs3 = x * fs2 + y * fc2
+        p20 = 1.984313483298443 * z * p12 - 1.006230589874905 * p6
+        bases += [
+            f3a * fs3, f2b * fs2, f1c * fs1, f0d * y, p20,
+            f0d * x, f1c * fc1, f2b * fc2, f3a * fc3,
+        ]
+
+    return torch.stack(bases, dim=-1)
+
+
+def sh_to_color(degree: int, dirs: torch.Tensor,
+                coeffs: torch.Tensor) -> torch.Tensor:
+    """(N, 3) RGB = basis(dirs) . coeffs + 0.5 (project_visible.wgsl:235).
+
+    coeffs: (N, K, 3) with K >= (degree+1)^2. The contraction runs in the
+    reference's order (one multiply-add per basis) so the f32 sums round
+    the same way.
+    """
+    k = sh_coeffs_for_degree(degree)
+    basis = sh_basis(degree, dirs)
+    color = basis[:, 0:1] * coeffs[:, 0, :]
+    for i in range(1, k):
+        color = color + basis[:, i:i + 1] * coeffs[:, i, :]
+    return color + 0.5

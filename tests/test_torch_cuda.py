@@ -1,0 +1,199 @@
+"""The port's CUDA kernels on the card, and the port's device rules.
+
+This file imports nothing of JAX, so it also runs on a machine with a
+card and no JAX (see README: `pytest --noconftest -m cuda`). Tests marked
+`cuda` hold each CUDA kernel to its plain PyTorch version on the same
+inputs and skip without a card; the rest run anywhere. Its scene helpers
+are shared with test_torch_kernels.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from brush_tpu_torch.camera import Camera
+from brush_tpu_torch.ops.cuda import expand as t_expand
+from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
+from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
+from brush_tpu_torch.ops.rasterize_reference import camera_params
+from brush_tpu_torch.render import record_inputs, render_splats
+
+# (n, image, pool, largest scale): a plain scene; large splats so the bbox
+# (> 8x8 tiles) path expands; a pool smaller than the records (overflow).
+SCENES = {
+    "small": (512, (64, 48), 2048, 0.5),
+    "bbox_splats": (200, (160, 128), 16384, 3.0),
+    "overflow": (512, (64, 48), 512, 0.5),
+}
+CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 2,
+           fov_y=np.pi / 2)
+
+
+def make_scene(n, seed, scale_hi=0.5, sh_degree=1):
+    """Random splats in front of a camera at z=-6 (numpy, float32)."""
+    rng = np.random.default_rng(seed)
+    quats = rng.normal(size=(n, 4))
+    k = (sh_degree + 1) ** 2
+    return {
+        "means": rng.uniform(-2.5, 2.5, (n, 3)).astype(np.float32),
+        "log_scales": np.log(rng.uniform(0.02, scale_hi, (n, 3))).astype(
+            np.float32),
+        "quats": (quats / np.linalg.norm(quats, axis=1, keepdims=True)
+                  ).astype(np.float32),
+        "sh_coeffs": rng.normal(0, 0.6, (n, k, 3)).astype(np.float32),
+        "raw_opacity": rng.normal(0.5, 1.5, n).astype(np.float32),
+    }
+
+
+def port_records(sc, img_size, pool, device="cpu"):
+    """The port's stages up to the tile sort on `device` (CPU tensors go
+    through the plain kernels)."""
+    cp = camera_params(Camera(**CAM), img_size, device=device)
+    t = {k: torch.tensor(v, device=device) for k, v in sc.items()}
+    rec = record_inputs(t["means"], t["log_scales"], t["quats"],
+                        t["sh_coeffs"], t["raw_opacity"], cp, img_size)
+    f5, u5, cum, total, raw_total = depth_order(rec.attrs9, rec.decode,
+                                                rec.depth_key, pool)
+    tiles_x = -(-img_size[0] // 16)
+    num_tiles = tiles_x * -(-img_size[1] // 16)
+    keys, recs = t_expand.expand(f5, u5, cum, total, tiles_x, num_tiles,
+                                 pool)
+    packed, starts, ends = tile_bins(keys, recs, num_tiles)
+    return dict(f5=f5, u5=u5, cum=cum, total=total, raw_total=raw_total,
+                keys=keys, recs=recs, packed=packed, starts=starts,
+                ends=ends, tiles_x=tiles_x, num_tiles=num_tiles)
+
+
+def close_with_flips(got, want, atol, flip_tol=0.01, max_flip_frac=2e-3,
+                     what=""):
+    """The rule of tests/conftest.assert_close_quantized: within atol
+    except a counted few alpha-threshold flips, each within flip_tol."""
+    diff = np.abs(got - want)
+    n_flip = int((diff > atol).sum())
+    assert diff.max() <= flip_tol, f"{what}: max diff {diff.max():.2e}"
+    assert n_flip <= max(1, int(max_flip_frac * diff.size)), (
+        f"{what}: {n_flip}/{diff.size} beyond atol {atol:.0e}")
+
+
+def flip_check(img, log_t, fidx, want_img, want_log_t, want_fidx, atol,
+               transmittance=False):
+    """img and log_t (or, with transmittance, T = exp(log_t)) close with
+    counted flips; final_idx must agree on every pixel whose outputs
+    agreed within atol, up to the same flip budget (a sub-atol flip at the
+    T threshold changes it too)."""
+    if transmittance:
+        log_t, want_log_t = np.exp(log_t), np.exp(want_log_t)
+    close_with_flips(img, want_img, atol, what="img")
+    close_with_flips(log_t, want_log_t, atol, what="log_t")
+    near = ((np.abs(img - want_img) <= atol).all(-1)
+            & (np.abs(log_t - want_log_t) <= atol))
+    n_bad = int(((fidx != want_fidx) & near).sum())
+    assert n_bad <= max(1, int(2e-3 * fidx.size)), f"{n_bad} final_idx"
+
+
+def test_cuda_request_without_cuda_raises():
+    """Asking for the card on a machine without one raises; nothing
+    carries on quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    from brush_tpu_torch.splats import from_random
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        from_random(np.random.default_rng(0), [-1] * 3, [1] * 3, count=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        camera_params(Camera(**CAM), (16, 16))
+
+
+def test_wrappers_reject_bad_inputs():
+    r = port_records(make_scene(64, 0), (32, 32), 512)
+    with pytest.raises(ValueError, match="f5"):
+        t_expand.expand(r["f5"].double(), r["u5"], r["cum"], r["total"],
+                        r["tiles_x"], r["num_tiles"], 512)
+    with pytest.raises(ValueError, match="packed"):
+        t_raster.rasterize_fwd(r["packed"][:7], r["starts"], r["ends"],
+                               r["tiles_x"])
+
+
+def test_expand_plain_canonicalizes_negative_zero():
+    """-0.0 in a record field is written as +0.0, as the TPU kernel's
+    matmul gather leaves it."""
+    r = port_records(make_scene(64, 0), (32, 32), 512)
+    f5 = r["f5"].clone()
+    f5[3] = -0.0
+    _, recs = t_expand.expand_plain(f5, r["u5"], r["cum"], r["total"],
+                                    r["tiles_x"], r["num_tiles"], 512)
+    assert int(r["total"][0]) > 0 and not recs[3].any()
+
+
+# ---- on the card: each CUDA kernel against its plain version ----------
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_cuda_expand_equals_plain(name):
+    _need_cuda()
+    n, img_size, pool, scale_hi = SCENES[name]
+    r = port_records(make_scene(n, 5, scale_hi), img_size, pool, "cuda")
+    args = (r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
+            r["num_tiles"], pool)
+    before = t_expand.launches
+    keys, recs = t_expand.expand(*args)
+    torch.cuda.synchronize()
+    assert t_expand.launches == before + 1
+    pk, pr = t_expand.expand_plain(*args)
+    assert torch.equal(keys, pk) and torch.equal(recs, pr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["small", "bbox_splats"])
+def test_cuda_rasterize_fwd_matches_plain(name):
+    _need_cuda()
+    n, img_size, pool, scale_hi = SCENES[name]
+    r = port_records(make_scene(n, 6, scale_hi), img_size, pool, "cuda")
+    args = (r["packed"], r["starts"], r["ends"], r["tiles_x"])
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_rasterize_fwd_hyperbolic_conic_matches_plain():
+    _need_cuda()
+    n, img_size, pool, scale_hi = SCENES["small"]
+    r = port_records(make_scene(n, 9, scale_hi), img_size, pool, "cuda")
+    packed = r["packed"].clone()
+    live = int(r["total"][0])
+    hyper = torch.tensor([1.0, -1.5, 1.0], device="cuda").view(torch.int32)
+    packed[2:5, :live:7] = hyper[:, None]
+    args = (packed, r["starts"], r["ends"], r["tiles_x"])
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(img).all() and torch.isfinite(log_t).all()
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_render_matches_cpu():
+    _need_cuda()
+    sc = make_scene(512, 8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = {k: torch.tensor(v, device=dev) for k, v in sc.items()}
+        out[dev] = render_splats(
+            t["means"], t["log_scales"], t["quats"], t["sh_coeffs"],
+            t["raw_opacity"], camera_params(Camera(**CAM), (64, 48),
+                                            device=dev),
+            (64, 48), needs_grad=False)
+    torch.cuda.synchronize()
+    close_with_flips(out["cuda"][0].cpu().numpy(), out["cpu"][0].numpy(),
+                     atol=1e-5, what="render")
+    assert int(out["cuda"][1].num_isects) == int(out["cpu"][1].num_isects)

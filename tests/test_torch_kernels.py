@@ -1,0 +1,192 @@
+"""The port's expand and rasterize_fwd against the Pallas kernels.
+
+The port builds a scene's record inputs with its own stages and the plain
+versions of its CUDA kernels (CPU tensors); the Pallas kernels then run in
+interpret mode on the same depth-ordered inputs and the same packed pool.
+The expand pools must be byte-equal; the rasterizer outputs agree within
+the alpha-threshold flip rule of conftest.assert_close_quantized at atol
+1e-5. The CUDA kernels themselves are tested in test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from brush_tpu.ops.pallas.expand import WINDOW_ALIGN, build_comp_rows
+from brush_tpu.ops.pallas.expand import expand_pallas
+from brush_tpu.ops.pallas.rasterize_fwd import quantize_color as j_qc
+from brush_tpu.ops.pallas.rasterize_fwd import quantize_opac as j_qo
+from brush_tpu.ops.pallas.rasterize_fwd import rasterize_fwd_pallas
+
+from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
+from test_torch_cuda import SCENES, flip_check, make_scene, port_records
+
+K_EXP = 512
+u32 = lambda t: t.numpy().view(np.uint32)
+
+
+def jax_expand(r, pool):
+    """expand_pallas (interpret mode) on the port's depth-ordered inputs,
+    through the reference's own build_comp_rows and window starts
+    (raster_vjp.py:237-272). Returns numpy (keys, recs) in slot order."""
+    f5 = jnp.asarray(r["f5"].numpy())
+    u5 = jnp.asarray(r["u5"].numpy().view(np.uint32))
+    cum = jnp.asarray(r["cum"].numpy())
+    n = f5.shape[1]
+    offsets = jnp.concatenate([jnp.zeros((1,), jnp.int32), cum[:-1]])
+    d0 = u5[2]
+    window = K_EXP + 2 * WINDOW_ALIGN
+    n_pad = -(-n // WINDOW_ALIGN) * WINDOW_ALIGN + window
+    comps = build_comp_rows(
+        f5[0], f5[1], f5[2], f5[3], f5[4], u5[0], u5[1],
+        d0 & jnp.uint32(0x3FF), (d0 >> 11) & jnp.uint32(0x7FF),
+        (d0 >> 22) | (((d0 >> 10) & jnp.uint32(1)) << 10), u5[3], u5[4],
+        offsets, n_pad, cum=cum)
+    starts_blk = jnp.arange(pool // K_EXP, dtype=jnp.int32) * K_EXP
+    w0 = jnp.searchsorted(cum, starts_blk, side="right").astype(jnp.int32)
+    s_lo = jnp.clip((w0 // WINDOW_ALIGN) * WINDOW_ALIGN, 0, n_pad - window)
+    keys, recs = expand_pallas(
+        comps, s_lo, jnp.asarray(r["total"].numpy()), tiles_x=r["tiles_x"],
+        num_tiles=r["num_tiles"], n=n, max_isects=pool, k_exp=K_EXP,
+        interpret=True)
+    return np.asarray(keys), np.asarray(recs)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_expand_plain_byte_equal_to_pallas(name):
+    n, img_size, pool, scale_hi = SCENES[name]
+    got = port_records(make_scene(n, seed=1, scale_hi=scale_hi), img_size,
+                       pool)
+    keys, recs = jax_expand(got, pool)
+    np.testing.assert_array_equal(u32(got["keys"]), keys)
+    np.testing.assert_array_equal(u32(got["recs"]), recs)
+    live = got["cum"] > 0
+    if name == "bbox_splats":
+        small = (got["u5"][2].to(torch.int64) >> 10) & 1
+        assert bool(((small == 0) & live).any()), "no bbox splat expanded"
+    if name == "overflow":
+        assert int(got["raw_total"]) > pool == int(got["total"][0])
+    else:
+        assert 0 < int(got["total"][0]) == int(got["cum"][-1]) < pool
+
+
+def test_tile_bins_groups_records_stably():
+    got = port_records(make_scene(512, seed=7), (64, 48), 2048)
+    keys = got["keys"].numpy()
+    perm = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(got["packed"][:7].numpy(),
+                                  got["recs"][:7].numpy()[:, perm])
+    assert not got["packed"][7].any()
+    bins = np.searchsorted(keys[perm], np.arange(got["num_tiles"] + 1))
+    np.testing.assert_array_equal(got["starts"].numpy(), bins[:-1])
+    np.testing.assert_array_equal(got["ends"].numpy(), bins[1:])
+
+
+def _raster_args(got):
+    return (got["packed"], got["starts"], got["ends"], got["tiles_x"])
+
+
+@pytest.mark.parametrize("name", ["small", "bbox_splats"])
+def test_rasterize_fwd_plain_matches_pallas(name):
+    n, img_size, pool, scale_hi = SCENES[name]
+    got = port_records(make_scene(n, seed=2, scale_hi=scale_hi), img_size,
+                       pool)
+    k_lanes = 128
+    packed = np.pad(u32(got["packed"]), ((0, 0), (0, k_lanes)))
+    img_j, log_t_j, fidx_j = rasterize_fwd_pallas(
+        jnp.asarray(packed), jnp.asarray(got["starts"].numpy()),
+        jnp.asarray(got["ends"].numpy()),
+        jnp.arange(got["num_tiles"], dtype=jnp.int32),
+        tiles_x=got["tiles_x"], num_tiles=got["num_tiles"],
+        max_isects=pool, k_lanes=k_lanes, interpret=True, scan_passes=3)
+    img, log_t, fidx = t_raster.rasterize_fwd(*_raster_args(got))
+    # The TPU kernel evaluates sigma as an expanded rank-6 polynomial in
+    # tile-local coordinates; its ~1e-6 cancellation error reaches log T
+    # amplified by 1 / (1 - alpha) (up to 1000x near ALPHA_MAX), measured
+    # up to 7e-5 on log T where T itself is ~5e-3. So log T is held in
+    # transmittance space, where the image sees it, at the same atol.
+    flip_check(img.numpy(), log_t.numpy(), fidx.numpy(),
+                np.asarray(img_j), np.asarray(log_t_j), np.asarray(fidx_j),
+                atol=1e-5, transmittance=True)
+    assert np.abs(log_t.numpy() - np.asarray(log_t_j)).max() < 1e-3
+    assert (fidx.numpy() >= 0).any()
+
+
+def test_rasterize_fwd_hyperbolic_conic_stays_finite():
+    """Records with an indefinite conic (det < 0: f32 cancellation in the
+    projection can emit one) send sigma far below zero away from their
+    centre; exp takes max(sigma, 0), so the output stays finite and equal
+    to the Pallas kernel's (regression of the reference's 96f7512)."""
+    n, img_size, pool, scale_hi = SCENES["small"]
+    got = port_records(make_scene(n, seed=9, scale_hi=scale_hi), img_size,
+                       pool)
+    packed = got["packed"].clone()
+    live = int(got["total"][0])
+    hyper = torch.tensor([1.0, -1.5, 1.0]).view(torch.int32)
+    packed[2:5, :live:7] = hyper[:, None]
+    packed[0:2, :live:7] = torch.tensor([4.0, 4.0]).view(torch.int32)[:, None]
+    img, log_t, fidx = t_raster.rasterize_fwd(
+        packed, got["starts"], got["ends"], got["tiles_x"])
+    assert torch.isfinite(img).all() and torch.isfinite(log_t).all()
+    img_j, log_t_j, fidx_j = rasterize_fwd_pallas(
+        jnp.asarray(np.pad(u32(packed), ((0, 0), (0, 128)))),
+        jnp.asarray(got["starts"].numpy()), jnp.asarray(got["ends"].numpy()),
+        jnp.arange(got["num_tiles"], dtype=jnp.int32),
+        tiles_x=got["tiles_x"], num_tiles=got["num_tiles"],
+        max_isects=pool, k_lanes=128, interpret=True, scan_passes=3)
+    flip_check(img.numpy(), log_t.numpy(), fidx.numpy(), np.asarray(img_j),
+               np.asarray(log_t_j), np.asarray(fidx_j), atol=1e-5,
+               transmittance=True)
+
+
+def test_rasterize_fwd_empty_tiles():
+    packed = torch.zeros((8, 256), dtype=torch.int32)
+    zeros = torch.zeros(6, dtype=torch.int32)
+    img, log_t, fidx = t_raster.rasterize_fwd(packed, zeros, zeros, 3)
+    assert torch.all(img == 0) and torch.all(log_t == 0)
+    assert torch.all(fidx == -1)
+
+
+def test_rasterize_fwd_counts_pairs():
+    """count_pairs = every live pixel's records up to its crossing one."""
+    got = port_records(make_scene(512, seed=3), (64, 48), 2048)
+    *_, pairs = t_raster.rasterize_fwd_plain(*_raster_args(got),
+                                             count_pairs=True)
+    all_pairs = 256 * int((got["ends"] - got["starts"]).sum())
+    assert 0 < pairs <= all_pairs
+
+
+def test_quantize_rounds_half_to_even_like_jax():
+    # Values that land exactly on .5 steps: both frameworks round half to
+    # even, so the u16 codes agree bit for bit.
+    c = np.concatenate([
+        np.array([-5.0, -4.0, 0.0, 4.0, 5.0, np.nan], np.float32),
+        ((np.arange(-8, 9) + 0.5) / (65535.0 / 8.0) - 4.0).astype(
+            np.float32),
+        np.random.default_rng(0).uniform(-4.5, 4.5, 1000).astype(np.float32),
+    ])
+    c = c[~np.isnan(c)]
+    np.testing.assert_array_equal(
+        t_raster.quantize_color(torch.tensor(c)).numpy(),
+        np.asarray(j_qc(jnp.asarray(c))).astype(np.int32))
+    o = np.concatenate([np.array([-0.1, 0.0, 1.0, 1.5], np.float32),
+                        (np.arange(9) + 0.5).astype(np.float32) / 65535.0])
+    np.testing.assert_array_equal(
+        t_raster.quantize_opac(torch.tensor(o)).numpy(),
+        np.asarray(j_qo(jnp.asarray(o))).astype(np.int32))
+
+
+def test_record_rows_roundtrip():
+    rng = np.random.default_rng(4)
+    f = [torch.tensor(rng.normal(size=64).astype(np.float32))
+         for _ in range(5)]
+    q = [torch.tensor(rng.integers(0, 65536, 64)) for _ in range(4)]
+    rows = torch.stack(t_raster.pack_record_rows(*f, *q,
+                                                 torch.arange(64)))
+    dec = t_raster.unpack_record_rows(rows)
+    for a, b in zip(dec[:5], f):
+        assert torch.equal(a, b)
+    for a, b, scale in zip(dec[5:], q, [t_raster.decode_color] * 3
+                           + [t_raster.decode_opac]):
+        assert torch.equal(a, scale(b))

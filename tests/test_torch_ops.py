@@ -1,0 +1,183 @@
+"""The port's per-splat stages against brush_tpu: SH, projection, the
+dense oracle, the tile pretest and the decode rows.
+
+Inputs are made once with numpy and handed to both packages. XLA on the
+CPU may contract and reorder float32 arithmetic that PyTorch evaluates op
+by op, so float results are held to a few float32 ulps (rtol 1e-5) and
+integer results (radii, tile bboxes, masks, counts) must be equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import assert_close_quantized
+
+from brush_tpu.camera import Camera as JCamera
+from brush_tpu.ops.binning import popcount_u32 as j_popcount
+from brush_tpu.ops.binning import precompute_tile_masks as j_masks
+from brush_tpu.ops.projection import project_splats as j_project
+from brush_tpu.ops.rasterize_reference import camera_params as j_cp
+from brush_tpu.ops.rasterize_reference import pixel_grid as j_pixel_grid
+from brush_tpu.ops.rasterize_reference import render_oracle as j_oracle
+from brush_tpu.ops.sh import sh_basis as j_sh_basis
+from brush_tpu.ops.sh import sh_to_color as j_sh_to_color
+from brush_tpu.render import pack_decode_rows as j_decode
+
+from brush_tpu_torch.camera import Camera
+from brush_tpu_torch.ops.binning import popcount_u32, precompute_tile_masks
+from brush_tpu_torch.ops.projection import project_splats
+from brush_tpu_torch.ops.rasterize_reference import (
+    camera_params, pixel_grid, render_oracle,
+)
+from brush_tpu_torch.ops.sh import sh_basis, sh_to_color
+from brush_tpu_torch.render import pack_decode_rows
+
+CAM = dict(position=[0.3, -0.2, -6.0], rotation=[0.99, 0.05, -0.08, 0.03],
+           fov_x=1.4, fov_y=1.2)
+
+
+def _cams(img_size):
+    jc = JCamera(**CAM)
+    jc.rotation = jc.rotation / np.linalg.norm(jc.rotation)
+    tc = Camera(**CAM)
+    tc.rotation = tc.rotation / np.linalg.norm(tc.rotation)
+    return j_cp(jc, img_size), camera_params(tc, img_size, device="cpu")
+
+
+def _scene(n=400, seed=0, thin=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    ls = np.log(rng.uniform(0.02, 0.6, (n, 3)))
+    # Near-singular covariances: two tiny axes make the projected 2x2
+    # covariance cancel in float32 (det may round to <= 0).
+    ls[:thin, 1:] = -12.0
+    sc = {
+        "means": rng.uniform(-3, 3, (n, 3)),
+        "log_scales": ls,
+        "quats": q,
+        "sh_coeffs": rng.normal(0, 0.5, (n, 9, 3)),
+        "raw_opacity": rng.normal(0, 2, n),
+    }
+    return {k: v.astype(np.float32) for k, v in sc.items()}
+
+
+def _proj_both(sc, img_size):
+    jcp, tcp = _cams(img_size)
+    jp = j_project(jnp.asarray(sc["means"]), jnp.asarray(sc["log_scales"]),
+                   jnp.asarray(sc["quats"]), jcp.viewmat, jcp.focal,
+                   jcp.pixel_center, img_size)
+    tp = project_splats(torch.tensor(sc["means"]),
+                        torch.tensor(sc["log_scales"]),
+                        torch.tensor(sc["quats"]), tcp.viewmat, tcp.focal,
+                        tcp.pixel_center, img_size)
+    return jp, tp
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_sh_matches_reference(degree):
+    rng = np.random.default_rng(degree)
+    d = rng.normal(size=(300, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    k = (degree + 1) ** 2
+    coeffs = rng.normal(size=(300, k + 2, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        sh_basis(degree, torch.tensor(d)).numpy(),
+        np.asarray(j_sh_basis(degree, jnp.asarray(d))), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        sh_to_color(degree, torch.tensor(d), torch.tensor(coeffs)).numpy(),
+        np.asarray(j_sh_to_color(degree, jnp.asarray(d),
+                                 jnp.asarray(coeffs))),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_sh_degree_out_of_range_raises():
+    with pytest.raises(ValueError):
+        sh_basis(5, torch.zeros(1, 3))
+
+
+@pytest.mark.parametrize("thin", [0, 60])
+def test_projection_matches_reference(thin):
+    sc = _scene(thin=thin)
+    img_size = (160, 96)
+    jp, tp = _proj_both(sc, img_size)
+    vis = np.asarray(jp.visible)
+    np.testing.assert_array_equal(tp.visible.numpy(), vis)
+    assert 0 < vis.sum() < vis.size
+    np.testing.assert_allclose(tp.xy.numpy()[vis], np.asarray(jp.xy)[vis],
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tp.depth.numpy(), np.asarray(jp.depth),
+                               rtol=1e-6)
+    # Conics of the near-singular splats are ill-conditioned (they are the
+    # inverse of a cancelling 2x2): compare those only for finiteness.
+    ok = vis.copy()
+    ok[:thin] = False
+    np.testing.assert_allclose(tp.conic.numpy()[ok],
+                               np.asarray(jp.conic)[ok], rtol=2e-4,
+                               atol=1e-6)
+    assert np.isfinite(tp.conic.numpy()).all()
+    assert np.isfinite(tp.xy.numpy()).all()
+    for f in ("radius", "tile_min", "tile_max"):
+        np.testing.assert_array_equal(getattr(tp, f).numpy()[ok],
+                                      np.asarray(getattr(jp, f))[ok], f)
+
+
+def test_pixel_grid_matches_reference():
+    np.testing.assert_array_equal(pixel_grid((7, 5)).numpy(),
+                                  np.asarray(j_pixel_grid((7, 5))))
+
+
+def test_oracle_matches_reference():
+    sc = _scene(n=150, seed=3)
+    img_size = (48, 40)
+    jcp, tcp = _cams(img_size)
+    want = j_oracle(*(jnp.asarray(sc[k]) for k in (
+        "means", "log_scales", "quats", "sh_coeffs", "raw_opacity")),
+        jcp, img_size, block_size=64)
+    got = render_oracle(*(torch.tensor(sc[k]) for k in (
+        "means", "log_scales", "quats", "sh_coeffs", "raw_opacity")),
+        tcp, img_size, block_size=64)
+    # Both are unquantized float32; only rounding and rare threshold flips
+    # separate them.
+    assert_close_quantized(got.numpy(), np.asarray(want), atol=1e-5,
+                           err_msg="oracle")
+
+
+def test_tile_masks_and_decode_rows_match_reference():
+    sc = _scene(n=600, seed=4)
+    sc["log_scales"][:40] += 2.5     # some bboxes past 8x8 tiles
+    img_size = (320, 224)
+    jp, tp = _proj_both(sc, img_size)
+    rng = np.random.default_rng(5)
+    opac = rng.uniform(0.002, 1.0, 600).astype(np.float32)
+    jm = j_masks(jp, jnp.asarray(opac))
+    tm = precompute_tile_masks(tp, torch.tensor(opac))
+    for f in ("counts", "mask_lo", "mask_hi", "pc_pack", "small"):
+        np.testing.assert_array_equal(
+            getattr(tm, f).numpy(),
+            np.asarray(getattr(jm, f)).astype(getattr(tm, f).numpy().dtype),
+            f)
+    assert (~tm.small.numpy() & (tm.counts.numpy() > 0)).any()
+    prod_j = jp.visible & (jm.counts > 0)
+    prod_t = tp.visible & (tm.counts > 0)
+    jd = j_decode(jp, jm, jnp.where(prod_j, jm.counts, 0))
+    td = pack_decode_rows(tp, tm, torch.where(prod_t, tm.counts, 0))
+    np.testing.assert_array_equal(td.numpy(),
+                                  np.asarray(jd).astype(np.int64))
+
+
+def test_popcount_u32_wraps_like_reference():
+    v = np.concatenate([
+        np.array([0, 1, 0xFF, 0x80000000, 0xFFFFFFFF, 0xF0F0F0F0],
+                 np.uint32),
+        np.random.default_rng(6).integers(0, 2**32, 500, dtype=np.uint32)])
+    want = np.asarray(j_popcount(jnp.asarray(v)))
+    # Held as int64 values and as int32 bit patterns (high bit set).
+    got64 = popcount_u32(torch.tensor(v.astype(np.int64))).numpy()
+    got32 = popcount_u32(torch.tensor(v.view(np.int32))).numpy()
+    np.testing.assert_array_equal(got64, want)
+    np.testing.assert_array_equal(got32, want)
+    np.testing.assert_array_equal(want, [bin(int(x)).count("1") for x in v])
+
