@@ -5,10 +5,11 @@ code is PyTorch; every Pallas TPU kernel on a ported path is a CUDA C++
 kernel under csrc/, built at first use (ops/cuda/build.py), with a plain
 PyTorch version beside it that CPU tensors take.
 
-Ported so far (slice 1): the inference render and evaluation path —
-projection, SH colour, tile masks, the record pipeline with the expand and
-rasterize_fwd kernels, SSIM/PSNR evaluation and PLY import. Gradients and
-training are slice 2 onward.
+Ported so far: the render and evaluation path (slice 1) — projection, SH
+colour, tile masks, the record pipeline with the expand and rasterize_fwd
+kernels, SSIM/PSNR evaluation and PLY import — and training (slice 2):
+the differentiable record pipeline with the rasterize_bwd and segment_sum
+kernels, the L1 + SSIM loss, per-group Adam and SplatTrainer with refine.
 
 The package imports torch and numpy only: never jax, never brush_tpu.
 Loaders and constructors default to device="cuda" and raise when CUDA is

@@ -1,0 +1,90 @@
+"""Segment sum: gradient rows sorted by compact splat id -> per-splat sums.
+
+Replaces brush_tpu/ops/pallas/segsum.py (segment_sum_pallas, :136). The
+CUDA kernel is brush_tpu_torch/csrc/segsum.cu (one warp per splat; its
+header gives the design and the bound). `segment_sum_plain` below is the
+same function in PyTorch: CPU tensors take it, and tests and chip_smoke.py
+hold the kernel to it.
+
+Inputs: rows (GRAD_ROWS, pool) float32 in compact-id order; offsets and
+cum (n,) int32, each splat's exclusive and inclusive record-count cumsums
+(splat w owns slots [offsets[w], cum[w])); total (1,) int32, the live
+slots. Output: (GRAD_ROWS, n) float32 in compact (depth) order, summing
+only the slots below `total`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from brush_tpu_torch.ops.cuda import build
+from brush_tpu_torch.ops.cuda.rasterize_bwd import GRAD_ROWS
+
+# Launches of the CUDA kernel (not of the plain version) in this process.
+launches = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def slot_owners(cum, total, pool: int) -> torch.Tensor:
+    """The compact id owning each of the first `total` slots (int64)."""
+    slots = torch.arange(pool, dtype=torch.int64, device=cum.device)
+    slots = slots[slots < total.to(torch.int64)]
+    return torch.searchsorted(cum.to(torch.int64), slots, right=True)
+
+
+def segment_sum_plain(rows, offsets, cum, total):
+    """PyTorch version of csrc/segsum.cu: each live slot's rows are added
+    into its owner's column (index_add_; float32, in slot order on the
+    CPU)."""
+    n = offsets.shape[0]
+    out = torch.zeros((GRAD_ROWS, n), dtype=torch.float32, device=rows.device)
+    if n == 0:
+        return out
+    owner = slot_owners(cum, total, rows.shape[1])
+    return out.index_add_(1, owner, rows[:, :owner.shape[0]])
+
+
+def _check_inputs(rows, offsets, cum, total):
+    if rows.dtype != torch.float32 or rows.dim() != 2 \
+            or rows.shape[0] != GRAD_ROWS:
+        raise ValueError(f"rows must be ({GRAD_ROWS}, pool) float32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    n = offsets.shape[0]
+    for name, t, shape in (("offsets", offsets, (n,)), ("cum", cum, (n,)),
+                           ("total", total, (1,))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    devs = {t.device for t in (rows, offsets, cum, total)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def segment_sum(rows, offsets, cum, total):
+    """Per-splat sums (GRAD_ROWS, n) on the inputs' device: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    _check_inputs(rows, offsets, cum, total)
+    if rows.device.type == "cpu":
+        return segment_sum_plain(rows, offsets, cum, total)
+    if rows.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {rows.device}")
+    global launches
+    rows, offsets, cum, total = (t.contiguous()
+                                 for t in (rows, offsets, cum, total))
+    n = offsets.shape[0]
+    out = torch.empty((GRAD_ROWS, n), dtype=torch.float32, device=rows.device)
+    lib = build.load("segsum")
+    fn = lib.segsum_launch
+    fn.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P]
+    fn.restype = _I
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(rows.data_ptr(), rows.shape[1], offsets.data_ptr(),
+                cum.data_ptr(), total.data_ptr(), n, out.data_ptr(), stream)
+    build.check(rc, "segsum")
+    launches += 1
+    return out

@@ -29,6 +29,21 @@ class Projection(NamedTuple):
     visible: torch.Tensor   # (N,) bool — survives culling
 
 
+def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
+    """(N, 4) wxyz quaternions -> (N, 3, 3) rotation matrices
+    (helpers.wgsl:74)."""
+    w, x, y, z = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
+    x2, y2, z2 = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1.0 - 2.0 * (y2 + z2), 2.0 * (xy - wz), 2.0 * (xz + wy),
+        2.0 * (xy + wz), 1.0 - 2.0 * (x2 + z2), 2.0 * (yz - wx),
+        2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (x2 + y2),
+    ], dim=-1)
+    return m.reshape(-1, 3, 3)
+
+
 def calc_cov2d(focal, img_size, pixel_center, viewmat, p_view, scales,
                quats) -> torch.Tensor:
     """Projected 2D covariance (c00, c01, c11) incl. COV_BLUR

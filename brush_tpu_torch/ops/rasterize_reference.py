@@ -49,8 +49,11 @@ def pixel_grid(img_size, device="cpu") -> torch.Tensor:
 def view_colors(means, sh_coeffs, cam: CameraParams) -> torch.Tensor:
     """SH colour per splat. The reference takes the translation column of
     the world-to-view matrix as the "camera position" for the view
-    directions (project_visible.wgsl:232); replicated for parity."""
-    viewdir = means - cam.viewmat[:3, 3]
+    directions (project_visible.wgsl:232); replicated for parity. The view
+    direction is a constant for autograd, as in the reference
+    (gather_grads.wgsl): colour gradients reach the SH coefficients only,
+    never the means."""
+    viewdir = means.detach() - cam.viewmat[:3, 3]
     viewdir = viewdir / torch.clamp(
         torch.linalg.vector_norm(viewdir, dim=-1, keepdim=True), min=1e-12)
     degree = sh_degree_from_coeffs(sh_coeffs.shape[1])

@@ -1,5 +1,5 @@
-"""The inference render (port of brush_tpu/render.py, render_splats with
-backend="pallas", needs_grad=False).
+"""The render (port of brush_tpu/render.py, render_splats with
+backend="pallas").
 
 Stages: project all splats densely with a validity mask; SH colour and
 opacity; the exact per-tile pretest (64-bit coverage masks); the depth key
@@ -7,8 +7,16 @@ and the packed decode rows; then the record pipeline (ops/pipeline.py:
 sort -> expand kernel -> sort -> rasterize_fwd kernel); the tiles are
 assembled into the image.
 
-Gradients (needs_grad=True) and raster cells other than (1, 1) are not
-ported yet and raise.
+Differentiation (needs_grad=True): projection and SH are plain autograd;
+the record pipeline is the custom autograd Function RecordPipeline
+(rasterize_bwd and segment_sum kernels). The tile pretest, the depth key
+and the decode rows are integer bookkeeping built from detached tensors,
+as the reference builds them from stop_gradient values. The reference
+threads a zero `xy_dummy` through the render so screen-space gradients
+surface for densification (render.py:22-25): it is added to the projected
+centres, so d(loss)/d(xy_dummy) lands at global splat indices.
+
+Raster cells other than (1, 1) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,11 +29,12 @@ import torch
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.device import full_f32
 from brush_tpu_torch.ops.binning import cell_bbox, precompute_tile_masks
-from brush_tpu_torch.ops.pipeline import infer_pipeline
+from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
 from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
     CameraParams, normalize_quats, view_colors,
 )
+from brush_tpu_torch.utils.profiler import mark
 
 U32_MAX = 0xFFFFFFFF
 
@@ -37,7 +46,8 @@ class RenderAux(NamedTuple):
     num_isects: torch.Tensor   # () int32
     num_dropped: torch.Tensor  # () int32 records lost to pool overflow
     visible: torch.Tensor      # (N,) bool, global order
-    order: torch.Tensor        # (N,) int32, zeros (inference has no order)
+    order: torch.Tensor        # (N,) int64 compact -> global (depth order);
+                               # zeros when rendered with needs_grad=False
     producing: torch.Tensor    # (N,) bool, global order: emits >= 1 record
 
 
@@ -113,7 +123,7 @@ class RecordInputs(NamedTuple):
     attrs9: torch.Tensor     # (9, N) f32: x, y, cxx, cxy, cyy, r, g, b, opac
     decode: torch.Tensor     # (3, N) int64 u32 values (pack_decode_rows)
     depth_key: torch.Tensor  # (N,) int64 depth bits, 2^32-1 if no record
-    proj: Projection
+    proj: Projection         # detached
     producing: torch.Tensor  # (N,) bool: emits >= 1 record
 
 
@@ -122,7 +132,9 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
                   active=None) -> RecordInputs:
     """Projection, SH colour, opacity, the tile pretest, the depth key and
     the decode rows (render.py:250-285, cell (1, 1)), in float32 with TF32
-    off."""
+    off. Only attrs9 carries gradients: the pretest, the depth key and the
+    decode rows see detached tensors (render.py:275-277, :168), so autograd
+    records none of the pretest's (8, 8, N) float work."""
     with full_f32():
         proj = project_splats(
             means, log_scales, normalize_quats(quats),
@@ -133,19 +145,20 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     opac = torch.sigmoid(raw_opacity)
     xy = proj.xy if xy_dummy is None else proj.xy + xy_dummy
 
-    masks = precompute_tile_masks(proj, opac)
-    producing = proj.visible & (masks.counts > 0)
+    proj_sg = Projection(*(t.detach() for t in proj))
+    masks = precompute_tile_masks(proj_sg, opac.detach())
+    producing = proj_sg.visible & (masks.counts > 0)
     counts_g = torch.where(producing, masks.counts, 0)
     # Positive float32 bits order like the floats; int64 keeps the
     # 0xFFFFFFFF sentinel past every real key (as int32 it would be -1).
-    depth_bits = torch.clamp(proj.depth, min=1e-20).view(torch.int32)
+    depth_bits = torch.clamp(proj_sg.depth, min=1e-20).view(torch.int32)
     depth_key = torch.where(producing, depth_bits.to(torch.int64), U32_MAX)
     attrs9 = torch.stack([
         xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
         proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
     ])
-    decode = pack_decode_rows(proj, masks, counts_g)
-    return RecordInputs(attrs9, decode, depth_key, proj, producing)
+    decode = pack_decode_rows(proj_sg, masks, counts_g)
+    return RecordInputs(attrs9, decode, depth_key, proj_sg, producing)
 
 
 def render_splats(
@@ -162,18 +175,21 @@ def render_splats(
     block_size: int = 32,
     cell: tuple = (1, 1),
     needs_grad: bool = True,
+    pack_grad_sort: bool = True,
 ) -> tuple[torch.Tensor, RenderAux]:
     """Render (h, w, 4) RGBA on the tensors' device; img_size is (w, h).
 
     quats are normalized internally. The pool (max_isects, default
     default_max_isects) rounds up to a multiple of lcm(max(128,
     block_size), 512) exactly as the reference's record pipeline does, so
-    num_dropped agrees; block_size has no other effect here. Only the
-    inference path exists: needs_grad=True raises NotImplementedError, and
-    so does a cell other than (1, 1).
+    num_dropped agrees; block_size has no other effect here.
+    needs_grad=True renders through the differentiable RecordPipeline
+    (pack_grad_sort: the backward's conic and colour cotangents ride the
+    grad re-sort as bf16 pairs, the reference's default; False keeps them
+    float32); needs_grad=False through the inference pipeline, which
+    refuses inputs that require grad and returns aux.order as zeros. A
+    cell other than (1, 1) raises NotImplementedError.
     """
-    if needs_grad:
-        raise NotImplementedError("slice 2")
     if tuple(cell) != (1, 1):
         raise NotImplementedError(f"cell={tuple(cell)}: only (1, 1) is ported")
     n = means.shape[0]
@@ -184,17 +200,27 @@ def render_splats(
 
     rec = record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
                         cam, img_size, xy_dummy=xy_dummy, active=active)
+    mark("record_inputs")
     proj, producing = rec.proj, rec.producing
-    img_tiles, total, raw_total = infer_pipeline(
-        rec.attrs9, rec.decode, rec.depth_key, tiles_x, tiles_x * tiles_y,
-        max_isects)
+    num_tiles = tiles_x * tiles_y
+    if needs_grad:
+        img_tiles, order, total, raw_total = RecordPipeline.apply(
+            rec.attrs9, rec.decode, rec.depth_key, tiles_x, num_tiles,
+            max_isects, pack_grad_sort)
+    else:
+        img_tiles, total, raw_total = infer_pipeline(
+            rec.attrs9, rec.decode, rec.depth_key, tiles_x, num_tiles,
+            max_isects)
+        order = torch.zeros(n, dtype=torch.int64, device=means.device)
 
     aux = RenderAux(
         num_visible=proj.visible.sum().to(torch.int32),
         num_isects=total,
         num_dropped=torch.clamp(raw_total - max_isects, min=0),
         visible=proj.visible,
-        order=torch.zeros(n, dtype=torch.int32, device=means.device),
+        order=order,
         producing=producing,
     )
-    return assemble_image(img_tiles, img_size, tiles_x, tiles_y), aux
+    img = assemble_image(img_tiles, img_size, tiles_x, tiles_y)
+    mark("assemble")
+    return img, aux

@@ -82,6 +82,9 @@ class Splats:
     def replace(self, **kw) -> "Splats":
         return dataclasses.replace(self, **kw)
 
+    def with_params(self, params: dict) -> "Splats":
+        return dataclasses.replace(self, **params)
+
     def opacity(self) -> torch.Tensor:
         return torch.sigmoid(self.raw_opacity)
 

@@ -5,26 +5,48 @@ NVIDIA GPU. Run from the repository root on a machine with one card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero without its
-result line):
+result line; each phase prints its seconds):
   1. build the CUDA kernels from brush_tpu_torch/csrc/ (one nvcc per
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the entry scene (16384 splats, 256x256) and the bench scene: expand
-     byte-equal; rasterize_fwd img and log_t within 1e-5 with threshold
-     flips counted and bounded (<= 2e-3 of the pixels, each <= 0.01) and
-     final_idx equal on every other pixel;
-  3. the main path at full width: render_splats(needs_grad=False) of the
+     the entry scene (16384 splats, 256x256) and at the bench scene's
+     render inputs: expand byte-equal; rasterize_fwd img and log_t within
+     1e-5 with threshold flips counted and bounded (<= 2e-3 of the pixels,
+     each <= 0.01) and final_idx equal on every other pixel; at the entry
+     scene also rasterize_bwd (on the kernel forward's log T and final_idx
+     and a seeded image cotangent) with every gradient row within 1e-4 of
+     that row's largest value, and segment_sum on the re-sorted rows
+     within 1e-5 of each row's largest sum;
+  3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after; then
-     the median of 10 CUDA-event-timed renders and each kernel's time;
+     the median of 10 CUDA-event-timed renders and the forward kernels'
+     times at these inputs;
   4. a real model: serve docs/castle_r5_30k.ply through eval_stats at
      800x800 on four cameras of its training orbit, against the same
-     views rendered by the port on the CPU (the plain versions);
-  5. print {"kernels": [...]}, the nvidia-smi line, and last
+     views rendered by the port on the CPU (the plain versions), and the
+     backward kernels' checks on one of those views;
+  5. the main path of training at full width: SplatTrainer on the bench
+     scene against a black ground truth (bench.py:210-231), 6 steps with
+     warmup 1 and refine every 3, so refine runs at iterations 1 (through
+     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all four
+     kernels' counters reset just before and read just after; every
+     step's CUDA-event time. The pipeline's calls to the four kernels keep
+     their arguments on the first step at each capacity; then the train
+     step metric: 8 warm steps at the capacity the run ends at;
+  6. each kernel against its plain version (tolerances as in phase 2) on
+     the arguments the training run gave it at each capacity, the real
+     loss cotangent included; the kernels' times, bounds and errors in
+     the result come from the last capacity's arguments;
+  7. a real model trains: the castle's SH DC coefficients perturbed by
+     0.1 N(0, 1), 12 default SplatTrainer steps on its four clean views;
+     the eval PSNR must rise;
+  8. print {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -46,6 +68,17 @@ F32_OPS_PER_S = 67e12
 # multiply, min and two compares for alpha (the contributing pairs' extra
 # log1p/exp/colour work is not counted: the bound stays a lower bound).
 RASTER_OPS_PER_PAIR = 20
+# rasterize_bwd: the same 20 for every pair its sweep evaluates, and for
+# every active pair 45 more: log1p, two exps and a division, ~23 multiplies
+# and adds for v_alpha and the nine terms, and the nine terms' share of
+# the pixel reduction.
+BWD_OPS_PER_PAIR = 20
+BWD_OPS_PER_ACTIVE = 45
+BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
+SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
+TRAIN_STEPS = 6
+METRIC_STEPS = 8     # warm steps at the final capacity, after one more
+CASTLE_TRAIN_STEPS = 12
 
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -93,42 +126,59 @@ def make_scene(cfg, device):
     return splats, camera_params(cam, size, device=device), size
 
 
-def kernel_inputs(splats, cp, size, cfg):
+def kernel_inputs(splats, cp, size, pool):
     """The main path's stages up to each kernel, the kernels on the card:
-    returns the expand inputs and the rasterize_fwd inputs."""
+    the expand arguments, the rasterize_fwd arguments (the pool keeps the
+    compact ids in row 7, as the training path's does) and the depth
+    order's offsets."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
-    from brush_tpu_torch.render import pool_size, record_inputs
+    from brush_tpu_torch.render import record_inputs
 
-    pool = pool_size(splats.capacity, size, cfg["pool"], cfg["block"])
     rec = record_inputs(splats.means, splats.log_scales, splats.quats,
                         splats.sh_coeffs, splats.raw_opacity, cp, size,
                         active=splats.active_mask())
-    f5, u5, cum, total, _ = depth_order(rec.attrs9, rec.decode,
-                                        rec.depth_key, pool)
+    d = depth_order(rec.attrs9, rec.decode, rec.depth_key, pool)
     tiles_x = -(-size[0] // 16)
     num_tiles = tiles_x * -(-size[1] // 16)
-    exp_args = (f5, u5, cum, total, tiles_x, num_tiles, pool)
-    packed, starts, ends = tile_bins(*expand(*exp_args), num_tiles)
-    return exp_args, (packed, starts, ends, tiles_x)
+    exp_args = (d.f5, d.u5, d.cum, d.total, tiles_x, num_tiles, pool)
+    packed, starts, ends = tile_bins(*expand(*exp_args), num_tiles,
+                                     keep_ids=True)
+    return dict(exp_args=exp_args, r_args=(packed, starts, ends, tiles_x),
+                offsets=d.offsets, raw_total=int(d.raw_total))
+
+
+def timed(fn):
+    """(fn(), the CUDA-event ms of that one call): the plain versions'
+    time, taken on the call that the check compares with."""
+    import torch
+
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def check_expand(exp_args):
+    """Kernel vs plain, byte for byte: returns the plain version's ms."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand, expand_plain
 
     keys, recs = expand(*exp_args)
     torch.cuda.synchronize()
-    pk, pr = expand_plain(*exp_args)
+    (pk, pr), plain_ms = timed(lambda: expand_plain(*exp_args))
     bad = int((keys != pk).sum()) + int((recs != pr).sum())
     if bad:
         raise AssertionError(f"expand: {bad} words differ from the plain "
                              "version")
-    return 0.0
+    return plain_ms
 
 
 def check_raster(r_args, atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3):
-    """Kernel vs plain: returns (max abs error, flipped pixels, pairs)."""
+    """Kernel vs plain: returns dict(err=max abs error, flips=flipped
+    pixels, pairs=(pixel, record) pairs evaluated, plain_ms)."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         rasterize_fwd, rasterize_fwd_plain,
@@ -136,8 +186,8 @@ def check_raster(r_args, atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3):
 
     img, log_t, fidx = rasterize_fwd(*r_args)
     torch.cuda.synchronize()
-    p_img, p_log_t, p_fidx, pairs = rasterize_fwd_plain(*r_args,
-                                                        count_pairs=True)
+    (p_img, p_log_t, p_fidx, pairs), plain_ms = timed(
+        lambda: rasterize_fwd_plain(*r_args, count_pairs=True))
     d_img = (img - p_img).abs().amax(dim=-1)
     d_lt = (log_t - p_log_t).abs()
     err = float(torch.maximum(d_img, d_lt).max())
@@ -149,35 +199,126 @@ def check_raster(r_args, atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3):
         raise AssertionError(
             f"rasterize_fwd: max err {err:.3e}, {n_flip} flipped pixels "
             f"(limit {limit}), {n_fidx} final_idx mismatches elsewhere")
-    return err, n_flip, pairs
+    return dict(err=err, flips=n_flip, pairs=pairs, plain_ms=plain_ms)
 
 
-def kernel_phase(cfg, label):
+def check_bwd(b_args, label):
+    """rasterize_bwd vs plain on b_args (packed, starts, ends, tiles_x,
+    v_out, log_t, final_idx): returns dict(err=row error, abs=max abs
+    error, plain_ms, swept/active=(pixel, record) pairs the sweep
+    evaluates / that contribute, grads=the kernel's rows)."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import (
+        rasterize_bwd, rasterize_bwd_plain,
+    )
+
+    grads = rasterize_bwd(*b_args)
+    torch.cuda.synchronize()
+    (plain, swept, active), plain_ms = timed(
+        lambda: rasterize_bwd_plain(*b_args, count_pairs=True))
+    err = row_error(grads, plain)
+    if not torch.isfinite(grads).all() or err > BWD_RTOL:
+        raise AssertionError(f"[{label}] rasterize_bwd: row error "
+                             f"{err:.3e} > {BWD_RTOL:.0e}")
+    return dict(err=err, abs=float((grads - plain).abs().max()),
+                plain_ms=plain_ms, swept=swept, active=active, grads=grads)
+
+
+def check_segsum(s_args, label):
+    """segment_sum vs plain on s_args (rows, offsets, cum, total): returns
+    dict(err=row error, abs=max abs error, plain_ms)."""
+    import torch
+    from brush_tpu_torch.ops.cuda.segsum import (
+        segment_sum, segment_sum_plain,
+    )
+
+    seg = segment_sum(*s_args)
+    torch.cuda.synchronize()
+    plain, plain_ms = timed(lambda: segment_sum_plain(*s_args))
+    err = row_error(seg, plain)
+    if err > SEG_RTOL:
+        raise AssertionError(f"[{label}] segment_sum: row error "
+                             f"{err:.3e} > {SEG_RTOL:.0e}")
+    return dict(err=err, abs=float((seg - plain).abs().max()),
+                plain_ms=plain_ms)
+
+
+def check_backward(k, label, seed):
+    """rasterize_bwd and segment_sum against their plain versions on the
+    kernel forward's log T and final_idx and a seeded image cotangent."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.pipeline import grad_resort
+
+    packed, starts, ends, tiles_x = k["r_args"]
+    _, log_t, fidx = rasterize_fwd(*k["r_args"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v_out = torch.randn((starts.shape[0], 256, 4), generator=gen,
+                        device="cuda")
+    b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx)
+    b = check_bwd(b_args, label)
+    total = k["exp_args"][3]
+    rows = grad_resort(b["grads"], packed[7], total, pack_grad_sort=False)
+    s = check_segsum((rows, k["offsets"], k["exp_args"][2], total), label)
+    print(f"[{label}] rasterize_bwd row error {b['err']:.3e} (max abs "
+          f"{b['abs']:.3e}), pairs swept {b['swept']}, active "
+          f"{b['active']}; segment_sum row error {s['err']:.3e}")
+    return b
+
+
+def row_error(got, want) -> float:
+    """Largest |got - want| of each row over that row's largest |want|."""
+    scale = want.abs().amax(dim=1).clamp(min=1e-30)
+    return float(((got - want).abs().amax(dim=1) / scale).max())
+
+
+def kernel_phase(cfg, label, backward: bool):
+    """Phase 2 at one scene, at the render's pool: expand and
+    rasterize_fwd, and with `backward` the backward kernels."""
+    t0 = time.perf_counter()
     splats, cp, size = make_scene(cfg, "cuda")
-    exp_args, r_args = kernel_inputs(splats, cp, size, cfg)
-    check_expand(exp_args)
-    err, n_flip, pairs = check_raster(r_args)
-    total = int(exp_args[3][0])
-    print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} pool={exp_args[6]} "
-          f"records={total}: expand byte-equal; rasterize_fwd max err "
-          f"{err:.3e}, flipped pixels {n_flip}, pairs evaluated {pairs}")
-    return splats, cp, size, exp_args, r_args, err, pairs
+    from brush_tpu_torch.render import pool_size
+
+    k = kernel_inputs(splats, cp, size,
+                      pool_size(splats.capacity, size, cfg["pool"],
+                                cfg["block"]))
+    check_expand(k["exp_args"])
+    r = check_raster(k["r_args"])
+    total = int(k["exp_args"][3][0])
+    print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} "
+          f"pool={k['exp_args'][6]} records={total}: expand byte-equal; "
+          f"rasterize_fwd max err {r['err']:.3e}, flipped pixels "
+          f"{r['flips']}, pairs evaluated {r['pairs']}")
+    if backward:
+        check_backward(k, label, seed=1)
+    print(f"[{label}] {time.perf_counter() - t0:.1f} s")
+    return splats, cp, size, k
 
 
-def bounds(exp_args, r_args, pairs):
-    """Least times (ms) for this run's inputs: (expand, rasterize_fwd)."""
-    f5, u5, cum, total = exp_args[:4]
-    pool = exp_args[6]
+def bounds(k, pairs, bwd):
+    """Least times (ms) for this run's inputs, with what bounds each:
+    expand, rasterize_fwd, rasterize_bwd, segment_sum."""
+    f5, u5, cum, total = k["exp_args"][:4]
+    pool = k["exp_args"][6]
     n = f5.shape[1]
-    exp_bytes = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
-    packed, starts, ends, _ = r_args
-    n_tiles = starts.shape[0]
-    rec_bytes = 28 * int(total[0]) + 8 * n_tiles + 24 * 256 * n_tiles
-    exp_ms = exp_bytes / HBM_BYTES_PER_S * 1e3
-    r_bytes_ms = rec_bytes / HBM_BYTES_PER_S * 1e3
-    r_ops_ms = RASTER_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
-    by = "operations" if r_ops_ms >= r_bytes_ms else "bytes"
-    return (exp_ms, "bytes"), (max(r_ops_ms, r_bytes_ms), by)
+    live = int(total[0])
+    n_tiles = k["r_args"][1].shape[0]
+    ms = lambda b: b / HBM_BYTES_PER_S * 1e3
+    ops = lambda o: o / F32_OPS_PER_S * 1e3
+    pick = lambda b, o: (max(ms(b), ops(o)),
+                         "operations" if ops(o) >= ms(b) else "bytes")
+    exp_b = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
+    fwd_b = 28 * live + 8 * n_tiles + 24 * 256 * n_tiles
+    # bwd: records and tile ranges read, v_out + log T + final_idx read,
+    # the (9, pool) gradient rows written once.
+    bwd_b = 28 * live + 8 * n_tiles + 24 * 256 * n_tiles + 36 * pool
+    bwd_o = BWD_OPS_PER_PAIR * bwd["swept"] + BWD_OPS_PER_ACTIVE * bwd["active"]
+    # segsum: the live slots' nine rows, offsets and cum read; (9, n) out.
+    seg_b = 36 * live + 8 * n + 4 + 36 * n
+    return {"expand": (ms(exp_b), "bytes"),
+            "rasterize_fwd": pick(fwd_b, RASTER_OPS_PER_PAIR * pairs),
+            "rasterize_bwd": pick(bwd_b, bwd_o),
+            "segment_sum": pick(seg_b, 9 * live)}
 
 
 def main_path(splats, cp, size, cfg):
@@ -258,7 +399,8 @@ def orbit_camera(azimuth, elevation, radius=3.6, target=(0.0, 0.0, 0.35)):
 
 
 def castle_phase():
-    """Phase 4: eval_stats on the card against the CPU (plain) render."""
+    """Phase 4: eval_stats on the card against the CPU (plain) render.
+    Returns the card's splats, the cameras, the views and the pool."""
     import torch
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
     from brush_tpu_torch.eval import eval_stats, eval_view
@@ -269,7 +411,7 @@ def castle_phase():
     t0 = time.perf_counter()
     gpu = load_splats_from_ply(data, device="cuda")
     cpu = load_splats_from_ply(data, device="cpu")
-    cams = [orbit_camera(2 * np.pi * i / 4 + 0.3, 0.55) for i in range(4)]
+    cams = castle_cameras()
     blank = np.zeros((CASTLE_SIZE, CASTLE_SIZE, 3), np.float32)
     gts = [eval_view(cpu, c, blank, keep_image=True).rendered for c in cams]
     t_cpu = time.perf_counter() - t0
@@ -295,6 +437,267 @@ def castle_phase():
     gt_mean = [float(np.mean(g)) for g in gts]
     if min(gt_mean) < 0.01:
         raise AssertionError(f"castle views look empty: means {gt_mean}")
+    return gpu, cams, gts, evals[-1].pool
+
+
+def castle_cameras():
+    return [orbit_camera(2 * np.pi * i / 4 + 0.3, 0.55) for i in range(4)]
+
+
+def castle_backward(splats, cam, pool):
+    """The backward kernels' checks on one castle view: real opacities
+    saturate pixels, so each tile's sweep skips a suffix of records."""
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import pool_size
+
+    t0 = time.perf_counter()
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    pool = pool_size(splats.capacity, size, pool)
+    k = kernel_inputs(splats, camera_params(cam, size, device="cuda"), size,
+                      pool)
+    if k["raw_total"] > pool:
+        raise AssertionError(f"castle view dropped records: pool {pool}, "
+                             f"records {k['raw_total']}")
+    bwd = check_backward(k, "castle", seed=2)
+    live = int(k["exp_args"][3][0])
+    n_tiles = k["r_args"][1].shape[0]
+    print(f"[castle] backward on view 0: {live} records; the sweep "
+          f"evaluates {bwd['swept']} of the {256 * live} pairs a full "
+          f"sweep would; {time.perf_counter() - t0:.1f} s "
+          f"({n_tiles} tiles)")
+
+
+def reset_launches():
+    from brush_tpu_torch.ops.cuda import (
+        expand, rasterize_bwd, rasterize_fwd, segsum,
+    )
+
+    for mod in (expand, rasterize_fwd, rasterize_bwd, segsum):
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    from brush_tpu_torch.ops.cuda import (
+        expand, rasterize_bwd, rasterize_fwd, segsum,
+    )
+
+    return {"expand": expand.launches, "rasterize_fwd": rasterize_fwd.launches,
+            "rasterize_bwd": rasterize_bwd.launches,
+            "segment_sum": segsum.launches}
+
+
+KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum")
+
+
+@contextlib.contextmanager
+def kept_kernel_args(armed: list):
+    """While armed[0] is true, keep the arguments of the record pipeline's
+    calls to the four kernel wrappers (the wrappers still launch and count
+    as before). Yields {wrapper name: last arguments}."""
+    from brush_tpu_torch.ops import pipeline
+
+    seen = {}
+    saved = {name: getattr(pipeline, name) for name in KERNEL_WRAPPERS}
+
+    def keep(name, fn):
+        def call(*args):
+            if armed[0]:
+                seen[name] = args
+            return fn(*args)
+        return call
+
+    for name, fn in saved.items():
+        setattr(pipeline, name, keep(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(pipeline, name, fn)
+
+
+def timed_steps(trainer, state, batch, steps: int):
+    """Run trainer steps; returns (state, [CUDA-event ms], [StepStats],
+    {iteration: RefineStats})."""
+    import torch
+
+    times, stats, refines = [], [], {}
+    for it in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, st = trainer.step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        stats.append(st)
+        if trainer.last_refine_stats is not None:
+            refines[it] = trainer.last_refine_stats
+    return state, times, stats, refines
+
+
+def train_path(cfg):
+    """Phase 5, the main path: SplatTrainer steps on the bench scene
+    against a black ground truth, all four kernels counted, and the
+    kernels' arguments kept on the first step at each capacity. Then the
+    train step metric at the capacity the run ended at."""
+    import torch
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.config import TrainConfig
+    from brush_tpu_torch.train import SceneBatch, SplatTrainer
+
+    t_phase = time.perf_counter()
+    splats, _, size = make_scene(cfg, "cuda")
+    cam = Camera(position=[0, 0, cfg["z"]], rotation=[1, 0, 0, 0],
+                 fov_x=np.pi / 2, fov_y=np.pi / 2)
+    batch = SceneBatch(np.zeros((size[1], size[0], 3), np.float32), cam)
+    trainer = SplatTrainer(TrainConfig(warmup_steps=1, refine_every=3))
+    state = trainer.init_state(splats)
+    torch.cuda.synchronize()
+    kept, armed = {}, [False]
+    times, stats, refines, caps = [], [], {}, []
+    with kept_kernel_args(armed) as seen:
+        reset_launches()
+        for it in range(TRAIN_STEPS):
+            cap = state.splats.capacity
+            armed[0] = cap not in kept
+            state, t, st, rf = timed_steps(trainer, state, batch, 1)
+            if armed[0]:
+                kept[cap] = dict(seen)
+            times += t
+            stats += st
+            caps.append(cap)
+            if rf:
+                refines[it] = rf[0]
+        counts = read_launches()
+    losses = [float(st.loss) for st in stats]
+    dropped = [int(st.num_dropped) for st in stats]
+    records = [int(st.num_isects) for st in stats]
+    sp = state.splats
+    pool = trainer._pool_size(sp.capacity)
+    finite = all(bool(torch.isfinite(x).all()) for x in sp.params().values())
+    print(f"[train] bench scene {size[0]}x{size[1]}, {cfg['n']} splats, "
+          f"{TRAIN_STEPS} steps: step ms {[round(t, 3) for t in times]} "
+          f"at capacities {caps}; the whole window {sum(times):.3f} ms")
+    print(f"[train] losses {losses}; records {records}; dropped {dropped}; "
+          f"launches {counts}")
+    print(f"[train] refines {dict((i, r._asdict()) for i, r in refines.items())}; "
+          f"n_live {sp.n_live}, capacity {sp.capacity}, pool {pool}; "
+          f"kernel arguments kept at capacities {sorted(kept)}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"training skipped a kernel: {counts}")
+    if sorted(refines) != [1, 4]:
+        raise AssertionError(f"refine ran at {sorted(refines)}, not [1, 4]")
+    if not all(np.isfinite(losses)) or not finite:
+        raise AssertionError("training produced a non-finite loss or param")
+    if any(dropped):
+        raise AssertionError(f"training dropped records: {dropped}")
+    if sorted(kept) != sorted(set(caps)) or any(
+            set(v) != set(KERNEL_WRAPPERS) for v in kept.values()):
+        raise AssertionError("kernel arguments missing for a capacity")
+
+    # The metric: warm steps at the capacity the run ended at. A default
+    # config refines only after its 500 warm-up steps, so none of these
+    # refines; its pool sizing gives the same pool at this capacity.
+    t0 = time.perf_counter()
+    timer = SplatTrainer()
+    if timer._pool_size(sp.capacity) != pool:
+        raise AssertionError("the metric steps would use another pool")
+    state, warm, _, rf = timed_steps(timer, state, batch, METRIC_STEPS + 1)
+    if rf:
+        raise AssertionError("a metric step refined")
+    step_ms = statistics.median(warm[1:])
+    print(f"[train] metric: capacity {sp.capacity}, pool {pool}: median of "
+          f"{METRIC_STEPS} warm steps {step_ms:.3f} ms (after one more "
+          f"step); all ms {[round(t, 3) for t in warm]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts, step_ms, sum(times), kept
+
+
+def train_kernels(kept):
+    """Phase 6: each kernel against its plain version on the arguments
+    the training run gave it at each capacity; then the times, bounds and
+    errors of the last capacity's arguments, as the result reports them."""
+    import torch
+    from brush_tpu_torch.ops.cuda.expand import expand
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.cuda.segsum import segment_sum, slot_owners
+
+    for cap in sorted(kept):
+        t0 = time.perf_counter()
+        args = kept[cap]
+        label = f"train {cap}"
+        k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
+        e_plain = check_expand(k["exp_args"])
+        r = check_raster(k["r_args"])
+        b = check_bwd(args["rasterize_bwd"], label)
+        s = check_segsum(args["segment_sum"], label)
+        print(f"[{label}] pool {k['exp_args'][6]}, records "
+              f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
+              f"max err {r['err']:.3e}, flipped pixels {r['flips']}; "
+              f"rasterize_bwd row error {b['err']:.3e} (max abs "
+              f"{b['abs']:.3e}), pairs swept {b['swept']}, active "
+              f"{b['active']}; segment_sum row error {s['err']:.3e} (max abs "
+              f"{s['abs']:.3e}); {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    exp_args, r_args = k["exp_args"], k["r_args"]
+    b_args, s_args = args["rasterize_bwd"], args["segment_sum"]
+    rows, _, cum, total = s_args
+    ids = slot_owners(cum, total, rows.shape[1])
+    live_rows = rows[:, :ids.shape[0]].contiguous()
+    n = cum.shape[0]
+    ms = {"expand": cuda_ms(lambda: expand(*exp_args), reps=20),
+          "rasterize_fwd": cuda_ms(lambda: rasterize_fwd(*r_args), reps=20),
+          "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(*b_args), reps=10),
+          "segment_sum": cuda_ms(lambda: segment_sum(*s_args), reps=20)}
+    s_lib = cuda_ms(lambda: torch.zeros((9, n), device="cuda").index_add_(
+        1, ids, live_rows), reps=20)
+    print(f"[train kernels] capacity {cap}: "
+          + "; ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+          + f"; index_add_ {s_lib:.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(ms=ms, plain={"expand": e_plain,
+                              "rasterize_fwd": r["plain_ms"],
+                              "rasterize_bwd": b["plain_ms"],
+                              "segment_sum": s["plain_ms"]},
+                err={"expand": 0.0, "rasterize_fwd": r["err"],
+                     "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
+                bound=bounds(k, r["pairs"], b), library=s_lib)
+
+
+def castle_training(splats, cams, gts):
+    """Phase 6: perturb the castle's SH DC, train on its clean views, and
+    check that the eval PSNR rises."""
+    import torch
+    from brush_tpu_torch.eval import eval_stats
+    from brush_tpu_torch.train import SceneBatch, SplatTrainer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sh = splats.sh_coeffs.clone()
+    n = splats.n_live
+    sh[:n, 0, :] += 0.1 * torch.randn((n, 3), generator=gen, device="cuda")
+    noisy = splats.replace(sh_coeffs=sh)
+    views = list(zip(cams, gts))
+    before = [e.psnr for e in eval_stats(noisy, views)]
+    trainer = SplatTrainer()
+    state = trainer.init_state(noisy)
+    losses = []
+    for it in range(CASTLE_TRAIN_STEPS):
+        state, st = trainer.step(state, SceneBatch(gts[it % 4], cams[it % 4]))
+        losses.append(st.loss)
+    losses = [float(x) for x in losses]
+    after = [e.psnr for e in eval_stats(state.splats, views)]
+    print(f"[castle train] {CASTLE_TRAIN_STEPS} steps, SH DC + 0.1 N(0,1): "
+          f"PSNR before {[round(p, 3) for p in before]} (mean "
+          f"{np.mean(before):.3f}), after {[round(p, 3) for p in after]} "
+          f"(mean {np.mean(after):.3f}); losses "
+          f"{[round(x, 5) for x in losses]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not np.mean(after) > np.mean(before):
+        raise AssertionError("castle training did not raise the PSNR")
 
 
 def main() -> int:
@@ -314,44 +717,62 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
 
-    kernel_phase(ENTRY, "entry")
-    splats, cp, size, exp_args, r_args, r_err, pairs = kernel_phase(
-        BENCH, "bench")
-    counts = main_path(splats, cp, size, BENCH)
+    kernel_phase(ENTRY, "entry", backward=True)
+    splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
+    render_counts = main_path(splats, cp, size, BENCH)
 
     from brush_tpu_torch.ops.cuda.expand import expand, expand_plain
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         rasterize_fwd, rasterize_fwd_plain,
     )
 
-    # Kernel times at the bench scene's inputs; these launches come after
-    # the main path's counts were read.
+    # The forward kernels' times at the render's inputs; these launches
+    # come after the render path's counts were read.
+    t_k = time.perf_counter()
+    exp_args, r_args = k["exp_args"], k["r_args"]
     e_ms = cuda_ms(lambda: expand(*exp_args), reps=20)
     e_plain = cuda_ms(lambda: expand_plain(*exp_args), reps=3)
     r_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
     r_plain = cuda_ms(lambda: rasterize_fwd_plain(*r_args), reps=2)
-    print(f"[kernels] expand {e_ms:.4f} ms (plain {e_plain:.3f}); "
-          f"rasterize_fwd {r_ms:.4f} ms (plain {r_plain:.3f})")
-    (e_bound, e_by), (r_bound, r_by) = bounds(exp_args, r_args, pairs)
-    del splats, exp_args, r_args
+    print(f"[kernels] bench render inputs: expand {e_ms:.4f} ms (plain "
+          f"{e_plain:.3f}); rasterize_fwd {r_ms:.4f} ms (plain "
+          f"{r_plain:.3f}); {time.perf_counter() - t_k:.1f} s")
+    del splats, k, exp_args, r_args
     torch.cuda.empty_cache()
 
-    castle_phase()
+    castle, cams, gts, castle_pool = castle_phase()
+    castle_backward(castle, cams[0], castle_pool)
+    torch.cuda.empty_cache()
+
+    counts, step_ms, window_ms, kept = train_path(BENCH)
+    tk = train_kernels(kept)
+    del kept
+    torch.cuda.empty_cache()
+    castle_training(castle, cams, gts)
+
+    def row(name, src, replaces):
+        return {"name": name, "route": "cuda",
+                "source": f"brush_tpu_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": tk["err"][name], "ms": tk["ms"][name],
+                "plain_ms": tk["plain"][name],
+                "bound_ms": tk["bound"][name][0],
+                "bound_by": tk["bound"][name][1],
+                "library_ms": tk["library"] if name == "segment_sum" else None}
 
     kernels = [
-        {"name": "expand", "route": "cuda",
-         "source": "brush_tpu_torch/csrc/expand.cu",
-         "replaces": "brush_tpu/ops/pallas/expand.py:374",
-         "launches": counts["expand"], "max_abs_err": 0.0,
-         "ms": e_ms, "plain_ms": e_plain, "bound_ms": e_bound,
-         "bound_by": e_by, "library_ms": None},
-        {"name": "rasterize_fwd", "route": "cuda",
-         "source": "brush_tpu_torch/csrc/rasterize_fwd.cu",
-         "replaces": "brush_tpu/ops/pallas/rasterize_fwd.py:500",
-         "launches": counts["rasterize_fwd"], "max_abs_err": r_err,
-         "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
-         "bound_by": r_by, "library_ms": None},
+        row("expand", "expand", "brush_tpu/ops/pallas/expand.py:374"),
+        row("rasterize_fwd", "rasterize_fwd",
+            "brush_tpu/ops/pallas/rasterize_fwd.py:500"),
+        row("rasterize_bwd", "rasterize_bwd",
+            "brush_tpu/ops/pallas/rasterize_bwd.py:414"),
+        row("segment_sum", "segsum", "brush_tpu/ops/pallas/segsum.py:136"),
     ]
+    print(f"[summary] render path launches {render_counts}; training path "
+          f"launches {counts}; bench train step {step_ms:.3f} ms (median of "
+          f"{METRIC_STEPS} warm steps at the final capacity), the "
+          f"{TRAIN_STEPS}-step window {window_ms:.3f} ms; total "
+          f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of one inference render goes, on an NVIDIA GPU.
+"""Where the time of one inference render and of one training step goes,
+on an NVIDIA GPU.
 
-Renders the bench scene of chip_smoke.py (1M random splats, SH degree 1,
-1024x1024, pool 2162688) with brush_tpu_torch and prints:
-  - the median over 10 runs of each pipeline stage, timed with CUDA events
-    around the stage (record inputs, depth order, expand, tile sort +
-    bins, rasterize_fwd, image assembly);
-  - a torch.profiler table of device time by kernel over 5 renders, and the
-    device's busy share of that window.
-The full profiler table is written to OUT_DIR/torch_render_profile.txt
+Drives the bench scene of chip_smoke.py (1M random splats, SH degree 1,
+1024x1024, black ground truth) through the port's own entry points with
+their stage marks recorded (brush_tpu_torch/utils/profiler.py) and prints:
+  - each stage's median over 10 render_splats(needs_grad=False) calls
+    (pool 2162688) after 2 warm-ups, and over 8 SplatTrainer steps (the
+    default config: no refine) after one more, at capacity 1M and at the
+    4M that chip_smoke.py's training run ends at;
+  - that training run (warmup 1, refine every 3) step by step: the
+    capacity, the step's ms and its refine's ms;
+  - a torch.profiler table of device time by kernel over 5 renders, and
+    over 3 trainer steps at capacity 4M, with the device's busy share of
+    each window.
+A stage's time is the stream time between its mark and the one before:
+its kernels and the host's gaps between their launches, so the stages of
+a step sum to the whole step. The full profiler tables are written to
+OUT_DIR/torch_render_profile.txt and OUT_DIR/torch_train_profile.txt
 (default runs/).
 
     python3 scripts/torch_render_profile.py [OUT_DIR]
@@ -16,6 +25,7 @@ The full profiler table is written to OUT_DIR/torch_render_profile.txt
 
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -26,83 +36,129 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from brush_tpu_torch.camera import Camera  # noqa: E402
-from brush_tpu_torch.ops.cuda.expand import expand  # noqa: E402
-from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd  # noqa: E402
-from brush_tpu_torch.ops.pipeline import depth_order, tile_bins  # noqa: E402
+from brush_tpu_torch.config import TrainConfig  # noqa: E402
 from brush_tpu_torch.ops.rasterize_reference import camera_params  # noqa: E402
-from brush_tpu_torch.render import (  # noqa: E402
-    assemble_image, pool_size, record_inputs, render_splats,
-)
+from brush_tpu_torch.render import render_splats  # noqa: E402
 from brush_tpu_torch.splats import from_random  # noqa: E402
+from brush_tpu_torch.train import SceneBatch, SplatTrainer  # noqa: E402
+from brush_tpu_torch.utils import profiler  # noqa: E402
 
 N, SIZE, POOL, BLOCK = 1 << 20, 1024, 2162688, 512
+GROWTH_STEPS = 6
+
+
+def stage_medians(fn, reps: int, warm: int) -> dict:
+    """{stage: median ms} over reps recorded calls of fn, after warm."""
+    for _ in range(warm):
+        fn()
+    runs = []
+    for _ in range(reps):
+        with profiler.record() as stages:
+            fn()
+        runs.append(stages)
+    names = [name for name, _ in runs[0]]
+    if any([name for name, _ in r] != names for r in runs):
+        raise RuntimeError("the stages differ between calls")
+    return {name: statistics.median(r[i][1] for r in runs)
+            for i, name in enumerate(names)}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_render_profile: no CUDA device", file=sys.stderr)
         return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[device] {smi}")
     splats = from_random(np.random.default_rng(0), [-3] * 3, [3] * 3,
                          count=N, sh_degree=1, capacity=N, device="cuda")
     cam = Camera(position=[0, 0, -8.0], rotation=[1, 0, 0, 0],
                  fov_x=np.pi / 2, fov_y=np.pi / 2)
     size = (SIZE, SIZE)
     cp = camera_params(cam, size, device="cuda")
-    pool = pool_size(N, size, POOL, BLOCK)
-    tiles = SIZE // 16
-    args = (splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
-            splats.raw_opacity, cp, size)
-
-    def stages():
-        rec = record_inputs(*args, active=splats.active_mask())
-        yield "record_inputs"
-        f5, u5, cum, total, _ = depth_order(rec.attrs9, rec.decode,
-                                            rec.depth_key, pool)
-        yield "depth_order"
-        keys, recs = expand(f5, u5, cum, total, tiles, tiles * tiles, pool)
-        yield "expand"
-        packed, starts, ends = tile_bins(keys, recs, tiles * tiles)
-        yield "tile_bins"
-        img, _, _ = rasterize_fwd(packed, starts, ends, tiles)
-        yield "rasterize_fwd"
-        assemble_image(img, size, tiles, tiles)
-        yield "assemble"
-
-    times = {}
-    for rep in range(12):
-        ev = [torch.cuda.Event(enable_timing=True)]
-        names = []
-        ev[0].record()
-        for name in stages():
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            ev.append(e)
-            names.append(name)
-        torch.cuda.synchronize()
-        if rep >= 2:
-            for i, name in enumerate(names):
-                times.setdefault(name, []).append(
-                    ev[i].elapsed_time(ev[i + 1]))
-    total = 0.0
-    for name, ts in times.items():
-        med = statistics.median(ts)
-        total += med
-        print(f"[stage] {name:14s} {med:8.3f} ms")
-    print(f"[stage] {'sum':14s} {total:8.3f} ms")
+    batch = SceneBatch(np.zeros((SIZE, SIZE, 3), np.float32), cam)
 
     def render():
-        return render_splats(*args, active=splats.active_mask(),
-                             block_size=BLOCK, max_isects=POOL,
-                             needs_grad=False)
+        return render_splats(
+            splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+            splats.raw_opacity, cp, size, active=splats.active_mask(),
+            block_size=BLOCK, max_isects=POOL, needs_grad=False)
 
-    render()
+    def train_steps(state):
+        """A default trainer (no refine) stepping on from state."""
+        trainer = SplatTrainer()
+        box = [state]
+
+        def step():
+            box[0], _ = trainer.step(box[0], batch)
+        return step
+
+    columns = {"render": stage_medians(render, 10, 2)}
+    step = train_steps(SplatTrainer().init_state(splats))
+    columns[f"train at {N}"] = stage_medians(step, 8, 1)
+    del step
+    state = growth_run(splats, batch)
+    cap = state.splats.capacity
+    step = train_steps(state)
+    columns[f"train at {cap}"] = stage_medians(step, 8, 1)
+    print_columns(columns)
+
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "runs")
+    os.makedirs(out, exist_ok=True)
+    profile(render, 5, "render", os.path.join(out,
+                                              "torch_render_profile.txt"))
+    profile(step, 3, f"train step at {cap}",
+            os.path.join(out, "torch_train_profile.txt"))
+    return 0
+
+
+def print_columns(columns: dict):
+    """One row per stage (in the order the stages first appear), one
+    column per table, and each column's sum."""
+    names = []
+    for col in columns.values():
+        names += [n for n in col if n not in names]
+    print("[stages] " + f"{'stage':16s}" + "".join(
+        f"{c:>20s}" for c in columns))
+    for name in names + ["sum"]:
+        cells = []
+        for col in columns.values():
+            v = sum(col.values()) if name == "sum" else col.get(name)
+            cells.append(f"{v:20.3f}" if v is not None else f"{'-':>20s}")
+        print(f"[stages] {name:16s}" + "".join(cells))
+
+
+def growth_run(splats, batch):
+    """chip_smoke.py's training run (warmup 1, refine every 3): each
+    step's capacity, ms and refine ms, and the peak memory. Returns the
+    final state."""
+    trainer = SplatTrainer(TrainConfig(warmup_steps=1, refine_every=3))
+    state = trainer.init_state(splats)
+    for it in range(GROWTH_STEPS):
+        cap = state.splats.capacity
+        with profiler.record() as stages:
+            state, _ = trainer.step(state, batch)
+        ms = dict(stages)
+        refine = f", refine {ms['refine']:.3f} ms" if "refine" in ms else ""
+        print(f"[growth] step {it} capacity {cap} -> "
+              f"{state.splats.capacity}: {sum(ms.values()):.3f} ms{refine}; "
+              f"peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return state
+
+
+def profile(fn, reps: int, what: str, path: str):
+    """torch.profiler over reps calls of fn: wall time, device busy share,
+    the top kernels by device time; the full table goes to path."""
+    fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(5):
-            render()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -112,16 +168,13 @@ def main() -> int:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev = sorted((d for d in dev if d[1] > 0), key=lambda d: -d[1])
     busy = sum(d[1] for d in dev)
-    print(f"[profile] 5 renders: wall {wall_ms:.3f} ms, device busy "
+    print(f"[profile] {reps} x {what}: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
     for key, ms, count in dev[:15]:
-        print(f"[profile] {ms / 5:9.3f} ms/render  x{count // 5:<4d} "
+        print(f"[profile] {ms / reps:9.3f} ms/{what}  x{count // reps:<4d} "
               f"{key[:90]}")
-    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "runs")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "torch_render_profile.txt"), "w") as f:
+    with open(path, "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
-    return 0
 
 
 if __name__ == "__main__":

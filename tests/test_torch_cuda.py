@@ -13,7 +13,9 @@ import torch
 
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.cuda import expand as t_expand
+from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
+from brush_tpu_torch.ops.cuda import segsum as t_seg
 from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import record_inputs, render_splats
@@ -52,14 +54,14 @@ def port_records(sc, img_size, pool, device="cpu"):
     t = {k: torch.tensor(v, device=device) for k, v in sc.items()}
     rec = record_inputs(t["means"], t["log_scales"], t["quats"],
                         t["sh_coeffs"], t["raw_opacity"], cp, img_size)
-    f5, u5, cum, total, raw_total = depth_order(rec.attrs9, rec.decode,
-                                                rec.depth_key, pool)
+    d = depth_order(rec.attrs9, rec.decode, rec.depth_key, pool)
     tiles_x = -(-img_size[0] // 16)
     num_tiles = tiles_x * -(-img_size[1] // 16)
-    keys, recs = t_expand.expand(f5, u5, cum, total, tiles_x, num_tiles,
-                                 pool)
+    keys, recs = t_expand.expand(d.f5, d.u5, d.cum, d.total, tiles_x,
+                                 num_tiles, pool)
     packed, starts, ends = tile_bins(keys, recs, num_tiles)
-    return dict(f5=f5, u5=u5, cum=cum, total=total, raw_total=raw_total,
+    return dict(f5=d.f5, u5=d.u5, cum=d.cum, total=d.total,
+                raw_total=d.raw_total, offsets=d.offsets, order=d.order,
                 keys=keys, recs=recs, packed=packed, starts=starts,
                 ends=ends, tiles_x=tiles_x, num_tiles=num_tiles)
 
@@ -112,6 +114,19 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="packed"):
         t_raster.rasterize_fwd(r["packed"][:7], r["starts"], r["ends"],
                                r["tiles_x"])
+    img, log_t, fidx = t_raster.rasterize_fwd(r["packed"], r["starts"],
+                                              r["ends"], r["tiles_x"])
+    with pytest.raises(ValueError, match="v_out"):
+        t_bwd.rasterize_bwd(r["packed"], r["starts"], r["ends"],
+                            r["tiles_x"], img[..., :3], log_t, fidx)
+    with pytest.raises(ValueError, match="final_idx"):
+        t_bwd.rasterize_bwd(r["packed"], r["starts"], r["ends"],
+                            r["tiles_x"], img, log_t, fidx.long())
+    rows = torch.zeros((t_bwd.GRAD_ROWS, 512))
+    with pytest.raises(ValueError, match="rows"):
+        t_seg.segment_sum(rows[:8], r["offsets"], r["cum"], r["total"])
+    with pytest.raises(ValueError, match="offsets"):
+        t_seg.segment_sum(rows, r["offsets"].long(), r["cum"], r["total"])
 
 
 def test_expand_plain_canonicalizes_negative_zero():
@@ -197,3 +212,134 @@ def test_cuda_render_matches_cpu():
     close_with_flips(out["cuda"][0].cpu().numpy(), out["cpu"][0].numpy(),
                      atol=1e-5, what="render")
     assert int(out["cuda"][1].num_isects) == int(out["cpu"][1].num_isects)
+
+
+def rows_close(got, want, rtol, what=""):
+    """Each gradient row within rtol of that row's largest |value|."""
+    for r in range(want.shape[0]):
+        scale = float(want[r].abs().max())
+        err = float((got[r] - want[r]).abs().max())
+        assert err <= rtol * scale, f"{what} row {r}: {err:.3e} > " \
+            f"{rtol:.0e} x {scale:.3e}"
+
+
+def _bwd_args(name, seed, hyperbolic=False):
+    n, img_size, pool, scale_hi = SCENES[name]
+    r = port_records(make_scene(n, seed, scale_hi), img_size, pool, "cuda")
+    packed = r["packed"].clone()
+    if hyperbolic:
+        live = int(r["total"][0])
+        hyper = torch.tensor([1.0, -1.5, 1.0], device="cuda").view(
+            torch.int32)
+        packed[2:5, :live:7] = hyper[:, None]
+    _, log_t, fidx = t_raster.rasterize_fwd(packed, r["starts"], r["ends"],
+                                            r["tiles_x"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v_out = torch.randn((r["num_tiles"], 256, 4), generator=gen,
+                        device="cuda")
+    return (packed, r["starts"], r["ends"], r["tiles_x"], v_out, log_t,
+            fidx), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small", "bbox_splats", "hyperbolic"])
+def test_cuda_rasterize_bwd_matches_plain(case):
+    """Kernel vs plain on the kernel forward's own log T and final_idx: the
+    same active set (same rounded sigma, same libdevice exp), so the rows
+    differ only in float32 summation order."""
+    _need_cuda()
+    name = "small" if case == "hyperbolic" else case
+    args, _ = _bwd_args(name, 14, hyperbolic=case == "hyperbolic")
+    before = t_bwd.launches
+    got = t_bwd.rasterize_bwd(*args)
+    torch.cuda.synchronize()
+    assert t_bwd.launches == before + 1
+    assert torch.isfinite(got).all()
+    rows_close(got, t_bwd.rasterize_bwd_plain(*args), 1e-4, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_cuda_segment_sum_matches_plain(name):
+    _need_cuda()
+    n, img_size, pool, scale_hi = SCENES[name]
+    r = port_records(make_scene(n, 15, scale_hi), img_size, pool, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = torch.randn((t_bwd.GRAD_ROWS, pool), generator=gen,
+                       device="cuda")
+    rows[:, int(r["total"][0]):] = 0.0
+    args = (rows, r["offsets"], r["cum"], r["total"])
+    before = t_seg.launches
+    got = t_seg.segment_sum(*args)
+    torch.cuda.synchronize()
+    assert t_seg.launches == before + 1
+    rows_close(got, t_seg.segment_sum_plain(*args), 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_cuda_render_grads_match_cpu():
+    """The whole differentiable render on the card (four kernels) against
+    the CPU (four plain versions)."""
+    _need_cuda()
+    sc = make_scene(512, 16)
+    names = ["means", "log_scales", "quats", "sh_coeffs", "raw_opacity"]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = [torch.tensor(sc[k], device=dev, requires_grad=True)
+             for k in names]
+        img, _ = render_splats(*p, camera_params(Camera(**CAM), (64, 48),
+                                                 device=dev), (64, 48),
+                               pack_grad_sort=False)
+        (img ** 2).sum().backward()
+        grads[dev] = [x.grad.cpu() for x in p]
+    for name, a, b in zip(names, grads["cuda"], grads["cpu"]):
+        assert torch.isfinite(a).all(), name
+        close_with_flips((a / b.abs().max()).numpy(),
+                         (b / b.abs().max()).numpy(), atol=1e-4,
+                         flip_tol=0.05, what=name)
+
+
+# ---- stage marks (brush_tpu_torch.utils.profiler) ---------------------
+
+TRAIN_STAGES = [
+    "upload", "record_inputs", "depth_order", "expand", "tile_bins",
+    "rasterize_fwd", "assemble", "loss", "loss backward", "rasterize_bwd",
+    "grad_resort", "segment_sum", "to_global", "autograd rest",
+    "densify_stats", "adam", "step end",
+]
+
+
+def test_stage_marks_are_inert_outside_a_recording(monkeypatch):
+    """A mark outside profiler.record() records nothing (CPU work passes
+    through the marks untouched); record() refuses a machine without
+    CUDA rather than timing nothing."""
+    from brush_tpu_torch.utils import profiler
+
+    profiler.mark("anything")
+    assert profiler._marks is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        with profiler.record():
+            pass
+    assert profiler._marks is None
+
+
+@pytest.mark.cuda
+def test_cuda_stage_marks_cover_a_train_step():
+    """One SplatTrainer step on the card, recorded: every stage of the
+    step is marked once, in stream order, the backward's on the autograd
+    thread included."""
+    _need_cuda()
+    from brush_tpu_torch.splats import from_random
+    from brush_tpu_torch.train import SceneBatch, SplatTrainer
+    from brush_tpu_torch.utils import profiler
+
+    sp = from_random(np.random.default_rng(0), [-1] * 3, [1] * 3, count=256,
+                     sh_degree=1, device="cuda")
+    trainer = SplatTrainer()
+    state = trainer.init_state(sp)
+    batch = SceneBatch(np.zeros((48, 64, 3), np.float32), Camera(**CAM))
+    with profiler.record() as stages:
+        trainer.step(state, batch)
+    assert [name for name, _ in stages] == TRAIN_STAGES
+    assert all(ms >= 0.0 for _, ms in stages)

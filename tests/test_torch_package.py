@@ -35,7 +35,10 @@ def test_import_loads_neither_jax_nor_brush_tpu():
     code = (
         "import sys, brush_tpu_torch, brush_tpu_torch.render, "
         "brush_tpu_torch.eval, brush_tpu_torch.datasets.ply, "
-        "brush_tpu_torch.convert\n"
+        "brush_tpu_torch.convert, brush_tpu_torch.train, "
+        "brush_tpu_torch.optim, brush_tpu_torch.config, "
+        "brush_tpu_torch.ops.cuda.rasterize_bwd, "
+        "brush_tpu_torch.ops.cuda.segsum, brush_tpu_torch.utils.profiler\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'brush_tpu'))\n"
         "assert not bad, bad\nprint('clean')\n")

@@ -108,16 +108,28 @@ def _scene():
 
 
 def test_render_refuses_gradients_and_cells():
+    """Cells other than (1, 1) still raise, with and without gradients; the
+    inference pipeline refuses inputs that require grad; the default
+    differentiable render lets a gradient flow to every parameter."""
     ts, cp = _scene()
     args = (ts.means, ts.log_scales, ts.quats, ts.sh_coeffs, ts.raw_opacity,
             cp, (32, 32))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        render_splats(*args)
-    with pytest.raises(NotImplementedError, match="cell"):
-        render_splats(*args, cell=(2, 2), needs_grad=False)
+    for needs_grad in (True, False):
+        with pytest.raises(NotImplementedError, match="cell"):
+            render_splats(*args, cell=(2, 2), needs_grad=needs_grad)
     means = ts.means.clone().requires_grad_(True)
     with pytest.raises(ValueError, match="inference-only"):
         render_splats(means, *args[1:], needs_grad=False)
+    params = [a.clone().requires_grad_(True) for a in args[:5]]
+    img, aux = render_splats(*params, cp, (32, 32))
+    assert int(aux.num_isects) > 0
+    (img ** 2).sum().backward()
+    for p in params:
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+    # from_random makes isotropic splats, whose covariance no rotation
+    # changes: the quaternions' gradient is zero, the rest is not.
+    for p in params[:2] + params[3:]:
+        assert p.grad.abs().max() > 0
 
 
 def test_render_empty_and_behind_camera_is_finite():
