@@ -2,8 +2,9 @@
 
 Replaces brush_tpu/ops/pallas/rasterize_bwd.py (rasterize_bwd_pallas,
 :414). The CUDA kernel is brush_tpu_torch/csrc/rasterize_bwd.cu (one block
-per tile, one thread per pixel, a back-to-front sweep; its header gives
-the formulas, the design and the bound). `rasterize_bwd_plain` below is
+per tile, several pixels a thread, a back-to-front sweep, one folded warp
+butterfly for the nine pixel sums; its header gives the formulas, the
+design and the bound). `rasterize_bwd_plain` below is
 the same function in PyTorch: CPU tensors take it, and tests and
 chip_smoke.py hold the kernel to it.
 
@@ -141,15 +142,18 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx):
     packed, starts, ends, v_out, log_t, fidx = args
     grads = torch.zeros((GRAD_ROWS, packed.shape[1]), dtype=torch.float32,
                         device=packed.device)
+    # Scratch for the kernel's own tile order (heaviest tiles start first).
+    order = torch.empty_like(starts)
     lib = build.load("rasterize_bwd")
     fn = lib.rasterize_bwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
     fn.restype = _I
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
                 ends.data_ptr(), starts.shape[0], tiles_x, v_out.data_ptr(),
-                log_t.data_ptr(), fidx.data_ptr(), grads.data_ptr(), stream)
+                log_t.data_ptr(), fidx.data_ptr(), grads.data_ptr(),
+                order.data_ptr(), stream)
     build.check(rc, "rasterize_bwd")
     launches += 1
     return grads

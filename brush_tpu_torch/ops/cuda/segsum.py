@@ -1,15 +1,17 @@
 """Segment sum: gradient rows sorted by compact splat id -> per-splat sums.
 
 Replaces brush_tpu/ops/pallas/segsum.py (segment_sum_pallas, :136). The
-CUDA kernel is brush_tpu_torch/csrc/segsum.cu (one warp per splat; its
-header gives the design and the bound). `segment_sum_plain` below is the
+CUDA kernel is brush_tpu_torch/csrc/segsum.cu (a block-wide segmented
+sum: 256 splats a block, their contiguous slots streamed through shared
+memory; its header gives the design and the bound). `segment_sum_plain` below is the
 same function in PyTorch: CPU tensors take it, and tests and chip_smoke.py
 hold the kernel to it.
 
 Inputs: rows (GRAD_ROWS, pool) float32 in compact-id order; offsets and
 cum (n,) int32, each splat's exclusive and inclusive record-count cumsums
-(splat w owns slots [offsets[w], cum[w])); total (1,) int32, the live
-slots. Output: (GRAD_ROWS, n) float32 in compact (depth) order, summing
+(splat w owns slots [offsets[w], cum[w]), so offsets[w + 1] == cum[w]: the
+kernel relies on consecutive splats owning one contiguous range); total
+(1,) int32, the live slots. Output: (GRAD_ROWS, n) float32 in compact (depth) order, summing
 only the slots below `total`.
 """
 

@@ -18,8 +18,8 @@ CPU tensors. Forward:
   6. searchsorted gives each tile's [start, end), and rasterize_fwd
      composites each tile.
 
-`infer_pipeline` runs this without gradients and zero-fills row 7.
-`RecordPipeline` is the differentiable version; its backward
+`infer_pipeline` runs this without gradients. `RecordPipeline` is the
+differentiable version; its backward
 (raster_vjp.py:336-424):
 
   1. rasterize_bwd gives per-record gradient rows in tile order;
@@ -96,16 +96,13 @@ def depth_order(attrs9, decode, depth_key, max_isects: int) -> DepthOrder:
                       (cum - counts).to(torch.int32), total, raw_total, order)
 
 
-def tile_bins(keys, recs, num_tiles: int, keep_ids: bool = False):
+def tile_bins(keys, recs, num_tiles: int):
     """Stage 5: stable tile sort of the pool -> (packed (8, pool) int32,
-    starts (T,) int32, ends (T,) int32). Row 7, the compact splat id, is
-    carried with keep_ids (the backward re-sorts on it) and zero without."""
+    starts (T,) int32, ends (T,) int32). Row 7 carries each record's
+    compact splat id (the backward re-sorts on it; the forward ignores
+    it)."""
     skeys, perm = torch.sort(keys, stable=True)
-    if keep_ids:
-        packed = recs[:, perm]
-    else:
-        packed = torch.zeros_like(recs)
-        packed[:PACK_ROWS - 1] = recs[:PACK_ROWS - 1][:, perm]
+    packed = recs[:, perm]
     bounds = torch.arange(num_tiles + 1, dtype=skeys.dtype,
                           device=skeys.device)
     bins = torch.searchsorted(skeys, bounds).to(torch.int32)
@@ -113,7 +110,7 @@ def tile_bins(keys, recs, num_tiles: int, keep_ids: bool = False):
 
 
 def _forward(attrs9, decode, depth_key, tiles_x: int, num_tiles: int,
-             max_isects: int, keep_ids: bool):
+             max_isects: int):
     """Stages 1-6 -> (DepthOrder, (packed, starts, ends), (img, log_t,
     final_idx))."""
     if tiles_x > 1023 or num_tiles > tiles_x * 2047:
@@ -123,7 +120,7 @@ def _forward(attrs9, decode, depth_key, tiles_x: int, num_tiles: int,
     keys, recs = expand(d.f5, d.u5, d.cum, d.total, tiles_x, num_tiles,
                         max_isects)
     mark("expand")
-    bins = tile_bins(keys, recs, num_tiles, keep_ids=keep_ids)
+    bins = tile_bins(keys, recs, num_tiles)
     mark("tile_bins")
     out = rasterize_fwd(*bins, tiles_x)
     mark("rasterize_fwd")
@@ -140,7 +137,7 @@ def infer_pipeline(attrs9, decode, depth_key, tiles_x: int, num_tiles: int,
             "infer_pipeline is inference-only: an input requires grad; "
             "render with needs_grad=True (RecordPipeline) to differentiate")
     d, _, (img, _, _) = _forward(attrs9, decode, depth_key, tiles_x,
-                                 num_tiles, max_isects, keep_ids=False)
+                                 num_tiles, max_isects)
     return img, d.total[0], d.raw_total
 
 
@@ -194,8 +191,7 @@ class RecordPipeline(torch.autograd.Function):
     def forward(ctx, attrs9, decode, depth_key, tiles_x, num_tiles,
                 max_isects, pack_grad_sort):
         d, (packed, starts, ends), (img, log_t, fidx) = _forward(
-            attrs9, decode, depth_key, tiles_x, num_tiles, max_isects,
-            keep_ids=True)
+            attrs9, decode, depth_key, tiles_x, num_tiles, max_isects)
         ctx.save_for_backward(packed, starts, ends, log_t, fidx, d.offsets,
                               d.cum, d.total, d.order)
         ctx.tiles_x = tiles_x

@@ -94,14 +94,19 @@ class SplatTrainer:
     """Host-side orchestration of the step and the refine cadence,
     mirroring the reference's train_loop
     (brush-viewer/src/train_loop.rs:102-172). Runs on the device of the
-    state's splats and renders with render_splats' defaults: raster cells
-    of one tile and the backward's conic and colour cotangents riding the
-    grad re-sort as bf16 pairs (the JAX trainer's raster_cell and
-    pack_grad_sort knobs, which no caller of the port sets)."""
+    state's splats. raster_block_size and pack_grad_sort are
+    render_splats' block_size and pack_grad_sort, defaults as the JAX
+    trainer's: the pool rounds to lcm(max(128, block), 512), and the
+    backward's conic and colour cotangents ride the grad re-sort as bf16
+    pairs. Raster cells are one tile (the JAX trainer's raster_cell has no
+    counterpart yet)."""
 
-    def __init__(self, config: TrainConfig | None = None):
+    def __init__(self, config: TrainConfig | None = None,
+                 raster_block_size: int = 32, pack_grad_sort: bool = True):
         self.config = config or TrainConfig()
         self.iter = 0
+        self.raster_block_size = raster_block_size
+        self.pack_grad_sort = pack_grad_sort
         # Adaptive intersection-pool size: start modest and grow on
         # pressure (checked at refine boundaries) or overflow.
         self._isect_pool = None
@@ -245,7 +250,8 @@ class SplatTrainer:
                 params["means"], params["log_scales"], params["quats"],
                 params["sh_coeffs"], params["raw_opacity"], cam, img_size,
                 xy_dummy=xy_dummy, active=splats.active_mask(),
-                max_isects=pool)
+                block_size=self.raster_block_size, max_isects=pool,
+                pack_grad_sort=self.pack_grad_sort)
             pred = img if channels == 4 else img[..., :3]
             l1 = torch.mean(torch.abs(pred - gt))
             if cfg.ssim_weight > 0.0:

@@ -16,7 +16,11 @@ result line; each phase prints its seconds):
      scene also rasterize_bwd (on the kernel forward's log T and final_idx
      and a seeded image cotangent) with every gradient row within 1e-4 of
      that row's largest value, and segment_sum on the re-sorted rows
-     within 1e-5 of each row's largest sum;
+     within 1e-5 of each row's largest sum; both backward kernels launched
+     twice on the same inputs must give the same bits, here and wherever
+     they are checked below; segment_sum also on a layout made by hand
+     (a segment of 100,003 slots, runs of empty splats, n no multiple of
+     the kernel's block, `total` cutting a segment and `total` 0);
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after; then
@@ -69,9 +73,10 @@ F32_OPS_PER_S = 67e12
 # log1p/exp/colour work is not counted: the bound stays a lower bound).
 RASTER_OPS_PER_PAIR = 20
 # rasterize_bwd: the same 20 for every pair its sweep evaluates, and for
-# every active pair 45 more: log1p, two exps and a division, ~23 multiplies
-# and adds for v_alpha and the nine terms, and the nine terms' share of
-# the pixel reduction.
+# every active pair 45 more: the transmittance before the record (a log1p
+# and two exps in the reference's form), a division, ~23 multiplies and
+# adds for v_alpha and the nine terms, and the nine terms' share of the
+# pixel reduction.
 BWD_OPS_PER_PAIR = 20
 BWD_OPS_PER_ACTIVE = 45
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
@@ -128,8 +133,7 @@ def make_scene(cfg, device):
 
 def kernel_inputs(splats, cp, size, pool):
     """The main path's stages up to each kernel, the kernels on the card:
-    the expand arguments, the rasterize_fwd arguments (the pool keeps the
-    compact ids in row 7, as the training path's does) and the depth
+    the expand arguments, the rasterize_fwd arguments and the depth
     order's offsets."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
@@ -142,8 +146,7 @@ def kernel_inputs(splats, cp, size, pool):
     tiles_x = -(-size[0] // 16)
     num_tiles = tiles_x * -(-size[1] // 16)
     exp_args = (d.f5, d.u5, d.cum, d.total, tiles_x, num_tiles, pool)
-    packed, starts, ends = tile_bins(*expand(*exp_args), num_tiles,
-                                     keep_ids=True)
+    packed, starts, ends = tile_bins(*expand(*exp_args), num_tiles)
     return dict(exp_args=exp_args, r_args=(packed, starts, ends, tiles_x),
                 offsets=d.offsets, raw_total=int(d.raw_total))
 
@@ -214,6 +217,9 @@ def check_bwd(b_args, label):
 
     grads = rasterize_bwd(*b_args)
     torch.cuda.synchronize()
+    if not torch.equal(grads, rasterize_bwd(*b_args)):
+        raise AssertionError(f"[{label}] rasterize_bwd: two launches on "
+                             "the same inputs differ")
     (plain, swept, active), plain_ms = timed(
         lambda: rasterize_bwd_plain(*b_args, count_pairs=True))
     err = row_error(grads, plain)
@@ -234,6 +240,9 @@ def check_segsum(s_args, label):
 
     seg = segment_sum(*s_args)
     torch.cuda.synchronize()
+    if not torch.equal(seg, segment_sum(*s_args)):
+        raise AssertionError(f"[{label}] segment_sum: two launches on the "
+                             "same inputs differ")
     plain, plain_ms = timed(lambda: segment_sum_plain(*s_args))
     err = row_error(seg, plain)
     if err > SEG_RTOL:
@@ -241,6 +250,48 @@ def check_segsum(s_args, label):
                              f"{err:.3e} > {SEG_RTOL:.0e}")
     return dict(err=err, abs=float((seg - plain).abs().max()),
                 plain_ms=plain_ms)
+
+
+def check_segsum_hand():
+    """segment_sum against its plain version on a layout made by hand,
+    which the scenes do not reach: 70,001 splats (no multiple of the
+    kernel's 256-splat block) of 0-3 slots each, 800 empty splats in a run
+    and 300 at the end, one segment of 100,003 slots, a hundred of 70 and
+    one of 600; `total` at the last slot, one slot into the long segment,
+    in its middle, and 0. The rows are multiples of 1/16 below 4, so every
+    order of summation gives the same float32 and the plain version's
+    atomic adds cost it nothing: the two must agree to SEG_RTOL."""
+    import torch
+
+    n, pool = 70001, 262144
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(7)
+    counts = torch.randint(0, 4, (n,), generator=gen)
+    counts[100:900] = 0
+    counts[1000] = 100_003
+    counts[1500:1600] = 70
+    counts[2000] = 600
+    counts[n - 300:] = 0
+    cum = torch.cumsum(counts, 0)
+    raw = int(cum[-1])
+    if raw > pool:
+        raise AssertionError(f"hand-made layout: {raw} slots > pool {pool}")
+    offsets = (cum - counts).to(torch.int32).cuda()
+    cum = cum.to(torch.int32).cuda()
+    rows = torch.randint(-63, 64, (9, pool), generator=gen).to(
+        torch.float32).cuda() / 16.0
+    long_lo = int(offsets[1000])
+    errs = {}
+    for name, value in (("all", raw), ("straddle", long_lo + 1),
+                        ("mid", long_lo + 50_001), ("zero", 0)):
+        total = torch.tensor([value], dtype=torch.int32, device="cuda")
+        s = check_segsum((rows, offsets, cum, total), f"hand {name}")
+        errs[name] = s["err"]
+    print(f"[hand] segment_sum n={n} pool={pool}, {raw} slots, a segment "
+          f"of {int(counts.max())}: row errors at total = all, one slot "
+          f"into the long segment, its middle, 0: "
+          f"{[errs[k] for k in ('all', 'straddle', 'mid', 'zero')]}; two "
+          f"launches bit-equal; {time.perf_counter() - t0:.1f} s")
 
 
 def check_backward(k, label, seed):
@@ -718,6 +769,7 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     kernel_phase(ENTRY, "entry", backward=True)
+    check_segsum_hand()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
     render_counts = main_path(splats, cp, size, BENCH)
 

@@ -29,6 +29,9 @@ SCENES = {
 }
 CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 2,
            fov_y=np.pi / 2)
+# Segment layouts made by hand, which the scenes do not reach.
+HAND_LAYOUTS = ["long_segment", "empty_runs", "straddle", "total_zero"]
+HAND_POOL = 4096
 
 
 def make_scene(n, seed, scale_hi=0.5, sh_degree=1):
@@ -64,6 +67,34 @@ def port_records(sc, img_size, pool, device="cpu"):
                 raw_total=d.raw_total, offsets=d.offsets, order=d.order,
                 keys=keys, recs=recs, packed=packed, starts=starts,
                 ends=ends, tiles_x=tiles_x, num_tiles=num_tiles)
+
+
+def hand_segments(case):
+    """(offsets, cum, total) int32 numpy for 700 splats (no multiple of a
+    256-splat block) of 1-4 slots each in a pool of HAND_POOL, the last 40
+    empty. long_segment: one splat of 1101 slots, longer than two 512-slot
+    blocks; empty_runs: 20 empty splats after every 16; straddle: `total`
+    falls one slot into a splat, which keeps that slot, and every later
+    splat gets zero; total_zero: no live slot."""
+    rng = np.random.default_rng(31)
+    counts = rng.integers(1, 5, 700)
+    if case == "long_segment":
+        counts[300] = 1101
+    if case == "empty_runs":
+        for i in range(16, 700, 36):
+            counts[i:i + 20] = 0
+    counts[-40:] = 0
+    cum = np.cumsum(counts)
+    offsets = cum - counts
+    total = int(cum[-1])
+    assert total <= HAND_POOL
+    if case == "straddle":
+        w = 350 + int(np.argmax(counts[350:] >= 3))
+        total = int(offsets[w]) + 1
+    if case == "total_zero":
+        total = 0
+    return (offsets.astype(np.int32), cum.astype(np.int32),
+            np.array([total], np.int32))
 
 
 def close_with_flips(got, want, atol, flip_tol=0.01, max_flip_frac=2e-3,
@@ -223,17 +254,37 @@ def rows_close(got, want, rtol, what=""):
             f"{rtol:.0e} x {scale:.3e}"
 
 
-def _bwd_args(name, seed, hyperbolic=False):
-    n, img_size, pool, scale_hi = SCENES[name]
+# (n, image, pool, largest scale) for rasterize_bwd: the plain scenes; a
+# 32x32 image under 4000 splats, so each of its 4 tiles holds several
+# staging batches of records; an image 5 tiles wide.
+BWD_SCENES = {
+    "small": SCENES["small"],
+    "bbox_splats": SCENES["bbox_splats"],
+    "hyperbolic": SCENES["small"],
+    "deep_tiles": (4000, (32, 32), 16384, 0.3),
+    "early_end": (4000, (32, 32), 16384, 0.3),
+    "odd_tiles_x": (600, (80, 48), 4096, 0.5),
+}
+STAGING_BATCH = 192   # csrc/rasterize_bwd.cu kBatch
+
+
+def _bwd_args(case, seed):
+    n, img_size, pool, scale_hi = BWD_SCENES[case]
     r = port_records(make_scene(n, seed, scale_hi), img_size, pool, "cuda")
     packed = r["packed"].clone()
-    if hyperbolic:
+    if case == "hyperbolic":
         live = int(r["total"][0])
         hyper = torch.tensor([1.0, -1.5, 1.0], device="cuda").view(
             torch.int32)
         packed[2:5, :live:7] = hyper[:, None]
     _, log_t, fidx = t_raster.rasterize_fwd(packed, r["starts"], r["ends"],
                                             r["tiles_x"])
+    if case == "early_end":
+        # Every pixel stops inside the tile's second batch from the back
+        # of the sweep, each at its own record.
+        pix = torch.arange(256, device="cuda", dtype=torch.int32)[None, :]
+        stop = r["starts"][:, None] + STAGING_BATCH + 7 + pix % 61
+        fidx = torch.minimum(fidx, stop)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     v_out = torch.randn((r["num_tiles"], 256, 4), generator=gen,
                         device="cuda")
@@ -242,20 +293,25 @@ def _bwd_args(name, seed, hyperbolic=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["small", "bbox_splats", "hyperbolic"])
+@pytest.mark.parametrize("case", list(BWD_SCENES))
 def test_cuda_rasterize_bwd_matches_plain(case):
     """Kernel vs plain on the kernel forward's own log T and final_idx: the
     same active set (same rounded sigma, same libdevice exp), so the rows
-    differ only in float32 summation order."""
+    differ only in float32 rounding and summation order. A second launch
+    on the same inputs is bit-equal."""
     _need_cuda()
-    name = "small" if case == "hyperbolic" else case
-    args, _ = _bwd_args(name, 14, hyperbolic=case == "hyperbolic")
+    args, r = _bwd_args(case, 14)
+    if case in ("deep_tiles", "early_end"):
+        assert int((r["ends"] - r["starts"]).max()) > 2 * STAGING_BATCH
+    if case == "odd_tiles_x":
+        assert r["tiles_x"] % 2 == 1
     before = t_bwd.launches
     got = t_bwd.rasterize_bwd(*args)
     torch.cuda.synchronize()
     assert t_bwd.launches == before + 1
     assert torch.isfinite(got).all()
     rows_close(got, t_bwd.rasterize_bwd_plain(*args), 1e-4, case)
+    assert torch.equal(got, t_bwd.rasterize_bwd(*args))
 
 
 @pytest.mark.cuda
@@ -274,6 +330,34 @@ def test_cuda_segment_sum_matches_plain(name):
     torch.cuda.synchronize()
     assert t_seg.launches == before + 1
     rows_close(got, t_seg.segment_sum_plain(*args), 1e-5, name)
+    assert torch.equal(got, t_seg.segment_sum(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("case", HAND_LAYOUTS)
+def test_cuda_segment_sum_hand_layouts(case, aligned):
+    """The hand-made layouts, kernel against plain; the rows also from a
+    buffer that starts 4 bytes off a 16-byte boundary, which takes the
+    kernel's 4-byte copies. Slots at and past `total` hold garbage that
+    must not be summed."""
+    _need_cuda()
+    offsets, cum, total = (torch.tensor(x, device="cuda")
+                           for x in hand_segments(case))
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    buf = torch.randn(t_bwd.GRAD_ROWS * HAND_POOL + 1, generator=gen,
+                      device="cuda")
+    rows = buf[0 if aligned else 1:][:t_bwd.GRAD_ROWS * HAND_POOL].view(
+        t_bwd.GRAD_ROWS, HAND_POOL)
+    assert (rows.data_ptr() % 16 == 0) == aligned
+    got = t_seg.segment_sum(rows, offsets, cum, total)
+    torch.cuda.synchronize()
+    want = t_seg.segment_sum_plain(rows, offsets, cum, total)
+    if case == "total_zero":
+        assert not got.any() and not want.any()
+    else:
+        rows_close(got, want, 1e-5, case)
+    assert torch.equal(got, t_seg.segment_sum(rows, offsets, cum, total))
 
 
 @pytest.mark.cuda

@@ -29,7 +29,10 @@ from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import segsum as t_seg
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.ops.rasterize_reference import render_oracle
-from test_torch_cuda import CAM, SCENES, make_scene, port_records
+from test_torch_cuda import (
+    CAM, HAND_LAYOUTS, HAND_POOL, SCENES, hand_segments, make_scene,
+    port_records,
+)
 
 K_LANES = 128
 K_SEG = 512
@@ -140,15 +143,12 @@ def seg_inputs(got, pool, seed):
     return rows, offs_col, s_lo, n_pad
 
 
-@pytest.mark.parametrize("name", ["small", "bbox_splats", "overflow"])
-def test_segment_sum_plain_matches_pallas(name):
-    """Per-splat sums on the pipeline's own offsets; relative error (to
-    each row's largest sum) at most 1e-5. The overflow scene has a splat
-    whose records straddle `total`: both keep only its live part."""
-    n, img_size, pool, scale_hi = SCENES[name]
-    got = port_records(make_scene(n, seed=13, scale_hi=scale_hi), img_size,
-                       pool)
-    rows, offs_col, s_lo, n_pad = seg_inputs(got, pool, seed=4)
+def plain_vs_pallas_segsum(got, pool, seed):
+    """segment_sum_plain against segment_sum_pallas (interpret mode) on
+    got's offsets, cum and total and a seeded row pool: each row within
+    1e-5 of its largest sum. Returns the plain version's (9, n) sums."""
+    n = got["offsets"].shape[0]
+    rows, offs_col, s_lo, n_pad = seg_inputs(got, pool, seed)
     grads16 = np.zeros((SEG_ROWS, pool), np.float32)
     grads16[:9] = rows
     want = np.asarray(segment_sum_pallas(
@@ -161,6 +161,42 @@ def test_segment_sum_plain_matches_pallas(name):
     for r in range(9):
         scale = np.abs(want[r]).max()
         assert np.abs(out[r] - want[r]).max() <= 1e-5 * scale, r
+    return out
+
+
+@pytest.mark.parametrize("case", HAND_LAYOUTS)
+def test_segment_sum_plain_matches_pallas_on_hand_layouts(case):
+    """Offsets made by hand (test_torch_cuda.hand_segments): one segment
+    longer than two of the TPU kernel's 512-record blocks, runs of empty
+    splats between live ones, a straddle of `total`, and `total` 0."""
+    offsets, cum, total = hand_segments(case)
+    got = dict(offsets=torch.tensor(offsets), cum=torch.tensor(cum),
+               total=torch.tensor(total))
+    out = plain_vs_pallas_segsum(got, HAND_POOL, seed=6)
+    live = (np.minimum(cum, total[0]) > offsets)
+    assert live.any() == (case != "total_zero")
+    assert not out[:, ~live].any()
+    if live.any():
+        assert np.abs(out[:, live]).max() > 0
+    if case == "long_segment":
+        assert (cum - offsets).max() > 2 * K_SEG
+    if case == "empty_runs":
+        inner = live[:int(np.flatnonzero(live)[-1])]
+        assert (~inner).sum() >= 300   # empty splats between live ones
+    if case == "straddle":
+        w = int(np.flatnonzero(live)[-1])
+        assert offsets[w] < total[0] < cum[w]
+
+
+@pytest.mark.parametrize("name", ["small", "bbox_splats", "overflow"])
+def test_segment_sum_plain_matches_pallas(name):
+    """Per-splat sums on the pipeline's own offsets; relative error (to
+    each row's largest sum) at most 1e-5. The overflow scene has a splat
+    whose records straddle `total`: both keep only its live part."""
+    n, img_size, pool, scale_hi = SCENES[name]
+    got = port_records(make_scene(n, seed=13, scale_hi=scale_hi), img_size,
+                       pool)
+    out = plain_vs_pallas_segsum(got, pool, seed=4)
     if name == "overflow":
         cut = int(np.searchsorted(got["cum"].numpy(), int(got["total"][0]),
                                   side="right"))

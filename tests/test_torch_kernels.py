@@ -75,9 +75,17 @@ def test_tile_bins_groups_records_stably():
     got = port_records(make_scene(512, seed=7), (64, 48), 2048)
     keys = got["keys"].numpy()
     perm = np.argsort(keys, kind="stable")
-    np.testing.assert_array_equal(got["packed"][:7].numpy(),
-                                  got["recs"][:7].numpy()[:, perm])
-    assert not got["packed"][7].any()
+    np.testing.assert_array_equal(got["packed"].numpy(),
+                                  got["recs"].numpy()[:, perm])
+    # Row 7 holds each live record's compact splat id: the splat whose
+    # slots [offsets, cum) hold the record before the tile sort.
+    total = int(got["total"][0])
+    owner = np.searchsorted(got["cum"].numpy(), np.arange(total),
+                            side="right")
+    assert total > 0 and len(np.unique(owner)) > 1
+    np.testing.assert_array_equal(got["recs"][7].numpy()[:total], owner)
+    np.testing.assert_array_equal(np.sort(got["packed"][7].numpy()[:total]),
+                                  owner)
     bins = np.searchsorted(keys[perm], np.arange(got["num_tiles"] + 1))
     np.testing.assert_array_equal(got["starts"].numpy(), bins[:-1])
     np.testing.assert_array_equal(got["ends"].numpy(), bins[1:])

@@ -175,9 +175,9 @@ def as_port_camera(c: JCamera) -> Camera:
                   fov_y=c.fov_y)
 
 
-def test_trainer_steps_match_reference():
-    """Five SplatTrainer steps (no refine: warmup is 500) from the same
-    init on the same views. The JAX trainer renders through its XLA path
+def steps_match_reference(steps, **knobs):
+    """`steps` SplatTrainer steps (five in the measurements below; no
+    refine: warmup is 500) from the same init on the same views. The JAX trainer renders through its XLA path
     on the CPU, which does not quantize colour and opacity to u16 as the
     record pipeline does, so the two differ by the quantization's effect,
     not bit for bit. The loss (0.8 L1 - 0.2 SSIM, about -0.01 to -0.06
@@ -188,17 +188,17 @@ def test_trainer_steps_match_reference():
     parameter's entries must agree within 2 % of how far the reference
     moved them (measured <= 0.9 %, the quaternions), and none by more than
     that distance (measured 29 % for one quaternion entry, <= 0.7 % for
-    every other parameter)."""
+    every other parameter). `knobs` go to both trainers."""
     views = gt_views()
     js = j_from_random(np.random.default_rng(1), [-1.5] * 3, [1.5] * 3,
                        count=200, sh_degree=1)
     params = {k: np.asarray(x) for k, x in js.params().items()}
     ts = splats_from_numpy(params, int(js.n_live), device="cpu")
 
-    jt = jtrain.SplatTrainer()
-    tt = train.SplatTrainer()
+    jt = jtrain.SplatTrainer(**knobs)
+    tt = train.SplatTrainer(**knobs)
     jstate, tstate = jt.init_state(js), tt.init_state(ts)
-    for it in range(5):
+    for it in range(steps):
         cam, img = views[it % len(views)]
         jstate, jst = jt.step(jstate, jtrain.SceneBatch(img, cam))
         tstate, tst = tt.step(tstate, train.SceneBatch(img,
@@ -207,7 +207,7 @@ def test_trainer_steps_match_reference():
         assert abs(lt - lj) <= 1e-5, (it, lt, lj)
         assert int(tst.num_dropped) == 0
         assert int(tst.num_visible) == int(jst.num_visible)
-    assert tt.iter == 5 and tstate.opt.count == 5
+    assert tt.iter == steps and tstate.opt.count == steps
     for k in PARAM_NAMES:
         a = N(getattr(tstate.splats, k))
         b = np.asarray(getattr(jstate.splats, k))
@@ -218,6 +218,29 @@ def test_trainer_steps_match_reference():
         assert d.max() <= moved, k
     np.testing.assert_array_equal(N(tstate.xy_grad_counts),
                                   np.asarray(jstate.xy_grad_counts))
+
+
+def test_trainer_steps_match_reference():
+    steps_match_reference(5)
+
+
+def test_trainer_knobs_match_reference(monkeypatch):
+    """raster_block_size and pack_grad_sort reach render_splats, and three
+    steps with pack_grad_sort=False (the gradient rows ride the re-sort in
+    full float32) match the JAX trainer with the same setting, at the
+    bounds of steps_match_reference."""
+    seen = []
+    render = train.render_splats
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs["block_size"], kwargs["pack_grad_sort"]))
+        return render(*args, **kwargs)
+
+    monkeypatch.setattr(train, "render_splats", spy)
+    steps_match_reference(3, raster_block_size=64, pack_grad_sort=False)
+    assert seen == [(64, False)] * 3
+    assert train.SplatTrainer().raster_block_size == 32
+    assert train.SplatTrainer().pack_grad_sort is True
 
 
 def test_trainer_refine_grows_capacity_and_stays_consistent():
