@@ -27,9 +27,10 @@
 // allocated.
 //
 // Bound on the H100: operations. Every (pixel, record) pair of the sweep
-// costs the forward's ~20 float32 operations for sigma and alpha, and each
-// active pair ~40 more plus the nine-term pixel reduction; records are 28
-// bytes read and 36 written. That bound counts lanes, not warps: in the
+// needs the forward's 13 float32 operations (sigma and the pretest's two
+// compares), and each active pair 7 for alpha and ~45 more, the nine-term
+// pixel reduction's share among them; records are 28 bytes read and 36
+// written. That bound counts lanes, not warps: in the
 // bench scene about 8 % of the pairs are active, and a warp pays for 32
 // lanes whenever one is. It also counts exp and the reciprocal at the
 // float32 rate.
@@ -78,8 +79,8 @@
 //     record-major (stride 9, no bank conflicts); after a batch the threads
 //     add the four warps' partials in warp order and write each gradient
 //     row coalesced over records.
-//   - Heavy tiles first. A one-block kernel orders the tiles by record
-//     count (buckets of half a power of two), and block b sweeps tile
+//   - Heavy tiles first. A one-block kernel (tile_order.cuh) orders the
+//     tiles by record count, and block b sweeps tile
 //     order[b]: the heavy tiles spread round-robin over the SMs and the
 //     light ones fill in as SMs come free. 192 records a batch make a block
 //     42 KB of shared memory, five blocks an SM, which measured best:
@@ -91,6 +92,8 @@
 // the forward's and matches the PyTorch version's.
 
 #include <cuda_runtime.h>
+
+#include "tile_order.cuh"
 
 namespace {
 
@@ -172,46 +175,6 @@ __device__ __forceinline__ float folded_sum(const float (&g)[kRows],
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   *row8 = v;
   return m;
-}
-
-// Tiles in the order their blocks start: most records first, so the heavy
-// tiles spread over the SMs round-robin and the light ones fill in behind
-// them. Buckets of a half power of two in the record count; the order
-// inside a bucket is left to the atomics, since no result depends on it.
-constexpr int kOrderThreads = 1024;
-constexpr int kBuckets = 64;
-
-__device__ __forceinline__ int order_bucket(int count) {
-  if (count <= 0) return kBuckets - 1;
-  const int lg = 31 - __clz(count);
-  const int half = lg > 0 ? (count >> (lg - 1)) & 1 : 0;
-  return max(0, kBuckets - 2 - (2 * lg + half));
-}
-
-__global__ void __launch_bounds__(kOrderThreads)
-tile_order_kernel(const int* __restrict__ starts,
-                  const int* __restrict__ ends, int num_tiles,
-                  int* __restrict__ order) {
-  __shared__ int s_base[kBuckets];
-  const int tid = threadIdx.x;
-  if (tid < kBuckets) s_base[tid] = 0;
-  __syncthreads();
-  for (int t = tid; t < num_tiles; t += kOrderThreads) {
-    atomicAdd(&s_base[order_bucket(ends[t] - starts[t])], 1);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int sum = 0;
-    for (int b = 0; b < kBuckets; ++b) {
-      const int c = s_base[b];
-      s_base[b] = sum;
-      sum += c;
-    }
-  }
-  __syncthreads();
-  for (int t = tid; t < num_tiles; t += kOrderThreads) {
-    order[atomicAdd(&s_base[order_bucket(ends[t] - starts[t])], 1)] = t;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

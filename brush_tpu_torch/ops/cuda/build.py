@@ -7,8 +7,9 @@ takes seconds), for sm_90a (Hopper):
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 Libraries land in brush_tpu_torch/csrc/build/ (listed in .gitignore) under
-a name that carries a hash of the source, so an edited source rebuilds and
-a stale library is never loaded. `build_all()` starts one nvcc per source,
+a name that carries a hash of the source and of every header (*.cuh) beside
+it, so an edited source or header rebuilds and a stale library is never
+loaded. `build_all()` starts one nvcc per source,
 all at once, and waits for them together.
 """
 
@@ -46,8 +47,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    sha = hashlib.sha1()
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

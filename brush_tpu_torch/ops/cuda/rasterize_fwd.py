@@ -2,9 +2,11 @@
 
 Replaces brush_tpu/ops/pallas/rasterize_fwd.py (rasterize_fwd_pallas,
 :500). The CUDA kernel is brush_tpu_torch/csrc/rasterize_fwd.cu (one block
-per tile, one thread per pixel; its header gives the design and the
-bound). `rasterize_fwd_plain` below is the same function in PyTorch: CPU
-tensors take it, and tests and chip_smoke.py hold the kernel to it.
+per tile, heavy tiles first, one pixel a thread, eight records a step
+behind a sigma pretest, T as a running product, records staged by
+cp.async; its header gives the design and the bound).
+`rasterize_fwd_plain` below is the same function in PyTorch: CPU tensors
+take it, and tests and chip_smoke.py hold the kernel to it.
 
 The packed pool is (8, pool) int32 holding u32 bit patterns:
   rows 0-4: x, y, cxx, cxy, cyy as bitcast float32;
@@ -99,8 +101,9 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
     up to float32 summation order.
 
     Returns (img (T, 256, 4), log_t (T, 256), final_idx (T, 256)); with
-    count_pairs also the number of (pixel, record) pairs the sequential
-    loop evaluates (each live pixel's records up to its crossing one).
+    count_pairs also (pairs, active): the (pixel, record) pairs the
+    sequential loop evaluates (each live pixel's records up to its
+    crossing one), and those of them whose alpha reaches ALPHA_EPS.
     """
     dev = packed.device
     n_tiles = starts.shape[0]
@@ -112,7 +115,7 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
                           device=dev)
     lane = torch.arange(TILE_SIZE, device=dev)
     lx, ly = lane % TILE_WIDTH, lane // TILE_WIDTH
-    pairs = 0
+    pairs = active = 0
     for t, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
         if e <= s:
             continue
@@ -138,7 +141,9 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
             before = after - lom
             act = alive[:, None] & (after > LOG_T_EPS)
             if count_pairs:
-                pairs += int((alive[:, None] & (before > LOG_T_EPS)).sum())
+                seen = alive[:, None] & (before > LOG_T_EPS)
+                pairs += int(seen.sum())
+                active += int((seen & ok).sum())
             fac = alpha * torch.exp(before) * act
             rgb = rgb + fac @ torch.stack([cr, cg, cb], dim=1)
             log_t = log_t + (lom * act).sum(dim=1)
@@ -151,7 +156,7 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
         log_t_out[t] = log_t
         fidx_out[t] = fidx.to(torch.int32)
     if count_pairs:
-        return img, log_t_out, fidx_out, pairs
+        return img, log_t_out, fidx_out, (pairs, active)
     return img, log_t_out, fidx_out
 
 
@@ -189,15 +194,17 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int):
     log_t = torch.empty((n_tiles, TILE_SIZE), dtype=torch.float32,
                         device=dev)
     fidx = torch.empty((n_tiles, TILE_SIZE), dtype=torch.int32, device=dev)
+    # Scratch for the kernel's own tile order (heaviest tiles start first).
+    order = torch.empty_like(starts)
     lib = build.load("rasterize_fwd")
     fn = lib.rasterize_fwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
                 ends.data_ptr(), n_tiles, tiles_x, img.data_ptr(),
-                log_t.data_ptr(), fidx.data_ptr(), stream)
+                log_t.data_ptr(), fidx.data_ptr(), order.data_ptr(), stream)
     build.check(rc, "rasterize_fwd")
     launches += 1
     return img, log_t, fidx

@@ -12,11 +12,18 @@ result line; each phase prints its seconds):
      the entry scene (16384 splats, 256x256) and at the bench scene's
      render inputs: expand byte-equal; rasterize_fwd img and log_t within
      1e-5 with threshold flips counted and bounded (<= 2e-3 of the pixels,
-     each <= 0.01) and final_idx equal on every other pixel; at the entry
-     scene also rasterize_bwd (on the kernel forward's log T and final_idx
-     and a seeded image cotangent) with every gradient row within 1e-4 of
-     that row's largest value, and segment_sum on the re-sorted rows
-     within 1e-5 of each row's largest sum; both backward kernels launched
+     img and T = exp(log_t) within 0.01 at each) and final_idx equal on
+     every other pixel, and a second launch on the same inputs
+     bit-equal, here and wherever it is checked below; rasterize_fwd
+     also on tile layouts made by hand (a tile deeper than three staging
+     batches, a tile whose pixels all cross the
+     transmittance threshold in mid-batch before bright records, opacity
+     words around 1/255, an empty tile between full ones, an odd number of
+     tiles a row); at the entry scene also rasterize_bwd (on the kernel
+     forward's log T and final_idx and a seeded image cotangent) with
+     every gradient row within 1e-4 of that row's largest value, and
+     segment_sum on the re-sorted rows within 1e-5 of each row's largest
+     sum; both backward kernels launched
      twice on the same inputs must give the same bits, here and wherever
      they are checked below; segment_sum also on a layout made by hand
      (a segment of 100,003 slots, runs of empty splats, n no multiple of
@@ -28,8 +35,9 @@ result line; each phase prints its seconds):
      times at these inputs;
   4. a real model: serve docs/castle_r5_30k.ply through eval_stats at
      800x800 on four cameras of its training orbit, against the same
-     views rendered by the port on the CPU (the plain versions), and the
-     backward kernels' checks on one of those views;
+     views rendered by the port on the CPU (the plain versions);
+     rasterize_fwd's check on each of those views and the backward
+     kernels' on one (real opacities: saturating pixels, the early-out);
   5. the main path of training at full width: SplatTrainer on the bench
      scene against a black ground truth (bench.py:210-231), 6 steps with
      warmup 1 and refine every 3, so refine runs at iterations 1 (through
@@ -67,17 +75,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # bytes over the memory rate and its operations over the peak rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Float32 operations per (pixel, record) pair in rasterize_fwd: two
-# subtractions, seven multiplies and two adds for sigma, max, negate, exp,
-# multiply, min and two compares for alpha (the contributing pairs' extra
-# log1p/exp/colour work is not counted: the bound stays a lower bound).
-RASTER_OPS_PER_PAIR = 20
-# rasterize_bwd: the same 20 for every pair its sweep evaluates, and for
-# every active pair 45 more: the transmittance before the record (a log1p
-# and two exps in the reference's form), a division, ~23 multiplies and
-# adds for v_alpha and the nine terms, and the nine terms' share of the
-# pixel reduction.
-BWD_OPS_PER_PAIR = 20
+# Float32 operations the rasterizers need per (pixel, record) pair. Every
+# pair a sweep evaluates: two subtractions, seven multiplies and two adds
+# for sigma and two compares (sigma >= 0, and sigma against the largest one
+# at which the record's alpha can reach ALPHA_EPS). Only a pair that passes
+# needs alpha: max, negate, exp, multiply, min and two compares (its
+# log1p/exp/colour work in rasterize_fwd is not counted: the bound stays a
+# lower bound).
+PAIR_SIGMA_OPS = 13
+PAIR_ALPHA_OPS = 7
+# rasterize_bwd, for every active pair 45 more: the transmittance before
+# the record (a log1p and two exps in the reference's form), a division,
+# ~23 multiplies and adds for v_alpha and the nine terms, and the nine
+# terms' share of the pixel reduction.
 BWD_OPS_PER_ACTIVE = 45
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
@@ -179,9 +189,37 @@ def check_expand(exp_args):
     return plain_ms
 
 
-def check_raster(r_args, atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3):
-    """Kernel vs plain: returns dict(err=max abs error, flips=flipped
-    pixels, pairs=(pixel, record) pairs evaluated, plain_ms)."""
+def raster_diff(out, plain, atol=1e-5):
+    """A rasterizer's (img, log_t, final_idx) against the plain version's.
+    A pixel whose img or log T differs by more than atol is a flip: one
+    record on the other side of the alpha or the transmittance threshold.
+    Returns dict(err=largest img or log T difference on the other pixels,
+    flips=flipped pixels, flip_err=largest difference at a flipped pixel,
+    of img and of T = exp(log T), fidx=final_idx mismatches on the other
+    pixels). At a flip T is compared, as the image sees it: the record on
+    which a pixel crosses TRANSMITTANCE_EPS moves log T by log(1 - alpha)
+    but T by less than the threshold."""
+    import torch
+
+    (img, log_t, fidx), (p_img, p_log_t, p_fidx) = out, plain
+    d_img = (img - p_img).abs().amax(dim=-1)
+    d_lt = (log_t - p_log_t).abs()
+    d_t = (log_t.exp() - p_log_t.exp()).abs()
+    flipped = (d_img > atol) | (d_lt > atol)
+    zero = torch.zeros_like(d_img)
+    return dict(
+        err=float(torch.where(flipped, zero,
+                              torch.maximum(d_img, d_lt)).max()),
+        flips=int(flipped.sum()),
+        flip_err=float(torch.where(flipped, torch.maximum(d_img, d_t),
+                                   zero).max()),
+        fidx=int(((fidx != p_fidx) & ~flipped).sum()))
+
+
+def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3):
+    """Kernel vs plain, and two launches bit-equal: returns raster_diff's
+    dict and pairs=(pixel, record) pairs the sweep evaluates, active=those
+    that reach the alpha threshold, plain_ms, out=the kernel's outputs."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         rasterize_fwd, rasterize_fwd_plain,
@@ -189,20 +227,54 @@ def check_raster(r_args, atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3):
 
     img, log_t, fidx = rasterize_fwd(*r_args)
     torch.cuda.synchronize()
-    (p_img, p_log_t, p_fidx, pairs), plain_ms = timed(
+    if not all(torch.equal(a, b) for a, b in zip((img, log_t, fidx),
+                                                 rasterize_fwd(*r_args))):
+        raise AssertionError("rasterize_fwd: two launches on the same "
+                             "inputs differ")
+    (*plain, (pairs, active)), plain_ms = timed(
         lambda: rasterize_fwd_plain(*r_args, count_pairs=True))
-    d_img = (img - p_img).abs().amax(dim=-1)
-    d_lt = (log_t - p_log_t).abs()
-    err = float(torch.maximum(d_img, d_lt).max())
-    flipped = (d_img > atol) | (d_lt > atol)
-    n_flip = int(flipped.sum())
-    n_fidx = int(((fidx != p_fidx) & ~flipped).sum())
+    d = raster_diff((img, log_t, fidx), plain)
     limit = max(1, int(max_flip_frac * fidx.numel()))
-    if err > flip_tol or n_flip > limit or n_fidx:
+    if d["flip_err"] > flip_tol or d["flips"] > limit or d["fidx"]:
         raise AssertionError(
-            f"rasterize_fwd: max err {err:.3e}, {n_flip} flipped pixels "
-            f"(limit {limit}), {n_fidx} final_idx mismatches elsewhere")
-    return dict(err=err, flips=n_flip, pairs=pairs, plain_ms=plain_ms)
+            f"rasterize_fwd: max err {d['err']:.3e}, {d['flips']} flipped "
+            f"pixels (limit {limit}, largest {d['flip_err']:.3e}), "
+            f"{d['fidx']} final_idx mismatches elsewhere")
+    return dict(d, pairs=pairs, active=active, plain_ms=plain_ms,
+                out=(img, log_t, fidx))
+
+
+def check_raster_hand():
+    """rasterize_fwd against its plain version on the tile layouts of
+    ops/cuda/testing.hand_tiles; on the opaque tile the records behind the
+    last crossing must change no bit of the output."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_POISON_FROM, HAND_TILE_CASES, hand_tiles,
+    )
+
+    t0 = time.perf_counter()
+    seen = {}
+    for case in HAND_TILE_CASES:
+        packed, starts, ends, tiles_x = hand_tiles(case)
+        args = (torch.tensor(packed).cuda(), torch.tensor(starts).cuda(),
+                torch.tensor(ends).cuda(), tiles_x)
+        r = check_raster(args)
+        seen[case] = (r["err"], r["flips"])
+        if case == "opaque":
+            last = int(r["out"][2].max())
+            cut = rasterize_fwd(args[0], args[1], torch.full_like(
+                args[2], HAND_POISON_FROM), tiles_x)
+            if last >= HAND_POISON_FROM - 1 or not all(
+                    torch.equal(a, b) for a, b in zip(r["out"], cut)):
+                raise AssertionError(
+                    f"rasterize_fwd: records behind the crossing (last "
+                    f"composited {last}) changed the opaque tile")
+    print(f"[hand] rasterize_fwd (max err, flipped pixels) on tile "
+          f"layouts {seen}; two launches bit-equal; the opaque tile's "
+          f"records behind the crossing change nothing; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_bwd(b_args, label):
@@ -339,16 +411,20 @@ def kernel_phase(cfg, label, backward: bool):
     print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} "
           f"pool={k['exp_args'][6]} records={total}: expand byte-equal; "
           f"rasterize_fwd max err {r['err']:.3e}, flipped pixels "
-          f"{r['flips']}, pairs evaluated {r['pairs']}")
+          f"{r['flips']}, pairs evaluated {r['pairs']}, of them active "
+          f"{r['active']}")
     if backward:
         check_backward(k, label, seed=1)
     print(f"[{label}] {time.perf_counter() - t0:.1f} s")
+    k["fwd"] = r
     return splats, cp, size, k
 
 
-def bounds(k, pairs, bwd):
+def bounds(k, fwd, bwd):
     """Least times (ms) for this run's inputs, with what bounds each:
-    expand, rasterize_fwd, rasterize_bwd, segment_sum."""
+    expand, rasterize_fwd, rasterize_bwd, segment_sum. fwd and bwd are
+    check_raster's and check_bwd's results, whose plain versions counted
+    the pairs each sweep evaluates and those that need alpha."""
     f5, u5, cum, total = k["exp_args"][:4]
     pool = k["exp_args"][6]
     n = f5.shape[1]
@@ -363,11 +439,13 @@ def bounds(k, pairs, bwd):
     # bwd: records and tile ranges read, v_out + log T + final_idx read,
     # the (9, pool) gradient rows written once.
     bwd_b = 28 * live + 8 * n_tiles + 24 * 256 * n_tiles + 36 * pool
-    bwd_o = BWD_OPS_PER_PAIR * bwd["swept"] + BWD_OPS_PER_ACTIVE * bwd["active"]
+    fwd_o = PAIR_SIGMA_OPS * fwd["pairs"] + PAIR_ALPHA_OPS * fwd["active"]
+    bwd_o = PAIR_SIGMA_OPS * bwd["swept"] + (
+        PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"]
     # segsum: the live slots' nine rows, offsets and cum read; (9, n) out.
     seg_b = 36 * live + 8 * n + 4 + 36 * n
     return {"expand": (ms(exp_b), "bytes"),
-            "rasterize_fwd": pick(fwd_b, RASTER_OPS_PER_PAIR * pairs),
+            "rasterize_fwd": pick(fwd_b, fwd_o),
             "rasterize_bwd": pick(bwd_b, bwd_o),
             "segment_sum": pick(seg_b, 9 * live)}
 
@@ -495,22 +573,31 @@ def castle_cameras():
     return [orbit_camera(2 * np.pi * i / 4 + 0.3, 0.55) for i in range(4)]
 
 
-def castle_backward(splats, cam, pool):
-    """The backward kernels' checks on one castle view: real opacities
-    saturate pixels, so each tile's sweep skips a suffix of records."""
+def castle_kernels(splats, cams, pool):
+    """rasterize_fwd's check on every castle view, and the backward
+    kernels' on view 0: real opacities saturate pixels, so the forward's
+    early-out ends tiles before their last record and each tile's backward
+    sweep skips a suffix of records."""
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.render import pool_size
 
     t0 = time.perf_counter()
     size = (CASTLE_SIZE, CASTLE_SIZE)
     pool = pool_size(splats.capacity, size, pool)
-    k = kernel_inputs(splats, camera_params(cam, size, device="cuda"), size,
-                      pool)
-    if k["raw_total"] > pool:
-        raise AssertionError(f"castle view dropped records: pool {pool}, "
-                             f"records {k['raw_total']}")
+    for view, cam in reversed(list(enumerate(cams))):
+        k = kernel_inputs(splats, camera_params(cam, size, device="cuda"),
+                          size, pool)
+        if k["raw_total"] > pool:
+            raise AssertionError(f"castle view {view} dropped records: pool "
+                                 f"{pool}, records {k['raw_total']}")
+        r = check_raster(k["r_args"])
+        live = int(k["exp_args"][3][0])
+        print(f"[castle] rasterize_fwd on view {view}: max err "
+              f"{r['err']:.3e}, flipped pixels {r['flips']} (largest img or "
+              f"T difference there {r['flip_err']:.3e}); the early-out "
+              f"leaves {r['pairs']} of the {256 * live} pairs to evaluate, "
+              f"{r['active']} active; plain {r['plain_ms']:.0f} ms")
     bwd = check_backward(k, "castle", seed=2)
-    live = int(k["exp_args"][3][0])
     n_tiles = k["r_args"][1].shape[0]
     print(f"[castle] backward on view 0: {live} records; the sweep "
           f"evaluates {bwd['swept']} of the {256 * live} pairs a full "
@@ -713,9 +800,10 @@ def train_kernels(kept):
                               "rasterize_fwd": r["plain_ms"],
                               "rasterize_bwd": b["plain_ms"],
                               "segment_sum": s["plain_ms"]},
-                err={"expand": 0.0, "rasterize_fwd": r["err"],
+                err={"expand": 0.0,
+                     "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
-                bound=bounds(k, r["pairs"], b), library=s_lib)
+                bound=bounds(k, r, b), library=s_lib)
 
 
 def castle_training(splats, cams, gts):
@@ -770,6 +858,7 @@ def main() -> int:
 
     kernel_phase(ENTRY, "entry", backward=True)
     check_segsum_hand()
+    check_raster_hand()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
     render_counts = main_path(splats, cp, size, BENCH)
 
@@ -786,14 +875,18 @@ def main() -> int:
     e_plain = cuda_ms(lambda: expand_plain(*exp_args), reps=3)
     r_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
     r_plain = cuda_ms(lambda: rasterize_fwd_plain(*r_args), reps=2)
+    # No backward ran on these inputs: its bound is not read.
+    bound = bounds(k, k["fwd"], dict(swept=0, active=0))
     print(f"[kernels] bench render inputs: expand {e_ms:.4f} ms (plain "
-          f"{e_plain:.3f}); rasterize_fwd {r_ms:.4f} ms (plain "
-          f"{r_plain:.3f}); {time.perf_counter() - t_k:.1f} s")
+          f"{e_plain:.3f}, bound {bound['expand'][0]:.4f} by "
+          f"{bound['expand'][1]}); rasterize_fwd {r_ms:.4f} ms (plain "
+          f"{r_plain:.3f}, bound {bound['rasterize_fwd'][0]:.4f} by "
+          f"{bound['rasterize_fwd'][1]}); {time.perf_counter() - t_k:.1f} s")
     del splats, k, exp_args, r_args
     torch.cuda.empty_cache()
 
     castle, cams, gts, castle_pool = castle_phase()
-    castle_backward(castle, cams[0], castle_pool)
+    castle_kernels(castle, cams, castle_pool)
     torch.cuda.empty_cache()
 
     counts, step_ms, window_ms, kept = train_path(BENCH)

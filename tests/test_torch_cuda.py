@@ -12,10 +12,14 @@ import pytest
 import torch
 
 from brush_tpu_torch.camera import Camera
+from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda import expand as t_expand
 from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
+from brush_tpu_torch.ops.cuda.testing import (
+    HAND_POISON_FROM, HAND_TILE_CASES, hand_tiles,
+)
 from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import record_inputs, render_splats
@@ -97,6 +101,25 @@ def hand_segments(case):
             np.array([total], np.int32))
 
 
+def hand_tile_args(case, device):
+    """hand_tiles(case) as the rasterizers' arguments."""
+    packed, starts, ends, tiles_x = hand_tiles(case)
+    return (torch.tensor(packed, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(ends, device=device), tiles_x)
+
+
+def kernel_constant(kernel, name):
+    """The integer `constexpr int <name> = ...;` of csrc/<kernel>.cu."""
+    import os
+    import re
+
+    with open(os.path.join(build.CSRC, f"{kernel}.cu")) as f:
+        found = re.findall(rf"constexpr int {name} = (\d+);", f.read())
+    assert len(found) == 1, f"{kernel}.cu: {name} {found}"
+    return int(found[0])
+
+
 def close_with_flips(got, want, atol, flip_tol=0.01, max_flip_frac=2e-3,
                      what=""):
     """The rule of tests/conftest.assert_close_quantized: within atol
@@ -171,6 +194,36 @@ def test_expand_plain_canonicalizes_negative_zero():
     assert int(r["total"][0]) > 0 and not recs[3].any()
 
 
+def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
+    """A library's file name carries a hash of its source and of every
+    header beside it, so editing a shared header (tile_order.cuh) can
+    never leave a stale library loaded."""
+    for fname, text in (("a.cu", "// a"), ("b.cu", "// b"),
+                        ("shared.cuh", "// h")):
+        (tmp_path / fname).write_text(text)
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    a, b = build._lib_path("a"), build._lib_path("b")
+    assert a != b and a == build._lib_path("a")
+    (tmp_path / "shared.cuh").write_text("// h, edited")
+    assert build._lib_path("a") != a and build._lib_path("b") != b
+    a = build._lib_path("a")
+    (tmp_path / "a.cu").write_text("// a, edited")
+    assert build._lib_path("a") != a
+
+
+def test_kernel_sources_find_their_headers():
+    """Every header a kernel source includes lies beside it, where nvcc
+    looks first and the library's hash covers it."""
+    import os
+    import re
+
+    for name in build.SOURCES:
+        with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
+            for header in re.findall(r'#include "([^"]+)"', f.read()):
+                assert header.endswith(".cuh")
+                assert os.path.isfile(os.path.join(build.CSRC, header))
+
+
 # ---- on the card: each CUDA kernel against its plain version ----------
 
 
@@ -202,11 +255,60 @@ def test_cuda_rasterize_fwd_matches_plain(name):
     n, img_size, pool, scale_hi = SCENES[name]
     r = port_records(make_scene(n, 6, scale_hi), img_size, pool, "cuda")
     args = (r["packed"], r["starts"], r["ends"], r["tiles_x"])
+    before = t_raster.launches
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    assert t_raster.launches == before + 1
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
+
+
+def _same_bits(got, again):
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "two launches on the same inputs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_TILE_CASES)
+def test_cuda_rasterize_fwd_hand_tiles_match_plain(case):
+    """The layouts made by hand (ops/cuda/testing.hand_tiles): kernel against
+    plain, and a second launch bit-equal. On the opaque tile the records
+    behind the last crossing change no bit of the output."""
+    _need_cuda()
+    args = hand_tile_args(case, "cuda")
     img, log_t, fidx = t_raster.rasterize_fwd(*args)
     torch.cuda.synchronize()
     want = t_raster.rasterize_fwd_plain(*args)
     flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
                *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
+    if case == "opaque":
+        cut = torch.full_like(args[2], HAND_POISON_FROM)
+        _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(
+            args[0], args[1], cut, args[3]))
+        assert int(fidx.max()) < HAND_POISON_FROM - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deep", "opaque"])
+def test_cuda_rasterize_bwd_on_hand_tiles(case):
+    """rasterize_bwd on the forward kernel's log T and final_idx for the
+    deep and the saturating tile: the two kernels' active sets agree, so
+    the rows match the plain version's on the same inputs."""
+    _need_cuda()
+    args = hand_tile_args(case, "cuda")
+    _, log_t, fidx = t_raster.rasterize_fwd(*args)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    v_out = torch.randn((args[1].shape[0], 256, 4), generator=gen,
+                        device="cuda")
+    b_args = (*args, v_out, log_t, fidx)
+    got = t_bwd.rasterize_bwd(*b_args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, case)
+    assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
 
 
 @pytest.mark.cuda
@@ -225,6 +327,7 @@ def test_cuda_rasterize_fwd_hyperbolic_conic_matches_plain():
     want = t_raster.rasterize_fwd_plain(*args)
     flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
                *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
 
 
 @pytest.mark.cuda
@@ -265,7 +368,7 @@ BWD_SCENES = {
     "early_end": (4000, (32, 32), 16384, 0.3),
     "odd_tiles_x": (600, (80, 48), 4096, 0.5),
 }
-STAGING_BATCH = 192   # csrc/rasterize_bwd.cu kBatch
+STAGING_BATCH = kernel_constant("rasterize_bwd", "kBatch")
 
 
 def _bwd_args(case, seed):

@@ -20,7 +20,14 @@ from brush_tpu.ops.pallas.rasterize_fwd import quantize_opac as j_qo
 from brush_tpu.ops.pallas.rasterize_fwd import rasterize_fwd_pallas
 
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
-from test_torch_cuda import SCENES, flip_check, make_scene, port_records
+from brush_tpu_torch.ops.cuda.testing import (
+    HAND_DEEP, HAND_OPAQUE_FROM, HAND_POISON_FROM, HAND_TILE_CASES,
+    hand_tiles,
+)
+from test_torch_cuda import (
+    SCENES, flip_check, hand_tile_args, kernel_constant, make_scene,
+    port_records,
+)
 
 K_EXP = 512
 u32 = lambda t: t.numpy().view(np.uint32)
@@ -121,6 +128,63 @@ def test_rasterize_fwd_plain_matches_pallas(name):
     assert (fidx.numpy() >= 0).any()
 
 
+@pytest.mark.parametrize("case", HAND_TILE_CASES)
+def test_rasterize_fwd_hand_tiles_match_pallas(case):
+    """Tile layouts made by hand (ops/cuda/testing.hand_tiles), which the
+    scenes' ~170 records a tile do not reach: the plain rasterizer against
+    the Pallas kernel in interpret mode, at the scenes' tolerance."""
+    packed, starts, ends, tiles_x = hand_tiles(case)
+    num_tiles, pool = len(starts), packed.shape[1]
+    k_lanes = 128
+    img_j, log_t_j, fidx_j = rasterize_fwd_pallas(
+        jnp.asarray(np.pad(packed.view(np.uint32), ((0, 0), (0, k_lanes)))),
+        jnp.asarray(starts), jnp.asarray(ends),
+        jnp.arange(num_tiles, dtype=jnp.int32), tiles_x=tiles_x,
+        num_tiles=num_tiles, max_isects=pool, k_lanes=k_lanes,
+        interpret=True, scan_passes=3)
+    args = hand_tile_args(case, "cpu")
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    flip_check(img.numpy(), log_t.numpy(), fidx.numpy(), np.asarray(img_j),
+               np.asarray(log_t_j), np.asarray(fidx_j), atol=1e-5,
+               transmittance=True)
+    counts = ends - starts
+    if case == "deep":
+        # Deeper than three staging batches of either CUDA rasterizer, no
+        # multiple of a batch or of the records a step takes.
+        for kernel in ("rasterize_fwd", "rasterize_bwd"):
+            batch = kernel_constant(kernel, "kBatch")
+            assert counts[0] == HAND_DEEP > 3 * batch
+            assert HAND_DEEP % batch
+            assert HAND_DEEP % kernel_constant(kernel, "kUnroll")
+        # No pixel saturates before the fourth batch.
+        assert int(fidx[0].min()) > 3 * kernel_constant("rasterize_fwd",
+                                                        "kBatch")
+    if case == "opaque":
+        # Every pixel crosses in the middle of one staging batch; the
+        # records behind change nothing: the same outputs with the range
+        # cut before them.
+        batch = kernel_constant("rasterize_fwd", "kBatch")
+        assert HAND_OPAQUE_FROM <= int(fidx.min())
+        assert int(fidx.max()) < HAND_OPAQUE_FROM + 100 < HAND_POISON_FROM
+        assert HAND_OPAQUE_FROM // batch == (HAND_OPAQUE_FROM + 100) // batch
+        assert HAND_OPAQUE_FROM % batch and (HAND_OPAQUE_FROM + 100) % batch
+        cut = t_raster.rasterize_fwd(
+            args[0], args[1], torch.full_like(args[2], HAND_POISON_FROM),
+            tiles_x)
+        assert torch.equal(fidx, cut[2]) and torch.equal(log_t, cut[1])
+        np.testing.assert_allclose(img.numpy(), cut[0].numpy(), atol=1e-6)
+    if case == "opacity_edge":
+        words = packed[6].view(np.uint32) >> 16
+        hit = set(words[fidx.numpy()[fidx.numpy() >= 0]].tolist())
+        assert hit == {258, 65535}   # 0, 1, 255 and 256 stay under 1/255
+    if case == "empty_between":
+        assert counts.tolist() == [150, 0, 150]
+        assert not img[1].any() and not log_t[1].any()
+        assert bool((fidx[1] == -1).all()) and bool((fidx[2] >= 150).any())
+    if case == "odd_tiles_x":
+        assert tiles_x % 2 == 1 and num_tiles > tiles_x
+
+
 def test_rasterize_fwd_hyperbolic_conic_stays_finite():
     """Records with an indefinite conic (det < 0: f32 cancellation in the
     projection can emit one) send sigma far below zero away from their
@@ -157,12 +221,15 @@ def test_rasterize_fwd_empty_tiles():
 
 
 def test_rasterize_fwd_counts_pairs():
-    """count_pairs = every live pixel's records up to its crossing one."""
+    """count_pairs = every live pixel's records up to its crossing one,
+    and those of them whose alpha reaches ALPHA_EPS."""
     got = port_records(make_scene(512, seed=3), (64, 48), 2048)
-    *_, pairs = t_raster.rasterize_fwd_plain(*_raster_args(got),
-                                             count_pairs=True)
+    *_, fidx, (pairs, active) = t_raster.rasterize_fwd_plain(
+        *_raster_args(got), count_pairs=True)
     all_pairs = 256 * int((got["ends"] - got["starts"]).sum())
-    assert 0 < pairs <= all_pairs
+    assert 0 < active < pairs <= all_pairs
+    # Every pixel with a final_idx has an active pair.
+    assert active >= int((fidx >= 0).sum())
 
 
 def test_quantize_rounds_half_to_even_like_jax():
