@@ -1,17 +1,22 @@
-"""PLY splat import, Inria-3DGS-compatible (port of the reader half of
-brush_tpu/datasets/ply.py; reference: brush-dataset/src/splat_import.rs).
+"""PLY splat import and export, Inria-3DGS-compatible (port of
+brush_tpu/datasets/ply.py; reference: brush-dataset/src/splat_import.rs and
+splat_export.rs).
 
 - raw (pre-activation) values on disk: log scales, pre-sigmoid opacity,
   unnormalized wxyz rotations (normalized on import, clamped at 1e-6);
 - f_rest_* coefficients stored channel-major ([channel][coeff]) and
   interleaved to [coeff][channel] on import (splat_import.rs:168-181);
-- SH truncated to degree 3 (splat_import.rs:248-252).
+- SH truncated to degree 3 on import (splat_import.rs:248-252);
+- export: binary little-endian, header property order of
+  splat_export.rs:76-95, the live rows only.
 
 The reader is property-order agnostic (reads by name) and supports ascii,
 binary little- and big-endian encodings and any scalar type.
 """
 
 from __future__ import annotations
+
+import io
 
 import numpy as np
 
@@ -83,7 +88,55 @@ def read_ply_vertices(data: bytes) -> dict[str, np.ndarray]:
 def load_splats_from_ply(data: bytes, capacity: int | None = None,
                          device="cuda") -> Splats:
     """Splats from the bytes of a .ply file (splat_import.rs:183-290)."""
-    verts = read_ply_vertices(data)
+    return _verts_to_splats(read_ply_vertices(data), capacity, device)
+
+
+def load_splats_from_ply_stream(data: bytes, chunk: int = 50_000,
+                                capacity: int | None = None, device="cuda"):
+    """Progressive import: yield growing Splats every `chunk` vertices.
+
+    Mirrors the reference's chunked emission during .ply loads
+    (splat_import.rs:261-280, SPLATS_PER_CHUNK = 50k) so a viewer can show
+    partial splats while a large file parses. Binary encodings parse
+    incrementally, each chunk once; ascii yields once, at the end.
+    """
+    encoding, elements, body = _parse_header(data)
+    if encoding == "ascii":
+        yield load_splats_from_ply(data, capacity, device)
+        return
+    byte_order = "<" if encoding == "binary_little_endian" else ">"
+    offset = 0
+    for name, count, props in elements:
+        dt = np.dtype([(p, byte_order + _DTYPES[t]) for p, t in props])
+        if name != "vertex":
+            offset += dt.itemsize * count
+            continue
+        # Every yield is a full snapshot; the converted chunks accumulate,
+        # so the growing prefix is concatenated, never parsed again.
+        acc = {pr: [] for pr, _t in props}
+        parsed = 0
+        for upto in range(min(chunk, count), count + 1, chunk):
+            if count - upto < chunk:
+                upto = count
+            arr = np.frombuffer(
+                body, dtype=dt, count=upto - parsed,
+                offset=offset + parsed * dt.itemsize,
+            )
+            for pr, _t in props:
+                acc[pr].append(arr[pr].astype(np.float32))
+            parsed = upto
+            verts = {
+                pr: (np.concatenate(v) if len(v) > 1 else v[0])
+                for pr, v in acc.items()
+            }
+            yield _verts_to_splats(verts, capacity, device)
+            if upto == count:
+                return
+    raise ValueError("Invalid ply: no vertex element")
+
+
+def _verts_to_splats(verts: dict, capacity: int | None,
+                     device) -> Splats:
     for p in MIN_PROPS:
         if p not in verts:
             raise ValueError(f"Invalid splat ply. Missing property {p}")
@@ -110,3 +163,37 @@ def load_splats_from_ply(data: bytes, capacity: int | None = None,
 
     return from_dense(means, sh, quats, verts["opacity"], log_scales,
                       capacity, device=device)
+
+
+def splats_to_ply(splats: Splats) -> bytes:
+    """(splat_export.rs:67-106). Binary little-endian, Brush property
+    order, the n_live live rows; f_rest channel-major."""
+    n = int(splats.n_live)
+    host = {k: v[:n].detach().cpu().numpy().astype(np.float32)
+            for k, v in splats.params().items()}
+    sh = host["sh_coeffs"]  # (n, K, 3)
+    rest = (sh.shape[1] - 1) * 3
+
+    props = list(MIN_PROPS) + [f"f_rest_{i}" for i in range(rest)]
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        "comment Exported from brush_tpu_torch\ncomment Vertical axis: y\n"
+        f"element vertex {n}\n"
+        + "".join(f"property float {p}\n" for p in props)
+        + "end_header\n"
+    )
+
+    out = np.empty((n, len(props)), np.float32)
+    out[:, 0:3] = host["means"]
+    out[:, 3:6] = host["log_scales"]
+    out[:, 6] = host["raw_opacity"]
+    out[:, 7:11] = host["quats"]
+    out[:, 11:14] = sh[:, 0, :]
+    if rest:
+        # channel-major: [ch][coeff] (splat_export.rs:36-46).
+        out[:, 14:] = sh[:, 1:, :].transpose(0, 2, 1).reshape(n, rest)
+
+    buf = io.BytesIO()
+    buf.write(header.encode("ascii"))
+    buf.write(out.tobytes())
+    return buf.getvalue()

@@ -129,6 +129,26 @@ def from_dense(means, sh_coeffs, quats, raw_opacity, log_scales,
     return Splats(n_live=int(n), **_pad_to_capacity(arrs, n, cap))
 
 
+def from_safetensors(path_or_file, capacity: int | None = None,
+                     device="cuda") -> Splats:
+    """Load a splat model from a safetensors file.
+
+    Mirrors the reference's test-data loader (gaussian_splats.rs:208-223):
+    tensors `means` (n,3), `scales` = log scales (n,3), `coeffs` (n,c,3),
+    `quats` (n,4) wxyz, `opacities` = raw pre-sigmoid (n,). The
+    `safetensors` package is imported here, at the call: a host without it
+    runs everything else.
+    """
+    from safetensors import safe_open
+
+    with safe_open(path_or_file, framework="np") as f:
+        t = {k: f.get_tensor(k) for k in f.keys()}
+    return from_dense(
+        t["means"], t["coeffs"], t["quats"], t["opacities"], t["scales"],
+        capacity=capacity, device=device,
+    )
+
+
 def knn_mean_distance(points: torch.Tensor, k: int = 3) -> torch.Tensor:
     """sqrt(sum of the k nearest squared distances) / k, self included.
 

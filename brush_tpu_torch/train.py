@@ -122,6 +122,7 @@ class SplatTrainer:
         self._gt_cache: dict[int, tuple] = {}
         self._gt_cache_bytes = 0
         self.gt_cache_byte_budget = 2 << 30
+        self.gt_cache_hits = 0
 
     # ------------------------------------------------------------------ #
 
@@ -231,6 +232,7 @@ class SplatTrainer:
                       entry_bytes)
             self._gt_cache_bytes += entry_bytes
         else:
+            self.gt_cache_hits += 1
             self._gt_cache.pop(key)   # refresh the LRU position
         self._gt_cache[key] = cached
         return cached[1]

@@ -53,7 +53,28 @@ result line; each phase prints its seconds):
   7. a real model trains: the castle's SH DC coefficients perturbed by
      0.1 N(0, 1), 12 default SplatTrainer steps on its four clean views;
      the eval PSNR must rise;
-  8. print {"kernels": [...]}, the nvidia-smi line, and last
+  8. "cli", the user's path through brush_tpu_torch.cli at full width in a
+     temporary directory: a NeRF-synthetic castle dataset (100 train and
+     16 val views, 800x800 RGBA PNG, the orbit of
+     scripts/raytrace_scene.py) rendered by the port from the castle, and
+     its twin with libpng's adaptive row filters (loaded and timed once,
+     images equal); `train` 620 steps (eval every 200 on 4 views,
+     checkpoints every 200, refines at 501 and 601, PLY export) with all
+     four kernels' counters reset just before and read just after: one
+     launch of each a step and of the forward two one an eval render
+     (pool-growth retries counted); the kernels' arguments kept on the
+     first step and the first after each refine, and each kernel held to
+     its plain version on them (tolerances as in phase 2); finite losses,
+     eval PSNR at 600 above 200; `eval --ply` and `eval --ckpt` print the
+     run's final PSNR digit for digit; `--resume` from 400 runs 401..419;
+     the trained castle saved as a checkpoint at step 29800 and resumed
+     for 200 steps (the step time at a model's real size); `render` writes
+     a non-blank PNG; a 24-view COLMAP castle (RGB on black, the castle's
+     90,977 means as points3D, native parser == Python parser) trains 100
+     timed steps; `train2d` at 256x256 lowers its loss;
+  9. print {"kernels": [...]}: launches from the "cli" train run, the other
+     fields from phase 6's last arguments, and under "cli" the same fields
+     on the cli run's last arguments; the nvidia-smi line; and last
      {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
@@ -61,6 +82,7 @@ The script imports nothing of JAX or of the JAX package.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +116,15 @@ SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
 METRIC_STEPS = 8     # warm steps at the final capacity, after one more
 CASTLE_TRAIN_STEPS = 12
+# The "cli" phase: the NeRF-synthetic layout at its published size, the
+# 620-step run (refines at 501 and 601) and the COLMAP dataset's views.
+CLI_NERF_TRAIN, CLI_NERF_VAL = 100, 16
+CLI_ITERS = 620
+CLI_COLMAP_VIEWS = 24
+CLI_DEVICE = "cuda"   # the CLI's --device
+# The trained castle resumed through the CLI at this step, past the last
+# refine (TrainConfig.max_refine_step 15000), for this many steps.
+CASTLE_RESUME_STEP, CASTLE_RESUME_STEPS = 29800, 200
 
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -752,20 +783,20 @@ def train_path(cfg):
     return counts, step_ms, sum(times), kept
 
 
-def train_kernels(kept):
-    """Phase 6: each kernel against its plain version on the arguments
-    the training run gave it at each capacity; then the times, bounds and
-    errors of the last capacity's arguments, as the result reports them."""
+def train_kernels(kept, tag="train"):
+    """Phase 6 (and the "cli" phase's check): each kernel against its
+    plain version on the arguments a training run gave it, kept = {when:
+    the four wrappers' arguments} in the run's order; then the times,
+    bounds and errors of the last arguments, as the result reports them."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
     from brush_tpu_torch.ops.cuda.segsum import segment_sum, slot_owners
 
-    for cap in sorted(kept):
+    for when, args in kept.items():
         t0 = time.perf_counter()
-        args = kept[cap]
-        label = f"train {cap}"
+        label = f"{tag} {when}"
         k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
         e_plain = check_expand(k["exp_args"])
         r = check_raster(k["r_args"])
@@ -790,9 +821,9 @@ def train_kernels(kept):
           "rasterize_fwd": cuda_ms(lambda: rasterize_fwd(*r_args), reps=20),
           "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(*b_args), reps=10),
           "segment_sum": cuda_ms(lambda: segment_sum(*s_args), reps=20)}
-    s_lib = cuda_ms(lambda: torch.zeros((9, n), device="cuda").index_add_(
+    s_lib = cuda_ms(lambda: torch.zeros((9, n), device=rows.device).index_add_(
         1, ids, live_rows), reps=20)
-    print(f"[train kernels] capacity {cap}: "
+    print(f"[{tag} kernels] {when}: "
           + "; ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
           + f"; index_add_ {s_lib:.4f} ms; "
           f"{time.perf_counter() - t0:.1f} s")
@@ -803,7 +834,7 @@ def train_kernels(kept):
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
-                bound=bounds(k, r, b), library=s_lib)
+                bound=bounds(k, r, b), library=s_lib, when=when)
 
 
 def castle_training(splats, cams, gts):
@@ -837,6 +868,476 @@ def castle_training(splats, cams, gts):
           f"{time.perf_counter() - t0:.1f} s")
     if not np.mean(after) > np.mean(before):
         raise AssertionError("castle training did not raise the PSNR")
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, before, after):
+    """Replace module.name by a wrapper that calls before(*args) and
+    after(token, result, *args) around it (token = before's result);
+    restored on exit."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        token = before(*args)
+        out = fn(*args, **kw)
+        after(token, out, *args)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def host_timed(module, name: str, sink: list):
+    """wrapped() that appends each call's host seconds to sink."""
+    return wrapped(module, name, lambda *a: time.perf_counter(),
+                   lambda t, out, *a: sink.append(time.perf_counter() - t))
+
+
+def run_cli(argv, log: list) -> str:
+    """brush_tpu_torch.cli.main(argv) in this process, its standard output
+    captured (and kept in log); on a failure the output's tail is printed
+    before the error goes on."""
+    import io
+
+    from brush_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--device", CLI_DEVICE, *argv])
+    except BaseException:
+        print("\n".join(buf.getvalue().splitlines()[-30:]), file=sys.stderr)
+        raise
+    text = buf.getvalue()
+    log.append((argv, time.perf_counter() - t0, text))
+    return text
+
+
+def castle_images(splats, c2ws, pool, rgb_only: bool):
+    """uint8 800x800 images of the castle from NeRF camera-to-worlds,
+    rendered by the port on the card (the pool grows until nothing
+    drops): RGBA as rendered, or its RGB (on black)."""
+    import torch
+    from brush_tpu_torch.datasets.nerf import camera_from_transform
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import render_splats
+
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    out = []
+    for c2w in c2ws:
+        cam = camera_from_transform(c2w, CASTLE_FOV_X, *size)
+        cp = camera_params(cam, size, device=splats.device)
+        for _ in range(4):
+            img, aux = render_splats(
+                splats.means, splats.log_scales, splats.quats,
+                splats.sh_coeffs, splats.raw_opacity, cp, size,
+                active=splats.active_mask(), max_isects=pool,
+                needs_grad=False)
+            if int(aux.num_dropped) == 0:
+                break
+            pool = 2 * (int(aux.num_isects) + int(aux.num_dropped))
+        else:
+            raise AssertionError("castle ground truth dropped records")
+        if rgb_only:
+            img = img[..., :3]
+        out.append((img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def step_timer(steps: list, before_step=None, after_step=None):
+    """wrapped() around SplatTrainer.step: each step is timed between two
+    CUDA events and on the host clock, and appended to steps as
+    (iteration, host start, start event, stop event, host stop, refine
+    stats). before_step(trainer, state) and after_step(trainer, iteration)
+    run around it when given."""
+    import torch
+    from brush_tpu_torch import train
+
+    def before(trainer, state, *_):
+        if before_step is not None:
+            before_step(trainer, state)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return trainer.iter, time.perf_counter(), ev
+
+    def after(token, out, trainer, *_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        steps.append((*token, ev, time.perf_counter(),
+                      trainer.last_refine_stats))
+        if after_step is not None:
+            after_step(trainer, token[0])
+
+    return wrapped(train.SplatTrainer, "step", before, after)
+
+
+def event_ms(steps: list) -> list:
+    import torch
+
+    torch.cuda.synchronize()
+    return [s[2].elapsed_time(s[3]) for s in steps]
+
+
+def row_filters(data: bytes) -> np.ndarray:
+    """How many rows of an 8-bit PNG use each of the five row filters."""
+    import zlib
+
+    from brush_tpu_torch.datasets import png
+
+    h = png.read_header(data)
+    idat = b"".join(b for k, b in png._chunks(data) if k == b"IDAT")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h.height, -1)
+    return np.bincount(rows[:, 0], minlength=5)
+
+
+def cli_phase(castle, pool):
+    """Phase 8: the user's path through brush_tpu_torch.cli at full width,
+    in a temporary directory: a NeRF-synthetic castle dataset (100 train
+    and 16 val views, 800x800 RGBA PNG) rendered by the port from
+    docs/castle_r5_30k.ply, and its twin with libpng's adaptive row
+    filters; `cli train` 620 steps with in-training eval, checkpoints,
+    refines at 501 and 601 and PLY export, the four kernels counted over
+    the run (the eval renders counted apart) and held to their plain
+    versions on the run's own arguments; `cli eval` of the export and of
+    the final checkpoint; `--resume`; the trained castle resumed at step
+    CASTLE_RESUME_STEP for the step time of a model at a real size; `cli
+    render`; a 24-view COLMAP castle dataset (RGB on black) with the
+    castle's means as its point cloud; `cli train2d`. Returns the
+    kernels' launches over the 620-step run and train_kernels' result on
+    its arguments."""
+    import tempfile
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from brush_tpu_torch import eval as eval_mod
+    from brush_tpu_torch import native
+    from brush_tpu_torch.constants import SH_C0
+    from brush_tpu_torch.datasets import load_dataset, png, ply
+    from brush_tpu_torch.datasets import testing as dt
+    from brush_tpu_torch.datasets.colmap import _read_points3d_bin
+    from brush_tpu_torch.native import read_points3d_bin
+    from brush_tpu_torch.train import SplatTrainer
+    from brush_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    log = []
+    with tempfile.TemporaryDirectory(prefix="brush_cli_") as d:
+        # The NeRF-synthetic castle: orbit and layout of
+        # scripts/raytrace_scene.py write_nerf_zip (train seed 1, val 2).
+        t0 = time.perf_counter()
+        c2ws = {"train": dt.orbit_views(CLI_NERF_TRAIN, seed=1),
+                "val": dt.orbit_views(CLI_NERF_VAL, seed=2)}
+        imgs = {s: castle_images(castle, c, pool, rgb_only=False)
+                for s, c in c2ws.items()}
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        with ThreadPoolExecutor(8) as ex:
+            pngs = {s: list(ex.map(png.encode_png, v))
+                    for s, v in imgs.items()}
+        nerf_zip = os.path.join(d, "nerf.zip")
+        dt.write_nerf_zip(nerf_zip, {s: list(zip(c2ws[s], pngs[s]))
+                                     for s in c2ws}, encode=lambda b: b)
+        t_write = time.perf_counter() - t0
+        flat = pngs["train"] + pngs["val"]
+        t0 = time.perf_counter()
+        built = native.available()   # g++ at first use, outside the timings
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for data in flat:
+            png.decode_png(data)
+        t_decode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = load_dataset(nerf_zip)
+        t_load = time.perf_counter() - t0
+        if (len(ds.train.views), len(ds.eval.views)) != (
+                CLI_NERF_TRAIN, CLI_NERF_VAL) or ds.train.views[0].image.shape \
+                != (CASTLE_SIZE, CASTLE_SIZE, 4):
+            raise AssertionError("the NeRF castle dataset loads wrong")
+        print(f"[cli] NeRF castle dataset {CLI_NERF_TRAIN} + {CLI_NERF_VAL} "
+              f"views {CASTLE_SIZE}x{CASTLE_SIZE} RGBA: rendered "
+              f"{t_render:.2f} s, written {t_write:.2f} s in all "
+              f"({os.path.getsize(nerf_zip)} bytes); decode of its "
+              f"filter-0 PNGs {len(flat) / t_decode:.1f} views/s (one "
+              f"thread); load_dataset {t_load:.2f} s; native library "
+              f"{'built' if built else 'unavailable'} in {t_native:.2f} s")
+
+        # Its twin as libpng writes PNGs, each row with its adaptive
+        # filter (Average and Paeth rows among them): the decode a user
+        # of a real NeRF-synthetic scene waits for.
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as ex:
+            adaptive = {s: list(ex.map(dt.filtered_png, v))
+                        for s, v in imgs.items()}
+        ad_zip = os.path.join(d, "nerf_adaptive.zip")
+        dt.write_nerf_zip(ad_zip, {s: list(zip(c2ws[s], adaptive[s]))
+                                   for s in c2ws}, encode=lambda b: b)
+        t_make = time.perf_counter() - t0
+        kinds = sum(row_filters(b) for v in adaptive.values() for b in v)
+        t0 = time.perf_counter()
+        one = png.decode_png(adaptive["train"][0])
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_ad = load_dataset(ad_zip)
+        t_load_ad = time.perf_counter() - t0
+        if not np.array_equal(one, imgs["train"][0]) or not all(
+                np.array_equal(a.image, b.image) for sa, sb in (
+                    (ds_ad.train, ds.train), (ds_ad.eval, ds.eval))
+                for a, b in zip(sa.views, sb.views)):
+            raise AssertionError("the adaptively filtered dataset loads "
+                                 "other images")
+        del ds, ds_ad
+        print(f"[cli] adaptively filtered twin (unfiltered by "
+              f"{'native/png.cpp' if native.available() else 'numpy'}): "
+              f"rows by filter 0-4 {kinds.tolist()}, made {t_make:.2f} s "
+              f"({os.path.getsize(ad_zip)} bytes); one view decodes in "
+              f"{t_one:.3f} s (one thread); load_dataset {t_load_ad:.2f} s "
+              f"({(CLI_NERF_TRAIN + CLI_NERF_VAL) / t_load_ad:.1f} views/s, "
+              f"{os.cpu_count()} threads); images equal to the filter-0 "
+              f"dataset's")
+
+        # Training through the CLI: the kernels counted over the run, the
+        # eval renders (pool-growth retries included) counted apart, and
+        # the kernels' arguments kept on the first step and on the first
+        # step after each refine or capacity change.
+        ck = os.path.join(d, "ckpt")
+        steps, ck_s, ply_s, renders = [], [], [], []
+        kept, armed, last = {}, [False], {}
+
+        def arm(trainer, state):
+            cap = state.splats.capacity
+            armed[0] = not kept or cap != last.get("cap") or last["refined"]
+            last["cap"] = cap
+
+        def keep(trainer, it):
+            if armed[0]:
+                kept[f"step {it}, capacity {last['cap']}"] = dict(seen)
+                armed[0] = False
+            last["refined"] = trainer.last_refine_stats is not None
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with kept_kernel_args(armed) as seen, \
+                step_timer(steps, arm, keep), \
+                wrapped(eval_mod, "render_splats", lambda *a: None,
+                        lambda t, out, *a: renders.append(
+                            int(out[1].num_dropped))), \
+                host_timed(checkpoint, "save_checkpoint", ck_s), \
+                host_timed(ply, "splats_to_ply", ply_s):
+            text = run_cli([
+                "train", "--source", nerf_zip, "--iters", str(CLI_ITERS),
+                "--sh-degree", "3", "--init-count", "10000",
+                "--eval-every", "200", "--eval-views", "4",
+                "--log-every", "20", "--checkpoint-dir", ck,
+                "--checkpoint-every", "200", "--export",
+                os.path.join(ck, "out.ply")], log)
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        ms = event_ms(steps)
+        loop_s = steps[-1][4] - steps[0][1]
+        rows = read_jsonl(os.path.join(ck, "metrics.jsonl"))
+        losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+        psnr = {r["step"]: r["eval_psnr"] for r in rows if "eval_psnr" in r}
+        refines = {it: rs for it, _, _, _, _, rs in steps if rs is not None}
+        live = {r["step"]: r["splats"] for r in rows if "splats" in r}
+        final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+        cache = text_field(text, r"gt cache: (\d+) hits, (\d+) views, "
+                                 r"(\d+) bytes")
+        sizes = {n: os.path.getsize(os.path.join(ck, n)) for n in
+                 ("ckpt_0000400.npz", "ckpt_final.npz", "out.ply")}
+        retries = sum(1 for dropped in renders if dropped)
+        evals = 3 * 4 + CLI_NERF_VAL
+        print(f"[cli] train {CLI_ITERS} steps: median step "
+              f"{statistics.median(ms):.3f} ms (CUDA events), "
+              f"{len(steps) / loop_s:.2f} steps/s over the loop (host clock, "
+              f"evals and checkpoints in it); peak memory {peak} bytes; gt "
+              f"cache {cache[0]} hits, {cache[1]} views, {cache[2]} bytes; "
+              f"launches {counts}: {CLI_ITERS} steps + {len(renders)} eval "
+              f"renders ({evals} views, {retries} of the renders dropped "
+              f"records and were rendered again in a grown pool)")
+        print(f"[cli] eval PSNR {psnr}; final eval PSNR {final[0]} SSIM "
+              f"{final[1]}; refines {[(i, r._asdict()) for i, r in refines.items()]}"
+              f"; splats logged {live.get(500)} at 500, {live.get(520)} at "
+              f"520, {live.get(600)} at 600; losses at 0/300/600 "
+              f"{losses.get(0)}, {losses.get(300)}, {losses.get(600)}")
+        print(f"[cli] checkpoint {sizes['ckpt_final.npz']} bytes, saves "
+              f"{[round(s, 3) for s in ck_s]} s; export {sizes['out.ply']} "
+              f"bytes in {sum(ply_s):.3f} s")
+        if len(steps) != CLI_ITERS or not all(
+                np.isfinite(list(losses.values()))) or len(losses) != 31:
+            raise AssertionError(f"cli train: {len(steps)} steps, losses "
+                                 f"{losses}")
+        if sorted(psnr) != [200, 400, 600] or not psnr[600] > psnr[200]:
+            raise AssertionError(f"cli train: eval PSNR {psnr}")
+        if 501 not in refines or not any(
+                r["step"] == 501 and "refine_cloned" in r for r in rows):
+            raise AssertionError(f"cli train: refines at {sorted(refines)}")
+        if min(counts.values()) < CLI_ITERS:
+            raise AssertionError(f"cli train skipped a kernel: {counts}")
+        if len(renders) != evals + retries or counts != {
+                "expand": CLI_ITERS + len(renders),
+                "rasterize_fwd": CLI_ITERS + len(renders),
+                "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS}:
+            raise AssertionError(f"cli train: launches {counts} are not "
+                                 f"one a step and one an eval render "
+                                 f"({len(renders)} renders, dropped "
+                                 f"{renders})")
+        whens = list(kept)
+        if len(whens) < 2 or not whens[0].startswith("step 0,"):
+            raise AssertionError(f"kernel arguments kept at {whens}")
+        cli_kernels = train_kernels(kept, "cli")
+        del kept, seen
+        torch.cuda.empty_cache()
+
+        # eval of the export and of the final checkpoint: the same PSNR.
+        eval_s = []
+        for flag, name in (("--ply", "out.ply"),
+                           ("--ckpt", "ckpt_final.npz")):
+            eval_s.clear()
+            with host_timed(eval_mod, "eval_view", eval_s):
+                text = run_cli(["eval", "--source", nerf_zip, flag,
+                                os.path.join(ck, name)], log)
+            got = text_field(text, r"mean: PSNR (\S+) SSIM (\S+)")
+            print(f"[cli] eval {flag}: PSNR {got[0]} SSIM {got[1]}; "
+                  f"{statistics.median(eval_s) * 1e3:.2f} ms a view "
+                  f"(median of {len(eval_s)}, host clock)")
+            if got[0] != final[0]:
+                raise AssertionError(f"eval {flag} PSNR {got[0]} != the "
+                                     f"training run's {final[0]}")
+
+        # Resume from the checkpoint at 400 and run to 420.
+        rs_dir = os.path.join(d, "resumed")
+        text = run_cli(["train", "--source", nerf_zip, "--iters", "420",
+                        "--log-every", "1", "--checkpoint-dir", rs_dir,
+                        "--resume", os.path.join(ck, "ckpt_0000400.npz")],
+                       log)
+        resumed = {r["step"]: r["loss"] for r in read_jsonl(
+            os.path.join(rs_dir, "metrics.jsonl")) if "loss" in r}
+        if "at step 401" not in text or sorted(resumed) != list(
+                range(401, 420)) or not all(np.isfinite(
+                    list(resumed.values()))):
+            raise AssertionError(f"resume: steps {sorted(resumed)}")
+        print(f"[cli] resume from ckpt_0000400: steps 401..419, losses "
+              f"{resumed[401]:.5f} .. {resumed[419]:.5f}")
+
+        # The step of a model at a real size: the trained castle (90,977
+        # splats, SH 3), the source of this dataset's images, saved as a
+        # checkpoint at CASTLE_RESUME_STEP and resumed through the CLI past
+        # the last refine (max_refine_step 15000), as the last steps of a
+        # 30,000-step run on it take.
+        castle_ck = checkpoint.save_checkpoint(
+            os.path.join(d, "castle", "castle"),
+            SplatTrainer().init_state(castle), CASTLE_RESUME_STEP)
+        c_steps, c_dir = [], os.path.join(d, "castle_run")
+        reset_launches()
+        with step_timer(c_steps):
+            text = run_cli(["train", "--source", nerf_zip, "--iters",
+                            str(CASTLE_RESUME_STEP + CASTLE_RESUME_STEPS),
+                            "--log-every", "10", "--checkpoint-dir", c_dir,
+                            "--resume", castle_ck], log)
+        c_counts = read_launches()
+        c_ms = event_ms(c_steps)
+        c_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+        c_losses = [r["loss"] for r in read_jsonl(
+            os.path.join(c_dir, "metrics.jsonl")) if "loss" in r]
+        print(f"[cli] trained castle ({castle.n_live} splats, capacity "
+              f"{castle.capacity}) resumed at {CASTLE_RESUME_STEP}, "
+              f"{len(c_steps)} steps: median step {statistics.median(c_ms):.3f}"
+              f" ms (CUDA events; the last 100: "
+              f"{statistics.median(c_ms[-100:]):.3f} ms), "
+              f"{len(c_steps) / (c_steps[-1][4] - c_steps[0][1]):.2f} steps/s"
+              f" (host clock); refines {sum(s[5] is not None for s in c_steps)}"
+              f"; launches {c_counts}; losses {c_losses[0]:.5f} .. "
+              f"{c_losses[-1]:.5f}; final eval PSNR {c_final[0]} SSIM "
+              f"{c_final[1]}; {log[-1][1]:.1f} s")
+        if len(c_steps) != CASTLE_RESUME_STEPS or not np.isfinite(
+                c_losses).all() or any(
+                s[5] is not None for s in c_steps) or min(
+                c_counts.values()) < CASTLE_RESUME_STEPS:
+            raise AssertionError("the resumed castle did not take its "
+                                 "steps through the kernels")
+
+        # Render one view of the export.
+        r_png = os.path.join(d, "r.png")
+        run_cli(["render", "--source", nerf_zip, "--ply",
+                 os.path.join(ck, "out.ply"), "--view", "0", "--out", r_png],
+                log)
+        with open(r_png, "rb") as f:
+            rendered = png.decode_png(f.read())
+        if rendered.shape != (CASTLE_SIZE, CASTLE_SIZE, 4) or \
+                rendered[..., 3].max() == 0 or rendered[..., :3].max() == 0:
+            raise AssertionError("render wrote a blank or misshapen PNG")
+
+        # The COLMAP castle: 24 RGB views on black (so the eval reads how
+        # well the point cloud fits them), the means as points3D.
+        t0 = time.perf_counter()
+        n = castle.n_live
+        means = castle.means[:n].cpu().numpy()
+        colors = (np.clip(0.5 + SH_C0 * castle.sh_coeffs[:n, 0].cpu().numpy(),
+                          0, 1) * 255).astype(np.uint8)
+        views = dt.orbit_views(CLI_COLMAP_VIEWS, seed=1)
+        rgb = castle_images(castle, views, pool, rgb_only=True)
+        col_zip = os.path.join(d, "colmap.zip")
+        with ThreadPoolExecutor(8) as ex:
+            rgb = list(ex.map(png.encode_png, rgb))
+        # Poses in the castle's frame (the NeRF loader's), so its means
+        # are the point cloud of these views.
+        dt.write_colmap_zip(col_zip, [(dt.in_nerf_loader_frame(c), im)
+                                      for c, im in zip(views, rgb)],
+                            CASTLE_SIZE, means, colors, encode=lambda b: b)
+        with zipfile.ZipFile(col_zip) as zf:
+            p3d = zf.read("sparse/0/points3D.bin")
+        nat, py = read_points3d_bin(p3d), _read_points3d_bin(p3d)
+        if not all(np.array_equal(a, b) for a, b in zip(nat, py)):
+            raise AssertionError("native points3D parser != Python parser")
+        t_colmap = time.perf_counter() - t0
+        col_steps = []
+        with step_timer(col_steps):
+            text = run_cli(["train", "--source", col_zip, "--iters", "100",
+                            "--eval-split-every", "8"], log)
+        col_ms = event_ms(col_steps)
+        col_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+        if f"point-cloud init: {n} splats" not in text:
+            raise AssertionError("COLMAP run did not init from points3D")
+        print(f"[cli] COLMAP castle {CLI_COLMAP_VIEWS} views RGB, {n} "
+              f"points (native parser == Python parser), written "
+              f"{t_colmap:.2f} s; 100 steps: median step "
+              f"{statistics.median(col_ms):.3f} ms (CUDA events); final eval "
+              f"PSNR {col_final[0]} SSIM {col_final[1]}; {log[-1][1]:.1f} s")
+
+        # train2d on one train view.
+        image = os.path.join(d, "view.png")
+        with open(image, "wb") as f:
+            f.write(pngs["train"][0])
+        text = run_cli(["train2d", "--image", image, "--size", "256",
+                        "--iters", "300"], log)
+        l2d = [float(x) for x in re.findall(r"loss (\S+)", text)]
+        if len(l2d) < 2 or not l2d[-1] < l2d[0]:
+            raise AssertionError(f"train2d loss did not fall: {l2d}")
+        print(f"[cli] train2d 256x256 300 steps: losses {l2d}; "
+              f"{text_field(text, r'(final PSNR .*)')[0]}")
+    print(f"[cli] commands' seconds "
+          f"{[(a[0], round(s, 1)) for a, s, _ in log]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, cli_kernels
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def text_field(text: str, pattern: str) -> tuple:
+    """The groups of pattern's first match in a command's output."""
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"no {pattern!r} in the output")
+    return m.groups()
 
 
 def main() -> int:
@@ -890,20 +1391,34 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     counts, step_ms, window_ms, kept = train_path(BENCH)
-    tk = train_kernels(kept)
+    tk = train_kernels({f"capacity {cap}": v for cap, v in kept.items()})
     del kept
     torch.cuda.empty_cache()
     castle_training(castle, cams, gts)
+    torch.cuda.empty_cache()
+    cli_counts, cli_tk = cli_phase(castle, castle_pool)
 
     def row(name, src, replaces):
+        def fields(t):
+            return {"max_abs_err": t["err"][name], "ms": t["ms"][name],
+                    "plain_ms": t["plain"][name],
+                    "bound_ms": t["bound"][name][0],
+                    "bound_by": t["bound"][name][1],
+                    "library_ms": t["library"] if name == "segment_sum"
+                    else None}
+
+        # launches: the "cli" train run's; the other fields: the bench
+        # training run's last arguments (phase 6); "cli": the same
+        # fields on the cli train run's last arguments.
         return {"name": name, "route": "cuda",
                 "source": f"brush_tpu_torch/csrc/{src}.cu",
-                "replaces": replaces, "launches": counts[name],
-                "max_abs_err": tk["err"][name], "ms": tk["ms"][name],
-                "plain_ms": tk["plain"][name],
-                "bound_ms": tk["bound"][name][0],
-                "bound_by": tk["bound"][name][1],
-                "library_ms": tk["library"] if name == "segment_sum" else None}
+                "replaces": replaces, "launches": cli_counts[name],
+                **fields(tk),
+                "launches_from": f"cli train ({CLI_ITERS} steps and its eval "
+                                 f"renders)",
+                "fields_from": f"bench training arguments, {tk['when']}",
+                "cli": {**fields(cli_tk),
+                        "from": f"cli train arguments, {cli_tk['when']}"}}
 
     kernels = [
         row("expand", "expand", "brush_tpu/ops/pallas/expand.py:374"),
@@ -914,7 +1429,8 @@ def main() -> int:
         row("segment_sum", "segsum", "brush_tpu/ops/pallas/segsum.py:136"),
     ]
     print(f"[summary] render path launches {render_counts}; training path "
-          f"launches {counts}; bench train step {step_ms:.3f} ms (median of "
+          f"launches {counts}; cli train ({CLI_ITERS} steps) launches "
+          f"{cli_counts}; bench train step {step_ms:.3f} ms (median of "
           f"{METRIC_STEPS} warm steps at the final capacity), the "
           f"{TRAIN_STEPS}-step window {window_ms:.3f} ms; total "
           f"{time.perf_counter() - t0:.1f} s")

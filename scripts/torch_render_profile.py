@@ -13,12 +13,20 @@ their stage marks recorded (brush_tpu_torch/utils/profiler.py) and prints:
     capacity, the step's ms and its refine's ms;
   - a torch.profiler table of device time by kernel over 5 renders, and
     over 3 trainer steps at capacity 4M, with the device's busy share of
-    each window.
+    each window;
+  - the same for the step of chip_smoke.py's "cli" training run: the
+    CLI's random init (10,000 splats, SH degree 3, capacity 16384, seed
+    42) in the camera bounds of the NeRF castle's 100 training views
+    (brush_tpu_torch/datasets/testing.py's orbit), block 512, an 800x800
+    RGBA ground truth, the views in turn; stage medians over 8 steps after
+    12 (the intersection pool has grown by then) and a profile of 5;
+  - the same for a model at a real size: the trained castle
+    (docs/castle_r5_30k.ply, 90,977 splats, SH degree 3) on those views,
+    the column "castle step".
 A stage's time is the stream time between its mark and the one before:
 its kernels and the host's gaps between their launches, so the stages of
 a step sum to the whole step. The full profiler tables are written to
-OUT_DIR/torch_render_profile.txt and OUT_DIR/torch_train_profile.txt
-(default runs/).
+OUT_DIR/torch_{render,train,cli,castle}_profile.txt (default runs/).
 
     python3 scripts/torch_render_profile.py [OUT_DIR]
 """
@@ -110,7 +118,53 @@ def main() -> int:
                                               "torch_render_profile.txt"))
     profile(step, 3, f"train step at {cap}",
             os.path.join(out, "torch_train_profile.txt"))
+    del step, state
+    torch.cuda.empty_cache()
+    step = cli_steps()
+    columns = {"cli step": stage_medians(step, 8, 12)}
+    profile(step, 5, "cli step", os.path.join(out, "torch_cli_profile.txt"))
+    del step
+    torch.cuda.empty_cache()
+    from brush_tpu_torch.datasets.ply import load_splats_from_ply
+
+    with open(os.path.join(ROOT, "docs", "castle_r5_30k.ply"), "rb") as f:
+        step = cli_steps(load_splats_from_ply(f.read(), device="cuda"))
+    columns["castle step"] = stage_medians(step, 8, 12)
+    print_columns(columns)
+    profile(step, 5, "castle step",
+            os.path.join(out, "torch_castle_profile.txt"))
     return 0
+
+
+def cli_steps(splats=None):
+    """A step function of the cli phase's training run (see the module's
+    docstring), or of `splats` on its views: each call one SplatTrainer
+    step on the next view."""
+    from brush_tpu_torch.datasets import testing
+    from brush_tpu_torch.datasets.nerf import camera_from_transform
+    from brush_tpu_torch.datasets.scene import Scene, SceneView
+
+    size = 800
+    cams = [camera_from_transform(c, testing.CASTLE_FOV_X, size, size)
+            for c in testing.orbit_views(100, seed=1)]
+    scene = Scene([SceneView(f"r_{i}", c, None) for i, c in enumerate(cams)])
+    _, extent = scene.bounds(0.0, 0.0)
+    ext = float(np.linalg.norm(extent))
+    c2, e2 = scene.bounds(ext * 0.25, ext)
+    if splats is None:
+        splats = from_random(np.random.default_rng(42), c2 - e2, c2 + e2,
+                             count=10000, sh_degree=3, device="cuda")
+    gts = [np.random.default_rng(i).random((size, size, 4), np.float32)
+           for i in range(8)]
+    trainer = SplatTrainer(raster_block_size=512)
+    box = [trainer.init_state(splats), 0]
+
+    def step():
+        i = box[1] % len(gts)
+        box[0], _ = trainer.step(box[0], SceneBatch(gts[i], cams[i],
+                                                    scene.extent_max()))
+        box[1] += 1
+    return step
 
 
 def print_columns(columns: dict):
