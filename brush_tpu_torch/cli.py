@@ -10,10 +10,12 @@ brush_tpu/cli.py). Usage:
 
 The flags and defaults are the JAX CLI's; its global `--platform` is
 `--device` here (default cuda; without a card that raises, and
-`--device cpu` runs the plain versions of the kernels). What waits for
-modules not ported yet raises NotImplementedError naming its ROADMAP.md
-item: `--cell` other than 1x1 (Queue 1 #12), `--shard` (#11), `--rerun`
-and the `view` subcommand (#10).
+`--device cpu` runs the plain versions of the kernels). `train --cell
+GWxGH` rasterizes in raster cells of GW x GH tiles, in training and in
+its evals. What waits for modules not ported yet raises
+NotImplementedError naming its ROADMAP.md item by title: `--shard`
+("parallel/"), `--rerun` ("utils/rerun_viz.py") and the `view`
+subcommand ("viewer/").
 """
 
 from __future__ import annotations
@@ -27,15 +29,14 @@ import numpy as np
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported to brush_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"{item})")
+        f"{what} is not ported to brush_tpu_torch yet (ROADMAP.md Queue 1, "
+        f"the item {item!r})")
 
 
-def _check_cell(spec: str) -> None:
-    """Only the 1x1 raster cell is ported; '2x2' and the like raise."""
+def _parse_cell(spec: str) -> tuple:
+    """'2x2' -> (2, 2); raster-cell grouping spec (see render_splats)."""
     gw, gh = (int(v) for v in spec.lower().split("x"))
-    if (gw, gh) != (1, 1):
-        _not_ported(f"--cell {spec}", "#12")
+    return (gw, gh)
 
 
 def _add_dataset_args(p):
@@ -79,11 +80,10 @@ def cmd_train(args):
     )
     from brush_tpu_torch.utils.metrics import MetricsLogger
 
-    _check_cell(args.cell)
     if args.shard:
-        _not_ported("--shard (training sharded over devices)", "#11")
+        _not_ported("--shard (training sharded over devices)", "parallel/")
     if args.rerun:
-        _not_ported("--rerun (utils/rerun_viz.py)", "#10")
+        _not_ported("--rerun", "utils/rerun_viz.py")
     dev = args.device
     ds = _load(args)
     config = TrainConfig(
@@ -110,6 +110,7 @@ def cmd_train(args):
         print(f"point-cloud init: {splats.n_live} splats")
 
     trainer = SplatTrainer(config, raster_block_size=args.block_size,
+                           raster_cell=_parse_cell(args.cell),
                            pack_grad_sort=args.pack_grad_sort)
     state = trainer.init_state(splats)
     start_step = 0
@@ -159,7 +160,8 @@ def cmd_train(args):
                 k = args.eval_views if args.eval_views > 0 else None
                 views = [(v.camera, v.image) for v in ds.eval.views[:k]]
                 evals = eval_stats(state.splats, views,
-                                   block_size=args.block_size)
+                                   block_size=args.block_size,
+                                   cell=trainer.raster_cell)
                 psnr = float(np.mean([e.psnr for e in evals]))
                 ssim = float(np.mean([e.ssim for e in evals]))
                 metrics.log(step, eval_psnr=psnr, eval_ssim=ssim)
@@ -176,7 +178,8 @@ def cmd_train(args):
 
     if ds.eval:
         views = [(v.camera, v.image) for v in ds.eval.views]
-        evals = eval_stats(state.splats, views, block_size=args.block_size)
+        evals = eval_stats(state.splats, views, block_size=args.block_size,
+                           cell=trainer.raster_cell)
         print(f"final eval: PSNR {np.mean([e.psnr for e in evals]):.3f} "
               f"SSIM {np.mean([e.ssim for e in evals]):.4f}")
 
@@ -290,7 +293,7 @@ def cmd_train2d(args):
     from brush_tpu_torch.train import SceneBatch, SplatTrainer
 
     if args.shard:
-        _not_ported("--shard (training sharded over devices)", "#11")
+        _not_ported("--shard (training sharded over devices)", "parallel/")
     with open(args.image, "rb") as f:
         target = train2d_target(f.read(), args.size)
     h, w = target.shape[:2]
@@ -340,7 +343,7 @@ def cmd_train2d(args):
 
 
 def cmd_view(args):
-    _not_ported("the view subcommand (viewer/server.py)", "#10")
+    _not_ported("the view subcommand (and its --cell)", "viewer/")
 
 
 def main(argv=None):
@@ -357,7 +360,8 @@ def main(argv=None):
     t.add_argument("--init-count", type=int, default=10000)
     t.add_argument("--block-size", type=int, default=512)
     t.add_argument("--cell", default="1x1",
-                   help="raster-cell grouping GWxGH; only 1x1 is ported")
+                   help="raster-cell grouping GWxGH, e.g. 2x2: one record "
+                        "per splat per cell of tiles")
     t.add_argument("--densify-grad-thresh", type=float, default=2e-4)
     t.add_argument("--refine-every", type=int, default=100)
     t.add_argument("--faithful-reference-refine", action="store_true",

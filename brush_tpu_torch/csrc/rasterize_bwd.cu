@@ -6,9 +6,10 @@
 // batches and sums each record's terms over the tile's pixels as moment
 // matmuls on the MXU (v_sigma against [1, px, py, px^2, py^2, px py]).
 //
-// What it computes, per 16x16 tile t and pixel i (centre
-// (tx*16 + i%16 + 0.5, ty*16 + i/16 + 0.5)), sweeping the tile's records
-// back to front from min(end, max_i final_idx + 1) - 1 down to start, with
+// What it computes, per raster cell c of cell_w x cell_h tiles (a tile at
+// cell (1, 1)) and pixel i of its P = 256 cell_w cell_h, row-major over the
+// cell as in rasterize_fwd.cu, sweeping the cell's records back to front
+// from min(end, max_i final_idx + 1) - 1 down to start, with
 // T = t_final = exp(log_t) (the forward's log T) and s_behind = 0:
 //   sigma, vis = exp(-max(sigma, 0)), alpha = min(ALPHA_MAX, o vis), as in
 //   the forward; the record is active iff j <= final_idx, sigma >= 0 and
@@ -22,7 +23,7 @@
 // running product: one reciprocal in place of a log1p and an exp, and
 // rounding of the same order.) The ALPHA_MAX clamp is ignored in the sigma
 // and opacity terms, as in the TPU kernel (rasterize_bwd.py:228-304). Each
-// term is summed over the tile's 256 pixels and written to
+// term is summed over the cell's P pixels and written to
 // grads[row * pool + j]; slots no sweep reaches keep the zeros the wrapper
 // allocated.
 //
@@ -85,6 +86,24 @@
 //     light ones fill in as SMs come free. 192 records a batch make a block
 //     42 KB of shared memory, five blocks an SM, which measured best:
 //     fewer resident blocks leave more tiles to be handed out late.
+//   - Raster cells (the TPU kernel's cell=(gw, gh) mode, rasterize_bwd.py
+//     :76,449). A record's row is a sum over all P pixels of its cell, so
+//     one block owns a cell: splitting a cell over blocks that met in float
+//     atomics would make two launches differ. The block sweeps each batch
+//     of records once for each 16x16 tile of the cell, in a fixed order;
+//     a warp's sums for a record add up over the tiles in its shared
+//     buffer (the first tile stores, the later ones add), and the flush
+//     adds the warps in warp order as before. A pixel's transmittance and
+//     colour behind carry from one batch to the next; with several tiles a
+//     cell they wait in a global scratch buffer (2 floats a pixel, written
+//     and read by the thread that owns the pixel) between a tile's sweeps,
+//     and its inputs (v_out, log T, final_idx) are read again for each
+//     sweep. The block shape stays fixed, so any cell size runs (kPix is 2,
+//     4 or 8 and cannot carry a cell's pixels). At cell (1, 1) the state
+//     stays in registers and every sum is the tile kernel's, bit for bit.
+//     The TPU kernel's cell knobs (k_lanes VMEM budget, tiles_per_step
+//     shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM limits and have
+//     no counterpart here.
 // No atomics on floats: each record belongs to one tile and every sum has
 // a fixed order, so two launches are bit-equal (the tile order's integer
 // atomics move no result). Sigma and the colour decode use the forward's
@@ -181,49 +200,48 @@ __global__ void __launch_bounds__(kThreads)
 rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
-                     const int* __restrict__ ends, int tiles_x,
+                     const int* __restrict__ ends, int num_cells,
+                     int cells_x, int cell_w, int cell_h,
                      const float* __restrict__ v_out,
                      const float* __restrict__ log_t_in,
                      const int* __restrict__ fidx_in,
-                     float* __restrict__ grads) {
+                     float* __restrict__ grads,
+                     float* __restrict__ state) {
   __shared__ int s_raw[kRawRows][kBatch];
   __shared__ __align__(16) float s_rec[kBatch][kRecFloats];
   __shared__ __align__(16) float s_part[kWarps][kBatch * kRows];
   __shared__ int s_max[kWarps];
 
-  const int t = order[blockIdx.x];
+  const int t = order[blockIdx.x];  // the cell
   const int tid = threadIdx.x;
   const unsigned lane = tid & 31;
   const int warp = tid >> 5;
   const size_t P = static_cast<size_t>(pool);
   const int start = starts[t];
   const int end = ends[t];
+  const int tiles_a_cell = cell_w * cell_h;
+  const int cell_px = kTile * cell_w;  // pixels a cell row
+  const size_t cell_base = static_cast<size_t>(t) * kPixels * tiles_a_cell;
+  // Pixels of all cells, the stride between the scratch's two rows.
+  const size_t all_px = static_cast<size_t>(num_cells) * kPixels * tiles_a_cell;
 
-  // Pixel q of this thread: sub-patch warp * kPix + q (8 wide, 4 high, two
-  // to a row of sub-patches), position (lane % 8, lane / 8) inside it.
+  // Pixel q of this thread in tile `sub` of the cell: sub-patch
+  // warp * kPix + q (8 wide, 4 high, two to a row of sub-patches),
+  // position (lane % 8, lane / 8) inside it; lx, ly from the tile's corner.
   const int lx = lane & 7;
   const int ly = (lane >> 3) + warp * (kPix / 2) * 4;
-  const float px0 =
-      static_cast<float>((t % tiles_x) * kTile + lx) + 0.5f;
-  const float py0 =
-      static_cast<float>((t / tiles_x) * kTile + ly) + 0.5f;
-  int fidx[kPix];
-  float vr[kPix], vg[kPix], vb[kPix], tfva[kPix], t_cur[kPix], s_behind[kPix];
+  auto pixel_index = [&](int sub, int q) {
+    const int x = (sub % cell_w) * kTile + lx + (q & 1) * 8;
+    const int y = (sub / cell_w) * kTile + ly + (q >> 1) * 4;
+    return cell_base + static_cast<size_t>(y) * cell_px + x;
+  };
+
+  // The last record any pixel of the cell composited.
   int wmax = -1;
+  for (int sub = 0; sub < tiles_a_cell; ++sub) {
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
-    const int pix = (ly + (q >> 1) * 4) * kTile + lx + (q & 1) * 8;
-    const size_t p = static_cast<size_t>(t) * kPixels + pix;
-    fidx[q] = fidx_in[p];
-    vr[q] = v_out[p * 4 + 0];
-    vg[q] = v_out[p * 4 + 1];
-    vb[q] = v_out[p * 4 + 2];
-    t_cur[q] = expf(log_t_in[p]);  // T behind the record being swept
-    tfva[q] = t_cur[q] * v_out[p * 4 + 3];
-    s_behind[q] = 0.0f;
-    wmax = max(wmax, fidx[q]);
+    for (int q = 0; q < kPix; ++q) wmax = max(wmax, fidx_in[pixel_index(sub, q)]);
   }
-  // The last record any pixel of the warp, then of the tile, composited.
   wmax = __reduce_max_sync(kFull, wmax);
   if (lane == 0) s_max[warp] = wmax;
   __syncthreads();
@@ -231,7 +249,44 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) tmax = max(tmax, s_max[w]);
   const int last = min(end, tmax + 1);
-  if (last <= start) return;  // uniform: empty tile or nothing composited
+  if (last <= start) return;  // uniform: empty cell or nothing composited
+
+  float px0 = 0.0f, py0 = 0.0f;
+  int fidx[kPix];
+  float vr[kPix], vg[kPix], vb[kPix], tfva[kPix], t_cur[kPix], s_behind[kPix];
+  // This thread's pixels of tile `sub`, and the last record any pixel of
+  // the warp composited there; `first`: T and the colour behind start
+  // (else they come from the scratch).
+  auto load_pixels = [&](int sub, bool first) {
+    px0 = static_cast<float>((t % cells_x) * cell_px + (sub % cell_w) * kTile +
+                             lx) + 0.5f;
+    py0 = static_cast<float>((t / cells_x) * kTile * cell_h +
+                             (sub / cell_w) * kTile + ly) + 0.5f;
+    wmax = -1;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      const size_t p = pixel_index(sub, q);
+      fidx[q] = fidx_in[p];
+      vr[q] = v_out[p * 4 + 0];
+      vg[q] = v_out[p * 4 + 1];
+      vb[q] = v_out[p * 4 + 2];
+      const float t_final = expf(log_t_in[p]);
+      tfva[q] = t_final * v_out[p * 4 + 3];
+      t_cur[q] = first ? t_final : state[p];  // T behind the record swept
+      s_behind[q] = first ? 0.0f : state[all_px + p];
+      wmax = max(wmax, fidx[q]);
+    }
+    wmax = __reduce_max_sync(kFull, wmax);
+  };
+  auto save_pixels = [&](int sub) {
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      const size_t p = pixel_index(sub, q);
+      state[p] = t_cur[q];
+      state[all_px + p] = s_behind[q];
+    }
+  };
+  if (tiles_a_cell == 1) load_pixels(0, true);  // kept in registers
 
   // Lane 4r ends a folded sum holding row r (r < 8); lane 1 stores row 8.
   const int my_row = (lane & 3) == 0 ? lane >> 2 : (lane == 1 ? 8 : -1);
@@ -281,84 +336,92 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
       stage(n_start, b_start - n_start);
     }
 
-    // The sweep, kUnroll records at a time. First every (record, pixel)
-    // pair's sigma and its test, independent of one another; then, record
-    // by record back to front, the pairs that passed.
-    for (int k0 = count - 1; k0 >= 0; k0 -= kUnroll) {
-      float sigma[kUnroll][kPix];
-      unsigned mine = 0;  // bit u * kPix + q: pair (record k0 - u, pixel q)
-      if (b_start + k0 - (kUnroll - 1) <= wmax) {  // warp-uniform
+    for (int sub = 0; sub < tiles_a_cell; ++sub) {
+      if (tiles_a_cell > 1) load_pixels(sub, b_end == last);
+      // The sweep, kUnroll records at a time. First every (record, pixel)
+      // pair's sigma and its test, independent of one another; then,
+      // record by record back to front, the pairs that passed.
+      for (int k0 = count - 1; k0 >= 0; k0 -= kUnroll) {
+        float sigma[kUnroll][kPix];
+        unsigned mine = 0;  // bit u * kPix + q: pair (record k0 - u, pixel q)
+        if (b_start + k0 - (kUnroll - 1) <= wmax) {  // warp-uniform
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float4* rec =
+                reinterpret_cast<const float4*>(s_rec[max(k0 - u, 0)]);
+            const float4 ra4 = rec[0];
+            const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
+            const float cyy = s_rec[max(k0 - u, 0)][4];
+            const float sigma_max = s_rec[max(k0 - u, 0)][5];
+            const int j = b_start + k0 - u;
+#pragma unroll
+            for (int q = 0; q < kPix; ++q) {
+              const float dx = __fsub_rn(x, pixel_x(px0, q));
+              const float dy = __fsub_rn(y, pixel_y(py0, q));
+              const float quad = __fadd_rn(__fmul_rn(__fmul_rn(cxx, dx), dx),
+                                           __fmul_rn(__fmul_rn(cyy, dy), dy));
+              sigma[u][q] = __fadd_rn(__fmul_rn(0.5f, quad),
+                                      __fmul_rn(__fmul_rn(cxy, dx), dy));
+              const bool maybe = k0 - u >= 0 && j <= fidx[q] &&
+                                 sigma[u][q] >= 0.0f &&
+                                 sigma[u][q] <= sigma_max;
+              mine |= static_cast<unsigned>(maybe) << (u * kPix + q);
+            }
+          }
+        }
+        const unsigned warps = __reduce_or_sync(kFull, mine);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const float4* rec =
-              reinterpret_cast<const float4*>(s_rec[max(k0 - u, 0)]);
-          const float4 ra4 = rec[0];
-          const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
-          const float cyy = s_rec[max(k0 - u, 0)][4];
-          const float sigma_max = s_rec[max(k0 - u, 0)][5];
-          const int j = b_start + k0 - u;
+          const int k = k0 - u;
+          if (k < 0) break;
+          if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
+            const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
+            const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
+            const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
+            const float cyy = rb4.x, o = rb4.z;
+            const float cr = rb4.w, cg = rc4.x, cb = rc4.y;
+            float g[kRows];
 #pragma unroll
-          for (int q = 0; q < kPix; ++q) {
-            const float dx = __fsub_rn(x, pixel_x(px0, q));
-            const float dy = __fsub_rn(y, pixel_y(py0, q));
-            const float quad = __fadd_rn(__fmul_rn(__fmul_rn(cxx, dx), dx),
-                                         __fmul_rn(__fmul_rn(cyy, dy), dy));
-            sigma[u][q] = __fadd_rn(__fmul_rn(0.5f, quad),
-                                    __fmul_rn(__fmul_rn(cxy, dx), dy));
-            const bool maybe = k0 - u >= 0 && j <= fidx[q] &&
-                               sigma[u][q] >= 0.0f &&
-                               sigma[u][q] <= sigma_max;
-            mine |= static_cast<unsigned>(maybe) << (u * kPix + q);
+            for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
+#pragma unroll
+            for (int q = 0; q < kPix; ++q) {
+              if (!((mine >> (u * kPix + q)) & 1u)) continue;
+              const float vis = expf(-sigma[u][q]);
+              const float alpha = fminf(kAlphaMax, __fmul_rn(o, vis));
+              if (alpha < kAlphaEps) continue;
+              const float dx = __fsub_rn(x, pixel_x(px0, q));
+              const float dy = __fsub_rn(y, pixel_y(py0, q));
+              const float ra = __fdividef(1.0f, 1.0f - alpha);
+              const float t_before = t_cur[q] * ra;
+              const float fac = alpha * t_before;
+              const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
+              const float v_alpha =
+                  cw * t_before + ra * (tfva[q] - s_behind[q]);
+              s_behind[q] += cw * fac;
+              t_cur[q] = t_before;
+              const float vs = -o * vis * v_alpha;
+              const float vx = vs * dx, vy = vs * dy;
+              g[0] += cxx * vx + cxy * vy;
+              g[1] += cxy * vx + cyy * vy;
+              g[2] += 0.5f * vx * dx;
+              g[3] += vx * dy;
+              g[4] += 0.5f * vy * dy;
+              g[5] += fac * vr[q];
+              g[6] += fac * vg[q];
+              g[7] += fac * vb[q];
+              g[8] += vis * v_alpha;
+            }
+            float m8;
+            const float m = folded_sum(g, lane, &m8);
+            if (my_row >= 0) {
+              const float v = lane == 1 ? m8 : m;
+              float& slot = part[k * kRows + my_row];
+              slot = sub == 0 ? v : slot + v;  // the tiles in a fixed order
+            }
           }
         }
       }
-      const unsigned warps = __reduce_or_sync(kFull, mine);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int k = k0 - u;
-        if (k < 0) break;
-        if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
-          const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
-          const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
-          const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
-          const float cyy = rb4.x, o = rb4.z;
-          const float cr = rb4.w, cg = rc4.x, cb = rc4.y;
-          float g[kRows];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
-#pragma unroll
-          for (int q = 0; q < kPix; ++q) {
-            if (!((mine >> (u * kPix + q)) & 1u)) continue;
-            const float vis = expf(-sigma[u][q]);
-            const float alpha = fminf(kAlphaMax, __fmul_rn(o, vis));
-            if (alpha < kAlphaEps) continue;
-            const float dx = __fsub_rn(x, pixel_x(px0, q));
-            const float dy = __fsub_rn(y, pixel_y(py0, q));
-            const float ra = __fdividef(1.0f, 1.0f - alpha);
-            const float t_before = t_cur[q] * ra;
-            const float fac = alpha * t_before;
-            const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
-            const float v_alpha =
-                cw * t_before + ra * (tfva[q] - s_behind[q]);
-            s_behind[q] += cw * fac;
-            t_cur[q] = t_before;
-            const float vs = -o * vis * v_alpha;
-            const float vx = vs * dx, vy = vs * dy;
-            g[0] += cxx * vx + cxy * vy;
-            g[1] += cxy * vx + cyy * vy;
-            g[2] += 0.5f * vx * dx;
-            g[3] += vx * dy;
-            g[4] += 0.5f * vy * dy;
-            g[5] += fac * vr[q];
-            g[6] += fac * vg[q];
-            g[7] += fac * vb[q];
-            g[8] += vis * v_alpha;
-          }
-          float m8;
-          const float m = folded_sum(g, lane, &m8);
-          if (my_row >= 0) part[k * kRows + my_row] = lane == 1 ? m8 : m;
-        }
-      }
+      if (tiles_a_cell > 1 && b_start > start) save_pixels(sub);
     }
     __syncthreads();
     // Add the warps' partials of every (row, record) in warp order.
@@ -375,17 +438,23 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
 
 }  // namespace
 
+// num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
+// tiles. order: num_cells ints of scratch; state: with several tiles a
+// cell, 2 floats of scratch a pixel of the image (unread at (1, 1)).
 extern "C" int rasterize_bwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
-                                    int num_tiles, int tiles_x,
-                                    const float* v_out, const float* log_t,
-                                    const int* fidx, float* grads,
-                                    int* order, void* stream) {
-  if (num_tiles <= 0) return 0;
+                                    int num_cells, int cells_x, int cell_w,
+                                    int cell_h, const float* v_out,
+                                    const float* log_t, const int* fidx,
+                                    float* grads, int* order, float* state,
+                                    void* stream) {
+  if (num_cells <= 0) return 0;
+  if (cell_w < 1 || cell_h < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_tiles,
+  tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  rasterize_bwd_kernel<<<num_tiles, kThreads, 0, s>>>(
-      packed, pool, order, starts, ends, tiles_x, v_out, log_t, fidx, grads);
+  rasterize_bwd_kernel<<<num_cells, kThreads, 0, s>>>(
+      packed, pool, order, starts, ends, num_cells, cells_x, cell_w, cell_h,
+      v_out, log_t, fidx, grads, state);
   return static_cast<int>(cudaGetLastError());
 }

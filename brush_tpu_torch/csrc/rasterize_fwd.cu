@@ -5,9 +5,11 @@
 // sigma as a rank-6 polynomial on the MXU and the transmittance as an MXU
 // prefix scan over 512-record batches.
 //
-// What it computes, per 16x16 tile t and pixel i (centre
-// (tx*16 + i%16 + 0.5, ty*16 + i/16 + 0.5)), over the tile's records
-// [starts[t], ends[t]) in depth order:
+// What it computes, per raster cell c of cell_w x cell_h tiles (a tile at
+// cell (1, 1)) and pixel i of its P = 256 cell_w cell_h, row-major over the
+// whole cell (centre (cx*16 cell_w + i % (16 cell_w) + 0.5,
+// cy*16 cell_h + i / (16 cell_w) + 0.5)), over the cell's records
+// [starts[c], ends[c]) in depth order:
 //   sigma = 0.5 (cxx dx^2 + cyy dy^2) + cxy dx dy,  d = record xy - pixel
 //   alpha = min(ALPHA_MAX, o exp(-max(sigma, 0)))
 //   the record counts if sigma >= 0 and alpha >= ALPHA_EPS; then
@@ -15,8 +17,8 @@
 //   (the crossing record is not composited, the reference's sticky
 //   `done`); else rgb += alpha T c, T = T_after, final_idx = the record's
 //   pool index.
-// Outputs: img (T, 256, 4) = (rgb, 1 - T), log_t (T, 256) = log T,
-// final_idx (T, 256) (-1 where nothing contributed).
+// Outputs: img (C, P, 4) = (rgb, 1 - T), log_t (C, P) = log T,
+// final_idx (C, P) (-1 where nothing contributed).
 // (The reference and the PyTorch version carry log T, as a sum of
 // log1p(-alpha), and take exp(log T) for every record that contributes.
 // The running product is the same quantity with one rounding a record in
@@ -86,6 +88,19 @@
 //   - Heavy tiles first (4). Block b takes tile order[b] (tile_order.cuh).
 //     (Dealing the head of the order to the SMs by %smid evened the
 //     records an SM to within 4 % and gained under 2 %: left out.)
+//   - Raster cells (the TPU kernel's cell=(gw, gh) mode, rasterize_fwd.py
+//     :201-240): one block a 16x16 tile of a cell, cell_w cell_h blocks a
+//     cell, each sweeping the whole cell's record range for its own 256
+//     pixels. Pixels are independent in the forward, so the body is the
+//     tile body with the pixel origin moved to the tile's place in its cell
+//     and the output index counted row-major over the cell; block b takes
+//     cell order[b / (cell_w cell_h)] (heavy cells first) and its tile
+//     b % (cell_w cell_h). Any cell size runs: the block shape does not
+//     change with it. At cell (1, 1) every pixel's arithmetic and output
+//     index are those of the tile kernel, bit for bit. The TPU kernel's
+//     knobs that the cell changes (its k_lanes VMEM budget and the
+//     tiles_per_step shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM
+//     limits and have no counterpart here.
 //   - Asynchronous staging (5). The next batch's seven packed rows arrive
 //     by cp.async while this batch is swept; decode happens on arrival.
 //     384 records a batch (29 KB) measured 2 % faster than 192.
@@ -147,17 +162,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// kCells: cells of several tiles (cell_w cell_h > 1); false compiles the
+// tile kernel, without the division that maps a block to its cell.
+template <bool kCells>
 __global__ void __launch_bounds__(kThreads)
 rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
-                     const int* __restrict__ ends, int tiles_x,
-                     float* __restrict__ img, float* __restrict__ log_t_out,
+                     const int* __restrict__ ends, int cells_x, int cell_w,
+                     int cell_h, float* __restrict__ img,
+                     float* __restrict__ log_t_out,
                      int* __restrict__ fidx_out) {
   __shared__ int s_raw[kRawRows][kBatch];
   __shared__ __align__(16) float s_rec[kBatch][kRecFloats];
 
-  const int t = order[blockIdx.x];
+  const int tiles_a_cell = kCells ? cell_w * cell_h : 1;
+  const int t = order[kCells ? blockIdx.x / tiles_a_cell : blockIdx.x];
+  const int sub = kCells ? blockIdx.x % tiles_a_cell : 0;  // tile in cell
+  if (!kCells) cell_w = cell_h = 1;
+  const int cell_px = kTile * cell_w;  // pixels a cell row
   const int tid = threadIdx.x;
   const unsigned lane = tid & 31;
   const int warp = tid >> 5;
@@ -166,11 +189,13 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
   const int end = ends[t];
 
   // This thread's pixel: warp w covers the 8 wide, 4 high patch w of the
-  // tile (two patches to a row), the lane is (lane % 8, lane / 8) inside.
-  const int lx = (lane & 7) + (warp & 1) * 8;
-  const int ly = (lane >> 3) + (warp >> 1) * 4;
-  const float px = static_cast<float>((t % tiles_x) * kTile + lx) + 0.5f;
-  const float py = static_cast<float>((t / tiles_x) * kTile + ly) + 0.5f;
+  // tile (two patches to a row), the lane is (lane % 8, lane / 8) inside;
+  // (lx, ly) counts from the cell's corner.
+  const int lx = (lane & 7) + (warp & 1) * 8 + (sub % cell_w) * kTile;
+  const int ly = (lane >> 3) + (warp >> 1) * 4 + (sub / cell_w) * kTile;
+  const float px = static_cast<float>((t % cells_x) * cell_px + lx) + 0.5f;
+  const float py =
+      static_cast<float>((t / cells_x) * kTile * cell_h + ly) + 0.5f;
 
   float t_cur = 1.0f;  // T so far
   float r = 0.0f, g = 0.0f, b = 0.0f;
@@ -279,7 +304,8 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
     }
   }
 
-  const size_t p = static_cast<size_t>(t) * kPixels + ly * kTile + lx;
+  const size_t p = static_cast<size_t>(t) * kPixels * tiles_a_cell +
+                   static_cast<size_t>(ly) * cell_px + lx;
   reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - t_cur);
   log_t_out[p] = logf(t_cur);
   fidx_out[p] = fidx;
@@ -287,16 +313,28 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 
 }  // namespace
 
+// num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
+// tiles. order: num_cells ints of scratch.
 extern "C" int rasterize_fwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
-                                    int num_tiles, int tiles_x, float* img,
-                                    float* log_t, int* fidx, int* order,
-                                    void* stream) {
-  if (num_tiles <= 0) return 0;
+                                    int num_cells, int cells_x, int cell_w,
+                                    int cell_h, float* img, float* log_t,
+                                    int* fidx, int* order, void* stream) {
+  if (num_cells <= 0) return 0;
+  if (cell_w < 1 || cell_h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(num_cells) * cell_w * cell_h;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_tiles,
+  tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  rasterize_fwd_kernel<<<num_tiles, kThreads, 0, s>>>(
-      packed, pool, order, starts, ends, tiles_x, img, log_t, fidx);
+  if (blocks == num_cells) {
+    rasterize_fwd_kernel<false><<<num_cells, kThreads, 0, s>>>(
+        packed, pool, order, starts, ends, cells_x, 1, 1, img, log_t, fidx);
+  } else {
+    rasterize_fwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 s>>>(packed, pool, order, starts, ends,
+                                      cells_x, cell_w, cell_h, img, log_t,
+                                      fidx);
+  }
   return static_cast<int>(cudaGetLastError());
 }

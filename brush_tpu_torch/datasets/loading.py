@@ -11,13 +11,17 @@ Image decoding runs on a thread pool (reference decodes views on parallel
 threads, lib.rs:99-124). 8-bit PNGs decode with the port's own codec
 (datasets/png.py), so a host without Pillow reads NeRF-synthetic scenes;
 every other image, and every image that `max_resolution` resizes, goes to
-Pillow, as in the reference. Which decoder runs is set by the file's
-header and the arguments, never by a retry after a failure.
+Pillow, as in the reference. Where the native library cannot be built
+(no g++) but Pillow imports, 8-bit PNGs go to Pillow too: its C decoder
+beats the codec's numpy unfilter ~100x (`png_route`). Which decoder runs
+is set by what is installed, the file's header and the arguments, never
+by a retry after a failure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import os
 import posixpath
@@ -26,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from brush_tpu_torch import native
 from brush_tpu_torch.camera import (
     Camera, focal_to_fov, quat_to_rotmat, rotmat_to_quat,
 )
@@ -107,14 +112,33 @@ def _image_format(img_bytes: bytes, header) -> str:
     return f"unknown (first bytes {img_bytes[:8]!r})"
 
 
+@functools.cache
+def png_route() -> str:
+    """Who decodes an 8-bit PNG that needs no resize, chosen once a process
+    by what is installed: "native" (png.decode_png, the rows unfiltered by
+    the native library) where it builds; else "pillow" where Pillow
+    imports; else "numpy" (png.decode_png with its numpy unfilter). The
+    three give the same bytes; "numpy" is the slow one (101.68 s for 116
+    adaptively filtered 800x800 views in 8 threads, where the other two
+    take about a second)."""
+    if native.available():
+        return "native"
+    try:
+        from PIL import Image  # noqa: F401
+    except ImportError:
+        return "numpy"
+    return "pillow"
+
+
 def _decode_image(img_bytes: bytes, max_resolution: int | None) -> np.ndarray:
     """(H, W, 3|4) float32 in [0, 1], RGBA iff the image has alpha.
 
     An 8-bit PNG that needs no resize is read by png.decode_png, whose
-    arrays are byte-equal to Pillow's; the rest is read by Pillow as in
-    the reference (brush_tpu/datasets/loading.py:89-95)."""
+    arrays are byte-equal to Pillow's, unless png_route() is "pillow"; the
+    rest is read by Pillow as in the reference
+    (brush_tpu/datasets/loading.py:89-95)."""
     header = png.read_header(img_bytes)
-    if png.decodable(header) and (
+    if png.decodable(header) and png_route() != "pillow" and (
             max_resolution is None
             or max(header.width, header.height) <= max_resolution):
         return png.decode_png(img_bytes).astype(np.float32) / 255.0

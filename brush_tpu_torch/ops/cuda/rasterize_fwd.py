@@ -1,10 +1,13 @@
 """Forward tile rasterizer over the packed record pool, and the pool layout.
 
 Replaces brush_tpu/ops/pallas/rasterize_fwd.py (rasterize_fwd_pallas,
-:500). The CUDA kernel is brush_tpu_torch/csrc/rasterize_fwd.cu (one block
-per tile, heavy tiles first, one pixel a thread, eight records a step
-behind a sigma pretest, T as a running product, records staged by
-cp.async; its header gives the design and the bound).
+:500), its tile mode and its raster-cell mode (cell=(gw, gh): records per
+(splat, cell of gw x gh tiles), P = 256 gw gh pixels a cell, row-major
+over the cell). The CUDA kernel is brush_tpu_torch/csrc/rasterize_fwd.cu
+(one block per 16x16 tile of a cell, heavy cells first, one pixel a
+thread, eight records a step behind a sigma pretest, T as a running
+product, records staged by cp.async; its header gives the design and the
+bound).
 `rasterize_fwd_plain` below is the same function in PyTorch: CPU tensors
 take it, and tests and chip_smoke.py hold the kernel to it.
 
@@ -92,41 +95,56 @@ def unpack_record_rows(blk: torch.Tensor):
             decode_color(c1 & 0xFFFF), decode_opac(c1 >> 16))
 
 
-def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
+def cell_pixels(cell) -> int:
+    """P, the pixels of a raster cell of gw x gh tiles."""
+    return TILE_SIZE * int(cell[0]) * int(cell[1])
+
+
+def cell_lanes(cells_x: int, cell, c: int, device):
+    """The pixel centres (P, 2) of cell c, row-major over the whole cell:
+    pixel k lies at (k % (16 gw), k // (16 gw)) from the cell's corner
+    ((c % cells_x) 16 gw, (c // cells_x) 16 gh), as in the TPU kernel
+    (rasterize_fwd.py:215-240). At cell (1, 1) a cell is a tile."""
+    gw, gh = int(cell[0]), int(cell[1])
+    cw, ch = TILE_WIDTH * gw, TILE_WIDTH * gh
+    lane = torch.arange(cell_pixels(cell), device=device)
+    return torch.stack([
+        ((c % cells_x) * cw + lane % cw).to(torch.float32) + 0.5,
+        ((c // cells_x) * ch + lane // cw).to(torch.float32) + 0.5,
+    ], dim=1)
+
+
+def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
                         count_pairs: bool = False):
-    """PyTorch version of csrc/rasterize_fwd.cu: one tile at a time, each
-    tile's records in chunks of (256 pixels x PLAIN_CHUNK) block math — the
+    """PyTorch version of csrc/rasterize_fwd.cu: one cell at a time, each
+    cell's records in chunks of (P pixels x PLAIN_CHUNK) block math — the
     transmittance is exp of a cumsum of log1p(-alpha), and the early-out
     stays set once crossed, so the result is the kernel's sequential loop
     up to float32 summation order.
 
-    Returns (img (T, 256, 4), log_t (T, 256), final_idx (T, 256)); with
-    count_pairs also (pairs, active): the (pixel, record) pairs the
-    sequential loop evaluates (each live pixel's records up to its
-    crossing one), and those of them whose alpha reaches ALPHA_EPS.
+    cell=(gw, gh): starts/ends index raster cells of gw x gh tiles,
+    tiles_x is the number of cells a row, and a cell has P = 256 gw gh
+    pixels (cell_lanes gives their order). Returns (img (C, P, 4), log_t
+    (C, P), final_idx (C, P)); with count_pairs also (pairs, active): the
+    (pixel, record) pairs the sequential loop evaluates (each live pixel's
+    records up to its crossing one), and those of them whose alpha reaches
+    ALPHA_EPS.
     """
     dev = packed.device
-    n_tiles = starts.shape[0]
-    img = torch.zeros((n_tiles, TILE_SIZE, 4), dtype=torch.float32,
-                      device=dev)
-    log_t_out = torch.zeros((n_tiles, TILE_SIZE), dtype=torch.float32,
-                            device=dev)
-    fidx_out = torch.full((n_tiles, TILE_SIZE), -1, dtype=torch.int32,
-                          device=dev)
-    lane = torch.arange(TILE_SIZE, device=dev)
-    lx, ly = lane % TILE_WIDTH, lane // TILE_WIDTH
+    n_cells = starts.shape[0]
+    p = cell_pixels(cell)
+    img = torch.zeros((n_cells, p, 4), dtype=torch.float32, device=dev)
+    log_t_out = torch.zeros((n_cells, p), dtype=torch.float32, device=dev)
+    fidx_out = torch.full((n_cells, p), -1, dtype=torch.int32, device=dev)
     pairs = active = 0
     for t, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
         if e <= s:
             continue
-        pix = torch.stack([
-            ((t % tiles_x) * TILE_WIDTH + lx).to(torch.float32) + 0.5,
-            ((t // tiles_x) * TILE_WIDTH + ly).to(torch.float32) + 0.5,
-        ], dim=1)
-        log_t = torch.zeros(TILE_SIZE, dtype=torch.float32, device=dev)
-        rgb = torch.zeros((TILE_SIZE, 3), dtype=torch.float32, device=dev)
-        alive = torch.ones(TILE_SIZE, dtype=torch.bool, device=dev)
-        fidx = torch.full((TILE_SIZE,), -1, dtype=torch.int64, device=dev)
+        pix = cell_lanes(tiles_x, cell, t, dev)
+        log_t = torch.zeros(p, dtype=torch.float32, device=dev)
+        rgb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+        alive = torch.ones(p, dtype=torch.bool, device=dev)
+        fidx = torch.full((p,), -1, dtype=torch.int64, device=dev)
         for b in range(s, e, PLAIN_CHUNK):
             be = min(b + PLAIN_CHUNK, e)
             x, y, cxx, cxy, cyy, cr, cg, cb, o = unpack_record_rows(
@@ -160,6 +178,14 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int,
     return img, log_t_out, fidx_out
 
 
+def check_cell(cell) -> tuple:
+    """cell as a tuple of two positive ints; raises on anything else."""
+    gw, gh = (int(v) for v in cell)
+    if gw < 1 or gh < 1 or (gw, gh) != tuple(cell):
+        raise ValueError(f"cell must be two positive ints, got {cell!r}")
+    return gw, gh
+
+
 def _check_inputs(packed, starts, ends):
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] != PACK_ROWS:
@@ -167,7 +193,7 @@ def _check_inputs(packed, starts, ends):
                          f"{tuple(packed.shape)} {packed.dtype}")
     for name, t in (("starts", starts), ("ends", ends)):
         if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name} must be (T,) int32, got "
+            raise ValueError(f"{name} must be (C,) int32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if starts.shape != ends.shape:
         raise ValueError("starts and ends differ in shape")
@@ -176,34 +202,37 @@ def _check_inputs(packed, starts, ends):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def rasterize_fwd(packed, starts, ends, tiles_x: int):
+def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1)):
     """Rasterize on the inputs' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Tile t covers records
-    [starts[t], ends[t]) of `packed`. Returns (img, log_t, final_idx)."""
+    the plain version for CPU tensors. Cell c covers records
+    [starts[c], ends[c]) of `packed`; cell=(gw, gh) makes each a raster
+    cell of gw x gh tiles, tiles_x then counting cells (a cell of (1, 1) is
+    a tile). Returns (img (C, P, 4), log_t (C, P), final_idx (C, P)),
+    P = 256 gw gh."""
     _check_inputs(packed, starts, ends)
+    gw, gh = check_cell(cell)
     if packed.device.type == "cpu":
-        return rasterize_fwd_plain(packed, starts, ends, tiles_x)
+        return rasterize_fwd_plain(packed, starts, ends, tiles_x, (gw, gh))
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_fwd: unsupported device {packed.device}")
     global launches
     packed, starts, ends = (t.contiguous() for t in (packed, starts, ends))
-    n_tiles = starts.shape[0]
+    n_cells = starts.shape[0]
+    p = cell_pixels((gw, gh))
     dev = packed.device
-    img = torch.empty((n_tiles, TILE_SIZE, 4), dtype=torch.float32,
-                      device=dev)
-    log_t = torch.empty((n_tiles, TILE_SIZE), dtype=torch.float32,
-                        device=dev)
-    fidx = torch.empty((n_tiles, TILE_SIZE), dtype=torch.int32, device=dev)
-    # Scratch for the kernel's own tile order (heaviest tiles start first).
+    img = torch.empty((n_cells, p, 4), dtype=torch.float32, device=dev)
+    log_t = torch.empty((n_cells, p), dtype=torch.float32, device=dev)
+    fidx = torch.empty((n_cells, p), dtype=torch.int32, device=dev)
+    # Scratch for the kernel's own cell order (heaviest cells start first).
     order = torch.empty_like(starts)
     lib = build.load("rasterize_fwd")
     fn = lib.rasterize_fwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-                ends.data_ptr(), n_tiles, tiles_x, img.data_ptr(),
+                ends.data_ptr(), n_cells, tiles_x, gw, gh, img.data_ptr(),
                 log_t.data_ptr(), fidx.data_ptr(), order.data_ptr(), stream)
     build.check(rc, "rasterize_fwd")
     launches += 1

@@ -18,6 +18,15 @@ CPU tensors. Forward:
   6. searchsorted gives each tile's [start, end), and rasterize_fwd
      composites each tile.
 
+cell=(gw, gh) (raster_vjp.py:138-168) runs all of this in the cell
+domain: the decode rows come in cell units (render.pack_decode_rows),
+"tiles" are raster cells of gw x gh tiles, cells_x and num_cells replace
+tiles_x and num_tiles, there is one record per (splat, cell), and both
+rasterizers sweep the cell's P = 256 gw gh pixels. expand is cell-agnostic.
+cell (1, 1) is the tile pipeline. The TPU pipeline's cell-dependent knobs
+(the k_lanes VMEM budget, the tiles_per_step shrink) are Mosaic
+scoped-VMEM limits with no counterpart here.
+
 `infer_pipeline` runs this without gradients. `RecordPipeline` is the
 differentiable version; its backward
 (raster_vjp.py:336-424):
@@ -109,35 +118,37 @@ def tile_bins(keys, recs, num_tiles: int):
     return packed, bins[:-1].contiguous(), bins[1:].contiguous()
 
 
-def _forward(attrs9, decode, depth_key, tiles_x: int, num_tiles: int,
-             max_isects: int):
+def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
+             max_isects: int, cell=(1, 1)):
     """Stages 1-6 -> (DepthOrder, (packed, starts, ends), (img, log_t,
     final_idx))."""
-    if tiles_x > 1023 or num_tiles > tiles_x * 2047:
+    # The packed decode rows hold a 10-bit cell x and an 11-bit cell y
+    # (raster_vjp.py:146-153, in cell units).
+    if cells_x > 1023 or num_cells > cells_x * 2047:
         raise ValueError("image too large for the packed decode rows")
     d = depth_order(attrs9, decode, depth_key, max_isects)
     mark("depth_order")
-    keys, recs = expand(d.f5, d.u5, d.cum, d.total, tiles_x, num_tiles,
+    keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num_cells,
                         max_isects)
     mark("expand")
-    bins = tile_bins(keys, recs, num_tiles)
+    bins = tile_bins(keys, recs, num_cells)
     mark("tile_bins")
-    out = rasterize_fwd(*bins, tiles_x)
+    out = rasterize_fwd(*bins, cells_x, tuple(cell))
     mark("rasterize_fwd")
     return d, bins, out
 
 
-def infer_pipeline(attrs9, decode, depth_key, tiles_x: int, num_tiles: int,
-                   max_isects: int):
-    """The whole inference pipeline. Returns (img_tiles (T, 256, 4),
-    total, raw_total): total is the live records clamped to the pool,
-    raw_total the unclamped count (raw_total - total were dropped)."""
+def infer_pipeline(attrs9, decode, depth_key, cells_x: int, num_cells: int,
+                   max_isects: int, cell=(1, 1)):
+    """The whole inference pipeline. Returns (img_cells (C, P, 4), total,
+    raw_total): total is the live records clamped to the pool, raw_total
+    the unclamped count (raw_total - total were dropped)."""
     if attrs9.requires_grad:
         raise ValueError(
             "infer_pipeline is inference-only: an input requires grad; "
             "render with needs_grad=True (RecordPipeline) to differentiate")
-    d, _, (img, _, _) = _forward(attrs9, decode, depth_key, tiles_x,
-                                 num_tiles, max_isects)
+    d, _, (img, _, _) = _forward(attrs9, decode, depth_key, cells_x,
+                                 num_cells, max_isects, cell)
     return img, d.total[0], d.raw_total
 
 
@@ -182,19 +193,20 @@ class RecordPipeline(torch.autograd.Function):
     needs_grad=True). Differentiable in attrs9 only; decode and depth_key
     are integer bookkeeping.
 
-    apply(attrs9, decode, depth_key, tiles_x, num_tiles, max_isects,
-    pack_grad_sort) -> (img_tiles (T, 256, 4), order (n,) int64, total ()
-    int32, raw_total () int32).
+    apply(attrs9, decode, depth_key, cells_x, num_cells, max_isects,
+    pack_grad_sort, cell) -> (img_cells (C, P, 4), order (n,)
+    int64, total () int32, raw_total () int32).
     """
 
     @staticmethod
-    def forward(ctx, attrs9, decode, depth_key, tiles_x, num_tiles,
-                max_isects, pack_grad_sort):
+    def forward(ctx, attrs9, decode, depth_key, cells_x, num_cells,
+                max_isects, pack_grad_sort, cell=(1, 1)):
         d, (packed, starts, ends), (img, log_t, fidx) = _forward(
-            attrs9, decode, depth_key, tiles_x, num_tiles, max_isects)
+            attrs9, decode, depth_key, cells_x, num_cells, max_isects, cell)
         ctx.save_for_backward(packed, starts, ends, log_t, fidx, d.offsets,
                               d.cum, d.total, d.order)
-        ctx.tiles_x = tiles_x
+        ctx.cells_x = cells_x
+        ctx.cell = tuple(cell)
         ctx.pack_grad_sort = pack_grad_sort
         total = d.total[0].clone()
         ctx.mark_non_differentiable(d.order, total, d.raw_total)
@@ -205,8 +217,8 @@ class RecordPipeline(torch.autograd.Function):
         mark("loss backward")
         packed, starts, ends, log_t, fidx, offsets, cum, total, order = \
             ctx.saved_tensors
-        grads = rasterize_bwd(packed, starts, ends, ctx.tiles_x,
-                              g_img.contiguous(), log_t, fidx)
+        grads = rasterize_bwd(packed, starts, ends, ctx.cells_x,
+                              g_img.contiguous(), log_t, fidx, ctx.cell)
         mark("rasterize_bwd")
         rows = grad_resort(grads, packed[PACK_ROWS - 1], total,
                            ctx.pack_grad_sort)
@@ -216,4 +228,4 @@ class RecordPipeline(torch.autograd.Function):
         acc = torch.empty_like(per_splat)
         acc[:, order] = per_splat
         mark("to_global")
-        return acc, None, None, None, None, None, None
+        return acc, None, None, None, None, None, None, None

@@ -5,7 +5,9 @@ Stages: project all splats densely with a validity mask; SH colour and
 opacity; the exact per-tile pretest (64-bit coverage masks); the depth key
 and the packed decode rows; then the record pipeline (ops/pipeline.py:
 sort -> expand kernel -> sort -> rasterize_fwd kernel); the tiles are
-assembled into the image.
+assembled into the image. With cell=(gw, gh) the pretest, the decode rows
+and the whole record pipeline work in raster cells of gw x gh tiles (one
+record per (splat, cell)); cell (1, 1) is the tile path.
 
 Differentiation (needs_grad=True): projection and SH are plain autograd;
 the record pipeline is the custom autograd Function RecordPipeline
@@ -15,8 +17,6 @@ as the reference builds them from stop_gradient values. The reference
 threads a zero `xy_dummy` through the render so screen-space gradients
 surface for densification (render.py:22-25): it is added to the projected
 centres, so d(loss)/d(xy_dummy) lands at global splat indices.
-
-Raster cells other than (1, 1) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.device import full_f32
 from brush_tpu_torch.ops.binning import cell_bbox, precompute_tile_masks
+from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell
 from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
 from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
@@ -107,13 +108,15 @@ def pack_rgba_u32(img: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_image(img_tiles: torch.Tensor, img_size, tiles_x: int,
-                   tiles_y: int) -> torch.Tensor:
-    """(T, 256, 4) tiles -> (h, w, 4), cropping the tile padding
-    (rasterize_tiled.py:263-275 at cell (1, 1))."""
+                   tiles_y: int, cell=(1, 1)) -> torch.Tensor:
+    """(T, P, 4) -> (h, w, 4), cropping the padding
+    (rasterize_tiled.py:263-275). cell=(gw, gh): the blocks are raster
+    cells of gw x gh tiles (P = 256 gw gh, row-major over the cell), and
+    tiles_x/tiles_y count cells."""
     w, h = int(img_size[0]), int(img_size[1])
-    img = img_tiles.reshape(tiles_y, tiles_x, TILE_WIDTH, TILE_WIDTH, 4)
-    img = img.permute(0, 2, 1, 3, 4).reshape(tiles_y * TILE_WIDTH,
-                                             tiles_x * TILE_WIDTH, 4)
+    cw, ch = TILE_WIDTH * int(cell[0]), TILE_WIDTH * int(cell[1])
+    img = img_tiles.reshape(tiles_y, tiles_x, ch, cw, 4)
+    img = img.permute(0, 2, 1, 3, 4).reshape(tiles_y * ch, tiles_x * cw, 4)
     return img[:h, :w]
 
 
@@ -129,12 +132,13 @@ class RecordInputs(NamedTuple):
 
 def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
                   cam: CameraParams, img_size, xy_dummy=None,
-                  active=None) -> RecordInputs:
+                  active=None, cell=(1, 1)) -> RecordInputs:
     """Projection, SH colour, opacity, the tile pretest, the depth key and
-    the decode rows (render.py:250-285, cell (1, 1)), in float32 with TF32
-    off. Only attrs9 carries gradients: the pretest, the depth key and the
-    decode rows see detached tensors (render.py:275-277, :168), so autograd
-    records none of the pretest's (8, 8, N) float work."""
+    the decode rows (render.py:250-285), in float32 with TF32 off; the
+    pretest and the decode rows in units of cell=(gw, gh). Only attrs9
+    carries gradients: the pretest, the depth key and the decode rows see
+    detached tensors (render.py:275-277, :168), so autograd records none of
+    the pretest's (8, 8, N) float work."""
     with full_f32():
         proj = project_splats(
             means, log_scales, normalize_quats(quats),
@@ -146,7 +150,7 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     xy = proj.xy if xy_dummy is None else proj.xy + xy_dummy
 
     proj_sg = Projection(*(t.detach() for t in proj))
-    masks = precompute_tile_masks(proj_sg, opac.detach())
+    masks = precompute_tile_masks(proj_sg, opac.detach(), cell=cell)
     producing = proj_sg.visible & (masks.counts > 0)
     counts_g = torch.where(producing, masks.counts, 0)
     # Positive float32 bits order like the floats; int64 keeps the
@@ -157,8 +161,11 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
         xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
         proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
     ])
-    decode = pack_decode_rows(proj_sg, masks, counts_g)
+    decode = pack_decode_rows(proj_sg, masks, counts_g, cell=cell)
     return RecordInputs(attrs9, decode, depth_key, proj_sg, producing)
+
+
+BACKENDS = ("auto", "pallas", "xla")
 
 
 def render_splats(
@@ -173,44 +180,69 @@ def render_splats(
     active: torch.Tensor | None = None,
     max_isects: int | None = None,
     block_size: int = 32,
+    backend: str = "auto",
+    scan_passes: int = 2,
+    pack_grad_sort: bool = True,
     cell: tuple = (1, 1),
     needs_grad: bool = True,
-    pack_grad_sort: bool = True,
+    bwd_tiles_per_step: int | None = None,
 ) -> tuple[torch.Tensor, RenderAux]:
     """Render (h, w, 4) RGBA on the tensors' device; img_size is (w, h).
 
+    The arguments are the reference's (brush_tpu/render.py:185-202).
     quats are normalized internally. The pool (max_isects, default
     default_max_isects) rounds up to a multiple of lcm(max(128,
     block_size), 512) exactly as the reference's record pipeline does, so
     num_dropped agrees; block_size has no other effect here.
+    backend is checked and selects nothing: the record pipeline always
+    runs through the kernel wrappers, which launch the CUDA kernels on
+    CUDA tensors and run their plain PyTorch versions on CPU tensors.
+    "xla" (the reference's plain path) is refused on CUDA tensors, where
+    the port has no plain path. scan_passes and bwd_tiles_per_step are
+    accepted and do nothing: the port computes what scan_passes=3 computes
+    (the log-T scan's truncation at 2 is not reproduced), and the backward
+    takes no tiles-per-step knob.
     needs_grad=True renders through the differentiable RecordPipeline
     (pack_grad_sort: the backward's conic and colour cotangents ride the
     grad re-sort as bf16 pairs, the reference's default; False keeps them
     float32); needs_grad=False through the inference pipeline, which
-    refuses inputs that require grad and returns aux.order as zeros. A
-    cell other than (1, 1) raises NotImplementedError.
+    refuses inputs that require grad and returns aux.order as zeros.
+    cell=(gw, gh) rasterizes in raster cells of gw x gh tiles: one record
+    per (splat, cell), P = 256 gw gh pixels swept per record; (1, 1) is
+    the tile path. The image is the same but for alpha-threshold flips
+    and, as in the reference, the fringe of an opaque splat past its
+    3-sigma tile bbox, which a cell's bbox (rounded out to whole cells)
+    reaches.
     """
-    if tuple(cell) != (1, 1):
-        raise NotImplementedError(f"cell={tuple(cell)}: only (1, 1) is ported")
+    del scan_passes, bwd_tiles_per_step   # documented no-ops
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "xla" and means.is_cuda:
+        raise ValueError('backend="xla" runs on CPU tensors only: on the '
+                         "card the record pipeline is the CUDA kernels")
+    cell = check_cell(cell)
     n = means.shape[0]
     w, h = int(img_size[0]), int(img_size[1])
     tiles_x = -(-w // TILE_WIDTH)
     tiles_y = -(-h // TILE_WIDTH)
+    cells_x = -(-tiles_x // cell[0])
+    cells_y = -(-tiles_y // cell[1])
     max_isects = pool_size(n, img_size, max_isects, block_size)
 
     rec = record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
-                        cam, img_size, xy_dummy=xy_dummy, active=active)
+                        cam, img_size, xy_dummy=xy_dummy, active=active,
+                        cell=cell)
     mark("record_inputs")
     proj, producing = rec.proj, rec.producing
-    num_tiles = tiles_x * tiles_y
+    num_cells = cells_x * cells_y
     if needs_grad:
-        img_tiles, order, total, raw_total = RecordPipeline.apply(
-            rec.attrs9, rec.decode, rec.depth_key, tiles_x, num_tiles,
-            max_isects, pack_grad_sort)
+        img_cells, order, total, raw_total = RecordPipeline.apply(
+            rec.attrs9, rec.decode, rec.depth_key, cells_x, num_cells,
+            max_isects, pack_grad_sort, cell)
     else:
-        img_tiles, total, raw_total = infer_pipeline(
-            rec.attrs9, rec.decode, rec.depth_key, tiles_x, num_tiles,
-            max_isects)
+        img_cells, total, raw_total = infer_pipeline(
+            rec.attrs9, rec.decode, rec.depth_key, cells_x, num_cells,
+            max_isects, cell)
         order = torch.zeros(n, dtype=torch.int64, device=means.device)
 
     aux = RenderAux(
@@ -221,6 +253,6 @@ def render_splats(
         order=order,
         producing=producing,
     )
-    img = assemble_image(img_tiles, img_size, tiles_x, tiles_y)
+    img = assemble_image(img_cells, img_size, cells_x, cells_y, cell)
     mark("assemble")
     return img, aux

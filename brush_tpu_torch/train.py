@@ -94,18 +94,21 @@ class SplatTrainer:
     """Host-side orchestration of the step and the refine cadence,
     mirroring the reference's train_loop
     (brush-viewer/src/train_loop.rs:102-172). Runs on the device of the
-    state's splats. raster_block_size and pack_grad_sort are
-    render_splats' block_size and pack_grad_sort, defaults as the JAX
-    trainer's: the pool rounds to lcm(max(128, block), 512), and the
+    state's splats. raster_block_size, raster_cell and pack_grad_sort are
+    render_splats' block_size, cell and pack_grad_sort, defaults as the JAX
+    trainer's (brush_tpu/train.py:118-125): the pool rounds to
+    lcm(max(128, block), 512), raster cells are single tiles, and the
     backward's conic and colour cotangents ride the grad re-sort as bf16
-    pairs. Raster cells are one tile (the JAX trainer's raster_cell has no
-    counterpart yet)."""
+    pairs. Unlike the JAX trainer on the CPU, whose XLA render ignores the
+    cell, every render here honours raster_cell."""
 
     def __init__(self, config: TrainConfig | None = None,
-                 raster_block_size: int = 32, pack_grad_sort: bool = True):
+                 raster_block_size: int = 32, raster_cell=(1, 1),
+                 pack_grad_sort: bool = True):
         self.config = config or TrainConfig()
         self.iter = 0
         self.raster_block_size = raster_block_size
+        self.raster_cell = tuple(raster_cell)
         self.pack_grad_sort = pack_grad_sort
         # Adaptive intersection-pool size: start modest and grow on
         # pressure (checked at refine boundaries) or overflow.
@@ -253,7 +256,7 @@ class SplatTrainer:
                 params["sh_coeffs"], params["raw_opacity"], cam, img_size,
                 xy_dummy=xy_dummy, active=splats.active_mask(),
                 block_size=self.raster_block_size, max_isects=pool,
-                pack_grad_sort=self.pack_grad_sort)
+                cell=self.raster_cell, pack_grad_sort=self.pack_grad_sort)
             pred = img if channels == 4 else img[..., :3]
             l1 = torch.mean(torch.abs(pred - gt))
             if cfg.ssim_weight > 0.0:

@@ -25,19 +25,28 @@ result line; each phase prints its seconds):
      segment_sum on the re-sorted rows within 1e-5 of each row's largest
      sum; both backward kernels launched
      twice on the same inputs must give the same bits, here and wherever
-     they are checked below; segment_sum also on a layout made by hand
+     they are checked below; the same checks of all four kernels at the
+     entry scene in raster cells of (2, 2) and (4, 2) tiles (CHECK_CELLS);
+     segment_sum also on a layout made by hand
      (a segment of 100,003 slots, runs of empty splats, n no multiple of
      the kernel's block, `total` cutting a segment and `total` 0);
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after; then
      the median of 10 CUDA-event-timed renders and the forward kernels'
-     times at these inputs;
+     times at these inputs; then the same at raster cell CELL (2, 2), its
+     kernels held to their plain versions on its inputs, its records
+     beside (1, 1)'s and its image held to (1, 1)'s with rasterize_fwd's
+     tolerance (the differing pixels counted);
   4. a real model: serve docs/castle_r5_30k.ply through eval_stats at
      800x800 on four cameras of its training orbit, against the same
      views rendered by the port on the CPU (the plain versions);
      rasterize_fwd's check on each of those views and the backward
      kernels' on one (real opacities: saturating pixels, the early-out);
+     at each of CHECK_CELLS (800x800 is 50x50 tiles, which (4, 2) does
+     not divide) rasterize_fwd's check on view 0 (and at CELL the backward
+     kernels'), then eval_stats, launches counted, each image held to the
+     (1, 1) one with CELL_IMAGE_TOL (see there why not equal);
   5. the main path of training at full width: SplatTrainer on the bench
      scene against a black ground truth (bench.py:210-231), 6 steps with
      warmup 1 and refine every 3, so refine runs at iterations 1 (through
@@ -45,11 +54,12 @@ result line; each phase prints its seconds):
      kernels' counters reset just before and read just after; every
      step's CUDA-event time. The pipeline's calls to the four kernels keep
      their arguments on the first step at each capacity; then the train
-     step metric: 8 warm steps at the capacity the run ends at;
+     step metric: 8 warm steps at the capacity the run ends at; then all
+     of it again with SplatTrainer(raster_cell=CELL);
   6. each kernel against its plain version (tolerances as in phase 2) on
-     the arguments the training run gave it at each capacity, the real
-     loss cotangent included; the kernels' times, bounds and errors in
-     the result come from the last capacity's arguments;
+     the arguments each training run gave it at the capacity it ends at,
+     the real loss cotangent included; the kernels' times, bounds and
+     errors in the result come from these arguments;
   7. a real model trains: the castle's SH DC coefficients perturbed by
      0.1 N(0, 1), 12 default SplatTrainer steps on its four clean views;
      the eval PSNR must rise;
@@ -64,7 +74,10 @@ result line; each phase prints its seconds):
      launch of each a step and of the forward two one an eval render
      (pool-growth retries counted); the kernels' arguments kept on the
      first step and the first after each refine, and each kernel held to
-     its plain version on them (tolerances as in phase 2); finite losses,
+     its plain version on the first and the last of them (tolerances as
+     in phase 2); `train --cell 2x2` for CLI_CELL_ITERS steps, every render
+     at the cell, launches counted alike, its eval PSNR at 200 within
+     CLI_CELL_PSNR_TOL dB of the (1, 1) run's; finite losses,
      eval PSNR at 600 above 200; `eval --ply` and `eval --ckpt` print the
      run's final PSNR digit for digit; `--resume` from 400 runs 401..419;
      the trained castle saved as a checkpoint at step 29800 and resumed
@@ -73,8 +86,9 @@ result line; each phase prints its seconds):
      90,977 means as points3D, native parser == Python parser) trains 100
      timed steps; `train2d` at 256x256 lowers its loss;
   9. print {"kernels": [...]}: launches from the "cli" train run, the other
-     fields from phase 6's last arguments, and under "cli" the same fields
-     on the cli run's last arguments; the nvidia-smi line; and last
+     fields from phase 6's (1, 1) arguments, under "cli" the same fields
+     on the cli run's last arguments, and for the two rasterizers under
+     "cell" those of the training at CELL; the nvidia-smi line; and last
      {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
@@ -125,6 +139,13 @@ CLI_DEVICE = "cuda"   # the CLI's --device
 # The trained castle resumed through the CLI at this step, past the last
 # refine (TrainConfig.max_refine_step 15000), for this many steps.
 CASTLE_RESUME_STEP, CASTLE_RESUME_STEPS = 29800, 200
+# Raster cells: the one the bench render, the bench training and `cli train
+# --cell` run at, and those the kernels are checked at on the entry scene
+# and the castle evaluated at (50x50 tiles: (4, 2) does not divide them).
+CELL = (2, 2)
+CHECK_CELLS = ((2, 2), (4, 2))
+CLI_CELL_ITERS = 220   # `cli train --cell 2x2`: its eval at 200
+CLI_CELL_PSNR_TOL = 0.5   # dB from the (1, 1) run's eval at 200
 
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -172,23 +193,24 @@ def make_scene(cfg, device):
     return splats, camera_params(cam, size, device=device), size
 
 
-def kernel_inputs(splats, cp, size, pool):
-    """The main path's stages up to each kernel, the kernels on the card:
-    the expand arguments, the rasterize_fwd arguments and the depth
-    order's offsets."""
+def kernel_inputs(splats, cp, size, pool, cell=(1, 1)):
+    """The main path's stages up to each kernel at raster cell `cell`, the
+    kernels on the card: the expand arguments, the rasterize_fwd arguments
+    (packed, starts, ends, cells_x, cell) and the depth order's offsets."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
     from brush_tpu_torch.render import record_inputs
 
     rec = record_inputs(splats.means, splats.log_scales, splats.quats,
                         splats.sh_coeffs, splats.raw_opacity, cp, size,
-                        active=splats.active_mask())
+                        active=splats.active_mask(), cell=cell)
     d = depth_order(rec.attrs9, rec.decode, rec.depth_key, pool)
-    tiles_x = -(-size[0] // 16)
-    num_tiles = tiles_x * -(-size[1] // 16)
-    exp_args = (d.f5, d.u5, d.cum, d.total, tiles_x, num_tiles, pool)
-    packed, starts, ends = tile_bins(*expand(*exp_args), num_tiles)
-    return dict(exp_args=exp_args, r_args=(packed, starts, ends, tiles_x),
+    cells_x = -(-size[0] // (16 * cell[0]))
+    num_cells = cells_x * -(-size[1] // (16 * cell[1]))
+    exp_args = (d.f5, d.u5, d.cum, d.total, cells_x, num_cells, pool)
+    packed, starts, ends = tile_bins(*expand(*exp_args), num_cells)
+    return dict(exp_args=exp_args,
+                r_args=(packed, starts, ends, cells_x, tuple(cell)),
                 offsets=d.offsets, raw_total=int(d.raw_total))
 
 
@@ -404,12 +426,11 @@ def check_backward(k, label, seed):
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
     from brush_tpu_torch.ops.pipeline import grad_resort
 
-    packed, starts, ends, tiles_x = k["r_args"]
+    packed, starts, ends, cells_x, cell = k["r_args"]
     _, log_t, fidx = rasterize_fwd(*k["r_args"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    v_out = torch.randn((starts.shape[0], 256, 4), generator=gen,
-                        device="cuda")
-    b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx)
+    v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+    b_args = (packed, starts, ends, cells_x, v_out, log_t, fidx, cell)
     b = check_bwd(b_args, label)
     total = k["exp_args"][3]
     rows = grad_resort(b["grads"], packed[7], total, pack_grad_sort=False)
@@ -436,7 +457,7 @@ def kernel_phase(cfg, label, backward: bool):
     k = kernel_inputs(splats, cp, size,
                       pool_size(splats.capacity, size, cfg["pool"],
                                 cfg["block"]))
-    check_expand(k["exp_args"])
+    k["expand_plain_ms"] = check_expand(k["exp_args"])
     r = check_raster(k["r_args"])
     total = int(k["exp_args"][3][0])
     print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} "
@@ -460,16 +481,18 @@ def bounds(k, fwd, bwd):
     pool = k["exp_args"][6]
     n = f5.shape[1]
     live = int(total[0])
-    n_tiles = k["r_args"][1].shape[0]
+    n_cells = k["r_args"][1].shape[0]
+    cell = k["r_args"][4]
+    px = 256 * cell[0] * cell[1]   # a cell's pixels
     ms = lambda b: b / HBM_BYTES_PER_S * 1e3
     ops = lambda o: o / F32_OPS_PER_S * 1e3
     pick = lambda b, o: (max(ms(b), ops(o)),
                          "operations" if ops(o) >= ms(b) else "bytes")
     exp_b = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
-    fwd_b = 28 * live + 8 * n_tiles + 24 * 256 * n_tiles
-    # bwd: records and tile ranges read, v_out + log T + final_idx read,
+    fwd_b = 28 * live + 8 * n_cells + 24 * px * n_cells
+    # bwd: records and cell ranges read, v_out + log T + final_idx read,
     # the (9, pool) gradient rows written once.
-    bwd_b = 28 * live + 8 * n_tiles + 24 * 256 * n_tiles + 36 * pool
+    bwd_b = 28 * live + 8 * n_cells + 24 * px * n_cells + 36 * pool
     fwd_o = PAIR_SIGMA_OPS * fwd["pairs"] + PAIR_ALPHA_OPS * fwd["active"]
     bwd_o = PAIR_SIGMA_OPS * bwd["swept"] + (
         PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"]
@@ -481,8 +504,30 @@ def bounds(k, fwd, bwd):
             "segment_sum": pick(seg_b, 9 * live)}
 
 
-def main_path(splats, cp, size, cfg):
-    """Phase 3: one counted render of the bench scene, then timings."""
+def forward_times(k, label):
+    """The forward kernels' times at a render's inputs (launches after the
+    render path's counts were read), beside their plain versions' (the
+    call the check compared with) and their bounds."""
+    from brush_tpu_torch.ops.cuda.expand import expand
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+
+    exp_args, r_args = k["exp_args"], k["r_args"]
+    e_ms = cuda_ms(lambda: expand(*exp_args), reps=20)
+    r_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
+    # No backward ran on these inputs: its bound is not read.
+    bound = bounds(k, k["fwd"], dict(swept=0, active=0))
+    print(f"[kernels] {label}: expand {e_ms:.4f} ms (plain "
+          f"{k['expand_plain_ms']:.3f}, bound {bound['expand'][0]:.4f} by "
+          f"{bound['expand'][1]}); rasterize_fwd {r_ms:.4f} ms (plain "
+          f"{k['fwd']['plain_ms']:.3f}, bound "
+          f"{bound['rasterize_fwd'][0]:.4f} by "
+          f"{bound['rasterize_fwd'][1]})")
+
+
+def main_path(splats, cp, size, cfg, cell=(1, 1)):
+    """Phase 3 (and the cell phase): one counted render of the bench scene
+    at raster cell `cell`, then timings. Returns (launch counts, image,
+    records, median ms)."""
     import torch
     from brush_tpu_torch.ops.cuda import expand, rasterize_fwd
     from brush_tpu_torch.render import render_splats
@@ -491,7 +536,7 @@ def main_path(splats, cp, size, cfg):
         return render_splats(
             splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
             splats.raw_opacity, cp, size, active=splats.active_mask(),
-            block_size=cfg["block"], max_isects=cfg["pool"],
+            block_size=cfg["block"], max_isects=cfg["pool"], cell=cell,
             needs_grad=False)
 
     expand.launches = 0
@@ -520,13 +565,60 @@ def main_path(splats, cp, size, cfg):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     ms = statistics.median(times)
-    print(f"[main path] bench render {size[0]}x{size[1]}, {cfg['n']} splats: "
-          f"visible={int(aux.num_visible)} records={int(aux.num_isects)} "
-          f"dropped={dropped} launches={counts}")
-    print(f"[main path] median of 10 renders {ms:.3f} ms "
+    tag = "main path" if tuple(cell) == (1, 1) else f"cell {cell}"
+    print(f"[{tag}] bench render {size[0]}x{size[1]}, {cfg['n']} splats, "
+          f"cell {cell}: visible={int(aux.num_visible)} "
+          f"records={int(aux.num_isects)} dropped={dropped} launches={counts}")
+    print(f"[{tag}] median of 10 renders {ms:.3f} ms "
           f"({size[0] * size[1] / ms / 1e3:.2f} Mpix/s); all ms "
           f"{[round(t, 3) for t in times]}")
-    return counts
+    return counts, img, int(aux.num_isects), ms
+
+
+def image_diff(got, want, atol=1e-5):
+    """Two (h, w, C) images: dict(differ=pixels that differ at all,
+    flips=pixels that differ by more than atol, err=largest difference
+    elsewhere, flip_err=largest difference at a flip, beyond_1e5=pixels
+    that differ by more than 1e-5)."""
+    import torch
+
+    d = (got - want).abs().amax(dim=-1)
+    flipped = d > atol
+    zero = torch.zeros_like(d)
+    return dict(differ=int((d > 0).sum()), flips=int(flipped.sum()),
+                beyond_1e5=int((d > 1e-5).sum()),
+                err=float(torch.where(flipped, zero, d).max()),
+                flip_err=float(torch.where(flipped, d, zero).max()))
+
+
+# An image at a raster cell against the (1, 1) image. The per-pixel
+# arithmetic is the same at every cell, but the set of records is not: the
+# projection's tile bbox is the 3-sigma one (helpers.wgsl:192-202), inside
+# which the alpha threshold of an opaque splat (sigma = log(255 o), up to
+# 5.54 against 4.5) does not always fall, and a cell bbox is the tile bbox
+# rounded out to whole cells, so at a cell a splat reaches pixels up to a
+# tile past its tile bbox where its alpha passes 1/255. Where no splat's
+# fringe crosses its bbox (the bench scene) the images are equal; where
+# many do (the castle's opaque splats) brush_tpu's Pallas pipeline moves
+# the same pixels by the same amounts (tests/test_torch_castle.py), and the
+# reference's own rule for cell against tile images holds
+# (tests/test_pipeline.py:270-272: 2e-3, at most 2e-3 of the values beyond
+# it, each within 0.05), counted here by pixel.
+CELL_IMAGE_TOL = dict(atol=2e-3, flip_tol=0.05, max_flip_frac=2e-3)
+FWD_IMAGE_TOL = dict(atol=1e-5, flip_tol=0.01, max_flip_frac=2e-3)
+
+
+def check_cell_image(got, want, label, atol, flip_tol, max_flip_frac):
+    """An image rendered at a raster cell against the (1, 1) image: within
+    atol but for at most max_flip_frac of the pixels, each within
+    flip_tol. Returns image_diff's dict."""
+    d = image_diff(got, want, atol)
+    limit = max(1, int(max_flip_frac * got.shape[0] * got.shape[1]))
+    if d["flips"] > limit or d["flip_err"] > flip_tol:
+        raise AssertionError(f"[{label}] image differs from the (1, 1) one "
+                             f"beyond atol {atol} (limit {limit} pixels, "
+                             f"{flip_tol} each): {d}")
+    return d
 
 
 def orbit_camera(azimuth, elevation, radius=3.6, target=(0.0, 0.0, 0.35)):
@@ -598,6 +690,78 @@ def castle_phase():
     if min(gt_mean) < 0.01:
         raise AssertionError(f"castle views look empty: means {gt_mean}")
     return gpu, cams, gts, evals[-1].pool
+
+
+def cell_kernel_phase(splats, cp, size, pool):
+    """Both rasterizers at each of CHECK_CELLS on a scene (the entry one),
+    held to their plain versions with phase 2's tolerances and repeat
+    launches bit-equal; expand byte-equal and segment_sum on the re-sorted
+    rows as there."""
+    t0 = time.perf_counter()
+    for cell in CHECK_CELLS:
+        label = f"entry cell {cell}"
+        k = kernel_inputs(splats, cp, size, pool, cell)
+        check_expand(k["exp_args"])
+        r = check_raster(k["r_args"])
+        print(f"[{label}] {k['r_args'][1].shape[0]} cells of "
+              f"{256 * cell[0] * cell[1]} pixels, records "
+              f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
+              f"max err {r['err']:.3e}, flipped pixels {r['flips']}, pairs "
+              f"evaluated {r['pairs']}, of them active {r['active']}")
+        check_backward(k, label, seed=1)
+    print(f"[entry cells] {time.perf_counter() - t0:.1f} s")
+
+
+def castle_cells(splats, cams, gts, pool):
+    """The castle at each of CHECK_CELLS: rasterize_fwd held to its plain
+    version on view 0's arguments, and at CELL also the backward kernels
+    (real opacities: saturating pixels, the early-out, a cell's tiles
+    swept in turn); then eval_stats, launches counted, every image held to
+    the (1, 1) one with CELL_IMAGE_TOL, the differing pixels counted."""
+    import torch
+    from brush_tpu_torch.eval import eval_stats
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import pool_size
+
+    t0 = time.perf_counter()
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    cp = camera_params(cams[0], size, device="cuda")
+    pool = pool_size(splats.capacity, size, pool)
+    for cell in CHECK_CELLS:
+        label = f"castle cell {cell}"
+        k = kernel_inputs(splats, cp, size, pool, cell)
+        r = check_raster(k["r_args"])
+        print(f"[{label}] view 0, {k['r_args'][1].shape[0]} cells, records "
+              f"{int(k['exp_args'][3][0])}: rasterize_fwd max err "
+              f"{r['err']:.3e}, flipped pixels {r['flips']} (largest img or "
+              f"T difference there {r['flip_err']:.3e}), pairs evaluated "
+              f"{r['pairs']}, active {r['active']}")
+        if cell == CELL:
+            check_backward(k, label, seed=2)
+    del k, r
+    views = list(zip(cams, gts))
+    base = eval_stats(splats, views, keep_images=True)
+    for cell in CHECK_CELLS:
+        reset_launches()
+        evals = eval_stats(splats, views, keep_images=True, cell=cell)
+        counts = read_launches()
+        diffs = [check_cell_image(torch.as_tensor(e.rendered),
+                                  torch.as_tensor(b.rendered),
+                                  f"castle cell {cell} view {i}",
+                                  **CELL_IMAGE_TOL)
+                 for i, (e, b) in enumerate(zip(evals, base))]
+        print(f"[castle cell {cell}] PSNR "
+              f"{[round(e.psnr, 2) for e in evals]} vs the CPU render "
+              f"((1, 1): {[round(b.psnr, 2) for b in base]}); against the "
+              f"(1, 1) images: pixels that differ "
+              f"{[d['differ'] for d in diffs]}, beyond 1e-5 "
+              f"{[d['beyond_1e5'] for d in diffs]}, beyond 2e-3 "
+              f"{[d['flips'] for d in diffs]} of {CASTLE_SIZE ** 2} (largest "
+              f"{max(max(d['err'], d['flip_err']) for d in diffs):.3e}); "
+              f"launches {counts}")
+        if min(counts["expand"], counts["rasterize_fwd"]) < len(cams):
+            raise AssertionError(f"castle cell {cell} skipped a kernel")
+    print(f"[castle cells] {time.perf_counter() - t0:.1f} s")
 
 
 def castle_cameras():
@@ -704,11 +868,13 @@ def timed_steps(trainer, state, batch, steps: int):
     return state, times, stats, refines
 
 
-def train_path(cfg):
+def train_path(cfg, cell=(1, 1)):
     """Phase 5, the main path: SplatTrainer steps on the bench scene
-    against a black ground truth, all four kernels counted, and the
-    kernels' arguments kept on the first step at each capacity. Then the
-    train step metric at the capacity the run ended at."""
+    against a black ground truth at raster cell `cell`, all four kernels
+    counted, and the kernels' arguments kept on the first step at each
+    capacity. Then the train step metric at the capacity the run ended
+    at. Returns (launches, metric ms, window ms, {capacity: arguments},
+    records a step)."""
     import torch
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.config import TrainConfig
@@ -719,7 +885,9 @@ def train_path(cfg):
     cam = Camera(position=[0, 0, cfg["z"]], rotation=[1, 0, 0, 0],
                  fov_x=np.pi / 2, fov_y=np.pi / 2)
     batch = SceneBatch(np.zeros((size[1], size[0], 3), np.float32), cam)
-    trainer = SplatTrainer(TrainConfig(warmup_steps=1, refine_every=3))
+    trainer = SplatTrainer(TrainConfig(warmup_steps=1, refine_every=3),
+                           raster_cell=cell)
+    tag = "train" if tuple(cell) == (1, 1) else f"train cell {cell}"
     state = trainer.init_state(splats)
     torch.cuda.synchronize()
     kept, armed = {}, [False]
@@ -744,12 +912,12 @@ def train_path(cfg):
     sp = state.splats
     pool = trainer._pool_size(sp.capacity)
     finite = all(bool(torch.isfinite(x).all()) for x in sp.params().values())
-    print(f"[train] bench scene {size[0]}x{size[1]}, {cfg['n']} splats, "
+    print(f"[{tag}] bench scene {size[0]}x{size[1]}, {cfg['n']} splats, "
           f"{TRAIN_STEPS} steps: step ms {[round(t, 3) for t in times]} "
           f"at capacities {caps}; the whole window {sum(times):.3f} ms")
-    print(f"[train] losses {losses}; records {records}; dropped {dropped}; "
+    print(f"[{tag}] losses {losses}; records {records}; dropped {dropped}; "
           f"launches {counts}")
-    print(f"[train] refines {dict((i, r._asdict()) for i, r in refines.items())}; "
+    print(f"[{tag}] refines {dict((i, r._asdict()) for i, r in refines.items())}; "
           f"n_live {sp.n_live}, capacity {sp.capacity}, pool {pool}; "
           f"kernel arguments kept at capacities {sorted(kept)}; "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -769,18 +937,18 @@ def train_path(cfg):
     # config refines only after its 500 warm-up steps, so none of these
     # refines; its pool sizing gives the same pool at this capacity.
     t0 = time.perf_counter()
-    timer = SplatTrainer()
+    timer = SplatTrainer(raster_cell=cell)
     if timer._pool_size(sp.capacity) != pool:
         raise AssertionError("the metric steps would use another pool")
     state, warm, _, rf = timed_steps(timer, state, batch, METRIC_STEPS + 1)
     if rf:
         raise AssertionError("a metric step refined")
     step_ms = statistics.median(warm[1:])
-    print(f"[train] metric: capacity {sp.capacity}, pool {pool}: median of "
+    print(f"[{tag}] metric: capacity {sp.capacity}, pool {pool}: median of "
           f"{METRIC_STEPS} warm steps {step_ms:.3f} ms (after one more "
           f"step); all ms {[round(t, 3) for t in warm]}; "
           f"{time.perf_counter() - t0:.1f} s")
-    return counts, step_ms, sum(times), kept
+    return counts, step_ms, sum(times), kept, records
 
 
 def train_kernels(kept, tag="train"):
@@ -873,14 +1041,14 @@ def castle_training(splats, cams, gts):
 @contextlib.contextmanager
 def wrapped(module, name: str, before, after):
     """Replace module.name by a wrapper that calls before(*args) and
-    after(token, result, *args) around it (token = before's result);
-    restored on exit."""
+    after(token, result, *args, **kwargs) around it (token = before's
+    result); restored on exit."""
     fn = getattr(module, name)
 
     def call(*args, **kw):
         token = before(*args)
         out = fn(*args, **kw)
-        after(token, out, *args)
+        after(token, out, *args, **kw)
         return out
 
     setattr(module, name, call)
@@ -890,10 +1058,22 @@ def wrapped(module, name: str, before, after):
         setattr(module, name, fn)
 
 
+def spied_renders(module, sink: list, dropped: bool = False):
+    """wrapped() around module.render_splats that appends each call's cell
+    to sink, as (cell, records dropped) with `dropped` (reading it waits
+    for the render)."""
+    def after(_, out, *a, cell=(1, 1), **kw):
+        cell = tuple(cell)
+        sink.append((cell, int(out[1].num_dropped)) if dropped else cell)
+
+    return wrapped(module, "render_splats", lambda *a: None, after)
+
+
 def host_timed(module, name: str, sink: list):
     """wrapped() that appends each call's host seconds to sink."""
     return wrapped(module, name, lambda *a: time.perf_counter(),
-                   lambda t, out, *a: sink.append(time.perf_counter() - t))
+                   lambda t, out, *a, **k: sink.append(
+                       time.perf_counter() - t))
 
 
 def run_cli(argv, log: list) -> str:
@@ -964,7 +1144,7 @@ def step_timer(steps: list, before_step=None, after_step=None):
         ev.record()
         return trainer.iter, time.perf_counter(), ev
 
-    def after(token, out, trainer, *_):
+    def after(token, out, trainer, *_, **_kw):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         steps.append((*token, ev, time.perf_counter(),
@@ -1017,6 +1197,7 @@ def cli_phase(castle, pool):
     import torch
     from brush_tpu_torch import eval as eval_mod
     from brush_tpu_torch import native
+    from brush_tpu_torch import train as train_mod
     from brush_tpu_torch.constants import SH_C0
     from brush_tpu_torch.datasets import load_dataset, png, ply
     from brush_tpu_torch.datasets import testing as dt
@@ -1125,7 +1306,7 @@ def cli_phase(castle, pool):
         with kept_kernel_args(armed) as seen, \
                 step_timer(steps, arm, keep), \
                 wrapped(eval_mod, "render_splats", lambda *a: None,
-                        lambda t, out, *a: renders.append(
+                        lambda t, out, *a, **k: renders.append(
                             int(out[1].num_dropped))), \
                 host_timed(checkpoint, "save_checkpoint", ck_s), \
                 host_timed(ply, "splats_to_ply", ply_s):
@@ -1190,9 +1371,62 @@ def cli_phase(castle, pool):
         whens = list(kept)
         if len(whens) < 2 or not whens[0].startswith("step 0,"):
             raise AssertionError(f"kernel arguments kept at {whens}")
-        cli_kernels = train_kernels(kept, "cli")
+        # The plain versions on the first step's arguments and the last
+        # kept (the first step after the last refine).
+        cli_kernels = train_kernels({w: kept[w] for w in (whens[0],
+                                                          whens[-1])}, "cli")
         del kept, seen
         torch.cuda.empty_cache()
+
+        # The same dataset and flags at raster cell 2x2 for CLI_CELL_ITERS
+        # steps: every render of the run, training's and the evals', at
+        # the cell; launches counted as above; the eval at 200 beside the
+        # (1, 1) run's.
+        ck2 = os.path.join(d, "ckpt_cell")
+        c_renders, t_cells, steps2 = [], [], []
+        reset_launches()
+        with step_timer(steps2), \
+                spied_renders(eval_mod, c_renders, dropped=True), \
+                spied_renders(train_mod, t_cells):
+            run_cli([
+                "train", "--source", nerf_zip, "--iters",
+                str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
+                "10000", "--eval-every", "200", "--eval-views", "4",
+                "--log-every", "20", "--checkpoint-dir", ck2, "--cell",
+                f"{CELL[0]}x{CELL[1]}"], log)
+        counts2 = read_launches()
+        ms2 = event_ms(steps2)
+        rows2 = read_jsonl(os.path.join(ck2, "metrics.jsonl"))
+        losses2 = {r["step"]: r["loss"] for r in rows2 if "loss" in r}
+        psnr2 = {r["step"]: r["eval_psnr"] for r in rows2 if "eval_psnr" in r}
+        retries2 = sum(1 for _, dropped in c_renders if dropped)
+        cells = {c for c, _ in c_renders} | set(t_cells)
+        print(f"[cli cell {CELL}] train {CLI_CELL_ITERS} steps: median step "
+              f"{statistics.median(ms2):.3f} ms (CUDA events; the (1, 1) run "
+              f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
+              f"{CLI_CELL_ITERS}); eval PSNR at 200 {psnr2.get(200)} ((1, 1): "
+              f"{psnr[200]}); losses at 0/100/200 {losses2.get(0)}, "
+              f"{losses2.get(100)}, {losses2.get(200)} ((1, 1): "
+              f"{losses.get(0)}, {losses.get(100)}, {losses.get(200)}); "
+              f"launches {counts2}: {CLI_CELL_ITERS} steps + {len(c_renders)} "
+              f"eval renders ({retries2} grown); renders at cells {cells}")
+        if len(steps2) != CLI_CELL_ITERS or not all(np.isfinite(
+                list(losses2.values()))) or len(losses2) != 11:
+            raise AssertionError(f"cli train --cell: {len(steps2)} steps, "
+                                 f"losses {losses2}")
+        if sorted(psnr2) != [200] or not abs(
+                psnr2[200] - psnr[200]) <= CLI_CELL_PSNR_TOL:
+            raise AssertionError(f"cli train --cell: eval PSNR {psnr2} vs "
+                                 f"(1, 1) {psnr[200]}")
+        if cells != {CELL} or len(t_cells) != CLI_CELL_ITERS:
+            raise AssertionError(f"cli train --cell rendered at {cells}")
+        if len(c_renders) != 4 + CLI_NERF_VAL + retries2 or counts2 != {
+                "expand": CLI_CELL_ITERS + len(c_renders),
+                "rasterize_fwd": CLI_CELL_ITERS + len(c_renders),
+                "rasterize_bwd": CLI_CELL_ITERS,
+                "segment_sum": CLI_CELL_ITERS}:
+            raise AssertionError(f"cli train --cell: launches {counts2}, "
+                                 f"{len(c_renders)} eval renders")
 
         # eval of the export and of the final checkpoint: the same PSNR.
         eval_s = []
@@ -1357,41 +1591,61 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
 
-    kernel_phase(ENTRY, "entry", backward=True)
+    splats, cp, size, k = kernel_phase(ENTRY, "entry", backward=True)
+    cell_kernel_phase(splats, cp, size, k["exp_args"][6])
+    del splats, k
     check_segsum_hand()
     check_raster_hand()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
-    render_counts = main_path(splats, cp, size, BENCH)
+    render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
+                                                          BENCH)
+    forward_times(k, "bench render inputs")
 
-    from brush_tpu_torch.ops.cuda.expand import expand, expand_plain
-    from brush_tpu_torch.ops.cuda.rasterize_fwd import (
-        rasterize_fwd, rasterize_fwd_plain,
-    )
-
-    # The forward kernels' times at the render's inputs; these launches
-    # come after the render path's counts were read.
-    t_k = time.perf_counter()
-    exp_args, r_args = k["exp_args"], k["r_args"]
-    e_ms = cuda_ms(lambda: expand(*exp_args), reps=20)
-    e_plain = cuda_ms(lambda: expand_plain(*exp_args), reps=3)
-    r_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
-    r_plain = cuda_ms(lambda: rasterize_fwd_plain(*r_args), reps=2)
-    # No backward ran on these inputs: its bound is not read.
-    bound = bounds(k, k["fwd"], dict(swept=0, active=0))
-    print(f"[kernels] bench render inputs: expand {e_ms:.4f} ms (plain "
-          f"{e_plain:.3f}, bound {bound['expand'][0]:.4f} by "
-          f"{bound['expand'][1]}); rasterize_fwd {r_ms:.4f} ms (plain "
-          f"{r_plain:.3f}, bound {bound['rasterize_fwd'][0]:.4f} by "
-          f"{bound['rasterize_fwd'][1]}); {time.perf_counter() - t_k:.1f} s")
-    del splats, k, exp_args, r_args
+    # The bench render at raster cell CELL: the kernels against their
+    # plain versions on its inputs, its records beside (1, 1)'s, its image
+    # against (1, 1)'s, the median render, the kernels' times and bounds.
+    t_c = time.perf_counter()
+    kc = dict(kernel_inputs(splats, cp, size, BENCH["pool"], CELL))
+    kc["expand_plain_ms"] = check_expand(kc["exp_args"])
+    kc["fwd"] = check_raster(kc["r_args"])
+    cell_counts, img_c, records_c, cell_ms = main_path(splats, cp, size,
+                                                       BENCH, CELL)
+    d = check_cell_image(img_c, img_1, f"bench cell {CELL}",
+                         **FWD_IMAGE_TOL)
+    print(f"[cell {CELL}] bench render: records {records_c} ((1, 1): "
+          f"{records_1}, {records_1 / records_c:.3f}x as many); median "
+          f"{cell_ms:.3f} ms ((1, 1): {render_ms:.3f}); rasterize_fwd "
+          f"against the plain version: max err {kc['fwd']['err']:.3e}, "
+          f"flipped pixels {kc['fwd']['flips']}, pairs evaluated "
+          f"{kc['fwd']['pairs']} ((1, 1): {k['fwd']['pairs']}), active "
+          f"{kc['fwd']['active']}; the image against (1, 1)'s: pixels that "
+          f"differ {d['differ']}, beyond 1e-5 {d['flips']} (largest there "
+          f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
+          f"{time.perf_counter() - t_c:.1f} s")
+    forward_times(kc, f"bench render inputs at cell {CELL}")
+    del splats, k, kc, img_1, img_c
     torch.cuda.empty_cache()
 
     castle, cams, gts, castle_pool = castle_phase()
     castle_kernels(castle, cams, castle_pool)
+    castle_cells(castle, cams, gts, castle_pool)
     torch.cuda.empty_cache()
 
-    counts, step_ms, window_ms, kept = train_path(BENCH)
-    tk = train_kernels({f"capacity {cap}": v for cap, v in kept.items()})
+    # Training, at (1, 1) and at CELL; the kernels against their plain
+    # versions on the arguments of the capacity each run ends at.
+    counts, step_ms, window_ms, kept, records = train_path(BENCH)
+    last = max(kept)
+    tk = train_kernels({f"capacity {last}": kept[last]})
+    del kept
+    torch.cuda.empty_cache()
+    counts_c, step_ms_c, window_ms_c, kept, records_c = train_path(BENCH,
+                                                                   CELL)
+    last = max(kept)
+    tk_c = train_kernels({f"capacity {last}, cell {CELL}": kept[last]},
+                         f"train cell {CELL}")
+    print(f"[train cell {CELL}] records a step {records_c} ((1, 1): "
+          f"{records}); metric {step_ms_c:.3f} ms ((1, 1): {step_ms:.3f}); "
+          f"window {window_ms_c:.3f} ms ((1, 1): {window_ms:.3f})")
     del kept
     torch.cuda.empty_cache()
     castle_training(castle, cams, gts)
@@ -1410,15 +1664,23 @@ def main() -> int:
         # launches: the "cli" train run's; the other fields: the bench
         # training run's last arguments (phase 6); "cli": the same
         # fields on the cli train run's last arguments.
-        return {"name": name, "route": "cuda",
-                "source": f"brush_tpu_torch/csrc/{src}.cu",
-                "replaces": replaces, "launches": cli_counts[name],
-                **fields(tk),
-                "launches_from": f"cli train ({CLI_ITERS} steps and its eval "
-                                 f"renders)",
-                "fields_from": f"bench training arguments, {tk['when']}",
-                "cli": {**fields(cli_tk),
-                        "from": f"cli train arguments, {cli_tk['when']}"}}
+        out = {"name": name, "route": "cuda",
+               "source": f"brush_tpu_torch/csrc/{src}.cu",
+               "replaces": replaces, "launches": cli_counts[name],
+               **fields(tk),
+               "launches_from": f"cli train ({CLI_ITERS} steps and its eval "
+                                f"renders)",
+               "fields_from": f"bench training arguments, {tk['when']}",
+               "cli": {**fields(cli_tk),
+                       "from": f"cli train arguments, {cli_tk['when']}"}}
+        if name.startswith("rasterize"):
+            # "cell": the same fields on the bench training's arguments at
+            # raster cell CELL; launches: that run's.
+            out["cell"] = {"cell": list(CELL), **fields(tk_c),
+                           "launches": counts_c[name],
+                           "from": f"bench training arguments, "
+                                   f"{tk_c['when']}"}
+        return out
 
     kernels = [
         row("expand", "expand", "brush_tpu/ops/pallas/expand.py:374"),
@@ -1428,11 +1690,14 @@ def main() -> int:
             "brush_tpu/ops/pallas/rasterize_bwd.py:414"),
         row("segment_sum", "segsum", "brush_tpu/ops/pallas/segsum.py:136"),
     ]
-    print(f"[summary] render path launches {render_counts}; training path "
-          f"launches {counts}; cli train ({CLI_ITERS} steps) launches "
-          f"{cli_counts}; bench train step {step_ms:.3f} ms (median of "
-          f"{METRIC_STEPS} warm steps at the final capacity), the "
-          f"{TRAIN_STEPS}-step window {window_ms:.3f} ms; total "
+    print(f"[summary] render path launches {render_counts}, at cell {CELL} "
+          f"{cell_counts}; training path launches {counts}, at cell {CELL} "
+          f"{counts_c}; cli train ({CLI_ITERS} steps) launches "
+          f"{cli_counts}; bench render {render_ms:.3f} ms, at cell {CELL} "
+          f"{cell_ms:.3f}; bench train step {step_ms:.3f} ms (median of "
+          f"{METRIC_STEPS} warm steps at the final capacity), at cell {CELL} "
+          f"{step_ms_c:.3f}; the {TRAIN_STEPS}-step window {window_ms:.3f} "
+          f"ms, at cell {CELL} {window_ms_c:.3f}; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

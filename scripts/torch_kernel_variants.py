@@ -11,6 +11,9 @@ commit's kernel:
     git show HEAD~1:brush_tpu_torch/csrc/rasterize_fwd.cu \\
         > runs/parent/rasterize_fwd.cu
     python3 scripts/torch_kernel_variants.py --old-dir runs/parent
+    python3 scripts/torch_kernel_variants.py --old-dir runs/parent --old-only
+    python3 scripts/torch_kernel_variants.py --old-dir runs/other --old-only \
+        --cell 2x2
     python3 scripts/torch_kernel_variants.py \\
         --variant "bwd 64-record batches" rasterize_bwd "kBatch = 192;=>kBatch = 64;"
 
@@ -23,14 +26,16 @@ image cotangent; segment_sum on the re-sorted rows of that backward, and
 on the same layout padded to 4194304 splats and a pool of 4194304. Every
 variant is built by nvcc (registers and shared memory printed), checked
 against the repository's kernel on the same inputs (largest error of each
-output row over that row's largest value; two launches bit-equal) and
+output row over that row's largest value, and whether every bit is equal;
+two launches bit-equal) and
 timed with CUDA events in two rounds, one variant after the other;
 index_add_ is timed beside segment_sum. --timeline also runs the
 repository's rasterize_fwd and rasterize_bwd with %globaltimer and %smid
 recorded at each block's start and end and prints when tiles start, how
 long the heavy ones run and how the records spread over the SMs. --castle
 also holds every rasterize_fwd source to the plain version on the four
-castle views of chip_smoke.py, whose pixels saturate.
+castle views of chip_smoke.py, whose pixels saturate. --cell GWxGH builds
+the inputs at a raster cell (sources before the cell mode take 1x1 only).
 """
 
 import argparse
@@ -98,8 +103,8 @@ DEFAULT_VARIANTS = [
 TIMELINE_SUBS = [
     ("namespace {\n",
      "namespace {\n__device__ unsigned long long g_timeline[3 * 8192];\n"),
-    ("  const int t = order[blockIdx.x];\n",
-     "  const int t = order[blockIdx.x];\n"
+    ("  const int tid = threadIdx.x;\n",
+     "  const int tid = threadIdx.x;\n"
      "  unsigned long long tl_t0; unsigned tl_sm;\n"
      '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(tl_t0));\n'
      '  asm volatile("mov.u32 %0, %%smid;" : "=r"(tl_sm));\n'
@@ -121,7 +126,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def start_build(label, kernel, text):
-    """Write text as a source of its own and start nvcc on it."""
+    """Write text as a source of its own and start nvcc on it. Its C entry
+    is "legacy" before the tile order (no scratch argument) and takes
+    "cells" since the raster-cell mode (cell_w, cell_h; the backward also a
+    state scratch), which run_fwd and run_bwd pass as cell (1, 1)."""
     os.makedirs(OUT, exist_ok=True)
     stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in label))
     with open(stem + ".cu", "w") as f:
@@ -130,6 +138,7 @@ def start_build(label, kernel, text):
            "-Xptxas", "-v", "-o", stem + ".so", stem + ".cu"]
     return dict(label=label, kernel=kernel, so=stem + ".so",
                 legacy=kernel != "segsum" and "int* order" not in text,
+                cells="int cell_w" in text,
                 proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
 
@@ -157,20 +166,33 @@ def finish_builds(jobs):
     return jobs
 
 
-def run_fwd(job, packed, starts, ends, tiles_x):
+def cell_ints(job, cell):
+    """The (cell_w, cell_h) arguments of job's C entry: none before the
+    raster-cell mode, which runs cell (1, 1) only."""
+    if job["cells"]:
+        return list(cell)
+    if tuple(cell) != (1, 1):
+        raise SystemExit(f"{job['label']} takes no raster cell")
+    return []
+
+
+def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1)):
     n_tiles = starts.shape[0]
-    img = torch.empty((n_tiles, 256, 4), device="cuda")
-    log_t = torch.empty((n_tiles, 256), device="cuda")
-    fidx = torch.empty((n_tiles, 256), dtype=torch.int32, device="cuda")
+    px = 256 * cell[0] * cell[1]
+    img = torch.empty((n_tiles, px, 4), device="cuda")
+    log_t = torch.empty((n_tiles, px), device="cuda")
+    fidx = torch.empty((n_tiles, px), dtype=torch.int32, device="cuda")
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), n_tiles, tiles_x, img.data_ptr(),
-            log_t.data_ptr(), fidx.data_ptr()]
+            ends.data_ptr(), n_tiles, tiles_x]
+    cells = cell_ints(job, cell)
+    args += cells + [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
     if not job["legacy"]:   # sources before the tile order take no scratch
         order = torch.empty_like(starts)
         args.append(order.data_ptr())
     args.append(torch.cuda.current_stream().cuda_stream)
     fn = job["lib"].rasterize_fwd_launch
-    fn.argtypes = [P, I, P, P, I, I] + [P] * (len(args) - 6)
+    fn.argtypes = ([P, I, P, P, I, I] + [I] * len(cells)
+                   + [P] * (len(args) - 6 - len(cells)))
     fn.restype = I
     build.check(fn(*args), job["label"])
     return img, log_t, fidx
@@ -184,17 +206,25 @@ def fwd_rows(out):
                       fidx.reshape(1, -1).to(torch.float32)])
 
 
-def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx):
+def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
+            cell=(1, 1)):
     grads = torch.zeros((9, packed.shape[1]), device="cuda")
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), starts.shape[0], tiles_x, v_out.data_ptr(),
-            log_t.data_ptr(), fidx.data_ptr(), grads.data_ptr()]
+            ends.data_ptr(), starts.shape[0], tiles_x]
+    cells = cell_ints(job, cell)
+    args += cells + [v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
+                     grads.data_ptr()]
     if not job["legacy"]:   # sources before the tile order take no scratch
         order = torch.empty_like(starts)
         args.append(order.data_ptr())
+    if job["cells"]:        # the state scratch, unread at cell (1, 1)
+        state = torch.empty(2 * log_t.numel() if cell[0] * cell[1] > 1
+                            else 2, device="cuda")
+        args.append(state.data_ptr())
     args.append(torch.cuda.current_stream().cuda_stream)
     fn = job["lib"].rasterize_bwd_launch
-    fn.argtypes = [P, I, P, P, I, I] + [P] * (len(args) - 6)
+    fn.argtypes = ([P, I, P, P, I, I] + [I] * len(cells)
+                   + [P] * (len(args) - 6 - len(cells)))
     fn.restype = I
     build.check(fn(*args), job["label"])
     return grads
@@ -221,8 +251,10 @@ def compare(tag, jobs, run, args, reps, extra=None, rows=lambda out: out):
     for j in jobs:
         got = rows(run(j, *args))
         same = torch.equal(got, rows(run(j, *args)))
+        bits = torch.equal(got.view(torch.int32), ref.view(torch.int32))
         print(f"[{tag}] {j['label']}: row error against the repository's "
-              f"{cs.row_error(got, ref):.3e}; two launches bit-equal: {same}")
+              f"{cs.row_error(got, ref):.3e}, bit-equal to it: {bits}; two "
+              f"launches bit-equal: {same}")
     for rnd in range(2):
         for j in jobs:
             ms = cs.cuda_ms(lambda: run(j, *args), reps=reps)
@@ -253,7 +285,7 @@ def castle_views(fwd_jobs):
             k = cs.kernel_inputs(splats, cp, size, pool)
         plain = rasterize_fwd_plain(*k["r_args"])
         for j in fwd_jobs:
-            d = cs.raster_diff(run_fwd(j, *k["r_args"]), plain)
+            d = cs.raster_diff(run_fwd(j, *k["r_args"][:4]), plain)
             print(f"[castle view {view}] {j['label']}: max err "
                   f"{d['err']:.3e}, flipped pixels {d['flips']} (largest "
                   f"img or T difference there {d['flip_err']:.3e}), "
@@ -318,10 +350,19 @@ def main():
     ap.add_argument("--castle", action="store_true", help="also hold every "
                     "rasterize_fwd source to the plain version on the four "
                     "castle views")
+    ap.add_argument("--old-only", action="store_true", help="without "
+                    "--variant, run only the repository's sources and "
+                    "--old-dir's (no default variants)")
+    ap.add_argument("--cell", default="1x1", help="raster cell GWxGH of the "
+                    "inputs (sources before the cell mode run 1x1 only)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    variants = [(v[0], v[1], v[2:]) for v in opts.variant] or DEFAULT_VARIANTS
+    cell = tuple(int(v) for v in opts.cell.lower().split("x"))
+    if cell != (1, 1) and opts.timeline:
+        raise SystemExit("--timeline times tiles: run it at --cell 1x1")
+    variants = [(v[0], v[1], v[2:]) for v in opts.variant] or (
+        [] if opts.old_only else DEFAULT_VARIANTS)
     pending = [start_build(f"repository's {k}", k, substituted(k, []))
                for k in KERNELS]
     for k in KERNELS:
@@ -340,8 +381,10 @@ def main():
 
     splats, cp, size = cs.make_scene(cs.BENCH, "cuda")
     k = cs.kernel_inputs(splats, cp, size, pool_size(
-        splats.capacity, size, cs.BENCH["pool"], cs.BENCH["block"]))
-    packed, starts, ends, tiles_x = k["r_args"]
+        splats.capacity, size, cs.BENCH["pool"], cs.BENCH["block"]), cell)
+    packed, starts, ends, tiles_x, _ = k["r_args"]
+    print(f"[inputs] bench render at cell {cell}: {starts.shape[0]} cells, "
+          f"{int(k['exp_args'][3][0])} records")
     fwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_fwd"]
     n4 = pool4 = 1 << 22
     packed4 = torch.zeros((8, pool4), dtype=torch.int32, device="cuda")
@@ -349,18 +392,17 @@ def main():
     for tag, f_args in (
             ("rasterize_fwd, bench render inputs", k["r_args"]),
             (f"rasterize_fwd, the same records in a pool of {pool4}",
-             (packed4, starts, ends, tiles_x))):
+             (packed4, starts, ends, tiles_x, cell))):
         compare(tag, fwd_jobs, run_fwd, f_args, reps=20, rows=fwd_rows)
     del packed4
     if opts.castle:
         castle_views(fwd_jobs)
     if opts.timeline:
-        timeline("rasterize_fwd", run_fwd, k["r_args"])
+        timeline("rasterize_fwd", run_fwd, k["r_args"][:4])
     _, log_t, fidx = rasterize_fwd(*k["r_args"])
     gen = torch.Generator(device="cuda").manual_seed(1)
-    v_out = torch.randn((starts.shape[0], 256, 4), generator=gen,
-                        device="cuda")
-    b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx)
+    v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+    b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
     bwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_bwd"]
     compare("rasterize_bwd, bench render inputs", bwd_jobs, run_bwd, b_args,
             reps=10)

@@ -8,7 +8,8 @@ their stage marks recorded (brush_tpu_torch/utils/profiler.py) and prints:
   - each stage's median over 10 render_splats(needs_grad=False) calls
     (pool 2162688) after 2 warm-ups, and over 8 SplatTrainer steps (the
     default config: no refine) after one more, at capacity 1M and at the
-    4M that chip_smoke.py's training run ends at;
+    4M that chip_smoke.py's training run ends at; and both again at raster
+    cell CELL (2, 2) (render_splats(cell=), SplatTrainer(raster_cell=));
   - that training run (warmup 1, refine every 3) step by step: the
     capacity, the step's ms and its refine's ms;
   - a torch.profiler table of device time by kernel over 5 renders, and
@@ -53,6 +54,7 @@ from brush_tpu_torch.utils import profiler  # noqa: E402
 
 N, SIZE, POOL, BLOCK = 1 << 20, 1024, 2162688, 512
 GROWTH_STEPS = 6
+CELL = (2, 2)
 
 
 def stage_medians(fn, reps: int, warm: int) -> dict:
@@ -87,27 +89,32 @@ def main() -> int:
     cp = camera_params(cam, size, device="cuda")
     batch = SceneBatch(np.zeros((SIZE, SIZE, 3), np.float32), cam)
 
-    def render():
+    def render(cell=(1, 1)):
         return render_splats(
             splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
             splats.raw_opacity, cp, size, active=splats.active_mask(),
-            block_size=BLOCK, max_isects=POOL, needs_grad=False)
+            block_size=BLOCK, max_isects=POOL, cell=cell, needs_grad=False)
 
-    def train_steps(state):
+    def train_steps(state, cell=(1, 1)):
         """A default trainer (no refine) stepping on from state."""
-        trainer = SplatTrainer()
+        trainer = SplatTrainer(raster_cell=cell)
         box = [state]
 
         def step():
             box[0], _ = trainer.step(box[0], batch)
         return step
 
-    columns = {"render": stage_medians(render, 10, 2)}
+    cell_tag = f"cell {CELL[0]}x{CELL[1]}"
+    columns = {"render": stage_medians(render, 10, 2),
+               f"render {cell_tag}": stage_medians(lambda: render(CELL), 10,
+                                                   2)}
     step = train_steps(SplatTrainer().init_state(splats))
     columns[f"train at {N}"] = stage_medians(step, 8, 1)
     del step
     state = growth_run(splats, batch)
     cap = state.splats.capacity
+    step = train_steps(state, CELL)
+    columns[f"{cap} {cell_tag}"] = stage_medians(step, 8, 1)
     step = train_steps(state)
     columns[f"train at {cap}"] = stage_medians(step, 8, 1)
     print_columns(columns)

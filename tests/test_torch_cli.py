@@ -1,8 +1,8 @@
 """The port's CLI against brush_tpu's: `train` on the same tiny NeRF zip
 gives the same per-step losses and close final parameters; `eval`,
 `render`, `train2d` and `--resume` run on the CPU; what is not ported yet
-raises NotImplementedError; the new modules import neither JAX nor
-brush_tpu."""
+raises NotImplementedError (`train --cell` runs: tests/test_torch_cells.py);
+the new modules import neither JAX nor brush_tpu."""
 
 import contextlib
 import io
@@ -203,7 +203,7 @@ def test_train2d_size_without_pillow_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["train", "--cell", "2x2"], ["train", "--shard"], ["train", "--rerun"],
+    ["view", "--cell", "2x2"], ["train", "--shard"], ["train", "--rerun"],
     ["train2d", "--shard", "--image", "unused.png"], ["view"]])
 def test_cli_parts_not_ported_raise(argv, nerf_zip):
     if argv[0] == "train":

@@ -54,16 +54,18 @@ def make_scene(n, seed, scale_hi=0.5, sh_degree=1):
     }
 
 
-def port_records(sc, img_size, pool, device="cpu"):
+def port_records(sc, img_size, pool, device="cpu", cell=(1, 1)):
     """The port's stages up to the tile sort on `device` (CPU tensors go
-    through the plain kernels)."""
+    through the plain kernels), in raster cells of `cell` tiles ("tiles_x"
+    and "num_tiles" then count cells)."""
     cp = camera_params(Camera(**CAM), img_size, device=device)
     t = {k: torch.tensor(v, device=device) for k, v in sc.items()}
     rec = record_inputs(t["means"], t["log_scales"], t["quats"],
-                        t["sh_coeffs"], t["raw_opacity"], cp, img_size)
+                        t["sh_coeffs"], t["raw_opacity"], cp, img_size,
+                        cell=cell)
     d = depth_order(rec.attrs9, rec.decode, rec.depth_key, pool)
-    tiles_x = -(-img_size[0] // 16)
-    num_tiles = tiles_x * -(-img_size[1] // 16)
+    tiles_x = -(-img_size[0] // (16 * cell[0]))
+    num_tiles = tiles_x * -(-img_size[1] // (16 * cell[1]))
     keys, recs = t_expand.expand(d.f5, d.u5, d.cum, d.total, tiles_x,
                                  num_tiles, pool)
     packed, starts, ends = tile_bins(keys, recs, num_tiles)
@@ -346,6 +348,60 @@ def test_cuda_render_matches_cpu():
     close_with_flips(out["cuda"][0].cpu().numpy(), out["cpu"][0].numpy(),
                      atol=1e-5, what="render")
     assert int(out["cuda"][1].num_isects) == int(out["cpu"][1].num_isects)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [(2, 2), (3, 1), (4, 2)])
+def test_cuda_rasterizers_at_cells_match_plain(cell):
+    """Both rasterizers at a raster cell (the deep-tile scene: several
+    staging batches a cell; 32x32 is 2x2 tiles, which (3, 1) and (4, 2) do
+    not divide): forward against plain (tolerances of the tile tests),
+    backward on the kernel forward's outputs within 1e-4 of each row's
+    largest value, launches counted once, repeats bit-equal."""
+    _need_cuda()
+    n, img_size, pool, scale_hi = BWD_SCENES["deep_tiles"]
+    r = port_records(make_scene(n, 12, scale_hi), img_size, pool, "cuda",
+                     cell)
+    args = (r["packed"], r["starts"], r["ends"], r["tiles_x"], cell)
+    before = (t_raster.launches, t_bwd.launches)
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    p = 256 * cell[0] * cell[1]
+    assert img.shape == (r["num_tiles"], p, 4) and log_t.shape[1] == p
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+    b_args = (*args[:4], v_out, log_t, fidx, cell)
+    got = t_bwd.rasterize_bwd(*b_args)
+    torch.cuda.synchronize()
+    assert (t_raster.launches, t_bwd.launches) == (before[0] + 2,
+                                                   before[1] + 1)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, f"{cell}")
+    assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
+
+
+@pytest.mark.cuda
+def test_cuda_render_at_cell_matches_tiles():
+    """render_splats at cell (2, 2) on the card, with gradients: the image
+    of the tile path within 1e-5 but for counted flips, fewer records."""
+    _need_cuda()
+    sc = make_scene(512, 8)
+    t = {k: torch.tensor(v, device="cuda") for k, v in sc.items()}
+    cp = camera_params(Camera(**CAM), (80, 48), device="cuda")
+    out = {cell: render_splats(t["means"], t["log_scales"], t["quats"],
+                               t["sh_coeffs"], t["raw_opacity"], cp, (80, 48),
+                               cell=cell)
+           for cell in ((1, 1), (2, 2))}
+    torch.cuda.synchronize()
+    close_with_flips(out[(2, 2)][0].detach().cpu().numpy(),
+                     out[(1, 1)][0].detach().cpu().numpy(), atol=1e-5,
+                     what="cell render")
+    assert 0 < int(out[(2, 2)][1].num_isects) < int(
+        out[(1, 1)][1].num_isects)
 
 
 def rows_close(got, want, rtol, what=""):

@@ -29,6 +29,7 @@ from brush_tpu.splats import from_random as j_from_random
 from brush_tpu_torch import native
 from brush_tpu_torch.convert import splats_from_numpy
 from brush_tpu_torch.datasets import load_dataset, load_initial_splats, png
+from brush_tpu_torch.datasets import loading
 from brush_tpu_torch.datasets import testing as dt
 from brush_tpu_torch.datasets.colmap import _read_points3d_bin
 from brush_tpu_torch.datasets.loader import SceneLoader
@@ -392,6 +393,51 @@ def test_decoder_is_chosen_by_the_header(monkeypatch):
         _decode_image(png16, None)
     with pytest.raises(ImportError, match="max_resolution"):
         _decode_image(rgb, 10)
+
+
+@pytest.fixture
+def fresh_png_route():
+    """png_route chosen anew in the test, and again after it."""
+    loading.png_route.cache_clear()
+    yield
+    loading.png_route.cache_clear()
+
+
+def test_png_route_without_native_is_pillow_then_numpy(monkeypatch,
+                                                       fresh_png_route):
+    """With the native library hidden, 8-bit PNGs (every colour type, a
+    palette with tRNS, all five row filters) go to Pillow where it imports
+    (the numpy unfilter is never called) and to the numpy unfilter where it
+    does not; both give the bytes of the native route."""
+    rng = np.random.default_rng(12)
+    datas = []
+    for channels in (1, 2, 3, 4):
+        img = smooth_image(rng, 23, 19, channels)
+        img = img[..., 0] if channels == 1 else img
+        datas.append(dt.filtered_png(img, rng.integers(0, 5, 23)))
+    pal = Image.fromarray(smooth_image(rng, 16, 16, 3)).quantize(32)
+    pal.info["transparency"] = 3
+    buf = io.BytesIO()
+    pal.save(buf, "PNG", transparency=3)
+    datas.append(buf.getvalue())
+    assert loading.png_route() == "native"
+    want = [_decode_image(d, None) for d in datas]
+
+    unfilter = png._unfilter_wavefront
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(png, "_unfilter_wavefront", lambda *a: pytest.fail(
+        "the numpy unfilter ran with Pillow installed"))
+    loading.png_route.cache_clear()
+    assert loading.png_route() == "pillow"
+    for d, w in zip(datas, want):
+        np.testing.assert_array_equal(_decode_image(d, None), w)
+
+    monkeypatch.setattr(png, "_unfilter_wavefront", unfilter)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    loading.png_route.cache_clear()
+    assert loading.png_route() == "numpy"
+    for d, w in zip(datas, want):
+        np.testing.assert_array_equal(_decode_image(d, None), w)
 
 
 def test_splats_to_ply_matches_reference_export():

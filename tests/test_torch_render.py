@@ -108,15 +108,23 @@ def _scene():
 
 
 def test_render_refuses_gradients_and_cells():
-    """Cells other than (1, 1) still raise, with and without gradients; the
+    """Cells other than (1, 1) render, with and without gradients, the
+    image of the tile path (within tests/test_torch_cells.py's SELF_ATOL)
+    and fewer records; a cell that is no pair of positive ints raises; the
     inference pipeline refuses inputs that require grad; the default
     differentiable render lets a gradient flow to every parameter."""
     ts, cp = _scene()
     args = (ts.means, ts.log_scales, ts.quats, ts.sh_coeffs, ts.raw_opacity,
             cp, (32, 32))
+    img_1, aux_1 = render_splats(*args, needs_grad=False)
     for needs_grad in (True, False):
-        with pytest.raises(NotImplementedError, match="cell"):
-            render_splats(*args, cell=(2, 2), needs_grad=needs_grad)
+        img, aux = render_splats(*args, cell=(2, 2), needs_grad=needs_grad)
+        assert_close_quantized(img.detach().numpy(), img_1.numpy(),
+                               atol=1e-6, flip_tol=0.05, err_msg="cell")
+        assert 0 < int(aux.num_isects) < int(aux_1.num_isects)
+    for bad in ((0, 1), (2, -1)):
+        with pytest.raises(ValueError, match="cell"):
+            render_splats(*args, cell=bad)
     means = ts.means.clone().requires_grad_(True)
     with pytest.raises(ValueError, match="inference-only"):
         render_splats(means, *args[1:], needs_grad=False)
@@ -130,6 +138,40 @@ def test_render_refuses_gradients_and_cells():
     # changes: the quaternions' gradient is zero, the rest is not.
     for p in params[:2] + params[3:]:
         assert p.grad.abs().max() > 0
+
+
+def test_render_backend_arguments():
+    """The reference's backend, scan_passes and bwd_tiles_per_step are
+    accepted and select nothing: on CPU tensors "pallas", "auto" and "xla"
+    run the same kernel wrappers (here their plain versions) and give the
+    same bits, with gradients too; scan_passes and bwd_tiles_per_step
+    change nothing; "xla" is refused on a CUDA tensor (the check comes
+    before any work, so a tensor that reports itself on CUDA shows it
+    here); an unknown backend raises."""
+    ts, cp = _scene()
+    args = (ts.means, ts.log_scales, ts.quats, ts.sh_coeffs, ts.raw_opacity,
+            cp, (32, 32))
+
+    def grads(**kw):
+        params = [a.clone().requires_grad_(True) for a in args[:5]]
+        img, _ = render_splats(*params, *args[5:], **kw)
+        (img ** 2).sum().backward()
+        return [img.detach()] + [p.grad for p in params]
+
+    want = grads()
+    for kw in (dict(backend="pallas"), dict(backend="auto", scan_passes=3),
+               dict(backend="xla", bwd_tiles_per_step=4)):
+        for a, b in zip(grads(**kw), want):
+            assert torch.equal(a, b), kw
+    with pytest.raises(ValueError, match="backend"):
+        render_splats(*args, backend="mosaic")
+
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        render_splats(ts.means.as_subclass(OnCard), *args[1:],
+                      backend="xla")
 
 
 def test_render_empty_and_behind_camera_is_finite():
