@@ -12,15 +12,23 @@ The flags and defaults are the JAX CLI's; its global `--platform` is
 `--device` here (default cuda; without a card that raises, and
 `--device cpu` runs the plain versions of the kernels). `train --cell
 GWxGH` rasterizes in raster cells of GW x GH tiles, in training and in
-its evals. What waits for modules not ported yet raises
-NotImplementedError naming its ROADMAP.md item by title: `--shard`
-("parallel/"), `--rerun` ("utils/rerun_viz.py") and the `view`
-subcommand ("viewer/").
+its evals. `train --shard` and `train2d --shard` train over the ranks of
+a process group (parallel/): torchrun's world, each rank on
+cuda:LOCAL_RANK, where torchrun starts the command
+
+    torchrun --nproc_per_node=N -m brush_tpu_torch.cli train --shard ...
+
+and else a world of one process on the asked device. Every rank steps;
+rank 0 alone prints, logs metrics, evaluates, checkpoints and exports,
+from the state gathered over the ranks. What waits for modules not ported
+yet raises NotImplementedError naming its ROADMAP.md item by title:
+`--rerun` ("utils/rerun_viz.py") and the `view` subcommand ("viewer/").
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -48,7 +56,7 @@ def _add_dataset_args(p):
     p.add_argument("--eval-split-every", type=int, default=None)
 
 
-def _load(args):
+def _load(args, verbose: bool = True):
     from brush_tpu_torch.datasets import load_dataset
     from brush_tpu_torch.datasets.loading import LoadDatasetArgs
 
@@ -60,12 +68,35 @@ def _load(args):
             eval_split_every=args.eval_split_every,
         ),
     )
-    print(f"dataset: {len(ds.train.views)} train views"
-          + (f", {len(ds.eval.views)} eval views" if ds.eval else ""))
+    if verbose:
+        print(f"dataset: {len(ds.train.views)} train views"
+              + (f", {len(ds.eval.views)} eval views" if ds.eval else ""))
     return ds
 
 
+@contextlib.contextmanager
+def _ranks(args):
+    """(mesh or None, this rank's device, whether this rank is rank 0) of
+    a train command: with --shard the ranks of the process group
+    (parallel.multihost.process_group), else one device."""
+    if not args.shard:
+        yield None, args.device, True
+        return
+    from brush_tpu_torch.parallel import make_mesh, multihost
+
+    with multihost.process_group(args.device) as dev:
+        mesh = make_mesh(dev)
+        if mesh.rank == 0:
+            print(f"sharded training over {mesh.size} ranks")
+        yield mesh, dev, mesh.rank == 0
+
+
 def cmd_train(args):
+    with _ranks(args) as (mesh, dev, coord):
+        _train(args, mesh, dev, coord)
+
+
+def _train(args, mesh, dev, coord: bool):
     import torch
 
     from brush_tpu_torch.config import TrainConfig
@@ -80,12 +111,10 @@ def cmd_train(args):
     )
     from brush_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.shard:
-        _not_ported("--shard (training sharded over devices)", "parallel/")
     if args.rerun:
         _not_ported("--rerun", "utils/rerun_viz.py")
-    dev = args.device
-    ds = _load(args)
+    log = print if coord else (lambda *a, **k: None)
+    ds = _load(args, coord)
     config = TrainConfig(
         densify_grad_thresh=args.densify_grad_thresh,
         refine_every=args.refine_every,
@@ -105,27 +134,40 @@ def cmd_train(args):
             rng, c2 - e2, c2 + e2, count=args.init_count,
             sh_degree=args.sh_degree, device=dev,
         )
-        print(f"random init: {splats.n_live} splats in camera bounds")
+        log(f"random init: {splats.n_live} splats in camera bounds")
     else:
-        print(f"point-cloud init: {splats.n_live} splats")
+        log(f"point-cloud init: {splats.n_live} splats")
 
-    trainer = SplatTrainer(config, raster_block_size=args.block_size,
-                           raster_cell=_parse_cell(args.cell),
-                           pack_grad_sort=args.pack_grad_sort)
+    kw = dict(raster_block_size=args.block_size,
+              raster_cell=_parse_cell(args.cell),
+              pack_grad_sort=args.pack_grad_sort)
+    if mesh is None:
+        trainer = SplatTrainer(config, **kw)
+        whole = lambda st: st
+    else:
+        from brush_tpu_torch.parallel import ShardedTrainer
+        from brush_tpu_torch.parallel.sharding import (
+            gather_state, shard_state,
+        )
+
+        trainer = ShardedTrainer(mesh, config, **kw)
+        whole = lambda st: gather_state(st, mesh)
     state = trainer.init_state(splats)
     start_step = 0
     if args.resume:
         state, start_step, gen_state, _ = load_checkpoint(args.resume, dev)
+        if mesh is not None:
+            state = shard_state(state, mesh)
         if gen_state is not None:
             trainer._generator = torch.Generator(device=dev)
             trainer._generator.set_state(gen_state)
         trainer.iter = start_step
-        print(f"resumed from {args.resume} at step {start_step}")
+        log(f"resumed from {args.resume} at step {start_step}")
 
     loader = SceneLoader(ds.train, seed=config.seed)
     metrics = MetricsLogger(
         jsonl_path=os.path.join(args.checkpoint_dir, "metrics.jsonl")
-        if args.checkpoint_dir else None,
+        if args.checkpoint_dir and coord else None,
     )
 
     try:
@@ -133,7 +175,7 @@ def cmd_train(args):
             batch = loader.next_batch()
             state, stats = trainer.step(state, batch)
 
-            if step % args.log_every == 0:
+            if coord and step % args.log_every == 0:
                 metrics.log(
                     step,
                     loss=float(stats.loss),
@@ -144,7 +186,7 @@ def cmd_train(args):
                     iters_per_s=metrics.iters_per_sec(),
                     lr_mean=config.lr_mean_at(step) * batch.scene_extent,
                 )
-            if trainer.last_refine_stats is not None:
+            if coord and trainer.last_refine_stats is not None:
                 rs = trainer.last_refine_stats
                 metrics.log(
                     step,
@@ -159,23 +201,30 @@ def cmd_train(args):
                 # value evaluates a fixed prefix of it.
                 k = args.eval_views if args.eval_views > 0 else None
                 views = [(v.camera, v.image) for v in ds.eval.views[:k]]
-                evals = eval_stats(state.splats, views,
-                                   block_size=args.block_size,
-                                   cell=trainer.raster_cell)
-                psnr = float(np.mean([e.psnr for e in evals]))
-                ssim = float(np.mean([e.ssim for e in evals]))
-                metrics.log(step, eval_psnr=psnr, eval_ssim=ssim)
+                splats_w = whole(state).splats
+                if coord:
+                    evals = eval_stats(splats_w, views,
+                                       block_size=args.block_size,
+                                       cell=trainer.raster_cell)
+                    psnr = float(np.mean([e.psnr for e in evals]))
+                    ssim = float(np.mean([e.ssim for e in evals]))
+                    metrics.log(step, eval_psnr=psnr, eval_ssim=ssim)
 
             if args.checkpoint_dir and step > 0 and step % args.checkpoint_every == 0:
                 path = os.path.join(args.checkpoint_dir, f"ckpt_{step:07d}.npz")
-                save_checkpoint(path, state, trainer.iter, trainer._generator,
-                                config)
-                print(f"checkpointed {path}")
+                state_w = whole(state)
+                if coord:
+                    save_checkpoint(path, state_w, trainer.iter,
+                                    trainer._generator, config)
+                    print(f"checkpointed {path}")
     finally:
         loader.close()
-    print(f"gt cache: {trainer.gt_cache_hits} hits, "
-          f"{len(trainer._gt_cache)} views, {trainer._gt_cache_bytes} bytes")
+    log(f"gt cache: {trainer.gt_cache_hits} hits, "
+        f"{len(trainer._gt_cache)} views, {trainer._gt_cache_bytes} bytes")
 
+    state = whole(state)
+    if not coord:
+        return
     if ds.eval:
         views = [(v.camera, v.image) for v in ds.eval.views]
         evals = eval_stats(state.splats, views, block_size=args.block_size,
@@ -286,14 +335,17 @@ def train2d_target(data: bytes, size: int | None) -> np.ndarray:
 def cmd_train2d(args):
     """Fit gaussians to one image with a fixed camera (reference: the
     train-2d toy crate, train-2d/src/main.rs:36-92,185-222)."""
+    with _ranks(args) as (mesh, dev, coord):
+        _train2d(args, mesh, dev, coord)
+
+
+def _train2d(args, mesh, dev, coord: bool):
     from brush_tpu_torch.camera import Camera, focal_to_fov
     from brush_tpu_torch.config import TrainConfig
     from brush_tpu_torch.eval import eval_view
     from brush_tpu_torch.splats import from_random
     from brush_tpu_torch.train import SceneBatch, SplatTrainer
 
-    if args.shard:
-        _not_ported("--shard (training sharded over devices)", "parallel/")
     with open(args.image, "rb") as f:
         target = train2d_target(f.read(), args.size)
     h, w = target.shape[:2]
@@ -310,20 +362,31 @@ def cmd_train2d(args):
                  fov_x=fov, fov_y=fov)
     rng = np.random.default_rng(config.seed)
     splats = from_random(rng, [-2.5, -2.5, -2.5], [2.5, 2.5, 2.5],
-                         count=args.init_count, sh_degree=0,
-                         device=args.device)
-    trainer = SplatTrainer(config, raster_block_size=args.block_size)
+                         count=args.init_count, sh_degree=0, device=dev)
+    if mesh is None:
+        trainer = SplatTrainer(config, raster_block_size=args.block_size)
+    else:
+        from brush_tpu_torch.parallel import ShardedTrainer
+
+        trainer = ShardedTrainer(mesh, config,
+                                 raster_block_size=args.block_size)
     state = trainer.init_state(splats)
     batch = SceneBatch(gt_image=target, camera=cam, scene_extent=1.0)
 
     t0 = time.time()
     for step in range(args.iters):
         state, stats = trainer.step(state, batch)
-        if step % args.log_every == 0:
+        if coord and step % args.log_every == 0:
             print(f"step {step:5d} loss {float(stats.loss):.5f} "
                   f"splats {state.splats.n_live} "
                   f"({(step + 1) / (time.time() - t0):.1f} it/s)")
 
+    if mesh is not None:
+        from brush_tpu_torch.parallel.sharding import gather_state
+
+        state = gather_state(state, mesh)
+    if not coord:
+        return
     ev = eval_view(state.splats, cam, target, block_size=args.block_size)
     print(f"final PSNR {ev.psnr:.2f} SSIM {ev.ssim:.4f} "
           f"splats {state.splats.n_live}")
@@ -373,8 +436,8 @@ def main(argv=None):
                         "pool-scale payload rows); --no-pack-grad-sort "
                         "keeps exact f32 cotangents")
     t.add_argument("--shard", action="store_true",
-                   help="shard training over all visible devices (not "
-                        "ported yet)")
+                   help="shard training over the ranks of a process group "
+                        "(torchrun's, else one process)")
     t.add_argument("--eval-every", type=int, default=0)
     t.add_argument("--eval-views", type=int, default=0,
                    help="views per in-training eval (0 = all)")
@@ -426,8 +489,8 @@ def main(argv=None):
     t2.add_argument("--log-every", type=int, default=50)
     t2.add_argument("--out", default=None, help="write final render PNG")
     t2.add_argument("--shard", action="store_true",
-                    help="shard training over all visible devices (not "
-                         "ported yet)")
+                    help="shard training over the ranks of a process group "
+                         "(torchrun's, else one process)")
     t2.set_defaults(fn=cmd_train2d)
 
     args = ap.parse_args(argv)

@@ -104,6 +104,12 @@
 //     The TPU kernel's cell knobs (k_lanes VMEM budget, tiles_per_step
 //     shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM limits and have
 //     no counterpart here.
+//   - Strips (the TPU kernel's tile_ids, rasterize_bwd.py:203): as in
+//     rasterize_fwd.cu, a launch's cells are the contiguous run of the
+//     image's cells from tile_base; local cell t takes its pixel origin from
+//     global cell tile_base + t, everything else stays indexed by t. Cells
+//     past the image have starts == ends and return at once. tile_base 0 is
+//     the whole-frame kernel, bit for bit.
 // No atomics on floats: each record belongs to one tile and every sum has
 // a fixed order, so two launches are bit-equal (the tile order's integer
 // atomics move no result). Sigma and the colour decode use the forward's
@@ -201,7 +207,7 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends, int num_cells,
-                     int cells_x, int cell_w, int cell_h,
+                     int tile_base, int cells_x, int cell_w, int cell_h,
                      const float* __restrict__ v_out,
                      const float* __restrict__ log_t_in,
                      const int* __restrict__ fidx_in,
@@ -213,6 +219,7 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
   __shared__ int s_max[kWarps];
 
   const int t = order[blockIdx.x];  // the cell
+  const int gc = tile_base + t;     // its place in the image
   const int tid = threadIdx.x;
   const unsigned lane = tid & 31;
   const int warp = tid >> 5;
@@ -258,9 +265,9 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
   // the warp composited there; `first`: T and the colour behind start
   // (else they come from the scratch).
   auto load_pixels = [&](int sub, bool first) {
-    px0 = static_cast<float>((t % cells_x) * cell_px + (sub % cell_w) * kTile +
-                             lx) + 0.5f;
-    py0 = static_cast<float>((t / cells_x) * kTile * cell_h +
+    px0 = static_cast<float>((gc % cells_x) * cell_px +
+                             (sub % cell_w) * kTile + lx) + 0.5f;
+    py0 = static_cast<float>((gc / cells_x) * kTile * cell_h +
                              (sub / cell_w) * kTile + ly) + 0.5f;
     wmax = -1;
 #pragma unroll
@@ -439,22 +446,27 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
 }  // namespace
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
-// tiles. order: num_cells ints of scratch; state: with several tiles a
-// cell, 2 floats of scratch a pixel of the image (unread at (1, 1)).
+// tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
+// whole frame). order: num_cells ints of scratch; state: with several
+// tiles a cell, 2 floats of scratch a pixel of the launch's cells (unread
+// at (1, 1)).
 extern "C" int rasterize_bwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
-                                    int num_cells, int cells_x, int cell_w,
-                                    int cell_h, const float* v_out,
-                                    const float* log_t, const int* fidx,
-                                    float* grads, int* order, float* state,
-                                    void* stream) {
+                                    int num_cells, int tile_base,
+                                    int cells_x, int cell_w, int cell_h,
+                                    const float* v_out, const float* log_t,
+                                    const int* fidx, float* grads, int* order,
+                                    float* state, void* stream) {
   if (num_cells <= 0) return 0;
-  if (cell_w < 1 || cell_h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cell_w < 1 || cell_h < 1 || tile_base < 0 ||
+      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
   rasterize_bwd_kernel<<<num_cells, kThreads, 0, s>>>(
-      packed, pool, order, starts, ends, num_cells, cells_x, cell_w, cell_h,
-      v_out, log_t, fidx, grads, state);
+      packed, pool, order, starts, ends, num_cells, tile_base, cells_x,
+      cell_w, cell_h, v_out, log_t, fidx, grads, state);
   return static_cast<int>(cudaGetLastError());
 }

@@ -101,6 +101,16 @@
 //     knobs that the cell changes (its k_lanes VMEM budget and the
 //     tiles_per_step shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM
 //     limits and have no counterpart here.
+//   - Strips (the TPU kernel's tile_ids, rasterize_fwd.py:230-240,
+//     :407-408): the num_cells cells of a launch are the contiguous run of
+//     the image's cells from tile_base, and local cell t takes its pixel
+//     origin from global cell tile_base + t; starts, ends, the heavy-cells-
+//     first order and the outputs stay indexed by t. The JAX package only
+//     ever passes such runs (parallel/train_step.py:221-222; render.py:176,
+//     317 pass arange), so the kernel takes tile_base and a count, not an
+//     array of ids. Cells past the image come with starts == ends and are
+//     written as any empty cell. tile_base 0 is the whole-frame kernel, bit
+//     for bit.
 //   - Asynchronous staging (5). The next batch's seven packed rows arrive
 //     by cp.async while this batch is swept; decode happens on arrival.
 //     384 records a batch (29 KB) measured 2 % faster than 192.
@@ -169,8 +179,9 @@ __global__ void __launch_bounds__(kThreads)
 rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
-                     const int* __restrict__ ends, int cells_x, int cell_w,
-                     int cell_h, float* __restrict__ img,
+                     const int* __restrict__ ends, int tile_base,
+                     int cells_x, int cell_w, int cell_h,
+                     float* __restrict__ img,
                      float* __restrict__ log_t_out,
                      int* __restrict__ fidx_out) {
   __shared__ int s_raw[kRawRows][kBatch];
@@ -190,12 +201,14 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 
   // This thread's pixel: warp w covers the 8 wide, 4 high patch w of the
   // tile (two patches to a row), the lane is (lane % 8, lane / 8) inside;
-  // (lx, ly) counts from the cell's corner.
+  // (lx, ly) counts from the corner of the cell, whose place in the image
+  // is that of the global cell tile_base + t.
   const int lx = (lane & 7) + (warp & 1) * 8 + (sub % cell_w) * kTile;
   const int ly = (lane >> 3) + (warp >> 1) * 4 + (sub / cell_w) * kTile;
-  const float px = static_cast<float>((t % cells_x) * cell_px + lx) + 0.5f;
+  const int gc = tile_base + t;
+  const float px = static_cast<float>((gc % cells_x) * cell_px + lx) + 0.5f;
   const float py =
-      static_cast<float>((t / cells_x) * kTile * cell_h + ly) + 0.5f;
+      static_cast<float>((gc / cells_x) * kTile * cell_h + ly) + 0.5f;
 
   float t_cur = 1.0f;  // T so far
   float r = 0.0f, g = 0.0f, b = 0.0f;
@@ -314,14 +327,19 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 }  // namespace
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
-// tiles. order: num_cells ints of scratch.
+// tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
+// whole frame). order: num_cells ints of scratch.
 extern "C" int rasterize_fwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
-                                    int num_cells, int cells_x, int cell_w,
-                                    int cell_h, float* img, float* log_t,
-                                    int* fidx, int* order, void* stream) {
+                                    int num_cells, int tile_base,
+                                    int cells_x, int cell_w, int cell_h,
+                                    float* img, float* log_t, int* fidx,
+                                    int* order, void* stream) {
   if (num_cells <= 0) return 0;
-  if (cell_w < 1 || cell_h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cell_w < 1 || cell_h < 1 || tile_base < 0 ||
+      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long blocks = static_cast<long long>(num_cells) * cell_w * cell_h;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
@@ -329,12 +347,13 @@ extern "C" int rasterize_fwd_launch(const int* packed, int pool,
                                                 order);
   if (blocks == num_cells) {
     rasterize_fwd_kernel<false><<<num_cells, kThreads, 0, s>>>(
-        packed, pool, order, starts, ends, cells_x, 1, 1, img, log_t, fidx);
+        packed, pool, order, starts, ends, tile_base, cells_x, 1, 1, img,
+        log_t, fidx);
   } else {
     rasterize_fwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
                                  s>>>(packed, pool, order, starts, ends,
-                                      cells_x, cell_w, cell_h, img, log_t,
-                                      fidx);
+                                      tile_base, cells_x, cell_w, cell_h, img,
+                                      log_t, fidx);
   }
   return static_cast<int>(cudaGetLastError());
 }

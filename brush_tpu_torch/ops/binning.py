@@ -147,3 +147,57 @@ def popcount_u32(v: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return ((v * 0x01010101) & U32) >> 24
+
+
+def _ones_below64(x: torch.Tensor):
+    """(lo, hi) u32 halves (int64 values) of a 64-bit mask with bits
+    [0, x) set, x clamped to [0, 64] (brush_tpu/ops/binning.py:334-348)."""
+    x = torch.clamp(x, 0, 64)
+    xl = torch.clamp(x, 0, 32)
+    xh = torch.clamp(x - 32, 0, 32)
+    return (1 << xl) - 1, (1 << xh) - 1
+
+
+def restrict_masks_parts(ty0, bbox_w, bbox_h, small, mask_lo, mask_hi,
+                         counts_g, row_lo: int, row_hi: int):
+    """Restrict each splat's coverage to the cell rows [row_lo, row_hi)
+    (brush_tpu/ops/binning.py:350-407), elementwise over N; u32 values in
+    int64, as everywhere in this module.
+
+    Small splats keep the mask bits of the rows inside the strip (bit k
+    covers row ty0 + k // 8 on the fixed 8x8 layout, so the kept bits are
+    [lo_r 8, hi_r 8)) and count their popcount; bbox splats clip their
+    row range, tmin_y moving to its first kept row, and count
+    (hi_r - lo_r) bbox_w. Returns (counts_d, mask_lo_d, mask_hi_d,
+    tmin_y_d, bbox_h_d), the last the clipped row count that
+    render.pack_decode_parts stashes for bbox splats."""
+    lo_r = torch.minimum(torch.clamp(row_lo - ty0, min=0), bbox_h)
+    hi_r = torch.minimum(torch.clamp(row_hi - ty0, min=0), bbox_h)
+    a_lo, a_hi = _ones_below64(lo_r * 8)
+    b_lo, b_hi = _ones_below64(hi_r * 8)
+    m_lo = mask_lo & b_lo & ~a_lo
+    m_hi = mask_hi & b_hi & ~a_hi
+    cnt_small = popcount_u32(m_lo) + popcount_u32(m_hi)
+    cnt_bbox = (hi_r - lo_r) * bbox_w
+
+    producing = counts_g > 0
+    counts_d = torch.where(producing, torch.where(small, cnt_small,
+                                                  cnt_bbox), 0)
+    m_lo = torch.where(producing, m_lo, 0)
+    m_hi = torch.where(producing, m_hi, 0)
+    tmin_y_d = torch.where(small, ty0, ty0 + lo_r)
+    return counts_d, m_lo, m_hi, tmin_y_d, hi_r - lo_r
+
+
+def restrict_masks_to_strip(proj: Projection, masks: TileMasks, counts_g,
+                            row_lo: int, row_hi: int):
+    """restrict_masks_parts from a projection's tile bbox and its masks
+    (brush_tpu/ops/binning.py:350-375; tile rows, cell (1, 1))."""
+    ty0 = proj.tile_min[:, 1].to(torch.int64)
+    bbox_w = torch.clamp(
+        (proj.tile_max[:, 0] - proj.tile_min[:, 0]).to(torch.int64), 1, 1023)
+    bbox_h = torch.clamp(
+        (proj.tile_max[:, 1] - proj.tile_min[:, 1]).to(torch.int64), min=1)
+    return restrict_masks_parts(ty0, bbox_w, bbox_h, masks.small,
+                                masks.mask_lo, masks.mask_hi, counts_g,
+                                row_lo, row_hi)

@@ -1,7 +1,8 @@
 """Backward tile rasterizer: per-record gradient rows in tile order.
 
 Replaces brush_tpu/ops/pallas/rasterize_bwd.py (rasterize_bwd_pallas,
-:414), its tile mode and its raster-cell mode. The CUDA kernel is
+:414), its tile mode, its raster-cell mode and its strip mode (tile_base,
+as in rasterize_fwd). The CUDA kernel is
 brush_tpu_torch/csrc/rasterize_bwd.cu (one block per tile or cell,
 several pixels a thread, a back-to-front sweep, one folded warp butterfly
 for the nine pixel sums; its header gives the formulas, the design and
@@ -28,7 +29,7 @@ from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_fwd import (
     PLAIN_CHUNK, _check_inputs as _check_pool, cell_lanes, cell_pixels,
-    check_cell, unpack_record_rows,
+    check_cell, check_tile_base, unpack_record_rows,
 )
 
 GRAD_ROWS = 9
@@ -46,12 +47,14 @@ def _suffix_excl(v: torch.Tensor) -> torch.Tensor:
 
 
 def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
-                        fidx, cell=(1, 1), count_pairs: bool = False):
+                        fidx, cell=(1, 1), tile_base: int = 0,
+                        count_pairs: bool = False):
     """PyTorch version of csrc/rasterize_bwd.cu: one cell at a time, the
     cell's records swept back to front in chunks of (P pixels x
     PLAIN_CHUNK) block math — the per-pixel log T and the colour "behind"
     sums come from suffix cumsums instead of the kernel's running
-    subtraction, so the two agree up to float32 summation order.
+    subtraction, so the two agree up to float32 summation order. Local
+    cell t is the image's cell tile_base + t, as in rasterize_fwd_plain.
 
     Returns grads (GRAD_ROWS, pool); with count_pairs also the (pixel,
     record) pairs the sweep evaluates and how many of them are active.
@@ -67,7 +70,8 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
         last = min(e, lf)
         if last <= s:
             continue
-        pix_x, pix_y = cell_lanes(tiles_x, cell, t, dev).unbind(dim=1)
+        pix_x, pix_y = cell_lanes(tiles_x, cell, tile_base + t,
+                                  dev).unbind(dim=1)
         v_rgb = v_out[t, :, :3]
         v_a = v_out[t, :, 3:4]
         lt = log_t[t]
@@ -129,15 +133,16 @@ def _check_inputs(packed, starts, ends, v_out, log_t, fidx, cell):
 
 
 def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
-                  cell=(1, 1)):
+                  cell=(1, 1), tile_base: int = 0):
     """Per-record gradient rows (GRAD_ROWS, pool) on the inputs' device:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    cell and tiles_x as in rasterize_fwd."""
+    cell, tiles_x and tile_base as in rasterize_fwd."""
     gw, gh = check_cell(cell)
+    tile_base = check_tile_base(tile_base)
     _check_inputs(packed, starts, ends, v_out, log_t, fidx, (gw, gh))
     if packed.device.type == "cpu":
         return rasterize_bwd_plain(packed, starts, ends, tiles_x, v_out,
-                                   log_t, fidx, (gw, gh))
+                                   log_t, fidx, (gw, gh), tile_base)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_bwd: unsupported device {packed.device}")
     global launches
@@ -155,13 +160,13 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
                         dtype=torch.float32, device=dev)
     lib = build.load("rasterize_bwd")
     fn = lib.rasterize_bwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                   _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-                ends.data_ptr(), starts.shape[0], tiles_x, gw, gh,
+                ends.data_ptr(), starts.shape[0], tile_base, tiles_x, gw, gh,
                 v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
                 grads.data_ptr(), order.data_ptr(), state.data_ptr(), stream)
     build.check(rc, "rasterize_bwd")

@@ -1,9 +1,11 @@
 """Forward tile rasterizer over the packed record pool, and the pool layout.
 
 Replaces brush_tpu/ops/pallas/rasterize_fwd.py (rasterize_fwd_pallas,
-:500), its tile mode and its raster-cell mode (cell=(gw, gh): records per
+:500), its tile mode, its raster-cell mode (cell=(gw, gh): records per
 (splat, cell of gw x gh tiles), P = 256 gw gh pixels a cell, row-major
-over the cell). The CUDA kernel is brush_tpu_torch/csrc/rasterize_fwd.cu
+over the cell) and its strip mode (tile_base: the cells are the run of the
+image's cells from tile_base, the only form of `tile_ids` the JAX package
+passes). The CUDA kernel is brush_tpu_torch/csrc/rasterize_fwd.cu
 (one block per 16x16 tile of a cell, heavy cells first, one pixel a
 thread, eight records a step behind a sigma pretest, T as a running
 product, records staged by cp.async; its header gives the design and the
@@ -101,7 +103,8 @@ def cell_pixels(cell) -> int:
 
 
 def cell_lanes(cells_x: int, cell, c: int, device):
-    """The pixel centres (P, 2) of cell c, row-major over the whole cell:
+    """The pixel centres (P, 2) of the image's cell c (its global id),
+    row-major over the whole cell:
     pixel k lies at (k % (16 gw), k // (16 gw)) from the cell's corner
     ((c % cells_x) 16 gw, (c // cells_x) 16 gh), as in the TPU kernel
     (rasterize_fwd.py:215-240). At cell (1, 1) a cell is a tile."""
@@ -115,7 +118,7 @@ def cell_lanes(cells_x: int, cell, c: int, device):
 
 
 def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
-                        count_pairs: bool = False):
+                        tile_base: int = 0, count_pairs: bool = False):
     """PyTorch version of csrc/rasterize_fwd.cu: one cell at a time, each
     cell's records in chunks of (P pixels x PLAIN_CHUNK) block math — the
     transmittance is exp of a cumsum of log1p(-alpha), and the early-out
@@ -124,7 +127,9 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
 
     cell=(gw, gh): starts/ends index raster cells of gw x gh tiles,
     tiles_x is the number of cells a row, and a cell has P = 256 gw gh
-    pixels (cell_lanes gives their order). Returns (img (C, P, 4), log_t
+    pixels (cell_lanes gives their order). Local cell t is the image's cell
+    tile_base + t (a strip of the frame; 0: the whole frame); a cell past
+    the image comes with starts == ends. Returns (img (C, P, 4), log_t
     (C, P), final_idx (C, P)); with count_pairs also (pairs, active): the
     (pixel, record) pairs the sequential loop evaluates (each live pixel's
     records up to its crossing one), and those of them whose alpha reaches
@@ -140,7 +145,7 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
     for t, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
         if e <= s:
             continue
-        pix = cell_lanes(tiles_x, cell, t, dev)
+        pix = cell_lanes(tiles_x, cell, tile_base + t, dev)
         log_t = torch.zeros(p, dtype=torch.float32, device=dev)
         rgb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
         alive = torch.ones(p, dtype=torch.bool, device=dev)
@@ -186,6 +191,13 @@ def check_cell(cell) -> tuple:
     return gw, gh
 
 
+def check_tile_base(tile_base) -> int:
+    """tile_base as a non-negative int; raises on anything else."""
+    if int(tile_base) != tile_base or tile_base < 0:
+        raise ValueError(f"tile_base must be an int >= 0, got {tile_base!r}")
+    return int(tile_base)
+
+
 def _check_inputs(packed, starts, ends):
     if packed.dtype != torch.int32 or packed.dim() != 2 \
             or packed.shape[0] != PACK_ROWS:
@@ -202,17 +214,20 @@ def _check_inputs(packed, starts, ends):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1)):
+def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
+                  tile_base: int = 0):
     """Rasterize on the inputs' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. Cell c covers records
     [starts[c], ends[c]) of `packed`; cell=(gw, gh) makes each a raster
     cell of gw x gh tiles, tiles_x then counting cells (a cell of (1, 1) is
-    a tile). Returns (img (C, P, 4), log_t (C, P), final_idx (C, P)),
-    P = 256 gw gh."""
+    a tile); cell c lies at the image's cell tile_base + c. Returns (img
+    (C, P, 4), log_t (C, P), final_idx (C, P)), P = 256 gw gh."""
     _check_inputs(packed, starts, ends)
     gw, gh = check_cell(cell)
+    tile_base = check_tile_base(tile_base)
     if packed.device.type == "cpu":
-        return rasterize_fwd_plain(packed, starts, ends, tiles_x, (gw, gh))
+        return rasterize_fwd_plain(packed, starts, ends, tiles_x, (gw, gh),
+                                   tile_base)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_fwd: unsupported device {packed.device}")
     global launches
@@ -227,13 +242,14 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1)):
     order = torch.empty_like(starts)
     lib = build.load("rasterize_fwd")
     fn = lib.rasterize_fwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-                ends.data_ptr(), n_cells, tiles_x, gw, gh, img.data_ptr(),
-                log_t.data_ptr(), fidx.data_ptr(), order.data_ptr(), stream)
+                ends.data_ptr(), n_cells, tile_base, tiles_x, gw, gh,
+                img.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
+                order.data_ptr(), stream)
     build.check(rc, "rasterize_fwd")
     launches += 1
     return img, log_t, fidx

@@ -27,6 +27,18 @@ cell (1, 1) is the tile pipeline. The TPU pipeline's cell-dependent knobs
 (the k_lanes VMEM budget, the tiles_per_step shrink) are Mosaic
 scoped-VMEM limits with no counterpart here.
 
+tile_base and raster_tiles (raster_vjp.py:117-125,275-309) make the whole
+pipeline strip-local: the caller passes decode rows restricted to the
+strip's cell rows (ops/binning.restrict_masks_parts), so the pool holds
+only the strip's records; expand's keys (global cell ids) minus tile_base
+are the local keys, and keys outside [0, raster_tiles) and expand's
+sentinel become the local sentinel raster_tiles; the tile sort, the bins,
+both rasterizers and the backward run over the strip's raster_tiles cells
+(local cell t is the image's cell tile_base + t); a local cell past the
+image's num_cells gets an empty range. The backward needs no strip mask:
+the pool is the strip's. The defaults, 0 and num_cells, are the whole
+frame, bit for bit.
+
 `infer_pipeline` runs this without gradients. `RecordPipeline` is the
 differentiable version; its backward
 (raster_vjp.py:336-424):
@@ -118,10 +130,28 @@ def tile_bins(keys, recs, num_tiles: int):
     return packed, bins[:-1].contiguous(), bins[1:].contiguous()
 
 
+def strip_bins(keys, recs, num_cells: int, tile_base: int,
+               raster_tiles: int):
+    """Stage 5 in the strip-local cell domain (raster_vjp.py:275-309):
+    global keys -> local ones (outside the strip and expand's sentinel ->
+    raster_tiles), tile_bins over raster_tiles, and empty ranges for the
+    local cells past the image."""
+    local = keys - tile_base
+    local = torch.where((local >= 0) & (local < raster_tiles), local,
+                        raster_tiles)
+    packed, starts, ends = tile_bins(local, recs, raster_tiles)
+    past = max(num_cells - tile_base, 0)
+    if past < raster_tiles:
+        ends = torch.cat([ends[:past], starts[past:]])
+    return packed, starts, ends
+
+
 def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
-             max_isects: int, cell=(1, 1)):
+             max_isects: int, cell=(1, 1), tile_base: int = 0,
+             raster_tiles: int | None = None):
     """Stages 1-6 -> (DepthOrder, (packed, starts, ends), (img, log_t,
-    final_idx))."""
+    final_idx)); the strip's raster_tiles cells from tile_base (default:
+    the whole frame)."""
     # The packed decode rows hold a 10-bit cell x and an 11-bit cell y
     # (raster_vjp.py:146-153, in cell units).
     if cells_x > 1023 or num_cells > cells_x * 2047:
@@ -131,24 +161,29 @@ def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
     keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num_cells,
                         max_isects)
     mark("expand")
-    bins = tile_bins(keys, recs, num_cells)
+    if raster_tiles is None:
+        raster_tiles = num_cells
+    bins = strip_bins(keys, recs, num_cells, tile_base, raster_tiles)
     mark("tile_bins")
-    out = rasterize_fwd(*bins, cells_x, tuple(cell))
+    out = rasterize_fwd(*bins, cells_x, tuple(cell), tile_base)
     mark("rasterize_fwd")
     return d, bins, out
 
 
 def infer_pipeline(attrs9, decode, depth_key, cells_x: int, num_cells: int,
-                   max_isects: int, cell=(1, 1)):
+                   max_isects: int, cell=(1, 1), tile_base: int = 0,
+                   raster_tiles: int | None = None):
     """The whole inference pipeline. Returns (img_cells (C, P, 4), total,
     raw_total): total is the live records clamped to the pool, raw_total
-    the unclamped count (raw_total - total were dropped)."""
+    the unclamped count (raw_total - total were dropped). With a strip, C
+    is raster_tiles."""
     if attrs9.requires_grad:
         raise ValueError(
             "infer_pipeline is inference-only: an input requires grad; "
             "render with needs_grad=True (RecordPipeline) to differentiate")
     d, _, (img, _, _) = _forward(attrs9, decode, depth_key, cells_x,
-                                 num_cells, max_isects, cell)
+                                 num_cells, max_isects, cell, tile_base,
+                                 raster_tiles)
     return img, d.total[0], d.raw_total
 
 
@@ -194,19 +229,23 @@ class RecordPipeline(torch.autograd.Function):
     are integer bookkeeping.
 
     apply(attrs9, decode, depth_key, cells_x, num_cells, max_isects,
-    pack_grad_sort, cell) -> (img_cells (C, P, 4), order (n,)
-    int64, total () int32, raw_total () int32).
+    pack_grad_sort, cell, tile_base, raster_tiles) -> (img_cells (C, P,
+    4), order (n,) int64, total () int32, raw_total () int32); with a
+    strip (tile_base, raster_tiles) C is raster_tiles.
     """
 
     @staticmethod
     def forward(ctx, attrs9, decode, depth_key, cells_x, num_cells,
-                max_isects, pack_grad_sort, cell=(1, 1)):
+                max_isects, pack_grad_sort, cell=(1, 1), tile_base=0,
+                raster_tiles=None):
         d, (packed, starts, ends), (img, log_t, fidx) = _forward(
-            attrs9, decode, depth_key, cells_x, num_cells, max_isects, cell)
+            attrs9, decode, depth_key, cells_x, num_cells, max_isects, cell,
+            tile_base, raster_tiles)
         ctx.save_for_backward(packed, starts, ends, log_t, fidx, d.offsets,
                               d.cum, d.total, d.order)
         ctx.cells_x = cells_x
         ctx.cell = tuple(cell)
+        ctx.tile_base = tile_base
         ctx.pack_grad_sort = pack_grad_sort
         total = d.total[0].clone()
         ctx.mark_non_differentiable(d.order, total, d.raw_total)
@@ -218,7 +257,8 @@ class RecordPipeline(torch.autograd.Function):
         packed, starts, ends, log_t, fidx, offsets, cum, total, order = \
             ctx.saved_tensors
         grads = rasterize_bwd(packed, starts, ends, ctx.cells_x,
-                              g_img.contiguous(), log_t, fidx, ctx.cell)
+                              g_img.contiguous(), log_t, fidx, ctx.cell,
+                              ctx.tile_base)
         mark("rasterize_bwd")
         rows = grad_resort(grads, packed[PACK_ROWS - 1], total,
                            ctx.pack_grad_sort)
@@ -228,4 +268,4 @@ class RecordPipeline(torch.autograd.Function):
         acc = torch.empty_like(per_splat)
         acc[:, order] = per_splat
         mark("to_global")
-        return acc, None, None, None, None, None, None, None
+        return acc, None, None, None, None, None, None, None, None, None

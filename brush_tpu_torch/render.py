@@ -28,7 +28,9 @@ import torch
 
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.device import full_f32
-from brush_tpu_torch.ops.binning import cell_bbox, precompute_tile_masks
+from brush_tpu_torch.ops.binning import (
+    TileMasks, cell_bbox, precompute_tile_masks,
+)
 from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell
 from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
 from brush_tpu_torch.ops.projection import Projection, project_splats
@@ -128,6 +130,7 @@ class RecordInputs(NamedTuple):
     depth_key: torch.Tensor  # (N,) int64 depth bits, 2^32-1 if no record
     proj: Projection         # detached
     producing: torch.Tensor  # (N,) bool: emits >= 1 record
+    masks: TileMasks         # the exact pretest, in cell units
 
 
 def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
@@ -162,7 +165,8 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
         proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
     ])
     decode = pack_decode_rows(proj_sg, masks, counts_g, cell=cell)
-    return RecordInputs(attrs9, decode, depth_key, proj_sg, producing)
+    return RecordInputs(attrs9, decode, depth_key, proj_sg, producing,
+                        masks)
 
 
 BACKENDS = ("auto", "pallas", "xla")

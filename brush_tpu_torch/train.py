@@ -70,6 +70,10 @@ class StepStats(NamedTuple):
     num_visible: torch.Tensor
     num_isects: torch.Tensor
     num_dropped: torch.Tensor  # records lost to intersection-pool overflow
+    # The largest record count of one strip, unclamped (the sharded step's
+    # max over ranks; one device is one strip: num_isects). It drives
+    # parallel.ShardedTrainer's adaptive strip-pool slack.
+    max_strip_isects: torch.Tensor | int = 0
 
 
 class RefineStats(NamedTuple):
@@ -190,27 +194,27 @@ class SplatTrainer:
         return self._isect_pool
 
     def _note_drops(self, stats: StepStats, pool: int):
-        d = stats.num_dropped.to(torch.int32).reshape(1)
-        if d.is_cuda:
-            host = torch.empty(1, dtype=torch.int32, pin_memory=True)
-            host.copy_(d, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = d, None
+        host, event = copy_to_host(torch.stack([
+            torch.as_tensor(v).to(torch.int64).reshape(())
+            for v in (stats.num_dropped, stats.num_isects,
+                      stats.max_strip_isects)]))
         self._pending_drops.append((self.iter, pool, host, event))
 
-    def _respond_to_drops(self):
+    def _respond_to_drops(self, wait: bool = False):
         """The reference's overflow response (train.py:179-193): any
         dropped record doubles the pool. Acts on each earlier step once its
-        copy has landed, never waiting for it; a drop at a pool smaller
-        than the current one was answered already."""
+        copy has landed, without waiting for it unless `wait`; a drop at a
+        pool smaller than the current one was answered already. Each
+        step's counts also go to _observe_strips."""
         waiting = []
         for it, pool, host, event in self._pending_drops:
             if event is not None and not event.query():
-                waiting.append((it, pool, host, event))
-                continue
-            dropped = int(host[0])
+                if not wait:
+                    waiting.append((it, pool, host, event))
+                    continue
+                event.synchronize()
+            dropped, isects, strip_isects = (int(v) for v in host)
+            self._observe_strips(isects, strip_isects)
             if dropped > 0:
                 self.total_dropped_records += dropped
                 if pool >= self._isect_pool:
@@ -220,6 +224,10 @@ class SplatTrainer:
                         "at iter %d; growing pool %d -> %d", dropped, it,
                         pool, self._isect_pool)
         self._pending_drops = waiting
+
+    def _observe_strips(self, num_isects: int, max_strip_isects: int):
+        """A step's record count and its largest strip's, once on the
+        host (parallel.ShardedTrainer sizes its strip pools from them)."""
 
     def _gt_on_device(self, batch: SceneBatch, img: np.ndarray,
                       dev: torch.device) -> torch.Tensor:
@@ -242,14 +250,8 @@ class SplatTrainer:
 
     def _train_step(self, state: TrainState, gt, cam, lr_mean: float,
                     step: int, img_size, channels: int, pool: int):
-        cfg = self.config
-        w, h = img_size
         splats = state.splats
-        dev = splats.device
-        params = {k: v.detach().requires_grad_(True)
-                  for k, v in splats.params().items()}
-        xy_dummy = torch.zeros((splats.capacity, 2), dtype=torch.float32,
-                               device=dev, requires_grad=True)
+        params, xy_dummy = trainable(splats)
         with full_f32():
             img, aux = render_splats(
                 params["means"], params["log_scales"], params["quats"],
@@ -257,55 +259,16 @@ class SplatTrainer:
                 xy_dummy=xy_dummy, active=splats.active_mask(),
                 block_size=self.raster_block_size, max_isects=pool,
                 cell=self.raster_cell, pack_grad_sort=self.pack_grad_sort)
-            pred = img if channels == 4 else img[..., :3]
-            l1 = torch.mean(torch.abs(pred - gt))
-            if cfg.ssim_weight > 0.0:
-                ssim_val = self._ssim.ssim(img[None, ..., :3],
-                                           gt[None, ..., :3])
-                loss = l1 * (1.0 - cfg.ssim_weight) - ssim_val * cfg.ssim_weight
-            else:
-                loss = l1
+            loss = image_loss(img, gt, channels, self.config, self._ssim)
             mark("loss")
             loss.backward()
             mark("autograd rest")
-
-        with torch.no_grad():
-            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                     for k, p in params.items()}
-            # Densification statistics (train.rs:284-316): screen-space
-            # gradient norms in half-image units, gated past warmup.
-            gate = 1.0 if step > cfg.warmup_steps else 0.0
-            xy_g = xy_dummy.grad
-            xys_scaled = torch.stack([xy_g[:, 0] * (w / 2.0),
-                                      xy_g[:, 1] * (h / 2.0)], dim=1)
-            norms = torch.sqrt(torch.sum(xys_scaled ** 2, dim=1))
-            grad_accum = state.grad_2d_accum + gate * norms
-            counts = state.xy_grad_counts + (
-                int(gate) * aux.producing.to(torch.int32))
-            mark("densify_stats")
-
-            # Per-coefficient SH learning rates: orders > 0 at lr/20
-            # (train.rs:334-348).
-            sh_scale = torch.full((1, splats.sh_count, 1),
-                                  1.0 / cfg.lr_coeffs_sh_scale, device=dev)
-            sh_scale[:, 0] = 1.0
-            lrs = {
-                "means": lr_mean,
-                "raw_opacity": cfg.lr_opac,
-                "sh_coeffs": cfg.lr_coeffs_dc * sh_scale,
-                "quats": cfg.lr_rotation,
-                "log_scales": cfg.lr_scale,
-            }
-            new_params, opt = adam_step(
-                {k: p.detach() for k, p in params.items()}, grads,
-                state.opt, lrs, eps=cfg.adam_eps)
-            mark("adam")
-        new_state = TrainState(splats=splats.with_params(new_params),
-                               opt=opt, grad_2d_accum=grad_accum,
-                               xy_grad_counts=counts)
+        new_state = update_state(self.config, state, params, xy_dummy,
+                                 aux.producing, step, img_size, lr_mean)
         return new_state, StepStats(
             loss=loss.detach(), num_visible=aux.num_visible,
-            num_isects=aux.num_isects, num_dropped=aux.num_dropped)
+            num_isects=aux.num_isects, num_dropped=aux.num_dropped,
+            max_strip_isects=aux.num_isects)  # one device is one strip
 
     # ------------------------------------------------------------------ #
 
@@ -343,16 +306,7 @@ class SplatTrainer:
         new_cap = round_up_capacity(new_cap)
         if new_cap >= state.splats.capacity:
             return state
-        cut = lambda x: x[:new_cap]
-        sp = state.splats
-        splats = Splats(n_live=sp.n_live,
-                        **{k: cut(v) for k, v in sp.params().items()})
-        opt = AdamState(m={k: cut(v) for k, v in state.opt.m.items()},
-                        v={k: cut(v) for k, v in state.opt.v.items()},
-                        count=state.opt.count)
-        return TrainState(splats=splats, opt=opt,
-                          grad_2d_accum=cut(state.grad_2d_accum),
-                          xy_grad_counts=cut(state.xy_grad_counts))
+        return map_rows(state, lambda x: x[:new_cap])
 
     @staticmethod
     def _pad(x: torch.Tensor, pad: int, fill=0.0) -> torch.Tensor:
@@ -389,6 +343,96 @@ class SplatTrainer:
             splats=self._grow_splats(state.splats, new_cap), opt=opt,
             grad_2d_accum=self._pad(state.grad_2d_accum, pad),
             xy_grad_counts=self._pad(state.xy_grad_counts, pad, 0))
+
+
+def map_rows(obj, fn):
+    """A Splats or TrainState with fn applied to each of its (C, ...)
+    tensors; n_live and the Adam count are kept."""
+    if isinstance(obj, Splats):
+        return Splats(n_live=obj.n_live,
+                      **{k: fn(v) for k, v in obj.params().items()})
+    return TrainState(
+        splats=map_rows(obj.splats, fn),
+        opt=AdamState(m={k: fn(v) for k, v in obj.opt.m.items()},
+                      v={k: fn(v) for k, v in obj.opt.v.items()},
+                      count=obj.opt.count),
+        grad_2d_accum=fn(obj.grad_2d_accum),
+        xy_grad_counts=fn(obj.xy_grad_counts))
+
+
+def copy_to_host(t: torch.Tensor):
+    """(host tensor, event): a CUDA tensor's copy into pinned memory,
+    started without waiting, and the event after which it has landed
+    (None, and the tensor itself, on the CPU)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def trainable(splats: Splats):
+    """The step's leaves: detached copies of the parameters that require
+    grad, and the zero (rows, 2) xy_dummy whose gradient is the
+    screen-space gradient densification reads (render.py:22-25)."""
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in splats.params().items()}
+    xy_dummy = torch.zeros((splats.capacity, 2), dtype=torch.float32,
+                           device=splats.device, requires_grad=True)
+    return params, xy_dummy
+
+
+def image_loss(img, gt, channels: int, cfg: TrainConfig, ssim: Ssim):
+    """L1 + SSIM (train.rs:243-262): (1 - w) L1 - w SSIM on RGB."""
+    pred = img if channels == 4 else img[..., :3]
+    l1 = torch.mean(torch.abs(pred - gt))
+    if cfg.ssim_weight > 0.0:
+        ssim_val = ssim.ssim(img[None, ..., :3], gt[None, ..., :3])
+        return l1 * (1.0 - cfg.ssim_weight) - ssim_val * cfg.ssim_weight
+    return l1
+
+
+@torch.no_grad()
+def update_state(cfg: TrainConfig, state: TrainState, params: dict,
+                 xy_dummy, producing, step: int, img_size,
+                 lr_mean: float) -> TrainState:
+    """After the backward: the densification statistics and the Adam
+    step over the rows of `state` (all of them, or one rank's block)."""
+    w, h = img_size
+    splats = state.splats
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+             for k, p in params.items()}
+    # Densification statistics (train.rs:284-316): screen-space gradient
+    # norms in half-image units, gated past warmup.
+    gate = 1.0 if step > cfg.warmup_steps else 0.0
+    xy_g = xy_dummy.grad
+    xys_scaled = torch.stack([xy_g[:, 0] * (w / 2.0),
+                              xy_g[:, 1] * (h / 2.0)], dim=1)
+    norms = torch.sqrt(torch.sum(xys_scaled ** 2, dim=1))
+    grad_accum = state.grad_2d_accum + gate * norms
+    counts = state.xy_grad_counts + int(gate) * producing.to(torch.int32)
+    mark("densify_stats")
+
+    # Per-coefficient SH learning rates: orders > 0 at lr/20
+    # (train.rs:334-348).
+    sh_scale = torch.full((1, splats.sh_count, 1),
+                          1.0 / cfg.lr_coeffs_sh_scale, device=splats.device)
+    sh_scale[:, 0] = 1.0
+    lrs = {
+        "means": lr_mean,
+        "raw_opacity": cfg.lr_opac,
+        "sh_coeffs": cfg.lr_coeffs_dc * sh_scale,
+        "quats": cfg.lr_rotation,
+        "log_scales": cfg.lr_scale,
+    }
+    new_params, opt = adam_step(
+        {k: p.detach() for k, p in params.items()}, grads, state.opt, lrs,
+        eps=cfg.adam_eps)
+    mark("adam")
+    return TrainState(splats=splats.with_params(new_params), opt=opt,
+                      grad_2d_accum=grad_accum, xy_grad_counts=counts)
 
 
 def make_refine_fn(cfg: TrainConfig, capacity: int, do_reset: bool):

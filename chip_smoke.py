@@ -37,7 +37,16 @@ result line; each phase prints its seconds):
      times at these inputs; then the same at raster cell CELL (2, 2), its
      kernels held to their plain versions on its inputs, its records
      beside (1, 1)'s and its image held to (1, 1)'s with rasterize_fwd's
-     tolerance (the differing pixels counted);
+     tolerance (the differing pixels counted); then the strip phase: the
+     bench render's inputs cut into STRIPS strips of cell rows, as STRIPS
+     ranks of the sharded step cut them, at (1, 1) and at CELL: each
+     strip's pipeline through the kernels on its own restricted inputs and
+     pool, both rasterizers held to their plain versions on the strip's
+     arguments (tolerances as above, repeats bit-equal) and timed beside
+     the whole frame's; the strips' img and log T equal to the frame's in
+     every bit, the per-splat gradients summed over the strips within
+     1e-5 of each row's largest value of the frame's, and one strip at
+     tile_base 0 bit-equal to the frame (restriction, binning, kernels);
   4. a real model: serve docs/castle_r5_30k.ply through eval_stats at
      800x800 on four cameras of its training orbit, against the same
      views rendered by the port on the CPU (the plain versions);
@@ -55,7 +64,10 @@ result line; each phase prints its seconds):
      step's CUDA-event time. The pipeline's calls to the four kernels keep
      their arguments on the first step at each capacity; then the train
      step metric: 8 warm steps at the capacity the run ends at; then all
-     of it again with SplatTrainer(raster_cell=CELL);
+     of it again with SplatTrainer(raster_cell=CELL); between the two,
+     the same 6-step run with parallel.ShardedTrainer at world size 1
+     over NCCL (its kernels counted), whose every loss and final parameter
+     must equal SplatTrainer's in every bit, and its 8 warm steps at 4M;
   6. each kernel against its plain version (tolerances as in phase 2) on
      the arguments each training run gave it at the capacity it ends at,
      the real loss cotangent included; the kernels' times, bounds and
@@ -77,18 +89,23 @@ result line; each phase prints its seconds):
      its plain version on the first and the last of them (tolerances as
      in phase 2); `train --cell 2x2` for CLI_CELL_ITERS steps, every render
      at the cell, launches counted alike, its eval PSNR at 200 within
-     CLI_CELL_PSNR_TOL dB of the (1, 1) run's; finite losses,
+     CLI_CELL_PSNR_TOL dB of the (1, 1) run's; `train --shard` (a world
+     of one process over NCCL) for CLI_CELL_ITERS steps, its every logged
+     loss equal to the (1, 1) run's; finite losses,
      eval PSNR at 600 above 200; `eval --ply` and `eval --ckpt` print the
      run's final PSNR digit for digit; `--resume` from 400 runs 401..419;
      the trained castle saved as a checkpoint at step 29800 and resumed
      for 200 steps (the step time at a model's real size); `render` writes
      a non-blank PNG; a 24-view COLMAP castle (RGB on black, the castle's
      90,977 means as points3D, native parser == Python parser) trains 100
-     timed steps; `train2d` at 256x256 lowers its loss;
+     timed steps; `train2d` at 256x256 lowers its loss, and so does
+     `train2d --shard`;
   9. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
-     "cell" those of the training at CELL; the nvidia-smi line; and last
+     "cell" those of the training at CELL and under "strip" the strip
+     phase's per strip (launches: the sharded training's); the nvidia-smi
+     line; and last
      {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
@@ -128,6 +145,7 @@ BWD_OPS_PER_ACTIVE = 45
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
+TRAIN_BLOCK = 32     # raster_block_size of every bench training run
 METRIC_STEPS = 8     # warm steps at the final capacity, after one more
 CASTLE_TRAIN_STEPS = 12
 # The "cli" phase: the NeRF-synthetic layout at its published size, the
@@ -144,7 +162,10 @@ CASTLE_RESUME_STEP, CASTLE_RESUME_STEPS = 29800, 200
 # and the castle evaluated at (50x50 tiles: (4, 2) does not divide them).
 CELL = (2, 2)
 CHECK_CELLS = ((2, 2), (4, 2))
-CLI_CELL_ITERS = 220   # `cli train --cell 2x2`: its eval at 200
+CLI_CELL_ITERS = 220   # `cli train --cell 2x2` and `--shard`: eval at 200
+# The strip phase: the bench frame cut into this many strips of cell rows,
+# as as many ranks of the sharded step cut it.
+STRIPS = 4
 CLI_CELL_PSNR_TOL = 0.5   # dB from the (1, 1) run's eval at 200
 
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
@@ -874,7 +895,8 @@ def train_path(cfg, cell=(1, 1)):
     counted, and the kernels' arguments kept on the first step at each
     capacity. Then the train step metric at the capacity the run ended
     at. Returns (launches, metric ms, window ms, {capacity: arguments},
-    records a step)."""
+    records a step, {"losses", "params"} of the run's steps and the state
+    they end at)."""
     import torch
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.config import TrainConfig
@@ -886,7 +908,7 @@ def train_path(cfg, cell=(1, 1)):
                  fov_x=np.pi / 2, fov_y=np.pi / 2)
     batch = SceneBatch(np.zeros((size[1], size[0], 3), np.float32), cam)
     trainer = SplatTrainer(TrainConfig(warmup_steps=1, refine_every=3),
-                           raster_cell=cell)
+                           raster_block_size=TRAIN_BLOCK, raster_cell=cell)
     tag = "train" if tuple(cell) == (1, 1) else f"train cell {cell}"
     state = trainer.init_state(splats)
     torch.cuda.synchronize()
@@ -910,6 +932,7 @@ def train_path(cfg, cell=(1, 1)):
     dropped = [int(st.num_dropped) for st in stats]
     records = [int(st.num_isects) for st in stats]
     sp = state.splats
+    final = dict(losses=losses, params=sp.params())
     pool = trainer._pool_size(sp.capacity)
     finite = all(bool(torch.isfinite(x).all()) for x in sp.params().values())
     print(f"[{tag}] bench scene {size[0]}x{size[1]}, {cfg['n']} splats, "
@@ -937,7 +960,7 @@ def train_path(cfg, cell=(1, 1)):
     # config refines only after its 500 warm-up steps, so none of these
     # refines; its pool sizing gives the same pool at this capacity.
     t0 = time.perf_counter()
-    timer = SplatTrainer(raster_cell=cell)
+    timer = SplatTrainer(raster_block_size=TRAIN_BLOCK, raster_cell=cell)
     if timer._pool_size(sp.capacity) != pool:
         raise AssertionError("the metric steps would use another pool")
     state, warm, _, rf = timed_steps(timer, state, batch, METRIC_STEPS + 1)
@@ -948,7 +971,7 @@ def train_path(cfg, cell=(1, 1)):
           f"{METRIC_STEPS} warm steps {step_ms:.3f} ms (after one more "
           f"step); all ms {[round(t, 3) for t in warm]}; "
           f"{time.perf_counter() - t0:.1f} s")
-    return counts, step_ms, sum(times), kept, records
+    return counts, step_ms, sum(times), kept, records, final
 
 
 def train_kernels(kept, tag="train"):
@@ -1003,6 +1026,228 @@ def train_kernels(kept, tag="train"):
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
                 bound=bounds(k, r, b), library=s_lib, when=when)
+
+
+def strip_phase(splats, cp, size):
+    """The strip phase: the bench render's inputs (pool BENCH["pool"]) cut
+    into STRIPS strips of cell rows, as STRIPS ranks of the sharded step
+    cut them, at (1, 1) and at CELL. Each strip's pipeline runs through the
+    kernels on its restricted inputs and its own pool; both rasterizers
+    are held to their plain versions on the strip's arguments (phase 2's
+    tolerances, repeats bit-equal) and timed. The strips' img and log T
+    must equal the whole frame's in every bit, and the per-splat
+    gradients of sum(img v) (a seeded v, exact float32 cotangents) summed
+    over the strips the frame's within SEG_RTOL of each row's largest
+    value. At one strip (tile_base 0) the restriction, the binning and
+    both kernels must give the frame's bits. Returns, for each cell, the
+    per-strip records, pools, times, plain times, bounds and errors."""
+    import torch
+    from brush_tpu_torch.ops.cuda.expand import expand
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.pipeline import (
+        RecordPipeline, depth_order, strip_bins, tile_bins,
+    )
+    from brush_tpu_torch.parallel.train_step import (
+        meta_rows, strip_decode, strip_pool,
+    )
+    from brush_tpu_torch.render import record_inputs
+
+    pool = BENCH["pool"]
+    out = {}
+    for cell in ((1, 1), CELL):
+        t0 = time.perf_counter()
+        tag = f"strips {cell}"
+        rec = record_inputs(splats.means, splats.log_scales, splats.quats,
+                            splats.sh_coeffs, splats.raw_opacity, cp, size,
+                            active=splats.active_mask(), cell=cell)
+        a9 = rec.attrs9.detach()
+        meta = meta_rows(rec, cell)
+        cells_x = -(-size[0] // (16 * cell[0]))
+        cells_y = -(-size[1] // (16 * cell[1]))
+        num = cells_x * cells_y
+        rows = -(-cells_y // STRIPS)
+        k = rows * cells_x
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        v = torch.randn((rows * STRIPS * cells_x, 256 * cell[0] * cell[1], 4),
+                        generator=gen, device="cuda")
+        v[num:] = 0.0
+
+        def grads(decode, depth_key, pool_, base, k_):
+            """The pipeline's gradient of sum(img v) in attrs9, and its
+            records."""
+            x = a9.clone().requires_grad_(True)
+            img, _, total, raw = RecordPipeline.apply(
+                x, decode, depth_key, cells_x, num, pool_, False, cell, base,
+                k_)
+            return torch.autograd.grad(img, x, v[base:base + k_])[0], \
+                int(total), int(raw)
+
+        # The whole frame, and the frame as one strip.
+        d = depth_order(a9, rec.decode, rec.depth_key, pool)
+        keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num, pool)
+        bins = tile_bins(keys, recs, num)
+        fwd_f = rasterize_fwd(*bins, cells_x, cell)
+        bwd_args = (*bins, cells_x, v[:num], fwd_f[1], fwd_f[2], cell)
+        bwd_f = rasterize_bwd(*bwd_args)
+        frame_ms = {
+            "rasterize_fwd": cuda_ms(lambda: rasterize_fwd(
+                *bins, cells_x, cell), reps=10),
+            "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(*bwd_args),
+                                     reps=5)}
+        g_frame, total_f, _ = grads(rec.decode, rec.depth_key, pool, 0, num)
+        dec1, key1 = strip_decode(meta, 0, rows * STRIPS)
+        bins1 = strip_bins(keys, recs, num, 0, num)
+        fwd1 = rasterize_fwd(*bins1, cells_x, cell, 0)
+        one = (torch.equal(dec1, rec.decode)
+               and torch.equal(key1, rec.depth_key)
+               and all(torch.equal(a, b) for a, b in zip(bins1, bins))
+               and all(torch.equal(a, b) for a, b in zip(fwd1, fwd_f))
+               and torch.equal(rasterize_bwd(*bins1, cells_x, v[:num],
+                                             fwd1[1], fwd1[2], cell, 0),
+                               bwd_f))
+        if not one:
+            raise AssertionError(f"[{tag}] one strip at tile_base 0 differs "
+                                 "from the whole frame")
+
+        per = {f: [] for f in ("records", "pool", "expand_ms", "tile_bins_ms",
+                               "fwd", "bwd")}
+        g_sum = torch.zeros_like(g_frame)
+        same = True
+        for s in range(STRIPS):
+            base = s * k
+            dec, key = strip_decode(meta, s * rows, (s + 1) * rows)
+            pool_s = strip_pool(pool, 2.0, STRIPS, BENCH["block"])
+            ds = depth_order(a9, dec, key, pool_s)
+            exp_args = (ds.f5, ds.u5, ds.cum, ds.total, cells_x, num, pool_s)
+            keys_s, recs_s = expand(*exp_args)
+            bins_s = strip_bins(keys_s, recs_s, num, base, k)
+            r_args = (*bins_s, cells_x, cell, base)
+            label = f"{tag} strip {s}"
+            r = check_raster(r_args)
+            img_s, log_t_s, fidx_s = r["out"]
+            inside = min(k, num - base)
+            same &= (torch.equal(img_s[:inside], fwd_f[0][base:base + inside])
+                     and torch.equal(log_t_s[:inside],
+                                     fwd_f[1][base:base + inside]))
+            b = check_bwd((*bins_s, cells_x, v[base:base + k], log_t_s,
+                           fidx_s, cell, base), label)
+            g, total, raw = grads(dec, key, pool_s, base, k)
+            if raw > pool_s:
+                raise AssertionError(f"[{label}] {raw} records overflow its "
+                                     f"pool {pool_s}")
+            g_sum += g
+            t = dict(
+                expand=cuda_ms(lambda: expand(*exp_args), reps=10),
+                tile_bins=cuda_ms(lambda: strip_bins(keys_s, recs_s, num, base,
+                                                     k), reps=10),
+                fwd=cuda_ms(lambda: rasterize_fwd(*r_args), reps=10),
+                bwd=cuda_ms(lambda: rasterize_bwd(
+                    *bins_s, cells_x, v[base:base + k], log_t_s, fidx_s,
+                    cell, base), reps=5))
+            bound = bounds(dict(exp_args=exp_args, r_args=r_args), r, b)
+            per["records"].append(total)
+            per["pool"].append(pool_s)
+            per["expand_ms"].append(t["expand"])
+            per["tile_bins_ms"].append(t["tile_bins"])
+            for key_, kern, res, err in (
+                    ("fwd", "rasterize_fwd", r, max(r["err"], r["flip_err"])),
+                    ("bwd", "rasterize_bwd", b, b["abs"])):
+                per[key_].append(dict(ms=t[key_], plain_ms=res["plain_ms"],
+                                      bound=bound[kern], err=err))
+            print(f"[{label}] cells {base}..{base + k - 1}, records {total} "
+                  f"of {total_f}, pool {pool_s}: expand {t['expand']:.4f} ms, "
+                  f"tile_bins {t['tile_bins']:.4f}, rasterize_fwd "
+                  f"{t['fwd']:.4f} (bound {bound['rasterize_fwd'][0]:.4f} by "
+                  f"{bound['rasterize_fwd'][1]}; max err {r['err']:.3e}, "
+                  f"flipped {r['flips']}), rasterize_bwd {t['bwd']:.4f} "
+                  f"(bound {bound['rasterize_bwd'][0]:.4f} by "
+                  f"{bound['rasterize_bwd'][1]}; row error {b['err']:.3e})")
+        err = row_error(g_sum, g_frame)
+        print(f"[{tag}] {STRIPS} strips of {rows} cell rows: records "
+              f"{per['records']} (sum {sum(per['records'])}, the frame "
+              f"{total_f}); the frame's kernels rasterize_fwd "
+              f"{frame_ms['rasterize_fwd']:.4f} ms, rasterize_bwd "
+              f"{frame_ms['rasterize_bwd']:.4f} ms; img and log T of the "
+              f"strips {'equal' if same else 'DIFFER from'} the frame's in "
+              f"every bit; summed gradients' row error {err:.3e}; one strip "
+              f"at tile_base 0 bit-equal to the frame; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not same:
+            raise AssertionError(f"[{tag}] the strips' img or log T differ "
+                                 "from the whole frame's")
+        if err > SEG_RTOL or sum(per["records"]) != total_f:
+            raise AssertionError(f"[{tag}] summed strip gradients: row error "
+                                 f"{err:.3e}, records {per['records']}")
+        out[cell] = dict(per, frame_ms=frame_ms)
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_path(cfg, single):
+    """Sharded training at world size 1 over NCCL: ShardedTrainer runs
+    train_path's bench run (6 steps, refines at 1 and 4, capacity 1M ->
+    2M -> 4M) with its kernels counted; each step's loss and the final
+    parameters must equal SplatTrainer's (`single`, train_path's) in
+    every bit. Then the metric: the median of METRIC_STEPS warm steps at
+    the final capacity. Returns (launches, metric ms)."""
+    import torch
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.config import TrainConfig
+    from brush_tpu_torch.parallel import ShardedTrainer, make_mesh, multihost
+    from brush_tpu_torch.parallel.sharding import gather_state
+    from brush_tpu_torch.train import SceneBatch
+
+    t_phase = time.perf_counter()
+    splats, _, size = make_scene(cfg, "cuda")
+    cam = Camera(position=[0, 0, cfg["z"]], rotation=[1, 0, 0, 0],
+                 fov_x=np.pi / 2, fov_y=np.pi / 2)
+    batch = SceneBatch(np.zeros((size[1], size[0], 3), np.float32), cam)
+    with multihost.process_group("cuda"):
+        mesh = make_mesh("cuda")
+        trainer = ShardedTrainer(mesh, TrainConfig(warmup_steps=1,
+                                                   refine_every=3),
+                                 raster_block_size=TRAIN_BLOCK)
+        state = trainer.init_state(splats)
+        del splats
+        reset_launches()
+        state, times, stats, refines = timed_steps(trainer, state, batch,
+                                                   TRAIN_STEPS)
+        counts = read_launches()
+        losses = [float(st.loss) for st in stats]
+        whole = gather_state(state, mesh).splats
+        differ = [k for k, v in whole.params().items()
+                  if not torch.equal(v, single["params"][k])]
+        print(f"[sharded] world size {mesh.size} over "
+              f"{torch.distributed.get_backend()}, bench scene, "
+              f"{TRAIN_STEPS} steps: losses {losses} (SplatTrainer "
+              f"{single['losses']}); step ms {[round(t, 3) for t in times]}; "
+              f"refines at {sorted(refines)}; capacity {whole.capacity}; "
+              f"slack {trainer._slack_q}; launches {counts}; parameters "
+              f"{'bit-equal' if not differ else f'DIFFER in {differ}'}")
+        if losses != single["losses"] or differ:
+            raise AssertionError("sharded training at world size 1 differs "
+                                 "from SplatTrainer")
+        if min(counts.values()) < TRAIN_STEPS or sorted(refines) != [1, 4]:
+            raise AssertionError(f"sharded training: launches {counts}, "
+                                 f"refines {sorted(refines)}")
+        del whole
+        pool = trainer._pool_size(state.splats.capacity)
+        timer = ShardedTrainer(mesh, raster_block_size=TRAIN_BLOCK)
+        if timer._pool_size(state.splats.capacity) != pool:
+            raise AssertionError("the sharded metric steps would use "
+                                 "another pool")
+        state, warm, _, rf = timed_steps(timer, state, batch,
+                                         METRIC_STEPS + 1)
+        if rf:
+            raise AssertionError("a sharded metric step refined")
+        step_ms = statistics.median(warm[1:])
+        print(f"[sharded] metric: capacity {state.splats.capacity} a rank, "
+              f"pool {pool}: median of "
+              f"{METRIC_STEPS} warm steps {step_ms:.3f} ms; all ms "
+              f"{[round(t, 3) for t in warm]}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    return counts, step_ms
 
 
 def castle_training(splats, cams, gts):
@@ -1428,6 +1673,42 @@ def cli_phase(castle, pool):
             raise AssertionError(f"cli train --cell: launches {counts2}, "
                                  f"{len(c_renders)} eval renders")
 
+        # The same dataset and flags with --shard for CLI_CELL_ITERS steps:
+        # a world of one process over NCCL, made and destroyed by the
+        # command; every logged loss must equal the (1, 1) run's.
+        t0 = time.perf_counter()
+        ck3 = os.path.join(d, "ckpt_shard")
+        steps3 = []
+        reset_launches()
+        with step_timer(steps3):
+            text = run_cli([
+                "train", "--source", nerf_zip, "--iters",
+                str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
+                "10000", "--eval-every", "200", "--eval-views", "4",
+                "--log-every", "20", "--checkpoint-dir", ck3, "--shard"],
+                log)
+        counts3 = read_launches()
+        ms3 = event_ms(steps3)
+        rows3 = read_jsonl(os.path.join(ck3, "metrics.jsonl"))
+        losses3 = {r["step"]: r["loss"] for r in rows3 if "loss" in r}
+        psnr3 = {r["step"]: r["eval_psnr"] for r in rows3
+                 if "eval_psnr" in r}
+        same = {st: losses3.get(st) == losses[st] for st in losses3}
+        ranks = text_field(text, r"sharded training over (\d+) ranks")[0]
+        print(f"[cli shard] train --shard {CLI_CELL_ITERS} steps over "
+              f"{ranks} rank: median step {statistics.median(ms3):.3f} ms "
+              f"(CUDA events; train "
+              f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
+              f"{CLI_CELL_ITERS}); losses equal to the (1, 1) "
+              f"run's at {sum(same.values())} of {len(same)} logged steps; "
+              f"eval PSNR at 200 {psnr3.get(200)} ((1, 1): {psnr[200]}); "
+              f"launches {counts3}; {time.perf_counter() - t0:.1f} s")
+        if len(losses3) != 11 or not all(same.values()):
+            raise AssertionError(f"cli train --shard losses {losses3} differ "
+                                 "from cli train's")
+        if min(counts3.values()) < CLI_CELL_ITERS:
+            raise AssertionError(f"cli train --shard launches {counts3}")
+
         # eval of the export and of the final checkpoint: the same PSNR.
         eval_s = []
         for flag, name in (("--ply", "out.ply"),
@@ -1555,6 +1836,14 @@ def cli_phase(castle, pool):
             raise AssertionError(f"train2d loss did not fall: {l2d}")
         print(f"[cli] train2d 256x256 300 steps: losses {l2d}; "
               f"{text_field(text, r'(final PSNR .*)')[0]}")
+        text = run_cli(["train2d", "--image", image, "--size", "256",
+                        "--iters", "300", "--shard"], log)
+        l2s = [float(x) for x in re.findall(r"loss (\S+)", text)]
+        if len(l2s) < 2 or not l2s[-1] < l2s[0]:
+            raise AssertionError(f"train2d --shard loss did not fall: {l2s}")
+        print(f"[cli] train2d --shard 256x256 300 steps at world size 1: "
+              f"losses {l2s} ({'equal to' if l2s == l2d else 'NOT'} "
+              f"train2d's); {text_field(text, r'(final PSNR .*)')[0]}")
     print(f"[cli] commands' seconds "
           f"{[(a[0], round(s, 1)) for a, s, _ in log]}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -1623,7 +1912,10 @@ def main() -> int:
           f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
           f"{time.perf_counter() - t_c:.1f} s")
     forward_times(kc, f"bench render inputs at cell {CELL}")
-    del splats, k, kc, img_1, img_c
+    del k, kc, img_1, img_c
+    torch.cuda.empty_cache()
+    strips = strip_phase(splats, cp, size)
+    del splats
     torch.cuda.empty_cache()
 
     castle, cams, gts, castle_pool = castle_phase()
@@ -1633,13 +1925,16 @@ def main() -> int:
 
     # Training, at (1, 1) and at CELL; the kernels against their plain
     # versions on the arguments of the capacity each run ends at.
-    counts, step_ms, window_ms, kept, records = train_path(BENCH)
+    counts, step_ms, window_ms, kept, records, final = train_path(BENCH)
     last = max(kept)
     tk = train_kernels({f"capacity {last}": kept[last]})
     del kept
     torch.cuda.empty_cache()
-    counts_c, step_ms_c, window_ms_c, kept, records_c = train_path(BENCH,
-                                                                   CELL)
+    shard_counts, shard_ms = sharded_path(BENCH, final)
+    del final
+    torch.cuda.empty_cache()
+    counts_c, step_ms_c, window_ms_c, kept, records_c, _ = train_path(
+        BENCH, CELL)
     last = max(kept)
     tk_c = train_kernels({f"capacity {last}, cell {CELL}": kept[last]},
                          f"train cell {CELL}")
@@ -1680,6 +1975,25 @@ def main() -> int:
                            "launches": counts_c[name],
                            "from": f"bench training arguments, "
                                    f"{tk_c['when']}"}
+            # "strip": per strip of STRIPS, the strip phase's fields on
+            # the bench render's inputs at (1, 1) and at CELL; launches:
+            # the sharded bench training's (one strip a step).
+            key = "fwd" if name == "rasterize_fwd" else "bwd"
+            out["strip"] = {
+                "strips": STRIPS, "launches": shard_counts[name],
+                "launches_from": f"sharded bench training, world size 1, "
+                                 f"{TRAIN_STEPS} steps",
+                **{tag: {"cell": list(c),
+                         "records": strips[c]["records"],
+                         "pool": strips[c]["pool"],
+                         "ms": [x["ms"] for x in strips[c][key]],
+                         "frame_ms": strips[c]["frame_ms"][name],
+                         "plain_ms": [x["plain_ms"] for x in strips[c][key]],
+                         "bound_ms": [x["bound"][0] for x in strips[c][key]],
+                         "bound_by": [x["bound"][1] for x in strips[c][key]],
+                         "max_abs_err": [x["err"] for x in strips[c][key]]}
+                   for tag, c in (("tiles", (1, 1)), ("cells", CELL))},
+                "from": "bench render inputs, a strip's own arguments"}
         return out
 
     kernels = [
@@ -1693,10 +2007,12 @@ def main() -> int:
     print(f"[summary] render path launches {render_counts}, at cell {CELL} "
           f"{cell_counts}; training path launches {counts}, at cell {CELL} "
           f"{counts_c}; cli train ({CLI_ITERS} steps) launches "
-          f"{cli_counts}; bench render {render_ms:.3f} ms, at cell {CELL} "
+          f"{cli_counts}; sharded training (world size 1) launches "
+          f"{shard_counts}; bench render {render_ms:.3f} ms, at cell {CELL} "
           f"{cell_ms:.3f}; bench train step {step_ms:.3f} ms (median of "
           f"{METRIC_STEPS} warm steps at the final capacity), at cell {CELL} "
-          f"{step_ms_c:.3f}; the {TRAIN_STEPS}-step window {window_ms:.3f} "
+          f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "
+          f"{TRAIN_STEPS}-step window {window_ms:.3f} "
           f"ms, at cell {CELL} {window_ms_c:.3f}; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

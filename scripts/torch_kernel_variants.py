@@ -127,9 +127,10 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 def start_build(label, kernel, text):
     """Write text as a source of its own and start nvcc on it. Its C entry
-    is "legacy" before the tile order (no scratch argument) and takes
+    is "legacy" before the tile order (no scratch argument), takes
     "cells" since the raster-cell mode (cell_w, cell_h; the backward also a
-    state scratch), which run_fwd and run_bwd pass as cell (1, 1)."""
+    state scratch) and a "strip" since the strip mode (tile_base, after the
+    cell count), which run_fwd and run_bwd pass as 0: the whole frame."""
     os.makedirs(OUT, exist_ok=True)
     stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in label))
     with open(stem + ".cu", "w") as f:
@@ -138,7 +139,7 @@ def start_build(label, kernel, text):
            "-Xptxas", "-v", "-o", stem + ".so", stem + ".cu"]
     return dict(label=label, kernel=kernel, so=stem + ".so",
                 legacy=kernel != "segsum" and "int* order" not in text,
-                cells="int cell_w" in text,
+                cells="int cell_w" in text, strip="int tile_base" in text,
                 proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
 
@@ -182,17 +183,17 @@ def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1)):
     img = torch.empty((n_tiles, px, 4), device="cuda")
     log_t = torch.empty((n_tiles, px), device="cuda")
     fidx = torch.empty((n_tiles, px), dtype=torch.int32, device="cuda")
+    ints = [n_tiles] + [0] * job["strip"] + [tiles_x] + cell_ints(job, cell)
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), n_tiles, tiles_x]
-    cells = cell_ints(job, cell)
-    args += cells + [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
+            ends.data_ptr(), *ints]
+    args += [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
     if not job["legacy"]:   # sources before the tile order take no scratch
         order = torch.empty_like(starts)
         args.append(order.data_ptr())
     args.append(torch.cuda.current_stream().cuda_stream)
     fn = job["lib"].rasterize_fwd_launch
-    fn.argtypes = ([P, I, P, P, I, I] + [I] * len(cells)
-                   + [P] * (len(args) - 6 - len(cells)))
+    fn.argtypes = ([P, I, P, P] + [I] * len(ints)
+                   + [P] * (len(args) - 4 - len(ints)))
     fn.restype = I
     build.check(fn(*args), job["label"])
     return img, log_t, fidx
@@ -209,11 +210,12 @@ def fwd_rows(out):
 def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
             cell=(1, 1)):
     grads = torch.zeros((9, packed.shape[1]), device="cuda")
+    ints = ([starts.shape[0]] + [0] * job["strip"] + [tiles_x]
+            + cell_ints(job, cell))
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), starts.shape[0], tiles_x]
-    cells = cell_ints(job, cell)
-    args += cells + [v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
-                     grads.data_ptr()]
+            ends.data_ptr(), *ints]
+    args += [v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
+             grads.data_ptr()]
     if not job["legacy"]:   # sources before the tile order take no scratch
         order = torch.empty_like(starts)
         args.append(order.data_ptr())
@@ -223,8 +225,8 @@ def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
         args.append(state.data_ptr())
     args.append(torch.cuda.current_stream().cuda_stream)
     fn = job["lib"].rasterize_bwd_launch
-    fn.argtypes = ([P, I, P, P, I, I] + [I] * len(cells)
-                   + [P] * (len(args) - 6 - len(cells)))
+    fn.argtypes = ([P, I, P, P] + [I] * len(ints)
+                   + [P] * (len(args) - 4 - len(ints)))
     fn.restype = I
     build.check(fn(*args), job["label"])
     return grads

@@ -10,6 +10,8 @@ their stage marks recorded (brush_tpu_torch/utils/profiler.py) and prints:
     default config: no refine) after one more, at capacity 1M and at the
     4M that chip_smoke.py's training run ends at; and both again at raster
     cell CELL (2, 2) (render_splats(cell=), SplatTrainer(raster_cell=));
+    and the 4M steps again through parallel.ShardedTrainer at world size
+    1 over NCCL (the column "sharded at 4194304");
   - that training run (warmup 1, refine every 3) step by step: the
     capacity, the step's ms and its refine's ms;
   - a torch.profiler table of device time by kernel over 5 renders, and
@@ -47,6 +49,10 @@ sys.path.insert(0, ROOT)
 from brush_tpu_torch.camera import Camera  # noqa: E402
 from brush_tpu_torch.config import TrainConfig  # noqa: E402
 from brush_tpu_torch.ops.rasterize_reference import camera_params  # noqa: E402
+from brush_tpu_torch.parallel import (  # noqa: E402
+    ShardedTrainer, make_mesh, multihost,
+)
+from brush_tpu_torch.parallel.sharding import shard_state  # noqa: E402
 from brush_tpu_torch.render import render_splats  # noqa: E402
 from brush_tpu_torch.splats import from_random  # noqa: E402
 from brush_tpu_torch.train import SceneBatch, SplatTrainer  # noqa: E402
@@ -117,6 +123,14 @@ def main() -> int:
     columns[f"{cap} {cell_tag}"] = stage_medians(step, 8, 1)
     step = train_steps(state)
     columns[f"train at {cap}"] = stage_medians(step, 8, 1)
+    with multihost.process_group("cuda"):
+        sharded = ShardedTrainer(make_mesh("cuda"))
+        box = [shard_state(state, sharded.mesh)]
+
+        def shard_step():
+            box[0], _ = sharded.step(box[0], batch)
+        columns[f"sharded at {cap}"] = stage_medians(shard_step, 8, 1)
+        del box
     print_columns(columns)
 
     out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(ROOT, "runs")

@@ -1,8 +1,9 @@
 """The port's CLI against brush_tpu's: `train` on the same tiny NeRF zip
 gives the same per-step losses and close final parameters; `eval`,
 `render`, `train2d` and `--resume` run on the CPU; what is not ported yet
-raises NotImplementedError (`train --cell` runs: tests/test_torch_cells.py);
-the new modules import neither JAX nor brush_tpu."""
+raises NotImplementedError (`train --cell` runs: tests/test_torch_cells.py;
+`train --shard` and `train2d --shard`: tests/test_torch_sharded.py); the
+new modules import neither JAX nor brush_tpu."""
 
 import contextlib
 import io
@@ -203,8 +204,7 @@ def test_train2d_size_without_pillow_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["view", "--cell", "2x2"], ["train", "--shard"], ["train", "--rerun"],
-    ["train2d", "--shard", "--image", "unused.png"], ["view"]])
+    ["view", "--cell", "2x2"], ["train", "--rerun"], ["view"]])
 def test_cli_parts_not_ported_raise(argv, nerf_zip):
     if argv[0] == "train":
         argv = argv + ["--source", nerf_zip]
@@ -227,7 +227,11 @@ def test_new_modules_import_neither_jax_nor_brush_tpu():
             "brush_tpu_torch.datasets.loader", "brush_tpu_torch.datasets.ply",
             "brush_tpu_torch.datasets.testing", "brush_tpu_torch.native",
             "brush_tpu_torch.utils.checkpoint",
-            "brush_tpu_torch.utils.metrics"]
+            "brush_tpu_torch.utils.metrics", "brush_tpu_torch.parallel",
+            "brush_tpu_torch.parallel.multihost",
+            "brush_tpu_torch.parallel.sharding",
+            "brush_tpu_torch.parallel.train_step",
+            "brush_tpu_torch.parallel.trainer"]
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

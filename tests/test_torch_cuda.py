@@ -178,6 +178,13 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="final_idx"):
         t_bwd.rasterize_bwd(r["packed"], r["starts"], r["ends"],
                             r["tiles_x"], img, log_t, fidx.long())
+    for bad in (-1, 2.5):
+        with pytest.raises(ValueError, match="tile_base"):
+            t_raster.rasterize_fwd(r["packed"], r["starts"], r["ends"],
+                                   r["tiles_x"], (1, 1), bad)
+        with pytest.raises(ValueError, match="tile_base"):
+            t_bwd.rasterize_bwd(r["packed"], r["starts"], r["ends"],
+                                r["tiles_x"], img, log_t, fidx, (1, 1), bad)
     rows = torch.zeros((t_bwd.GRAD_ROWS, 512))
     with pytest.raises(ValueError, match="rows"):
         t_seg.segment_sum(rows[:8], r["offsets"], r["cum"], r["total"])
@@ -617,3 +624,117 @@ def test_cuda_cli_train(tmp_path):
         losses = [json.loads(line)["loss"] for line in f]
     assert len(losses) == 4 and np.isfinite(losses).all()
     assert (tmp_path / "out.ply").stat().st_size > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [(1, 1), (2, 2)])
+def test_cuda_strip_kernels_match_plain(cell):
+    """Both rasterizers on a strip at tile_base > 0 (the deep-tile scene's
+    records; its last cells past the image, empty): against their plain
+    versions (the tile tests' tolerances), launches counted once, repeats
+    bit-equal; and every output of the strip's cells, forward and
+    backward, equal in every bit to the whole-frame launch's there (a
+    strip moves only the pixel origin)."""
+    _need_cuda()
+    n, img_size, pool, scale_hi = BWD_SCENES["deep_tiles"]
+    r = port_records(make_scene(n, 16, scale_hi), img_size, pool, "cuda",
+                     cell)
+    num = r["num_tiles"]
+    base, k = num // 2, num // 2 + 2
+    inside = num - base
+    tail = r["ends"][-1:].expand(k - inside)
+    starts = torch.cat([r["starts"][base:], tail])
+    ends = torch.cat([r["ends"][base:], tail])
+    args = (r["packed"], starts, ends, r["tiles_x"], cell, base)
+    before = (t_raster.launches, t_bwd.launches)
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
+    assert not img[inside:].any() and bool((fidx[inside:] == -1).all())
+    whole = t_raster.rasterize_fwd(r["packed"], r["starts"], r["ends"],
+                                   r["tiles_x"], cell)
+    _same_bits((img[:inside], log_t[:inside], fidx[:inside]),
+               (w[base:] for w in whole))
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    v_whole = torch.randn((*whole[1].shape, 4), generator=gen, device="cuda")
+    v_out = torch.cat([v_whole[base:], torch.zeros_like(v_whole[:k - inside])])
+    b_args = (*args[:4], v_out, log_t, fidx, cell, base)
+    got = t_bwd.rasterize_bwd(*b_args)
+    torch.cuda.synchronize()
+    assert (t_raster.launches, t_bwd.launches) == (before[0] + 3,
+                                                   before[1] + 1)
+    assert torch.isfinite(got).all() and got.abs().max() > 0
+    rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, f"{cell}")
+    assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
+    lo = int(r["starts"][base])
+    full = t_bwd.rasterize_bwd(r["packed"], r["starts"], r["ends"],
+                               r["tiles_x"], v_whole, whole[1], whole[2],
+                               cell)
+    assert torch.equal(got[:, lo:], full[:, lo:])
+
+
+@pytest.mark.cuda
+def test_cuda_strip_pipeline_at_base_0_is_the_frame():
+    """At tile_base 0 over all the cells (one rank's strip at world size
+    1, and every unsharded pipeline) the strip binning gives the frame's
+    bins in every bit, and the pipeline's image, order and counts are
+    those of tile_bins and the forward kernel over the whole frame."""
+    _need_cuda()
+    from brush_tpu_torch.ops.pipeline import RecordPipeline, strip_bins
+
+    sc = make_scene(2000, 17)
+    t = {k: torch.tensor(v, device="cuda") for k, v in sc.items()}
+    cp = camera_params(Camera(**CAM), (80, 48), device="cuda")
+    rec = record_inputs(t["means"], t["log_scales"], t["quats"],
+                        t["sh_coeffs"], t["raw_opacity"], cp, (80, 48))
+    d = depth_order(rec.attrs9.detach(), rec.decode, rec.depth_key, 16384)
+    keys, recs = t_expand.expand(d.f5, d.u5, d.cum, d.total, 5, 15, 16384)
+    for a, b in zip(strip_bins(keys, recs, 15, 0, 15),
+                    tile_bins(keys, recs, 15)):
+        assert torch.equal(a, b)
+    bins = tile_bins(keys, recs, 15)
+    frame = t_raster.rasterize_fwd(*bins, 5)
+    a9 = rec.attrs9.detach().clone().requires_grad_(True)
+    img, order, total, raw = RecordPipeline.apply(
+        a9, rec.decode, rec.depth_key, 5, 15, 16384, True)
+    img.square().sum().backward()
+    assert int(total) > 0
+    assert torch.equal(order, d.order)
+    assert torch.equal(total, d.total[0])
+    assert torch.equal(raw, d.raw_total)
+    assert torch.equal(img, frame[0])
+    assert torch.isfinite(a9.grad).all() and a9.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_cli_train_shard_equals_train(tmp_path):
+    """`cli train --shard --device cuda` without torchrun: a world of one
+    process over NCCL, made and destroyed by the command; every logged
+    loss equals `cli train`'s in every bit."""
+    _need_cuda()
+    import json
+
+    from brush_tpu_torch import cli
+    from brush_tpu_torch.datasets import testing as dt
+
+    rng = np.random.default_rng(0)
+    splits = {split: [(c2w, rng.integers(0, 256, (32, 32, 4), np.uint8))
+                      for c2w in dt.orbit_views(n, seed=seed)]
+              for split, n, seed in (("train", 8, 1), ("val", 2, 2))}
+    source = str(tmp_path / "tiny.zip")
+    dt.write_nerf_zip(source, splits)
+    losses = []
+    for flags in ([], ["--shard"]):
+        ck = tmp_path / f"ck{len(losses)}"
+        cli.main(["--device", "cuda", "train", "--source", source, "--iters",
+                  "4", "--init-count", "64", "--sh-degree", "1",
+                  "--block-size", "32", "--log-every", "1",
+                  "--checkpoint-dir", str(ck), *flags])
+        with open(ck / "metrics.jsonl") as f:
+            losses.append([json.loads(line)["loss"] for line in f])
+    assert not torch.distributed.is_initialized()
+    assert len(losses[0]) == 4 and losses[1] == losses[0]
