@@ -1,11 +1,12 @@
-"""Command-line entry points: train / eval / render / train2d (port of
-brush_tpu/cli.py). Usage:
+"""Command-line entry points: train / eval / render / view / train2d (port
+of brush_tpu/cli.py). Usage:
 
     python -m brush_tpu_torch.cli train --source lego.zip --iters 30000 \
         --eval-split-every 8 --checkpoint-dir ckpts --export out.ply
     python -m brush_tpu_torch.cli render --ply out.ply --source lego.zip \
         --out r.png
     python -m brush_tpu_torch.cli eval --ply out.ply --source lego.zip
+    python -m brush_tpu_torch.cli view --source lego.zip   # then a browser
     python -m brush_tpu_torch.cli --device cpu train2d --image photo.png
 
 The flags and defaults are the JAX CLI's; its global `--platform` is
@@ -20,9 +21,11 @@ cuda:LOCAL_RANK, where torchrun starts the command
 
 and else a world of one process on the asked device. Every rank steps;
 rank 0 alone prints, logs metrics, evaluates, checkpoints and exports,
-from the state gathered over the ranks. What waits for modules not ported
-yet raises NotImplementedError naming its ROADMAP.md item by title:
-`--rerun` ("utils/rerun_viz.py") and the `view` subcommand ("viewer/").
+from the state gathered over the ranks. `train --rerun` streams the
+dataset cameras and, at each in-training eval, the splats, the eval
+renders and the tile heatmaps to rerun where its SDK imports
+(utils/rerun_viz.py). `view` serves the live viewer (viewer/): a .ply, or
+a dataset trained in a background thread, on --device.
 """
 
 from __future__ import annotations
@@ -33,12 +36,6 @@ import os
 import time
 
 import numpy as np
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to brush_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"the item {item!r})")
 
 
 def _parse_cell(spec: str) -> tuple:
@@ -111,8 +108,6 @@ def _train(args, mesh, dev, coord: bool):
     )
     from brush_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.rerun:
-        _not_ported("--rerun", "utils/rerun_viz.py")
     log = print if coord else (lambda *a, **k: None)
     ds = _load(args, coord)
     config = TrainConfig(
@@ -168,7 +163,15 @@ def _train(args, mesh, dev, coord: bool):
     metrics = MetricsLogger(
         jsonl_path=os.path.join(args.checkpoint_dir, "metrics.jsonl")
         if args.checkpoint_dir and coord else None,
+        use_rerun=args.rerun and coord,
     )
+    viz = None
+    if args.rerun and coord:
+        from brush_tpu_torch.utils.rerun_viz import RerunVisualizer
+
+        viz = RerunVisualizer()
+        if viz.active:
+            viz.log_dataset(ds.train)
 
     try:
         for step in range(start_step, args.iters):
@@ -203,12 +206,23 @@ def _train(args, mesh, dev, coord: bool):
                 views = [(v.camera, v.image) for v in ds.eval.views[:k]]
                 splats_w = whole(state).splats
                 if coord:
+                    show = viz is not None and viz.active
                     evals = eval_stats(splats_w, views,
                                        block_size=args.block_size,
+                                       keep_images=show,
                                        cell=trainer.raster_cell)
                     psnr = float(np.mean([e.psnr for e in evals]))
                     ssim = float(np.mean([e.ssim for e in evals]))
                     metrics.log(step, eval_psnr=psnr, eval_ssim=ssim)
+                    if show:
+                        viz.log_splats(step, splats_w)
+                        for i, ((c, gt), ev) in enumerate(zip(views, evals)):
+                            viz.log_eval(step, i, ev.rendered, gt, ev.psnr)
+                        c0, gt0 = views[0]
+                        viz.log_tile_heatmaps(
+                            step, splats_w, c0,
+                            (gt0.shape[1], gt0.shape[0]),
+                        )
 
             if args.checkpoint_dir and step > 0 and step % args.checkpoint_every == 0:
                 path = os.path.join(args.checkpoint_dir, f"ckpt_{step:07d}.npz")
@@ -406,7 +420,16 @@ def _train2d(args, mesh, dev, coord: bool):
 
 
 def cmd_view(args):
-    _not_ported("the view subcommand (and its --cell)", "viewer/")
+    from brush_tpu_torch.viewer import run_viewer
+
+    run_viewer(
+        source=args.source, ply=args.ply, train=not args.no_train,
+        port=args.port, sh_degree=args.sh_degree,
+        init_count=args.init_count, block_size=args.block_size,
+        max_resolution=args.max_resolution,
+        eval_split_every=args.eval_split_every,
+        cell=_parse_cell(args.cell), device=args.device,
+    )
 
 
 def main(argv=None):
@@ -447,7 +470,8 @@ def main(argv=None):
     t.add_argument("--resume", default=None)
     t.add_argument("--export", default=None, help="write a .ply at the end")
     t.add_argument("--rerun", action="store_true",
-                   help="log to rerun (not ported yet)")
+                   help="stream scalars, splats, eval renders and tile "
+                        "heatmaps to rerun (where its SDK imports)")
     t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("eval", help="PSNR/SSIM of a model on a dataset")
@@ -466,7 +490,7 @@ def main(argv=None):
     r.add_argument("--block-size", type=int, default=512)
     r.set_defaults(fn=cmd_render)
 
-    v = sub.add_parser("view", help="live web viewer (not ported yet)")
+    v = sub.add_parser("view", help="live web viewer (optionally training)")
     v.add_argument("--source", default=None, help="dataset zip or directory")
     v.add_argument("--ply", default=None, help="view an exported .ply")
     v.add_argument("--no-train", action="store_true")
@@ -474,7 +498,8 @@ def main(argv=None):
     v.add_argument("--sh-degree", type=int, default=3)
     v.add_argument("--init-count", type=int, default=10000)
     v.add_argument("--block-size", type=int, default=512)
-    v.add_argument("--cell", default="1x1")
+    v.add_argument("--cell", default="1x1",
+                   help="raster-cell grouping GWxGH of every render")
     v.add_argument("--max-resolution", type=int, default=None)
     v.add_argument("--eval-split-every", type=int, default=None)
     v.set_defaults(fn=cmd_view)

@@ -1,12 +1,23 @@
-"""Stage marks: where the time of a render or a training step goes.
+"""Profiling hooks (port of brush_tpu/utils/profiler.py; reference: tracing
+spans + tracy + the sync-span crate), and stage marks.
 
-The port's counterpart of the JAX package's sync-mode spans
-(brush_tpu/utils/profiler.py). The render, the record pipeline and the
-trainer call `mark(name)` where each of their stages ends. Inside
-`record()` on a CUDA device a mark records a CUDA event on the current
-stream, so a stage's time is the stream time between its mark and the
-one before it: its kernels and the host's gaps between their launches.
-Outside `record()` a mark is one read of a global.
+- `trace(dir)`: a torch.profiler trace of the enclosed work (CPU activity,
+  and CUDA activity where a card is present), written into `dir` as a
+  Chrome trace (.json) when the block exits.
+- `span(name, *tensors)`: a named scope in that trace
+  (torch.profiler.record_function; the reference's trace_span!). In sync
+  mode (`set_sync_mode(True)`) it also waits, at scope close, for the
+  devices of the CUDA tensors it was given and records the wall seconds,
+  as the sync-span crate does (sync-span/src/lib.rs:29-42); `timings()`
+  gives their means. Nothing in the port calls `span`: it is for callers.
+
+Stage marks: where the time of a render or a training step goes. The
+render, the record pipeline and the trainer call `mark(name)` where each
+of their stages ends. Inside `record()` on a CUDA device a mark records a
+CUDA event on the current stream, so a stage's time is the stream time
+between its mark and the one before it: its kernels and the host's gaps
+between their launches. Outside `record()` a mark is one read of a
+global.
 
 The backward's marks fire on the autograd engine's thread. Its work goes
 to the same stream while the main thread waits in backward(), so the
@@ -20,10 +31,61 @@ marks stay in stream order.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
+import time
 
 import torch
 
 _marks: list | None = None
+_sync = {"enabled": False}
+_timings: dict[str, list] = {}
+_trace_ids = itertools.count()
+
+
+def set_sync_mode(enabled: bool) -> None:
+    """(reference: the sync-span global toggle, lib.rs:45-49)."""
+    _sync["enabled"] = bool(enabled)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler over the block; on exit its Chrome trace is written
+    to log_dir/trace_<pid>_<n>.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{next(_trace_ids)}.json"))
+
+
+@contextlib.contextmanager
+def span(name: str, *sync_tensors):
+    """Named profiler scope; in sync mode also records the wall seconds to
+    the end of the work queued on the given CUDA tensors' devices (CPU
+    tensors are ready when the scope closes)."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(name):
+        yield
+    if _sync["enabled"]:
+        for dev in {t.device for t in sync_tensors
+                    if isinstance(t, torch.Tensor) and t.is_cuda}:
+            torch.cuda.synchronize(dev)
+        _timings.setdefault(name, []).append(time.perf_counter() - t0)
+
+
+def timings() -> dict[str, float]:
+    """Mean seconds per span recorded while sync mode was on."""
+    return {k: sum(v) / len(v) for k, v in _timings.items() if v}
+
+
+def reset_timings() -> None:
+    _timings.clear()
 
 
 def mark(name: str) -> None:

@@ -100,11 +100,21 @@ result line; each phase prints its seconds):
      90,977 means as points3D, native parser == Python parser) trains 100
      timed steps; `train2d` at 256x256 lowers its loss, and so does
      `train2d --shard`;
-  9. print {"kernels": [...]}: launches from the "cli" train run, the other
+  9. "viewer", the served path on the same datasets (viewer_phase): the
+     castle served over HTTP by brush_tpu_torch.viewer, every frame equal
+     to the in-process render and launching expand and rasterize_fwd once;
+     the /api/frame latency at 800x800 and its split (render, copy +
+     composite, PNG encode, the rest), idle and while a TrainWorker trains
+     the NeRF castle through the API (pause, eval, export, resume, load of
+     the COLMAP twin); `cli view` in a subprocess; `cli train --rerun`
+     with a recording stub SDK; profiler.trace around a bench render;
+ 10. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
      "cell" those of the training at CELL and under "strip" the strip
-     phase's per strip (launches: the sharded training's); the nvidia-smi
+     phase's per strip (launches: the sharded training's), and for expand
+     and rasterize_fwd under "viewer" the viewer's frames' launches; the
+     nvidia-smi
      line; and last
      {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
@@ -117,6 +127,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -167,6 +178,12 @@ CLI_CELL_ITERS = 220   # `cli train --cell 2x2` and `--shard`: eval at 200
 # as as many ranks of the sharded step cut it.
 STRIPS = 4
 CLI_CELL_PSNR_TOL = 0.5   # dB from the (1, 1) run's eval at 200
+# The viewer phase: timed /api/frame requests after warm ones; the
+# TrainWorker's iterations before its rate is read; `cli train --rerun`.
+VIEW_FRAMES, VIEW_WARM = 30, 3
+VIEW_TRAIN_ITER = 150
+VIEW_RERUN_ITERS = 12
+PAGE_SIZE = (512, 384)   # page.html's default frame
 
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -200,14 +217,28 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+_scenes: dict = {}
+
+
 def make_scene(cfg, device):
+    """A scene's splats (seed 0), camera parameters and size. The splats
+    of a scene are drawn once (from_random's 3-NN scales of the bench
+    scene's 1M points take about 30 s on the card) and kept on the host;
+    each call gets its own copy on the device."""
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.splats import from_random
 
-    splats = from_random(np.random.default_rng(0), [cfg["lo"]] * 3,
-                         [cfg["hi"]] * 3, count=cfg["n"], sh_degree=1,
-                         capacity=cfg["n"], device=device)
+    key = (cfg["n"], cfg["lo"], cfg["hi"])
+    if key not in _scenes:
+        drawn = from_random(
+            np.random.default_rng(0), [cfg["lo"]] * 3, [cfg["hi"]] * 3,
+            count=cfg["n"], sh_degree=1, capacity=cfg["n"], device=device)
+        _scenes[key] = drawn.replace(
+            **{k: v.cpu() for k, v in drawn.params().items()})
+    base = _scenes[key]
+    splats = base.replace(
+        **{k: v.to(device, copy=True) for k, v in base.params().items()})
     cam = Camera(position=[0, 0, cfg["z"]], rotation=[1, 0, 0, 0],
                  fov_x=np.pi / 2, fov_y=np.pi / 2)
     size = (cfg["size"], cfg["size"])
@@ -1420,7 +1451,7 @@ def row_filters(data: bytes) -> np.ndarray:
     return np.bincount(rows[:, 0], minlength=5)
 
 
-def cli_phase(castle, pool):
+def cli_phase(castle, pool, d):
     """Phase 8: the user's path through brush_tpu_torch.cli at full width,
     in a temporary directory: a NeRF-synthetic castle dataset (100 train
     and 16 val views, 800x800 RGBA PNG) rendered by the port from
@@ -1432,10 +1463,11 @@ def cli_phase(castle, pool):
     the final checkpoint; `--resume`; the trained castle resumed at step
     CASTLE_RESUME_STEP for the step time of a model at a real size; `cli
     render`; a 24-view COLMAP castle dataset (RGB on black) with the
-    castle's means as its point cloud; `cli train2d`. Returns the
-    kernels' launches over the 620-step run and train_kernels' result on
-    its arguments."""
-    import tempfile
+    castle's means as its point cloud; `cli train2d`. The datasets are
+    written into the directory d. Returns the kernels' launches over the
+    620-step run, train_kernels' result on its arguments, and for the
+    viewer phase the two datasets' paths and the 620-step run's rate over
+    its first VIEW_TRAIN_ITER steps."""
     import zipfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1453,401 +1485,899 @@ def cli_phase(castle, pool):
 
     t_phase = time.perf_counter()
     log = []
-    with tempfile.TemporaryDirectory(prefix="brush_cli_") as d:
-        # The NeRF-synthetic castle: orbit and layout of
-        # scripts/raytrace_scene.py write_nerf_zip (train seed 1, val 2).
-        t0 = time.perf_counter()
-        c2ws = {"train": dt.orbit_views(CLI_NERF_TRAIN, seed=1),
-                "val": dt.orbit_views(CLI_NERF_VAL, seed=2)}
-        imgs = {s: castle_images(castle, c, pool, rgb_only=False)
-                for s, c in c2ws.items()}
-        torch.cuda.synchronize()
-        t_render = time.perf_counter() - t0
-        with ThreadPoolExecutor(8) as ex:
-            pngs = {s: list(ex.map(png.encode_png, v))
+    # The NeRF-synthetic castle: orbit and layout of
+    # scripts/raytrace_scene.py write_nerf_zip (train seed 1, val 2).
+    t0 = time.perf_counter()
+    c2ws = {"train": dt.orbit_views(CLI_NERF_TRAIN, seed=1),
+            "val": dt.orbit_views(CLI_NERF_VAL, seed=2)}
+    imgs = {s: castle_images(castle, c, pool, rgb_only=False)
+            for s, c in c2ws.items()}
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    with ThreadPoolExecutor(8) as ex:
+        pngs = {s: list(ex.map(png.encode_png, v))
+                for s, v in imgs.items()}
+    nerf_zip = os.path.join(d, "nerf.zip")
+    dt.write_nerf_zip(nerf_zip, {s: list(zip(c2ws[s], pngs[s]))
+                                 for s in c2ws}, encode=lambda b: b)
+    t_write = time.perf_counter() - t0
+    flat = pngs["train"] + pngs["val"]
+    t0 = time.perf_counter()
+    built = native.available()   # g++ at first use, outside the timings
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for data in flat:
+        png.decode_png(data)
+    t_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = load_dataset(nerf_zip)
+    t_load = time.perf_counter() - t0
+    if (len(ds.train.views), len(ds.eval.views)) != (
+            CLI_NERF_TRAIN, CLI_NERF_VAL) or ds.train.views[0].image.shape \
+            != (CASTLE_SIZE, CASTLE_SIZE, 4):
+        raise AssertionError("the NeRF castle dataset loads wrong")
+    print(f"[cli] NeRF castle dataset {CLI_NERF_TRAIN} + {CLI_NERF_VAL} "
+          f"views {CASTLE_SIZE}x{CASTLE_SIZE} RGBA: rendered "
+          f"{t_render:.2f} s, written {t_write:.2f} s in all "
+          f"({os.path.getsize(nerf_zip)} bytes); decode of its "
+          f"filter-0 PNGs {len(flat) / t_decode:.1f} views/s (one "
+          f"thread); load_dataset {t_load:.2f} s; native library "
+          f"{'built' if built else 'unavailable'} in {t_native:.2f} s")
+
+    # Its twin as libpng writes PNGs, each row with its adaptive
+    # filter (Average and Paeth rows among them): the decode a user
+    # of a real NeRF-synthetic scene waits for.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        adaptive = {s: list(ex.map(dt.filtered_png, v))
                     for s, v in imgs.items()}
-        nerf_zip = os.path.join(d, "nerf.zip")
-        dt.write_nerf_zip(nerf_zip, {s: list(zip(c2ws[s], pngs[s]))
-                                     for s in c2ws}, encode=lambda b: b)
-        t_write = time.perf_counter() - t0
-        flat = pngs["train"] + pngs["val"]
-        t0 = time.perf_counter()
-        built = native.available()   # g++ at first use, outside the timings
-        t_native = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for data in flat:
-            png.decode_png(data)
-        t_decode = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ds = load_dataset(nerf_zip)
-        t_load = time.perf_counter() - t0
-        if (len(ds.train.views), len(ds.eval.views)) != (
-                CLI_NERF_TRAIN, CLI_NERF_VAL) or ds.train.views[0].image.shape \
-                != (CASTLE_SIZE, CASTLE_SIZE, 4):
-            raise AssertionError("the NeRF castle dataset loads wrong")
-        print(f"[cli] NeRF castle dataset {CLI_NERF_TRAIN} + {CLI_NERF_VAL} "
-              f"views {CASTLE_SIZE}x{CASTLE_SIZE} RGBA: rendered "
-              f"{t_render:.2f} s, written {t_write:.2f} s in all "
-              f"({os.path.getsize(nerf_zip)} bytes); decode of its "
-              f"filter-0 PNGs {len(flat) / t_decode:.1f} views/s (one "
-              f"thread); load_dataset {t_load:.2f} s; native library "
-              f"{'built' if built else 'unavailable'} in {t_native:.2f} s")
+    ad_zip = os.path.join(d, "nerf_adaptive.zip")
+    dt.write_nerf_zip(ad_zip, {s: list(zip(c2ws[s], adaptive[s]))
+                               for s in c2ws}, encode=lambda b: b)
+    t_make = time.perf_counter() - t0
+    kinds = sum(row_filters(b) for v in adaptive.values() for b in v)
+    t0 = time.perf_counter()
+    one = png.decode_png(adaptive["train"][0])
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_ad = load_dataset(ad_zip)
+    t_load_ad = time.perf_counter() - t0
+    if not np.array_equal(one, imgs["train"][0]) or not all(
+            np.array_equal(a.image, b.image) for sa, sb in (
+                (ds_ad.train, ds.train), (ds_ad.eval, ds.eval))
+            for a, b in zip(sa.views, sb.views)):
+        raise AssertionError("the adaptively filtered dataset loads "
+                             "other images")
+    del ds, ds_ad
+    print(f"[cli] adaptively filtered twin (unfiltered by "
+          f"{'native/png.cpp' if native.available() else 'numpy'}): "
+          f"rows by filter 0-4 {kinds.tolist()}, made {t_make:.2f} s "
+          f"({os.path.getsize(ad_zip)} bytes); one view decodes in "
+          f"{t_one:.3f} s (one thread); load_dataset {t_load_ad:.2f} s "
+          f"({(CLI_NERF_TRAIN + CLI_NERF_VAL) / t_load_ad:.1f} views/s, "
+          f"{os.cpu_count()} threads); images equal to the filter-0 "
+          f"dataset's")
 
-        # Its twin as libpng writes PNGs, each row with its adaptive
-        # filter (Average and Paeth rows among them): the decode a user
-        # of a real NeRF-synthetic scene waits for.
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(8) as ex:
-            adaptive = {s: list(ex.map(dt.filtered_png, v))
-                        for s, v in imgs.items()}
-        ad_zip = os.path.join(d, "nerf_adaptive.zip")
-        dt.write_nerf_zip(ad_zip, {s: list(zip(c2ws[s], adaptive[s]))
-                                   for s in c2ws}, encode=lambda b: b)
-        t_make = time.perf_counter() - t0
-        kinds = sum(row_filters(b) for v in adaptive.values() for b in v)
-        t0 = time.perf_counter()
-        one = png.decode_png(adaptive["train"][0])
-        t_one = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ds_ad = load_dataset(ad_zip)
-        t_load_ad = time.perf_counter() - t0
-        if not np.array_equal(one, imgs["train"][0]) or not all(
-                np.array_equal(a.image, b.image) for sa, sb in (
-                    (ds_ad.train, ds.train), (ds_ad.eval, ds.eval))
-                for a, b in zip(sa.views, sb.views)):
-            raise AssertionError("the adaptively filtered dataset loads "
-                                 "other images")
-        del ds, ds_ad
-        print(f"[cli] adaptively filtered twin (unfiltered by "
-              f"{'native/png.cpp' if native.available() else 'numpy'}): "
-              f"rows by filter 0-4 {kinds.tolist()}, made {t_make:.2f} s "
-              f"({os.path.getsize(ad_zip)} bytes); one view decodes in "
-              f"{t_one:.3f} s (one thread); load_dataset {t_load_ad:.2f} s "
-              f"({(CLI_NERF_TRAIN + CLI_NERF_VAL) / t_load_ad:.1f} views/s, "
-              f"{os.cpu_count()} threads); images equal to the filter-0 "
-              f"dataset's")
+    # Training through the CLI: the kernels counted over the run, the
+    # eval renders (pool-growth retries included) counted apart, and
+    # the kernels' arguments kept on the first step and on the first
+    # step after each refine or capacity change.
+    ck = os.path.join(d, "ckpt")
+    steps, ck_s, ply_s, renders = [], [], [], []
+    kept, armed, last = {}, [False], {}
 
-        # Training through the CLI: the kernels counted over the run, the
-        # eval renders (pool-growth retries included) counted apart, and
-        # the kernels' arguments kept on the first step and on the first
-        # step after each refine or capacity change.
-        ck = os.path.join(d, "ckpt")
-        steps, ck_s, ply_s, renders = [], [], [], []
-        kept, armed, last = {}, [False], {}
+    def arm(trainer, state):
+        cap = state.splats.capacity
+        armed[0] = not kept or cap != last.get("cap") or last["refined"]
+        last["cap"] = cap
 
-        def arm(trainer, state):
-            cap = state.splats.capacity
-            armed[0] = not kept or cap != last.get("cap") or last["refined"]
-            last["cap"] = cap
+    def keep(trainer, it):
+        if armed[0]:
+            kept[f"step {it}, capacity {last['cap']}"] = dict(seen)
+            armed[0] = False
+        last["refined"] = trainer.last_refine_stats is not None
 
-        def keep(trainer, it):
-            if armed[0]:
-                kept[f"step {it}, capacity {last['cap']}"] = dict(seen)
-                armed[0] = False
-            last["refined"] = trainer.last_refine_stats is not None
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with kept_kernel_args(armed) as seen, \
+            step_timer(steps, arm, keep), \
+            wrapped(eval_mod, "render_splats", lambda *a: None,
+                    lambda t, out, *a, **k: renders.append(
+                        int(out[1].num_dropped))), \
+            host_timed(checkpoint, "save_checkpoint", ck_s), \
+            host_timed(ply, "splats_to_ply", ply_s):
+        text = run_cli([
+            "train", "--source", nerf_zip, "--iters", str(CLI_ITERS),
+            "--sh-degree", "3", "--init-count", "10000",
+            "--eval-every", "200", "--eval-views", "4",
+            "--log-every", "20", "--checkpoint-dir", ck,
+            "--checkpoint-every", "200", "--export",
+            os.path.join(ck, "out.ply")], log)
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ms = event_ms(steps)
+    loop_s = steps[-1][4] - steps[0][1]
+    rows = read_jsonl(os.path.join(ck, "metrics.jsonl"))
+    losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+    psnr = {r["step"]: r["eval_psnr"] for r in rows if "eval_psnr" in r}
+    refines = {it: rs for it, _, _, _, _, rs in steps if rs is not None}
+    live = {r["step"]: r["splats"] for r in rows if "splats" in r}
+    final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+    cache = text_field(text, r"gt cache: (\d+) hits, (\d+) views, "
+                             r"(\d+) bytes")
+    sizes = {n: os.path.getsize(os.path.join(ck, n)) for n in
+             ("ckpt_0000400.npz", "ckpt_final.npz", "out.ply")}
+    retries = sum(1 for dropped in renders if dropped)
+    evals = 3 * 4 + CLI_NERF_VAL
+    print(f"[cli] train {CLI_ITERS} steps: median step "
+          f"{statistics.median(ms):.3f} ms (CUDA events), "
+          f"{len(steps) / loop_s:.2f} steps/s over the loop (host clock, "
+          f"evals and checkpoints in it); peak memory {peak} bytes; gt "
+          f"cache {cache[0]} hits, {cache[1]} views, {cache[2]} bytes; "
+          f"launches {counts}: {CLI_ITERS} steps + {len(renders)} eval "
+          f"renders ({evals} views, {retries} of the renders dropped "
+          f"records and were rendered again in a grown pool)")
+    print(f"[cli] eval PSNR {psnr}; final eval PSNR {final[0]} SSIM "
+          f"{final[1]}; refines {[(i, r._asdict()) for i, r in refines.items()]}"
+          f"; splats logged {live.get(500)} at 500, {live.get(520)} at "
+          f"520, {live.get(600)} at 600; losses at 0/300/600 "
+          f"{losses.get(0)}, {losses.get(300)}, {losses.get(600)}")
+    print(f"[cli] checkpoint {sizes['ckpt_final.npz']} bytes, saves "
+          f"{[round(s, 3) for s in ck_s]} s; export {sizes['out.ply']} "
+          f"bytes in {sum(ply_s):.3f} s")
+    if len(steps) != CLI_ITERS or not all(
+            np.isfinite(list(losses.values()))) or len(losses) != 31:
+        raise AssertionError(f"cli train: {len(steps)} steps, losses "
+                             f"{losses}")
+    if sorted(psnr) != [200, 400, 600] or not psnr[600] > psnr[200]:
+        raise AssertionError(f"cli train: eval PSNR {psnr}")
+    if 501 not in refines or not any(
+            r["step"] == 501 and "refine_cloned" in r for r in rows):
+        raise AssertionError(f"cli train: refines at {sorted(refines)}")
+    if min(counts.values()) < CLI_ITERS:
+        raise AssertionError(f"cli train skipped a kernel: {counts}")
+    if len(renders) != evals + retries or counts != {
+            "expand": CLI_ITERS + len(renders),
+            "rasterize_fwd": CLI_ITERS + len(renders),
+            "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS}:
+        raise AssertionError(f"cli train: launches {counts} are not "
+                             f"one a step and one an eval render "
+                             f"({len(renders)} renders, dropped "
+                             f"{renders})")
+    whens = list(kept)
+    if len(whens) < 2 or not whens[0].startswith("step 0,"):
+        raise AssertionError(f"kernel arguments kept at {whens}")
+    # The plain versions on the first step's arguments and the last
+    # kept (the first step after the last refine).
+    cli_kernels = train_kernels({w: kept[w] for w in (whens[0],
+                                                      whens[-1])}, "cli")
+    del kept, seen
+    torch.cuda.empty_cache()
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        with kept_kernel_args(armed) as seen, \
-                step_timer(steps, arm, keep), \
-                wrapped(eval_mod, "render_splats", lambda *a: None,
-                        lambda t, out, *a, **k: renders.append(
-                            int(out[1].num_dropped))), \
-                host_timed(checkpoint, "save_checkpoint", ck_s), \
-                host_timed(ply, "splats_to_ply", ply_s):
-            text = run_cli([
-                "train", "--source", nerf_zip, "--iters", str(CLI_ITERS),
-                "--sh-degree", "3", "--init-count", "10000",
-                "--eval-every", "200", "--eval-views", "4",
-                "--log-every", "20", "--checkpoint-dir", ck,
-                "--checkpoint-every", "200", "--export",
-                os.path.join(ck, "out.ply")], log)
-        counts = read_launches()
-        peak = torch.cuda.max_memory_allocated()
-        ms = event_ms(steps)
-        loop_s = steps[-1][4] - steps[0][1]
-        rows = read_jsonl(os.path.join(ck, "metrics.jsonl"))
-        losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
-        psnr = {r["step"]: r["eval_psnr"] for r in rows if "eval_psnr" in r}
-        refines = {it: rs for it, _, _, _, _, rs in steps if rs is not None}
-        live = {r["step"]: r["splats"] for r in rows if "splats" in r}
-        final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
-        cache = text_field(text, r"gt cache: (\d+) hits, (\d+) views, "
-                                 r"(\d+) bytes")
-        sizes = {n: os.path.getsize(os.path.join(ck, n)) for n in
-                 ("ckpt_0000400.npz", "ckpt_final.npz", "out.ply")}
-        retries = sum(1 for dropped in renders if dropped)
-        evals = 3 * 4 + CLI_NERF_VAL
-        print(f"[cli] train {CLI_ITERS} steps: median step "
-              f"{statistics.median(ms):.3f} ms (CUDA events), "
-              f"{len(steps) / loop_s:.2f} steps/s over the loop (host clock, "
-              f"evals and checkpoints in it); peak memory {peak} bytes; gt "
-              f"cache {cache[0]} hits, {cache[1]} views, {cache[2]} bytes; "
-              f"launches {counts}: {CLI_ITERS} steps + {len(renders)} eval "
-              f"renders ({evals} views, {retries} of the renders dropped "
-              f"records and were rendered again in a grown pool)")
-        print(f"[cli] eval PSNR {psnr}; final eval PSNR {final[0]} SSIM "
-              f"{final[1]}; refines {[(i, r._asdict()) for i, r in refines.items()]}"
-              f"; splats logged {live.get(500)} at 500, {live.get(520)} at "
-              f"520, {live.get(600)} at 600; losses at 0/300/600 "
-              f"{losses.get(0)}, {losses.get(300)}, {losses.get(600)}")
-        print(f"[cli] checkpoint {sizes['ckpt_final.npz']} bytes, saves "
-              f"{[round(s, 3) for s in ck_s]} s; export {sizes['out.ply']} "
-              f"bytes in {sum(ply_s):.3f} s")
-        if len(steps) != CLI_ITERS or not all(
-                np.isfinite(list(losses.values()))) or len(losses) != 31:
-            raise AssertionError(f"cli train: {len(steps)} steps, losses "
-                                 f"{losses}")
-        if sorted(psnr) != [200, 400, 600] or not psnr[600] > psnr[200]:
-            raise AssertionError(f"cli train: eval PSNR {psnr}")
-        if 501 not in refines or not any(
-                r["step"] == 501 and "refine_cloned" in r for r in rows):
-            raise AssertionError(f"cli train: refines at {sorted(refines)}")
-        if min(counts.values()) < CLI_ITERS:
-            raise AssertionError(f"cli train skipped a kernel: {counts}")
-        if len(renders) != evals + retries or counts != {
-                "expand": CLI_ITERS + len(renders),
-                "rasterize_fwd": CLI_ITERS + len(renders),
-                "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS}:
-            raise AssertionError(f"cli train: launches {counts} are not "
-                                 f"one a step and one an eval render "
-                                 f"({len(renders)} renders, dropped "
-                                 f"{renders})")
-        whens = list(kept)
-        if len(whens) < 2 or not whens[0].startswith("step 0,"):
-            raise AssertionError(f"kernel arguments kept at {whens}")
-        # The plain versions on the first step's arguments and the last
-        # kept (the first step after the last refine).
-        cli_kernels = train_kernels({w: kept[w] for w in (whens[0],
-                                                          whens[-1])}, "cli")
-        del kept, seen
-        torch.cuda.empty_cache()
+    # The same dataset and flags at raster cell 2x2 for CLI_CELL_ITERS
+    # steps: every render of the run, training's and the evals', at
+    # the cell; launches counted as above; the eval at 200 beside the
+    # (1, 1) run's.
+    ck2 = os.path.join(d, "ckpt_cell")
+    c_renders, t_cells, steps2 = [], [], []
+    reset_launches()
+    with step_timer(steps2), \
+            spied_renders(eval_mod, c_renders, dropped=True), \
+            spied_renders(train_mod, t_cells):
+        run_cli([
+            "train", "--source", nerf_zip, "--iters",
+            str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
+            "10000", "--eval-every", "200", "--eval-views", "4",
+            "--log-every", "20", "--checkpoint-dir", ck2, "--cell",
+            f"{CELL[0]}x{CELL[1]}"], log)
+    counts2 = read_launches()
+    ms2 = event_ms(steps2)
+    rows2 = read_jsonl(os.path.join(ck2, "metrics.jsonl"))
+    losses2 = {r["step"]: r["loss"] for r in rows2 if "loss" in r}
+    psnr2 = {r["step"]: r["eval_psnr"] for r in rows2 if "eval_psnr" in r}
+    retries2 = sum(1 for _, dropped in c_renders if dropped)
+    cells = {c for c, _ in c_renders} | set(t_cells)
+    print(f"[cli cell {CELL}] train {CLI_CELL_ITERS} steps: median step "
+          f"{statistics.median(ms2):.3f} ms (CUDA events; the (1, 1) run "
+          f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
+          f"{CLI_CELL_ITERS}); eval PSNR at 200 {psnr2.get(200)} ((1, 1): "
+          f"{psnr[200]}); losses at 0/100/200 {losses2.get(0)}, "
+          f"{losses2.get(100)}, {losses2.get(200)} ((1, 1): "
+          f"{losses.get(0)}, {losses.get(100)}, {losses.get(200)}); "
+          f"launches {counts2}: {CLI_CELL_ITERS} steps + {len(c_renders)} "
+          f"eval renders ({retries2} grown); renders at cells {cells}")
+    if len(steps2) != CLI_CELL_ITERS or not all(np.isfinite(
+            list(losses2.values()))) or len(losses2) != 11:
+        raise AssertionError(f"cli train --cell: {len(steps2)} steps, "
+                             f"losses {losses2}")
+    if sorted(psnr2) != [200] or not abs(
+            psnr2[200] - psnr[200]) <= CLI_CELL_PSNR_TOL:
+        raise AssertionError(f"cli train --cell: eval PSNR {psnr2} vs "
+                             f"(1, 1) {psnr[200]}")
+    if cells != {CELL} or len(t_cells) != CLI_CELL_ITERS:
+        raise AssertionError(f"cli train --cell rendered at {cells}")
+    if len(c_renders) != 4 + CLI_NERF_VAL + retries2 or counts2 != {
+            "expand": CLI_CELL_ITERS + len(c_renders),
+            "rasterize_fwd": CLI_CELL_ITERS + len(c_renders),
+            "rasterize_bwd": CLI_CELL_ITERS,
+            "segment_sum": CLI_CELL_ITERS}:
+        raise AssertionError(f"cli train --cell: launches {counts2}, "
+                             f"{len(c_renders)} eval renders")
 
-        # The same dataset and flags at raster cell 2x2 for CLI_CELL_ITERS
-        # steps: every render of the run, training's and the evals', at
-        # the cell; launches counted as above; the eval at 200 beside the
-        # (1, 1) run's.
-        ck2 = os.path.join(d, "ckpt_cell")
-        c_renders, t_cells, steps2 = [], [], []
-        reset_launches()
-        with step_timer(steps2), \
-                spied_renders(eval_mod, c_renders, dropped=True), \
-                spied_renders(train_mod, t_cells):
-            run_cli([
-                "train", "--source", nerf_zip, "--iters",
-                str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
-                "10000", "--eval-every", "200", "--eval-views", "4",
-                "--log-every", "20", "--checkpoint-dir", ck2, "--cell",
-                f"{CELL[0]}x{CELL[1]}"], log)
-        counts2 = read_launches()
-        ms2 = event_ms(steps2)
-        rows2 = read_jsonl(os.path.join(ck2, "metrics.jsonl"))
-        losses2 = {r["step"]: r["loss"] for r in rows2 if "loss" in r}
-        psnr2 = {r["step"]: r["eval_psnr"] for r in rows2 if "eval_psnr" in r}
-        retries2 = sum(1 for _, dropped in c_renders if dropped)
-        cells = {c for c, _ in c_renders} | set(t_cells)
-        print(f"[cli cell {CELL}] train {CLI_CELL_ITERS} steps: median step "
-              f"{statistics.median(ms2):.3f} ms (CUDA events; the (1, 1) run "
-              f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
-              f"{CLI_CELL_ITERS}); eval PSNR at 200 {psnr2.get(200)} ((1, 1): "
-              f"{psnr[200]}); losses at 0/100/200 {losses2.get(0)}, "
-              f"{losses2.get(100)}, {losses2.get(200)} ((1, 1): "
-              f"{losses.get(0)}, {losses.get(100)}, {losses.get(200)}); "
-              f"launches {counts2}: {CLI_CELL_ITERS} steps + {len(c_renders)} "
-              f"eval renders ({retries2} grown); renders at cells {cells}")
-        if len(steps2) != CLI_CELL_ITERS or not all(np.isfinite(
-                list(losses2.values()))) or len(losses2) != 11:
-            raise AssertionError(f"cli train --cell: {len(steps2)} steps, "
-                                 f"losses {losses2}")
-        if sorted(psnr2) != [200] or not abs(
-                psnr2[200] - psnr[200]) <= CLI_CELL_PSNR_TOL:
-            raise AssertionError(f"cli train --cell: eval PSNR {psnr2} vs "
-                                 f"(1, 1) {psnr[200]}")
-        if cells != {CELL} or len(t_cells) != CLI_CELL_ITERS:
-            raise AssertionError(f"cli train --cell rendered at {cells}")
-        if len(c_renders) != 4 + CLI_NERF_VAL + retries2 or counts2 != {
-                "expand": CLI_CELL_ITERS + len(c_renders),
-                "rasterize_fwd": CLI_CELL_ITERS + len(c_renders),
-                "rasterize_bwd": CLI_CELL_ITERS,
-                "segment_sum": CLI_CELL_ITERS}:
-            raise AssertionError(f"cli train --cell: launches {counts2}, "
-                                 f"{len(c_renders)} eval renders")
+    # The same dataset and flags with --shard for CLI_CELL_ITERS steps:
+    # a world of one process over NCCL, made and destroyed by the
+    # command; every logged loss must equal the (1, 1) run's.
+    t0 = time.perf_counter()
+    ck3 = os.path.join(d, "ckpt_shard")
+    steps3 = []
+    reset_launches()
+    with step_timer(steps3):
+        text = run_cli([
+            "train", "--source", nerf_zip, "--iters",
+            str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
+            "10000", "--eval-every", "200", "--eval-views", "4",
+            "--log-every", "20", "--checkpoint-dir", ck3, "--shard"],
+            log)
+    counts3 = read_launches()
+    ms3 = event_ms(steps3)
+    rows3 = read_jsonl(os.path.join(ck3, "metrics.jsonl"))
+    losses3 = {r["step"]: r["loss"] for r in rows3 if "loss" in r}
+    psnr3 = {r["step"]: r["eval_psnr"] for r in rows3
+             if "eval_psnr" in r}
+    same = {st: losses3.get(st) == losses[st] for st in losses3}
+    ranks = text_field(text, r"sharded training over (\d+) ranks")[0]
+    print(f"[cli shard] train --shard {CLI_CELL_ITERS} steps over "
+          f"{ranks} rank: median step {statistics.median(ms3):.3f} ms "
+          f"(CUDA events; train "
+          f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
+          f"{CLI_CELL_ITERS}); losses equal to the (1, 1) "
+          f"run's at {sum(same.values())} of {len(same)} logged steps; "
+          f"eval PSNR at 200 {psnr3.get(200)} ((1, 1): {psnr[200]}); "
+          f"launches {counts3}; {time.perf_counter() - t0:.1f} s")
+    if len(losses3) != 11 or not all(same.values()):
+        raise AssertionError(f"cli train --shard losses {losses3} differ "
+                             "from cli train's")
+    if min(counts3.values()) < CLI_CELL_ITERS:
+        raise AssertionError(f"cli train --shard launches {counts3}")
 
-        # The same dataset and flags with --shard for CLI_CELL_ITERS steps:
-        # a world of one process over NCCL, made and destroyed by the
-        # command; every logged loss must equal the (1, 1) run's.
-        t0 = time.perf_counter()
-        ck3 = os.path.join(d, "ckpt_shard")
-        steps3 = []
-        reset_launches()
-        with step_timer(steps3):
-            text = run_cli([
-                "train", "--source", nerf_zip, "--iters",
-                str(CLI_CELL_ITERS), "--sh-degree", "3", "--init-count",
-                "10000", "--eval-every", "200", "--eval-views", "4",
-                "--log-every", "20", "--checkpoint-dir", ck3, "--shard"],
-                log)
-        counts3 = read_launches()
-        ms3 = event_ms(steps3)
-        rows3 = read_jsonl(os.path.join(ck3, "metrics.jsonl"))
-        losses3 = {r["step"]: r["loss"] for r in rows3 if "loss" in r}
-        psnr3 = {r["step"]: r["eval_psnr"] for r in rows3
-                 if "eval_psnr" in r}
-        same = {st: losses3.get(st) == losses[st] for st in losses3}
-        ranks = text_field(text, r"sharded training over (\d+) ranks")[0]
-        print(f"[cli shard] train --shard {CLI_CELL_ITERS} steps over "
-              f"{ranks} rank: median step {statistics.median(ms3):.3f} ms "
-              f"(CUDA events; train "
-              f"{statistics.median(ms[:CLI_CELL_ITERS]):.3f} over its first "
-              f"{CLI_CELL_ITERS}); losses equal to the (1, 1) "
-              f"run's at {sum(same.values())} of {len(same)} logged steps; "
-              f"eval PSNR at 200 {psnr3.get(200)} ((1, 1): {psnr[200]}); "
-              f"launches {counts3}; {time.perf_counter() - t0:.1f} s")
-        if len(losses3) != 11 or not all(same.values()):
-            raise AssertionError(f"cli train --shard losses {losses3} differ "
-                                 "from cli train's")
-        if min(counts3.values()) < CLI_CELL_ITERS:
-            raise AssertionError(f"cli train --shard launches {counts3}")
+    # eval of the export and of the final checkpoint: the same PSNR.
+    eval_s = []
+    for flag, name in (("--ply", "out.ply"),
+                       ("--ckpt", "ckpt_final.npz")):
+        eval_s.clear()
+        with host_timed(eval_mod, "eval_view", eval_s):
+            text = run_cli(["eval", "--source", nerf_zip, flag,
+                            os.path.join(ck, name)], log)
+        got = text_field(text, r"mean: PSNR (\S+) SSIM (\S+)")
+        print(f"[cli] eval {flag}: PSNR {got[0]} SSIM {got[1]}; "
+              f"{statistics.median(eval_s) * 1e3:.2f} ms a view "
+              f"(median of {len(eval_s)}, host clock)")
+        if got[0] != final[0]:
+            raise AssertionError(f"eval {flag} PSNR {got[0]} != the "
+                                 f"training run's {final[0]}")
 
-        # eval of the export and of the final checkpoint: the same PSNR.
-        eval_s = []
-        for flag, name in (("--ply", "out.ply"),
-                           ("--ckpt", "ckpt_final.npz")):
-            eval_s.clear()
-            with host_timed(eval_mod, "eval_view", eval_s):
-                text = run_cli(["eval", "--source", nerf_zip, flag,
-                                os.path.join(ck, name)], log)
-            got = text_field(text, r"mean: PSNR (\S+) SSIM (\S+)")
-            print(f"[cli] eval {flag}: PSNR {got[0]} SSIM {got[1]}; "
-                  f"{statistics.median(eval_s) * 1e3:.2f} ms a view "
-                  f"(median of {len(eval_s)}, host clock)")
-            if got[0] != final[0]:
-                raise AssertionError(f"eval {flag} PSNR {got[0]} != the "
-                                     f"training run's {final[0]}")
+    # Resume from the checkpoint at 400 and run to 420.
+    rs_dir = os.path.join(d, "resumed")
+    text = run_cli(["train", "--source", nerf_zip, "--iters", "420",
+                    "--log-every", "1", "--checkpoint-dir", rs_dir,
+                    "--resume", os.path.join(ck, "ckpt_0000400.npz")],
+                   log)
+    resumed = {r["step"]: r["loss"] for r in read_jsonl(
+        os.path.join(rs_dir, "metrics.jsonl")) if "loss" in r}
+    if "at step 401" not in text or sorted(resumed) != list(
+            range(401, 420)) or not all(np.isfinite(
+                list(resumed.values()))):
+        raise AssertionError(f"resume: steps {sorted(resumed)}")
+    print(f"[cli] resume from ckpt_0000400: steps 401..419, losses "
+          f"{resumed[401]:.5f} .. {resumed[419]:.5f}")
 
-        # Resume from the checkpoint at 400 and run to 420.
-        rs_dir = os.path.join(d, "resumed")
-        text = run_cli(["train", "--source", nerf_zip, "--iters", "420",
-                        "--log-every", "1", "--checkpoint-dir", rs_dir,
-                        "--resume", os.path.join(ck, "ckpt_0000400.npz")],
-                       log)
-        resumed = {r["step"]: r["loss"] for r in read_jsonl(
-            os.path.join(rs_dir, "metrics.jsonl")) if "loss" in r}
-        if "at step 401" not in text or sorted(resumed) != list(
-                range(401, 420)) or not all(np.isfinite(
-                    list(resumed.values()))):
-            raise AssertionError(f"resume: steps {sorted(resumed)}")
-        print(f"[cli] resume from ckpt_0000400: steps 401..419, losses "
-              f"{resumed[401]:.5f} .. {resumed[419]:.5f}")
+    # The step of a model at a real size: the trained castle (90,977
+    # splats, SH 3), the source of this dataset's images, saved as a
+    # checkpoint at CASTLE_RESUME_STEP and resumed through the CLI past
+    # the last refine (max_refine_step 15000), as the last steps of a
+    # 30,000-step run on it take.
+    castle_ck = checkpoint.save_checkpoint(
+        os.path.join(d, "castle", "castle"),
+        SplatTrainer().init_state(castle), CASTLE_RESUME_STEP)
+    c_steps, c_dir = [], os.path.join(d, "castle_run")
+    reset_launches()
+    with step_timer(c_steps):
+        text = run_cli(["train", "--source", nerf_zip, "--iters",
+                        str(CASTLE_RESUME_STEP + CASTLE_RESUME_STEPS),
+                        "--log-every", "10", "--checkpoint-dir", c_dir,
+                        "--resume", castle_ck], log)
+    c_counts = read_launches()
+    c_ms = event_ms(c_steps)
+    c_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+    c_losses = [r["loss"] for r in read_jsonl(
+        os.path.join(c_dir, "metrics.jsonl")) if "loss" in r]
+    print(f"[cli] trained castle ({castle.n_live} splats, capacity "
+          f"{castle.capacity}) resumed at {CASTLE_RESUME_STEP}, "
+          f"{len(c_steps)} steps: median step {statistics.median(c_ms):.3f}"
+          f" ms (CUDA events; the last 100: "
+          f"{statistics.median(c_ms[-100:]):.3f} ms), "
+          f"{len(c_steps) / (c_steps[-1][4] - c_steps[0][1]):.2f} steps/s"
+          f" (host clock); refines {sum(s[5] is not None for s in c_steps)}"
+          f"; launches {c_counts}; losses {c_losses[0]:.5f} .. "
+          f"{c_losses[-1]:.5f}; final eval PSNR {c_final[0]} SSIM "
+          f"{c_final[1]}; {log[-1][1]:.1f} s")
+    if len(c_steps) != CASTLE_RESUME_STEPS or not np.isfinite(
+            c_losses).all() or any(
+            s[5] is not None for s in c_steps) or min(
+            c_counts.values()) < CASTLE_RESUME_STEPS:
+        raise AssertionError("the resumed castle did not take its "
+                             "steps through the kernels")
 
-        # The step of a model at a real size: the trained castle (90,977
-        # splats, SH 3), the source of this dataset's images, saved as a
-        # checkpoint at CASTLE_RESUME_STEP and resumed through the CLI past
-        # the last refine (max_refine_step 15000), as the last steps of a
-        # 30,000-step run on it take.
-        castle_ck = checkpoint.save_checkpoint(
-            os.path.join(d, "castle", "castle"),
-            SplatTrainer().init_state(castle), CASTLE_RESUME_STEP)
-        c_steps, c_dir = [], os.path.join(d, "castle_run")
-        reset_launches()
-        with step_timer(c_steps):
-            text = run_cli(["train", "--source", nerf_zip, "--iters",
-                            str(CASTLE_RESUME_STEP + CASTLE_RESUME_STEPS),
-                            "--log-every", "10", "--checkpoint-dir", c_dir,
-                            "--resume", castle_ck], log)
-        c_counts = read_launches()
-        c_ms = event_ms(c_steps)
-        c_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
-        c_losses = [r["loss"] for r in read_jsonl(
-            os.path.join(c_dir, "metrics.jsonl")) if "loss" in r]
-        print(f"[cli] trained castle ({castle.n_live} splats, capacity "
-              f"{castle.capacity}) resumed at {CASTLE_RESUME_STEP}, "
-              f"{len(c_steps)} steps: median step {statistics.median(c_ms):.3f}"
-              f" ms (CUDA events; the last 100: "
-              f"{statistics.median(c_ms[-100:]):.3f} ms), "
-              f"{len(c_steps) / (c_steps[-1][4] - c_steps[0][1]):.2f} steps/s"
-              f" (host clock); refines {sum(s[5] is not None for s in c_steps)}"
-              f"; launches {c_counts}; losses {c_losses[0]:.5f} .. "
-              f"{c_losses[-1]:.5f}; final eval PSNR {c_final[0]} SSIM "
-              f"{c_final[1]}; {log[-1][1]:.1f} s")
-        if len(c_steps) != CASTLE_RESUME_STEPS or not np.isfinite(
-                c_losses).all() or any(
-                s[5] is not None for s in c_steps) or min(
-                c_counts.values()) < CASTLE_RESUME_STEPS:
-            raise AssertionError("the resumed castle did not take its "
-                                 "steps through the kernels")
+    # Render one view of the export.
+    r_png = os.path.join(d, "r.png")
+    run_cli(["render", "--source", nerf_zip, "--ply",
+             os.path.join(ck, "out.ply"), "--view", "0", "--out", r_png],
+            log)
+    with open(r_png, "rb") as f:
+        rendered = png.decode_png(f.read())
+    if rendered.shape != (CASTLE_SIZE, CASTLE_SIZE, 4) or \
+            rendered[..., 3].max() == 0 or rendered[..., :3].max() == 0:
+        raise AssertionError("render wrote a blank or misshapen PNG")
 
-        # Render one view of the export.
-        r_png = os.path.join(d, "r.png")
-        run_cli(["render", "--source", nerf_zip, "--ply",
-                 os.path.join(ck, "out.ply"), "--view", "0", "--out", r_png],
-                log)
-        with open(r_png, "rb") as f:
-            rendered = png.decode_png(f.read())
-        if rendered.shape != (CASTLE_SIZE, CASTLE_SIZE, 4) or \
-                rendered[..., 3].max() == 0 or rendered[..., :3].max() == 0:
-            raise AssertionError("render wrote a blank or misshapen PNG")
+    # The COLMAP castle: 24 RGB views on black (so the eval reads how
+    # well the point cloud fits them), the means as points3D.
+    t0 = time.perf_counter()
+    n = castle.n_live
+    means = castle.means[:n].cpu().numpy()
+    colors = (np.clip(0.5 + SH_C0 * castle.sh_coeffs[:n, 0].cpu().numpy(),
+                      0, 1) * 255).astype(np.uint8)
+    views = dt.orbit_views(CLI_COLMAP_VIEWS, seed=1)
+    rgb = castle_images(castle, views, pool, rgb_only=True)
+    col_zip = os.path.join(d, "colmap.zip")
+    with ThreadPoolExecutor(8) as ex:
+        rgb = list(ex.map(png.encode_png, rgb))
+    # Poses in the castle's frame (the NeRF loader's), so its means
+    # are the point cloud of these views.
+    dt.write_colmap_zip(col_zip, [(dt.in_nerf_loader_frame(c), im)
+                                  for c, im in zip(views, rgb)],
+                        CASTLE_SIZE, means, colors, encode=lambda b: b)
+    with zipfile.ZipFile(col_zip) as zf:
+        p3d = zf.read("sparse/0/points3D.bin")
+    nat, py = read_points3d_bin(p3d), _read_points3d_bin(p3d)
+    if not all(np.array_equal(a, b) for a, b in zip(nat, py)):
+        raise AssertionError("native points3D parser != Python parser")
+    t_colmap = time.perf_counter() - t0
+    col_steps = []
+    with step_timer(col_steps):
+        text = run_cli(["train", "--source", col_zip, "--iters", "100",
+                        "--eval-split-every", "8"], log)
+    col_ms = event_ms(col_steps)
+    col_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
+    if f"point-cloud init: {n} splats" not in text:
+        raise AssertionError("COLMAP run did not init from points3D")
+    print(f"[cli] COLMAP castle {CLI_COLMAP_VIEWS} views RGB, {n} "
+          f"points (native parser == Python parser), written "
+          f"{t_colmap:.2f} s; 100 steps: median step "
+          f"{statistics.median(col_ms):.3f} ms (CUDA events); final eval "
+          f"PSNR {col_final[0]} SSIM {col_final[1]}; {log[-1][1]:.1f} s")
 
-        # The COLMAP castle: 24 RGB views on black (so the eval reads how
-        # well the point cloud fits them), the means as points3D.
-        t0 = time.perf_counter()
-        n = castle.n_live
-        means = castle.means[:n].cpu().numpy()
-        colors = (np.clip(0.5 + SH_C0 * castle.sh_coeffs[:n, 0].cpu().numpy(),
-                          0, 1) * 255).astype(np.uint8)
-        views = dt.orbit_views(CLI_COLMAP_VIEWS, seed=1)
-        rgb = castle_images(castle, views, pool, rgb_only=True)
-        col_zip = os.path.join(d, "colmap.zip")
-        with ThreadPoolExecutor(8) as ex:
-            rgb = list(ex.map(png.encode_png, rgb))
-        # Poses in the castle's frame (the NeRF loader's), so its means
-        # are the point cloud of these views.
-        dt.write_colmap_zip(col_zip, [(dt.in_nerf_loader_frame(c), im)
-                                      for c, im in zip(views, rgb)],
-                            CASTLE_SIZE, means, colors, encode=lambda b: b)
-        with zipfile.ZipFile(col_zip) as zf:
-            p3d = zf.read("sparse/0/points3D.bin")
-        nat, py = read_points3d_bin(p3d), _read_points3d_bin(p3d)
-        if not all(np.array_equal(a, b) for a, b in zip(nat, py)):
-            raise AssertionError("native points3D parser != Python parser")
-        t_colmap = time.perf_counter() - t0
-        col_steps = []
-        with step_timer(col_steps):
-            text = run_cli(["train", "--source", col_zip, "--iters", "100",
-                            "--eval-split-every", "8"], log)
-        col_ms = event_ms(col_steps)
-        col_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
-        if f"point-cloud init: {n} splats" not in text:
-            raise AssertionError("COLMAP run did not init from points3D")
-        print(f"[cli] COLMAP castle {CLI_COLMAP_VIEWS} views RGB, {n} "
-              f"points (native parser == Python parser), written "
-              f"{t_colmap:.2f} s; 100 steps: median step "
-              f"{statistics.median(col_ms):.3f} ms (CUDA events); final eval "
-              f"PSNR {col_final[0]} SSIM {col_final[1]}; {log[-1][1]:.1f} s")
-
-        # train2d on one train view.
-        image = os.path.join(d, "view.png")
-        with open(image, "wb") as f:
-            f.write(pngs["train"][0])
-        text = run_cli(["train2d", "--image", image, "--size", "256",
-                        "--iters", "300"], log)
-        l2d = [float(x) for x in re.findall(r"loss (\S+)", text)]
-        if len(l2d) < 2 or not l2d[-1] < l2d[0]:
-            raise AssertionError(f"train2d loss did not fall: {l2d}")
-        print(f"[cli] train2d 256x256 300 steps: losses {l2d}; "
-              f"{text_field(text, r'(final PSNR .*)')[0]}")
-        text = run_cli(["train2d", "--image", image, "--size", "256",
-                        "--iters", "300", "--shard"], log)
-        l2s = [float(x) for x in re.findall(r"loss (\S+)", text)]
-        if len(l2s) < 2 or not l2s[-1] < l2s[0]:
-            raise AssertionError(f"train2d --shard loss did not fall: {l2s}")
-        print(f"[cli] train2d --shard 256x256 300 steps at world size 1: "
-              f"losses {l2s} ({'equal to' if l2s == l2d else 'NOT'} "
-              f"train2d's); {text_field(text, r'(final PSNR .*)')[0]}")
+    # train2d on one train view.
+    image = os.path.join(d, "view.png")
+    with open(image, "wb") as f:
+        f.write(pngs["train"][0])
+    text = run_cli(["train2d", "--image", image, "--size", "256",
+                    "--iters", "300"], log)
+    l2d = [float(x) for x in re.findall(r"loss (\S+)", text)]
+    if len(l2d) < 2 or not l2d[-1] < l2d[0]:
+        raise AssertionError(f"train2d loss did not fall: {l2d}")
+    print(f"[cli] train2d 256x256 300 steps: losses {l2d}; "
+          f"{text_field(text, r'(final PSNR .*)')[0]}")
+    text = run_cli(["train2d", "--image", image, "--size", "256",
+                    "--iters", "300", "--shard"], log)
+    l2s = [float(x) for x in re.findall(r"loss (\S+)", text)]
+    if len(l2s) < 2 or not l2s[-1] < l2s[0]:
+        raise AssertionError(f"train2d --shard loss did not fall: {l2s}")
+    print(f"[cli] train2d --shard 256x256 300 steps at world size 1: "
+          f"losses {l2s} ({'equal to' if l2s == l2d else 'NOT'} "
+          f"train2d's); {text_field(text, r'(final PSNR .*)')[0]}")
     print(f"[cli] commands' seconds "
           f"{[(a[0], round(s, 1)) for a, s, _ in log]}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return counts, cli_kernels
+    first = steps[:VIEW_TRAIN_ITER]
+    return counts, cli_kernels, dict(
+        nerf=nerf_zip, colmap=col_zip,
+        rate=len(first) / (first[-1][4] - first[0][1]),
+        step_ms=statistics.median(ms[:VIEW_TRAIN_ITER]))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, body=None, timeout: float = 300.0) -> bytes:
+    """GET url, or POST body as JSON; anything but 200 raises."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return r.read()
+
+
+def frame_url(base: str, cam, size) -> str:
+    """/api/frame for a camera as page.html asks for one (every float as
+    its repr, so the server rebuilds the same camera)."""
+    from urllib.parse import urlencode
+
+    q = dict(zip(("px", "py", "pz"), map(float, cam.position)))
+    q.update(zip(("qw", "qx", "qy", "qz"), map(float, cam.rotation)))
+    q.update(fovx=float(cam.fov_x), fovy=float(cam.fov_y), w=int(size[0]),
+             h=int(size[1]))
+    return f"{base}/api/frame?{urlencode(q)}"
+
+
+def viewer_state(base: str) -> dict:
+    st = json.loads(http(f"{base}/api/state"))
+    if "error" in st:
+        raise AssertionError(f"viewer worker failed:\n{st['error']}")
+    return st
+
+
+def viewer_until(base: str, cond, what: str, seconds: float = 180.0) -> dict:
+    deadline = time.perf_counter() + seconds
+    while True:
+        st = viewer_state(base)
+        if cond(st):
+            return st
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"viewer: no {what} in {seconds} s: {st}")
+        time.sleep(0.05)
+
+
+def wait_http(base: str, seconds: float, proc=None) -> None:
+    deadline = time.perf_counter() + seconds
+    while True:
+        try:
+            http(f"{base}/api/state", timeout=10)
+            return
+        except OSError:
+            if proc is not None and proc.poll() is not None:
+                raise AssertionError(f"the viewer exited with {proc.returncode}")
+            if time.perf_counter() > deadline:
+                raise
+            time.sleep(0.1)
+
+
+def composite_frame(splats, cam, size, block: int):
+    """The served frame made in-process: render_splats(needs_grad=False)
+    -> pack_rgba_u32 -> RGB + 24 (1 - alpha) over the premultiplied
+    colour, truncated to u8. Returns (u8 (h, w, 3), records dropped)."""
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import pack_rgba_u32, render_splats
+
+    img, aux = render_splats(
+        splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+        splats.raw_opacity, camera_params(cam, size, device=splats.device),
+        size, active=splats.active_mask(), block_size=block,
+        needs_grad=False)
+    packed = pack_rgba_u32(img).cpu().numpy()
+    rgba = packed.view(np.uint8).reshape(size[1], size[0], 4)
+    a = rgba[..., 3:4].astype(np.float32) / 255.0
+    rgb = np.clip(rgba[..., :3].astype(np.float32) + 24.0 * (1 - a), 0, 255)
+    return rgb.astype(np.uint8), int(aux.num_dropped)
+
+
+@contextlib.contextmanager
+def frame_split(sink: list):
+    """Splits each RenderService.render_png into stages, appended to sink
+    as dicts of ms: "render" (CUDA events from render_splats' call to the
+    end of pack_rgba_u32), "render_host" (host clock to the same point,
+    after a device synchronize, which the copy to the host that follows
+    would wait for anyway), "copy_composite" (the copy and the numpy
+    composite) and "encode" (encode_png); "start"/"end" are the host
+    clock at render_splats' call and encode_png's return."""
+    import torch
+    from brush_tpu_torch.viewer import server
+
+    cur = {}
+
+    def render_before(*a):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        cur.update(start=time.perf_counter(), ev0=ev)
+
+    def pack_after(*a, **k):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        torch.cuda.synchronize()
+        cur.update(packed=time.perf_counter(), ev1=ev)
+
+    def encode_before(*a):
+        cur["encode0"] = time.perf_counter()
+
+    def encode_after(*a, **k):
+        if "ev0" not in cur:     # a blank frame: nothing rendered
+            return
+        end = time.perf_counter()
+        sink.append({
+            "render": cur["ev0"].elapsed_time(cur["ev1"]),
+            "render_host": (cur["packed"] - cur["start"]) * 1e3,
+            "copy_composite": (cur["encode0"] - cur["packed"]) * 1e3,
+            "encode": (end - cur["encode0"]) * 1e3,
+            "start": cur["start"], "end": end})
+        cur.clear()
+
+    with wrapped(server, "render_splats", render_before,
+                 lambda *a, **k: None), \
+            wrapped(server, "pack_rgba_u32", lambda *a: None, pack_after), \
+            wrapped(server, "encode_png", encode_before, encode_after):
+        yield
+
+
+def frame_latency(url: str, n: int, warm: int) -> dict:
+    """n timed GETs of url after warm ones, each split by frame_split:
+    the request's total (host clock round the GET) and its parts; "rest"
+    is the total less render_png's own time (HTTP, parsing, the
+    camera). Returns lists of ms."""
+    for _ in range(warm):
+        http(url)
+    parts, totals = [], []
+    with frame_split(parts):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            http(url)
+            totals.append((time.perf_counter() - t0) * 1e3)
+    if len(parts) != n:
+        raise AssertionError(f"{len(parts)} frames split of {n}")
+    out = {k: [p[k] for p in parts]
+           for k in ("render", "render_host", "copy_composite", "encode")}
+    out["total"] = totals
+    out["rest"] = [t - (p["end"] - p["start"]) * 1e3
+                   for t, p in zip(totals, parts)]
+    return out
+
+
+def latency_line(lat: dict) -> str:
+    q = lambda v, f: float(np.quantile(v, f))
+    return (f"total median {q(lat['total'], 0.5):.3f} ms, p90 "
+            f"{q(lat['total'], 0.9):.3f}; medians: render "
+            f"{q(lat['render'], 0.5):.3f} (CUDA events; host clock "
+            f"{q(lat['render_host'], 0.5):.3f}), copy + composite "
+            f"{q(lat['copy_composite'], 0.5):.3f}, PNG encode "
+            f"{q(lat['encode'], 0.5):.3f}, rest (HTTP, parsing) "
+            f"{q(lat['rest'], 0.5):.3f}")
+
+
+def viewer_phase(data: dict, d: str) -> dict:
+    """Phase 9, "viewer": the served path on the card.
+    1. make_viewer(ply=the castle, source=the NeRF castle) publishes the
+       castle as its stream yields it; a ViewerServer on a free port in a
+       thread; /api/frame for the four castle cameras at 800x800 and at
+       the page's 512x384, each decoded PNG equal to the frame made
+       in-process, each frame one expand and one rasterize_fwd launch
+       (no worker running);
+    2. the served-path metric: VIEW_FRAMES /api/frame requests at 800x800
+       on castle view 0 after VIEW_WARM, split into render, copy +
+       composite, PNG encode and the rest;
+    3. POST /api/load of the NeRF castle: a TrainWorker from 10,000 random
+       splats trains to iter >= VIEW_TRAIN_ITER; its iters/s beside the
+       cli run's rate over its first VIEW_TRAIN_ITER steps; the frame
+       latency again while it trains; then pause, eval (a finite
+       eval_history row), export (the .ply loads with the worker's live
+       count), resume (iter advances); /api/views, /api/view_cam,
+       /api/view_image, /api/presets; POST /api/load of the COLMAP twin:
+       the new worker trains. Any non-200 response or `error` fails;
+    4. `python -m brush_tpu_torch.cli view --ply <castle> --source <NeRF
+       castle> --port <free>` in a subprocess: its frame of castle view 0
+       at 800x800 equals item 1's bytes;
+    5. `cli train --rerun` on the NeRF castle (VIEW_RERUN_ITERS steps, one
+       eval of 2 views) with a recording stub `rerun` module: the four
+       streams arrive; the tile counts sum to num_isects of a render of
+       that view at that step in a pool of the heatmap's max_isects; each
+       tile's mean depth lies in the depth range of the splats that render
+       there (up to the float32 cumsum's rounding, in the JAX package's
+       arithmetic);
+    6. profiler.trace around one bench render in a sync-mode span: the
+       Chrome trace holds the span and the expand and rasterize_fwd
+       kernels; the span's time is at least the render's CUDA-event time.
+    Returns the launches of item 1's frames."""
+    import glob
+    import threading
+    import types
+
+    import torch
+    from brush_tpu_torch.datasets import png
+    from brush_tpu_torch.datasets.ply import (
+        load_splats_from_ply, load_splats_from_ply_stream,
+    )
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import record_inputs, render_splats
+    from brush_tpu_torch.utils import profiler
+    from brush_tpu_torch.utils import rerun_viz
+    from brush_tpu_torch.viewer import server as vs
+
+    t_phase = time.perf_counter()
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    cams = castle_cameras()
+
+    # 1. Serve the castle.
+    with open(CASTLE_PLY, "rb") as f:
+        yields = [s.n_live for s in load_splats_from_ply_stream(
+            f.read(), device="cpu")]
+    published = []
+    t0 = time.perf_counter()
+    with wrapped(vs.RenderService, "publish",
+                 lambda _, s: published.append(s.n_live),
+                 lambda *a, **k: None):
+        srv = vs.make_viewer(source=data["nerf"], ply=CASTLE_PLY,
+                             port=free_port(), device="cuda")
+    t_make = time.perf_counter() - t0
+    if published != yields or srv.worker is not None:
+        raise AssertionError(f"viewer published {published}, the stream "
+                             f"yields {yields}")
+    castle = srv.render._splats
+    block = srv.render.block_size
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    served = {}
+    counted = {"expand": 0, "rasterize_fwd": 0}
+    try:
+        wait_http(base, 60)
+        drops = []
+        for view, cam in enumerate(cams):
+            for fs in (size, PAGE_SIZE):
+                reset_launches()
+                body = http(frame_url(base, cam, fs))
+                n = read_launches()
+                if n != {"expand": 1, "rasterize_fwd": 1,
+                         "rasterize_bwd": 0, "segment_sum": 0}:
+                    raise AssertionError(f"frame {view} {fs} launched {n}")
+                for k in counted:
+                    counted[k] += n[k]
+                want, dropped = composite_frame(castle, cam, fs, block)
+                drops.append(dropped)
+                got = png.decode_png(body)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"frame {view} {fs} differs from the in-process one "
+                        f"at {int((got != want).sum())} values")
+                served[view, fs] = body
+        print(f"[viewer] {time.perf_counter() - t_phase:.1f} s: castle "
+              f"({castle.n_live} splats) published "
+              f"{published} (the stream's yields), make_viewer "
+              f"{t_make:.2f} s; {len(served)} frames (4 views at {size[0]}x"
+              f"{size[1]} and {PAGE_SIZE[0]}x{PAGE_SIZE[1]}) equal to the "
+              f"in-process "
+              f"frames, each 1 expand + 1 rasterize_fwd launch; records "
+              f"dropped in the default pool {drops}")
+
+        # 2. The served-path metric.
+        url0 = frame_url(base, cams[0], size)
+        idle = frame_latency(url0, VIEW_FRAMES, VIEW_WARM)
+        print(f"[viewer] /api/frame {size[0]}x{size[1]} castle view 0, "
+              f"{VIEW_FRAMES} "
+              f"requests after {VIEW_WARM}, idle: {latency_line(idle)}")
+
+        # 3. Train through the API.
+        t0 = time.perf_counter()
+        http(f"{base}/api/load", {"path": data["nerf"]})
+        st = viewer_until(base, lambda s: s.get("iter", 0) >= VIEW_TRAIN_ITER,
+                          f"iter {VIEW_TRAIN_ITER}")
+        t_train = time.perf_counter() - t0
+        rate = st["iters_per_s"]
+        busy = frame_latency(url0, VIEW_FRAMES, VIEW_WARM)
+        st_busy = viewer_state(base)
+        print(f"[viewer] {time.perf_counter() - t_phase:.1f} s: TrainWorker "
+              f"on the NeRF castle: iter {st['iter']} "
+              f"after {t_train:.2f} s (load included), {st['splats']} "
+              f"splats, loss {st['loss']:.5f}; iters/s {rate:.2f} (its "
+              f"25-step window) against cli train's "
+              f"{data['rate']:.2f} steps/s over its first {VIEW_TRAIN_ITER} "
+              f"(host clock; median step {data['step_ms']:.3f} ms, CUDA "
+              f"events); iters/s while the frames below were served "
+              f"{st_busy['iters_per_s']:.2f} (iter {st['iter']} -> "
+              f"{st_busy['iter']})")
+        print(f"[viewer] /api/frame while training: {latency_line(busy)}")
+        http(f"{base}/api/control", {"cmd": "pause"})
+        viewer_until(base, lambda s: s.get("paused"), "pause")
+        paused_at = viewer_state(base)["iter"]
+        http(f"{base}/api/control", {"cmd": "eval"})
+        hist = viewer_until(base, lambda s: s.get("eval_history"),
+                            "eval")["eval_history"]
+        if not (len(hist[-1]) == 3 and np.isfinite(hist[-1][1])
+                and 0.0 <= hist[-1][2] <= 1.0):
+            raise AssertionError(f"eval history {hist}")
+        export = os.path.join(d, "viewer_export.ply")
+        http(f"{base}/api/control", {"cmd": "export", "path": export})
+        st = viewer_until(base, lambda s: s.get("exported") == export,
+                          "export")
+        with open(export, "rb") as f:
+            exported = load_splats_from_ply(f.read(), device="cuda")
+        if exported.n_live != st["splats"] or st["iter"] != paused_at:
+            raise AssertionError(f"export {exported.n_live} splats, worker "
+                                 f"{st['splats']} at {st['iter']}")
+        http(f"{base}/api/control", {"cmd": "resume"})
+        st = viewer_until(base, lambda s: s["iter"] > paused_at + 5,
+                          "steps after resume")
+        views = json.loads(http(f"{base}/api/views"))["views"]
+        cam3 = json.loads(http(f"{base}/api/view_cam?i=3"))
+        thumb = png.decode_png(http(f"{base}/api/view_image?i=0"))
+        presets = json.loads(http(f"{base}/api/presets"))["presets"]
+        if len(views) != CLI_NERF_TRAIN or cam3["name"] != views[3] or \
+                thumb.shape != (160, 160, 3):
+            raise AssertionError(f"views {len(views)}, view_cam {cam3}, "
+                                 f"thumbnail {thumb.shape}")
+        print(f"[viewer] {time.perf_counter() - t_phase:.1f} s: paused at "
+              f"{paused_at}; eval {hist[-1]} ([iter, "
+              f"PSNR, SSIM] on 8 views); export {exported.n_live} splats; "
+              f"resumed to {st['iter']}; {len(views)} views, view_cam 3 "
+              f"{cam3['name']}, thumbnail {thumb.shape}, presets "
+              f"{len(presets)}")
+        t0 = time.perf_counter()
+        http(f"{base}/api/load", {"path": data["colmap"]})
+        st = viewer_until(base, lambda s: s.get("iter", 0) >= 10,
+                          "steps on the COLMAP castle")
+        print(f"[viewer] POST /api/load of the COLMAP castle: iter "
+              f"{st['iter']} after {time.perf_counter() - t0:.2f} s, "
+              f"{st['num_views']} views, {st['splats']} splats (its points), "
+              f"loss {st['loss']:.5f}")
+    finally:
+        srv.shutdown()
+        serving.join(timeout=60)
+        if srv.worker is not None:
+            srv.worker.stop()
+            srv.worker.join(timeout=60)
+    if serving.is_alive() or (srv.worker is not None
+                              and srv.worker.is_alive()):
+        raise AssertionError("the viewer's threads did not stop")
+
+    # 4. `cli view` as a user starts it.
+    t0 = time.perf_counter()
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "brush_tpu_torch.cli", "view", "--ply",
+         CASTLE_PLY, "--source", data["nerf"], "--port", str(port)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        base_cli = f"http://127.0.0.1:{port}"
+        wait_http(base_cli, 180, proc)
+        t_up = time.perf_counter() - t0
+        body = http(frame_url(base_cli, cams[0], size))
+    finally:
+        proc.kill()
+        out = proc.communicate(timeout=60)[0].decode(errors="replace")
+    if body != served[0, size]:
+        print(out[-3000:], file=sys.stderr)
+        raise AssertionError("cli view's frame differs from the in-process "
+                             "viewer's")
+    print(f"[viewer] {time.perf_counter() - t_phase:.1f} s: cli view "
+          f"(subprocess): serving after {t_up:.2f} s; its "
+          f"castle view 0 frame equals item 1's ({len(body)} bytes)")
+
+    # 5. `cli train --rerun` with a recording stub SDK.
+    calls, heat = [], []
+
+    def log(path, entity, **_):
+        calls.append((path, entity))
+
+    stub = types.ModuleType("rerun")
+    stub.init = stub.set_time_sequence = lambda *a, **k: None
+    stub.log = log
+    for kind in ("Points3D", "Image", "DepthImage", "Pinhole",
+                 "Transform3D", "Scalar"):
+        setattr(stub, kind, (lambda k: lambda *a, **kw: (k, a, kw))(kind))
+
+    def before_heat(viz, step, splats, camera, img_size, *a, **k):
+        cp = camera_params(camera, img_size, device=splats.device)
+        with torch.no_grad():
+            _, aux = render_splats(
+                splats.means, splats.log_scales, splats.quats,
+                splats.sh_coeffs, splats.raw_opacity, cp, img_size,
+                active=splats.active_mask(), max_isects=1 << 20,
+                needs_grad=False)
+            rec = record_inputs(splats.means, splats.log_scales,
+                                splats.quats, splats.sh_coeffs,
+                                splats.raw_opacity, cp, img_size,
+                                active=splats.active_mask())
+            depth = rec.proj.depth[rec.producing]
+        heat.append((int(aux.num_isects), int(aux.num_dropped),
+                     float(depth.min()), float(depth.max())))
+
+    rr_log = []
+    saved = sys.modules.get("rerun")
+    sys.modules["rerun"] = stub
+    try:
+        with wrapped(rerun_viz.RerunVisualizer, "log_tile_heatmaps",
+                     before_heat, lambda *a, **k: None):
+            run_cli(["train", "--source", data["nerf"], "--iters",
+                     str(VIEW_RERUN_ITERS), "--eval-every",
+                     str(VIEW_RERUN_ITERS - 2), "--eval-views", "2",
+                     "--log-every", "5", "--rerun"], rr_log)
+    finally:
+        if saved is None:
+            sys.modules.pop("rerun", None)
+        else:
+            sys.modules["rerun"] = saved
+    paths = [p for p, _ in calls]
+    arrays = {p: e[1][0] for p, e in calls if p.startswith("debug/")}
+    streams = {"splats": paths.count("world/splats"),
+               "dataset views": sum(p.startswith("world/dataset/")
+                                    and e[0] == "Pinhole" for p, e in calls),
+               "eval": sum(p.startswith("eval/") for p in paths),
+               "heatmaps": sum(p.startswith("debug/") for p in paths),
+               "scalars": sum(e[0] == "Scalar" for _, e in calls)}
+    if streams["splats"] != 1 or streams["dataset views"] != min(
+            32, CLI_NERF_TRAIN) or streams["eval"] != 6 or \
+            streams["heatmaps"] != 2 or len(heat) != 1:
+        raise AssertionError(f"--rerun streams {streams}, heatmaps {heat}")
+    counts = arrays["debug/tile_isect_counts"]
+    depth = arrays["debug/tile_mean_depth"]
+    isects, dropped, lo, hi = heat[0]
+    # The mean depth is a float32 cumsum difference (as in the JAX
+    # package): a tile's mean is off by up to about one float32 spacing
+    # of the whole cumsum.
+    slack = 2 * float(np.spacing(np.float32(counts.sum() * hi)))
+    inside = depth[counts > 0]
+    if counts.sum() != isects or dropped or not (
+            (inside >= lo - slack) & (inside <= hi + slack)).all():
+        raise AssertionError(
+            f"heatmap counts sum {counts.sum()} (render: {isects}, dropped "
+            f"{dropped}); mean depths {inside.min()}..{inside.max()} "
+            f"against [{lo}, {hi}] +- {slack}")
+    print(f"[viewer] {time.perf_counter() - t_phase:.1f} s: cli train "
+          f"--rerun {VIEW_RERUN_ITERS} steps: streams "
+          f"{streams}; tile counts {counts.shape} sum {int(counts.sum())} = "
+          f"the render's records; mean depths {inside.min():.4f}.."
+          f"{inside.max():.4f} in [{lo:.4f}, {hi:.4f}] (+- {slack:.2e}); "
+          f"{rr_log[-1][1]:.1f} s")
+
+    # 6. profiler.trace around a bench render in a sync-mode span.
+    splats, cp, bsize = make_scene(BENCH, "cuda")
+    go = lambda: render_splats(
+        splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+        splats.raw_opacity, cp, bsize, active=splats.active_mask(),
+        block_size=BENCH["block"], max_isects=BENCH["pool"],
+        needs_grad=False)
+    go()
+    torch.cuda.synchronize()
+    tdir = os.path.join(d, "trace")
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    profiler.reset_timings()
+    profiler.set_sync_mode(True)
+    try:
+        with profiler.trace(tdir):
+            with profiler.span("bench render", splats.means):
+                ev0.record()
+                go()
+                ev1.record()
+    finally:
+        profiler.set_sync_mode(False)
+    ev_ms = ev0.elapsed_time(ev1)
+    span_ms = profiler.timings()["bench render"] * 1e3
+    (tpath,) = glob.glob(os.path.join(tdir, "*.json"))
+    with open(tpath) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kern = {k: [e.get("dur", 0.0) for e in events
+                if e.get("cat") == "kernel" and k in e.get("name", "")]
+            for k in ("expand_kernel", "rasterize_fwd_kernel")}
+    if "bench render" not in names or not all(kern.values()) or \
+            span_ms < ev_ms:
+        raise AssertionError(f"trace: span {'bench render' in names}, "
+                             f"kernels {kern}; span {span_ms} ms < render "
+                             f"{ev_ms} ms")
+    print(f"[viewer] profiler.trace of a bench render: {len(events)} events "
+          f"({os.path.getsize(tpath)} bytes), the span and the kernels "
+          f"{ {k: [round(x, 1) for x in v] for k, v in kern.items()} } (us); "
+          f"sync-mode span {span_ms:.3f} ms against {ev_ms:.3f} ms of CUDA "
+          f"events")
+    del splats
+    torch.cuda.empty_cache()
+    print(f"[viewer] phase {time.perf_counter() - t_phase:.1f} s")
+    return counted
 
 
 def read_jsonl(path: str) -> list:
@@ -1945,7 +2475,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     castle_training(castle, cams, gts)
     torch.cuda.empty_cache()
-    cli_counts, cli_tk = cli_phase(castle, castle_pool)
+    with tempfile.TemporaryDirectory(prefix="brush_cli_") as d:
+        cli_counts, cli_tk, cli_data = cli_phase(castle, castle_pool, d)
+        del castle
+        torch.cuda.empty_cache()
+        view_counts = viewer_phase(cli_data, d)
 
     def row(name, src, replaces):
         def fields(t):
@@ -1968,6 +2502,12 @@ def main() -> int:
                "fields_from": f"bench training arguments, {tk['when']}",
                "cli": {**fields(cli_tk),
                        "from": f"cli train arguments, {cli_tk['when']}"}}
+        if name in view_counts:
+            out["viewer"] = {
+                "launches": view_counts[name],
+                "from": f"the viewer phase's 8 /api/frame requests (4 castle "
+                        f"views at {CASTLE_SIZE}x{CASTLE_SIZE} and "
+                        f"{PAGE_SIZE[0]}x{PAGE_SIZE[1]}), no worker running"}
         if name.startswith("rasterize"):
             # "cell": the same fields on the bench training's arguments at
             # raster cell CELL; launches: that run's.
@@ -2008,7 +2548,8 @@ def main() -> int:
           f"{cell_counts}; training path launches {counts}, at cell {CELL} "
           f"{counts_c}; cli train ({CLI_ITERS} steps) launches "
           f"{cli_counts}; sharded training (world size 1) launches "
-          f"{shard_counts}; bench render {render_ms:.3f} ms, at cell {CELL} "
+          f"{shard_counts}; viewer frames launches {view_counts}; bench "
+          f"render {render_ms:.3f} ms, at cell {CELL} "
           f"{cell_ms:.3f}; bench train step {step_ms:.3f} ms (median of "
           f"{METRIC_STEPS} warm steps at the final capacity), at cell {CELL} "
           f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "

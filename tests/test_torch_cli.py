@@ -1,9 +1,10 @@
 """The port's CLI against brush_tpu's: `train` on the same tiny NeRF zip
 gives the same per-step losses and close final parameters; `eval`,
-`render`, `train2d` and `--resume` run on the CPU; what is not ported yet
-raises NotImplementedError (`train --cell` runs: tests/test_torch_cells.py;
-`train --shard` and `train2d --shard`: tests/test_torch_sharded.py); the
-new modules import neither JAX nor brush_tpu."""
+`render`, `train2d` and `--resume` run on the CPU (`train --cell` runs:
+tests/test_torch_cells.py; `train --shard` and `train2d --shard`:
+tests/test_torch_sharded.py; `view`: tests/test_torch_viewer.py; `train
+--rerun`: tests/test_torch_rerun_viz.py); the new modules import neither
+JAX nor brush_tpu."""
 
 import contextlib
 import io
@@ -203,15 +204,6 @@ def test_train2d_size_without_pillow_raises(monkeypatch):
         cli.train2d_target(data, 8)
 
 
-@pytest.mark.parametrize("argv", [
-    ["view", "--cell", "2x2"], ["train", "--rerun"], ["view"]])
-def test_cli_parts_not_ported_raise(argv, nerf_zip):
-    if argv[0] == "train":
-        argv = argv + ["--source", nerf_zip]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--device", "cpu", *argv])
-
-
 def test_cli_on_missing_cuda_raises(nerf_zip):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")
@@ -231,7 +223,10 @@ def test_new_modules_import_neither_jax_nor_brush_tpu():
             "brush_tpu_torch.parallel.multihost",
             "brush_tpu_torch.parallel.sharding",
             "brush_tpu_torch.parallel.train_step",
-            "brush_tpu_torch.parallel.trainer"]
+            "brush_tpu_torch.parallel.trainer",
+            "brush_tpu_torch.utils.profiler",
+            "brush_tpu_torch.utils.rerun_viz", "brush_tpu_torch.viewer",
+            "brush_tpu_torch.viewer.server"]
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

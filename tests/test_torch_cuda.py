@@ -7,6 +7,11 @@ inputs and skip without a card; the rest run anywhere. Its scene helpers
 are shared with test_torch_kernels.py.
 """
 
+import os
+import sys
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -738,3 +743,137 @@ def test_cuda_cli_train_shard_equals_train(tmp_path):
             losses.append([json.loads(line)["loss"] for line in f])
     assert not torch.distributed.is_initialized()
     assert len(losses[0]) == 4 and losses[1] == losses[0]
+
+
+@pytest.mark.cuda
+def test_cuda_viewer_frame_is_the_in_process_render():
+    """A /api/frame over HTTP from a ViewerServer serving splats on the
+    card decodes to the frame made in-process (render_splats ->
+    pack_rgba_u32 -> the premultiplied composite over 24), and launches
+    expand and rasterize_fwd once each."""
+    _need_cuda()
+    import json
+    import socket
+    import urllib.request
+
+    from brush_tpu_torch.datasets.png import decode_png
+    from brush_tpu_torch.render import pack_rgba_u32
+    from brush_tpu_torch.splats import from_dense
+    from brush_tpu_torch.viewer.server import RenderService, ViewerServer
+
+    sc = make_scene(2048, 9)
+    sp = from_dense(sc["means"], sc["sh_coeffs"], sc["quats"],
+                    sc["raw_opacity"], sc["log_scales"], device="cuda")
+    render = RenderService(block_size=512)
+    render.publish(sp)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    srv = ViewerServer(render, port=port)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(200):
+            try:
+                json.loads(urllib.request.urlopen(url + "/api/state",
+                                                  timeout=5).read())
+                break
+            except OSError:
+                time.sleep(0.05)
+        query = "&".join(f"{k}={v}" for k, v in (
+            ("px", 0), ("py", 0), ("pz", -6), ("qw", 1), ("qx", 0),
+            ("qy", 0), ("qz", 0), ("fovx", np.pi / 2), ("fovy", np.pi / 2),
+            ("w", 64), ("h", 48)))
+        urllib.request.urlopen(f"{url}/api/frame?{query}", timeout=120)
+        t_expand.launches = t_raster.launches = 0
+        png = urllib.request.urlopen(f"{url}/api/frame?{query}",
+                                     timeout=120).read()
+        counts = (t_expand.launches, t_raster.launches)
+    finally:
+        srv.shutdown()
+        serving.join(timeout=30)
+    img, _ = render_splats(
+        sp.means, sp.log_scales, sp.quats, sp.sh_coeffs, sp.raw_opacity,
+        camera_params(Camera(**CAM), (64, 48), device="cuda"), (64, 48),
+        active=sp.active_mask(), block_size=512, needs_grad=False)
+    packed = pack_rgba_u32(img).cpu().numpy()
+    rgba = packed.view(np.uint8).reshape(48, 64, 4)
+    a = rgba[..., 3:4].astype(np.float32) / 255.0
+    want = np.clip(rgba[..., :3].astype(np.float32) + 24.0 * (1 - a), 0,
+                   255).astype(np.uint8)
+    assert np.array_equal(decode_png(png), want)
+    assert counts == (1, 1)
+    assert want.std() > 5.0
+
+
+@pytest.mark.cuda
+def test_cuda_trace_holds_the_kernels(tmp_path):
+    """profiler.trace around a render on the card: the Chrome trace holds
+    the span and the expand and rasterize_fwd kernels; the sync-mode span
+    is timed."""
+    _need_cuda()
+    import glob
+    import json
+
+    from brush_tpu_torch.utils import profiler
+
+    sc = make_scene(2048, 10)
+    t = {k: torch.tensor(v, device="cuda") for k, v in sc.items()}
+    cam = camera_params(Camera(**CAM), (64, 48), device="cuda")
+    go = lambda: render_splats(t["means"], t["log_scales"], t["quats"],
+                               t["sh_coeffs"], t["raw_opacity"], cam,
+                               (64, 48), needs_grad=False)
+    go()
+    profiler.reset_timings()
+    profiler.set_sync_mode(True)
+    try:
+        with profiler.trace(str(tmp_path)):
+            with profiler.span("frame", t["means"]):
+                go()
+    finally:
+        profiler.set_sync_mode(False)
+    (path,) = glob.glob(str(tmp_path / "*.json"))
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert "frame" in names
+    assert any("expand_kernel" in n for n in names)
+    assert any("rasterize_fwd_kernel" in n for n in names)
+    assert profiler.timings()["frame"] > 0
+
+
+def test_full_f32_holds_across_threads():
+    """full_f32's flags are global to the process, and the viewer renders
+    on its request threads while its worker trains: while any thread is in
+    a block they stay off, and the last thread out restores them."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    from brush_tpu_torch.device import full_f32
+
+    bad = []
+
+    def work():
+        for _ in range(300):
+            with full_f32():
+                if (torch.backends.cuda.matmul.allow_tf32
+                        or torch.backends.cudnn.allow_tf32):
+                    bad.append(1)
+                time.sleep(0)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work)
+                   for _ in range(2 * (os.cpu_count() or 2))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        sys.setswitchinterval(interval)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
