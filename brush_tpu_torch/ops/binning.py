@@ -1,15 +1,18 @@
-"""Exact per-tile pretest: each splat's tile coverage as a 64-bit mask.
+"""Tile binning: the exact per-tile pretest and the intersection records.
 
-Port of brush_tpu/ops/binning.py:172-331 (the part the record pipeline
-runs). Each splat evaluates the ellipse-vs-box test (helpers.wgsl:220-279)
-densely over its bbox on a fixed 8x8 layout — mask bit k covers tile
-(cmin_x + k % 8, cmin_y + k // 8) — so the intersection pool holds only
-exact hits. Splats whose bbox exceeds 8x8 fall back to conservative bbox
-records (`small` False, count = bbox area).
+Port of brush_tpu/ops/binning.py. Each splat evaluates the ellipse-vs-box
+test (helpers.wgsl:220-279) densely over its bbox on a fixed 8x8 layout —
+mask bit k covers tile (cmin_x + k % 8, cmin_y + k // 8) — so the
+intersection pool holds only exact hits. Splats whose bbox exceeds 8x8
+fall back to conservative bbox records (`small` False, count = bbox area).
+The record pipeline (ops/pipeline.py) builds its records from these masks
+with the expand kernel; build_intersections builds the XLA backend's
+depth-then-tile ordered records from them in plain PyTorch.
 
-u32 quantities (masks, packed popcounts) are held as int64 values in
-[0, 2^32): PyTorch's uint32 has few operators, and int32's arithmetic
-right shift would smear the sign bit into every field above bit 31.
+u32 quantities (masks, packed popcounts, depth bits, packed sort keys) are
+held as int64 values in [0, 2^32): PyTorch's uint32 has few operators,
+int32's arithmetic right shift would smear the sign bit into every field
+above bit 31, and int64 keys sort in the unsigned order.
 """
 
 from __future__ import annotations
@@ -23,6 +26,58 @@ from brush_tpu_torch.ops.projection import Projection
 
 MASK_BITS = 64
 U32 = 0xFFFFFFFF
+
+
+def _edge_hits(a, half_b, c):
+    """Does the conic quadratic f(t) = a t^2 + 2 half_b t + c reach f <= 0
+    on t in [0, 1] (one box edge)? Sign tests on the polynomial, sqrt- and
+    division-free (brush_tpu/ops/binning.py:56-88): an end inside, or the
+    vertex inside [0, 1] with its value <= 0 (guarded by a > 0)."""
+    return ((c <= 0.0)
+            | (a + 2.0 * half_b + c <= 0.0)
+            | ((half_b * half_b >= a * c) & (half_b <= 0.0) & (-half_b <= a)
+               & (a > 0.0)))
+
+
+def ellipse_intersects_aabb(box_x, box_y, ext_x, ext_y, ex, ey, ca, cb, cc):
+    """Ellipse (conic level set 1) against an axis-aligned box of centre
+    (box_x, box_y) and half-extents (ext_x, ext_y) (helpers.wgsl:238-262,
+    brush_tpu/ops/binning.py:91-119): the centre inside the box, or either
+    edge from the box corner nearest the centre reaching the interior."""
+    dx_c = ex - box_x
+    dy_c = ey - box_y
+    center_inside = (torch.abs(dx_c) <= ext_x) & (torch.abs(dy_c) <= ext_y)
+    sx = torch.sign(dx_c)
+    sy = torch.sign(dy_c)
+    cpx = box_x + sx * ext_x - ex
+    cpy = box_y + sy * ext_y - ey
+    gx = ca * cpx + cb * cpy
+    gy = cb * cpx + cc * cpy
+    c = cpx * gx + cpy * gy - 1.0
+    dx1 = -sx * (2.0 * ext_x)       # horizontal edge: nearest -> far corner
+    dy2 = -sy * (2.0 * ext_y)       # vertical edge
+    edge1 = _edge_hits(ca * (4.0 * ext_x * ext_x), dx1 * gx, c)
+    edge2 = _edge_hits(cc * (4.0 * ext_y * ext_y), dy2 * gy, c)
+    return center_inside | edge1 | edge2
+
+
+def can_be_visible(tile_x, tile_y, xy, conic, opac, cell=(1, 1)):
+    """Does the splat's 1/255-alpha iso-ellipse touch raster cell (tile_x,
+    tile_y) of cell=(gw, gh) tiles? (helpers.wgsl:264-279,
+    brush_tpu/ops/binning.py:122-143)."""
+    gw, gh = cell
+    sigma = torch.log(opac * 255.0)
+    scale = 1.0 / (2.0 * sigma)
+    ca = conic[..., 0] * scale
+    cb = conic[..., 1] * scale
+    cc = conic[..., 2] * scale
+    ext_x = float(TILE_WIDTH * gw) / 2.0
+    ext_y = float(TILE_WIDTH * gh) / 2.0
+    cx = tile_x.to(torch.float32) * (TILE_WIDTH * gw) + ext_x
+    cy = tile_y.to(torch.float32) * (TILE_WIDTH * gh) + ext_y
+    hit = ellipse_intersects_aabb(cx, cy, ext_x, ext_y, xy[..., 0],
+                                  xy[..., 1], ca, cb, cc)
+    return (sigma > 0.0) & hit
 
 
 class TileMasks(NamedTuple):
@@ -201,3 +256,165 @@ def restrict_masks_to_strip(proj: Projection, masks: TileMasks, counts_g,
     return restrict_masks_parts(ty0, bbox_w, bbox_h, masks.small,
                                 masks.mask_lo, masks.mask_hi, counts_g,
                                 row_lo, row_hi)
+
+
+def select_bit64(m_lo: torch.Tensor, m_hi: torch.Tensor,
+                 rank: torch.Tensor) -> torch.Tensor:
+    """Position of the rank-th set bit (0-indexed) of the 64-bit masks
+    (m_lo, m_hi), u32 values in int64, for 0 <= rank < popcount (other
+    ranks give some position in [0, 64)). The half by the popcount of
+    m_lo, then a binary search on the popcounts of the lower halves of
+    shrinking windows: elementwise, O(1) memory a mask. The reference
+    decodes the same position from per-byte popcounts
+    (brush_tpu/ops/binning.py:409-438), the expand kernel with SWAR
+    steps."""
+    lo_cnt = popcount_u32(m_lo)
+    in_hi = rank >= lo_cnt
+    word = torch.where(in_hi, m_hi, m_lo) & U32
+    r = torch.where(in_hi, rank - lo_cnt, rank)
+    pos = torch.zeros_like(rank)
+    for width in (16, 8, 4, 2, 1):
+        c = popcount_u32((word >> pos) & ((1 << width) - 1))
+        up = r >= c
+        pos = torch.where(up, pos + width, pos)
+        r = torch.where(up, r - c, r)
+    return torch.where(in_hi, pos + 32, pos)
+
+
+class Intersections(NamedTuple):
+    """The XLA backend's intersection records (index bookkeeping only)."""
+
+    order: torch.Tensor        # (N,) int64 depth order: compact -> global id
+    isect_gid: torch.Tensor    # (max_isects,) int64 record -> compact id
+    starts: torch.Tensor       # (num_tiles,) int64 range start per tile
+    ends: torch.Tensor         # (num_tiles,) int64 range end (exclusive)
+    num_visible: torch.Tensor  # () int32
+    num_isects: torch.Tensor   # () int32 records surviving the exact test
+    num_dropped: torch.Tensor  # () int32 records lost to pool overflow
+    producing: torch.Tensor    # (N,) bool, global order: emits >= 1 record
+
+
+def build_intersections(proj: Projection, opac: torch.Tensor,
+                        tile_bounds, max_isects: int,
+                        align: int = 1) -> Intersections:
+    """Depth-then-tile ordered intersection records
+    (brush_tpu/ops/binning.py:441-628), on the inputs' device.
+
+    Inputs are in global splat order and carry no gradient (pass detached
+    tensors); the records index the depth-compact order `order`. Splats
+    with records sort by their depth bits (stably; the rest after them);
+    a pool of max_isects slots takes their records in that order, slot ->
+    splat by marks at each splat's offset and a cumsum, slot -> tile by
+    the rank-th set bit of the splat's mask (small splats) or row-major
+    over its bbox; one sort of (tile << slot_bits) | slot keys groups the
+    records by tile, depth order kept (a stable sort of the tile ids when
+    the pool needs more slot bits), and searchsorted gives each tile's
+    range. The overflow guard is the reference's: an f32 shadow cumsum
+    zeroes the counts of splats that start past 4 max_isects, and the
+    reported total is that cumsum's last value clamped at 2^31 - 1024, so
+    num_dropped = max(total - max_isects, 0) is the reference's.
+
+    align > 1 pads each tile's range to start on a multiple of `align`;
+    padding slots carry splat id n (the reference's Pallas layout).
+    """
+    dev = opac.device
+    n = proj.xy.shape[0]
+    tiles_x, tiles_y = int(tile_bounds[0]), int(tile_bounds[1])
+    num_tiles = tiles_x * tiles_y
+    i64 = torch.int64
+
+    masks = precompute_tile_masks(proj, opac)
+    producing = proj.visible & (masks.counts > 0)
+    tmin = proj.tile_min.to(i64)
+    tmax = proj.tile_max.to(i64)
+    # Per-splat decode rows, gathered once into depth order: count,
+    # mask_lo, mask_hi, tmin_x, tmin_y, bbox_w, small.
+    decode_g = torch.stack([
+        torch.where(producing, masks.counts, 0), masks.mask_lo,
+        masks.mask_hi, tmin[:, 0], tmin[:, 1],
+        torch.clamp(tmax[:, 0] - tmin[:, 0], min=1), masks.small.to(i64),
+    ], dim=1)
+
+    depth_bits = torch.clamp(proj.depth, min=1e-20).view(torch.int32)
+    depth_key = torch.where(producing, depth_bits.to(i64), U32)
+    order = torch.sort(depth_key, stable=True).indices
+    num_visible = proj.visible.sum().to(torch.int32)
+
+    decode = decode_g[order]
+    counts_c = decode[:, 0]
+    cum_f = torch.cumsum(counts_c.to(torch.float32), dim=0)
+    beyond = cum_f - counts_c.to(torch.float32) > 4.0 * max_isects
+    counts_c = torch.where(beyond, 0, counts_c)
+    offsets = torch.cumsum(counts_c, dim=0) - counts_c
+    total = torch.clamp(cum_f[-1], max=2.0**31 - 1024).to(torch.int32)
+
+    # Slot -> compact splat: a mark at each producing splat's offset (the
+    # reference's scatter drops offsets past the pool), then a cumsum.
+    starts_at = offsets[(counts_c > 0) & (offsets < max_isects)]
+    marks = torch.zeros(max_isects, dtype=i64, device=dev)
+    marks.index_add_(0, starts_at, torch.ones_like(starts_at))
+    splat = torch.cumsum(marks, dim=0) - 1
+    slot = torch.arange(max_isects, dtype=i64, device=dev)
+    valid = (splat >= 0) & (slot < total)
+    splat = torch.clamp(splat, 0, n - 1)
+
+    d = decode[splat]
+    rank = slot - offsets[splat]
+    w_i = d[:, 5]
+    pos = select_bit64(d[:, 1], d[:, 2], rank)
+    dy_b = torch.div(rank, w_i, rounding_mode="floor")
+    small = d[:, 6] > 0
+    dy = torch.where(small, pos >> 3, dy_b)
+    dx = torch.where(small, pos & 7, rank - dy_b * w_i)
+    tile_id = (d[:, 4] + dy) * tiles_x + (d[:, 3] + dx)
+    key = torch.where(valid, tile_id, num_tiles)
+
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    slot_bits = 32 - tile_bits
+    if max_isects <= (1 << slot_bits):
+        packed = torch.sort((key << slot_bits) | slot).values
+        sorted_key = packed >> slot_bits
+        isect_gid = splat[packed & ((1 << slot_bits) - 1)]
+    else:
+        sorted_key, perm = torch.sort(key, stable=True)
+        isect_gid = splat[perm]
+
+    boundaries = torch.arange(num_tiles + 1, dtype=i64, device=dev)
+    tile_bins = torch.searchsorted(sorted_key, boundaries, right=False)
+    num_isects = tile_bins[-1].to(torch.int32)
+    num_dropped = torch.clamp(total - max_isects, min=0).to(torch.int32)
+
+    if align <= 1:
+        return Intersections(order, isect_gid, tile_bins[:-1], tile_bins[1:],
+                             num_visible, num_isects, num_dropped, producing)
+
+    # Aligned re-layout (:584-628): each run of equal keys takes its pad at
+    # its end, so a record's aligned position is its slot plus the pads of
+    # the runs before it.
+    change = sorted_key[1:] != sorted_key[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    is_end = torch.cat([change, one])
+    is_start = torch.cat([one, change])
+    run_start = torch.cummax(torch.where(is_start, slot, 0), dim=0).values
+    run_len_at_end = slot - run_start + 1
+    real = sorted_key < num_tiles
+    end_pad = torch.where(is_end & real, (-run_len_at_end) % align, 0)
+    pad_cum = torch.cumsum(end_pad, dim=0)
+    pads_excl = pad_cum - end_pad
+    new_pos = torch.where(real, slot + pads_excl, max_isects)
+
+    pads_before = pads_excl[torch.clamp(tile_bins, max=max_isects - 1)]
+    pads_before = torch.where(tile_bins >= max_isects, pad_cum[-1],
+                              pads_before)
+    aligned_starts = tile_bins[:-1] + pads_before[:-1]
+    counts = tile_bins[1:] - tile_bins[:-1]
+    starts = torch.clamp(aligned_starts, max=max_isects)
+    ends = torch.clamp(aligned_starts + counts, max=max_isects)
+
+    # Padding and overflow slots carry splat id n (dropped by the
+    # reference's scatters).
+    gid_aligned = torch.full((max_isects,), n, dtype=i64, device=dev)
+    keep = new_pos < max_isects
+    gid_aligned[new_pos[keep]] = isect_gid[keep]
+    return Intersections(order, gid_aligned, starts, ends, num_visible,
+                         num_isects, num_dropped, producing)

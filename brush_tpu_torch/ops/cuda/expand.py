@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from brush_tpu_torch.ops.binning import select_bit64
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_fwd import PACK_ROWS
 
@@ -37,15 +38,6 @@ _I = ctypes.c_int
 def _u(v: torch.Tensor) -> torch.Tensor:
     """int32 bit pattern -> its u32 value in int64 (shifts then stay logical)."""
     return v.to(torch.int64) & 0xFFFFFFFF
-
-
-def _select_bit64(m_lo, m_hi, rank):
-    """Position of the rank-th set bit of the 64-bit mask (int64 operands)."""
-    bits = torch.cat([(m_lo[None] >> torch.arange(32, device=m_lo.device)[:, None]) & 1,
-                      (m_hi[None] >> torch.arange(32, device=m_hi.device)[:, None]) & 1])
-    seen = torch.cumsum(bits, dim=0) - bits      # set bits strictly below
-    hit = (bits == 1) & (seen == rank[None])
-    return torch.argmax(hit.to(torch.int8), dim=0)
 
 
 def expand_plain(f5, u5, cum, total, tiles_x: int, num_tiles: int,
@@ -75,7 +67,7 @@ def expand_plain(f5, u5, cum, total, tiles_x: int, num_tiles: int,
     small = ((d0 >> 10) & 1) == 1
     tmin_y = (d0 >> 11) & 0x7FF
     bw = torch.clamp(d0 >> 22, min=1)
-    pos = _select_bit64(_u(u5[3, wv]), _u(u5[4, wv]), rank)
+    pos = select_bit64(_u(u5[3, wv]), _u(u5[4, wv]), rank)
     dy_b = torch.div(rank, bw, rounding_mode="floor")
     dy = torch.where(small, pos >> 3, dy_b)
     dx = torch.where(small, pos & 7, rank - dy_b * bw)

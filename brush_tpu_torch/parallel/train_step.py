@@ -23,9 +23,17 @@ Dataflow of a step on each rank (sharding.py gives the decomposition):
 
 Strips are whole rows of raster cells, ceil(cells_y / ranks) rows each, so
 the last ranks may own strips that run past the image (their cells render
-empty). The reference's XLA fallback (`_loss_xla`, :251-312, replicated
-binning for its CPU runs) has no counterpart: every backend runs the strip
-pipeline, "xla" is refused on CUDA tensors as render_splats refuses it.
+empty).
+
+backend="xla" (the reference's `_loss_xla`, :251-312) replaces the strip
+pipeline by the XLA backend of render_splats: each rank projects its rows,
+gathers the attributes (GatherColumns) and the detached projection, bins
+the whole frame (build_intersections over every splat, the same on every
+rank), rasterizes its contiguous ceil(tiles_y / ranks) rows of tiles with
+the tiled rasterizer and gathers the image tiles (GatherStrips). Its
+stats are the frame's (replicated, not summed), and max_strip_isects is
+the frame's record count: the binning is not strip-local. It ignores
+`cell` (single-tile blocks), as the reference's does.
 """
 
 from __future__ import annotations
@@ -37,16 +45,19 @@ import torch
 from brush_tpu_torch.config import TrainConfig
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.device import full_f32
-from brush_tpu_torch.ops.binning import cell_bbox, restrict_masks_parts
+from brush_tpu_torch.ops.binning import (
+    build_intersections, cell_bbox, restrict_masks_parts,
+)
 from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell, to_i32_bits
 from brush_tpu_torch.ops.pipeline import RecordPipeline
+from brush_tpu_torch.ops.projection import Projection
 from brush_tpu_torch.ops.rasterize_reference import CameraParams
 from brush_tpu_torch.parallel.sharding import (
     GatherColumns, GatherStrips, Mesh, gather_columns,
 )
 from brush_tpu_torch.render import (
     BACKENDS, U32_MAX, assemble_image, default_max_isects, pack_decode_parts,
-    record_inputs,
+    project_inputs, record_inputs, xla_tiles,
 )
 from brush_tpu_torch.ssim import Ssim
 from brush_tpu_torch.train import (
@@ -116,11 +127,13 @@ def make_sharded_train_step(
     capacity / ranks rows (shard_state) and n_live counts the whole model;
     every rank calls it with the same ground truth and camera. The stats
     count every rank: num_visible, num_isects and num_dropped are sums,
-    max_strip_isects the largest unclamped strip record count.
+    max_strip_isects the largest unclamped strip record count (on the
+    "xla" path the frame's counts, its pool max_isects).
     strip_pool_slack over-provisions each strip's pool against an uneven
     spread of records (ShardedTrainer adapts it). cell=(gw, gh): strips are
-    rows of raster cells (see render_splats). backend is checked and
-    selects nothing (see the module docstring).
+    rows of raster cells (see render_splats). backend: "pallas" and "auto"
+    the strip pipeline, "xla" the replicated binning and the tiled
+    rasterizer (see the module docstring), on CPU and CUDA tensors alike.
     """
     n_dev = mesh.size
     if capacity % n_dev:
@@ -129,9 +142,6 @@ def make_sharded_train_step(
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
-    if backend == "xla" and mesh.device.type == "cuda":
-        raise ValueError('backend="xla" runs on CPU tensors only: on the '
-                         "card the record pipeline is the CUDA kernels")
     cell = check_cell(cell)
     rows_per = capacity // n_dev
     tiles_x = -(-int(img_size[0]) // TILE_WIDTH)
@@ -148,6 +158,85 @@ def make_sharded_train_step(
     ssim = Ssim(config.ssim_window_size, 3)
     rows = mesh.rank * rows_per + torch.arange(rows_per, device=mesh.device)
 
+    strip_rows = -(-tiles_y // n_dev)      # the XLA path's tile rows
+    tiles_per = strip_rows * tiles_x
+
+    def render_strips(params, xy_dummy, cam, active):
+        """The strip pipeline: (image, producing rows, stats after the
+        backward)."""
+        rec = record_inputs(
+            params["means"], params["log_scales"], params["quats"],
+            params["sh_coeffs"], params["raw_opacity"], cam, img_size,
+            xy_dummy=xy_dummy, active=active, cell=cell)
+        mark("record_inputs")
+        attrs9 = GatherColumns.apply(rec.attrs9, mesh)
+        decode, depth_key = strip_decode(
+            gather_columns(meta_rows(rec, cell), mesh), row_lo,
+            row_lo + strip_crows)
+        mark("strip_inputs")
+        img_l, _, total, raw_total = RecordPipeline.apply(
+            attrs9, decode, depth_key, cells_x, num_cells, pool,
+            pack_grad_sort, cell, tile_base, cells_per)
+        img = assemble_image(GatherStrips.apply(img_l, mesh)[:num_cells],
+                             img_size, cells_x, cells_y, cell)
+        mark("assemble")
+
+        def stats():
+            # One gather of every rank's (records, dropped, visible,
+            # unclamped records): sums and the largest strip, without
+            # waiting.
+            mine = torch.stack([
+                total.to(torch.int64),
+                torch.clamp(raw_total - pool, min=0).to(torch.int64),
+                rec.proj.visible.sum().to(torch.int64),
+                raw_total.to(torch.int64)])
+            every = gather_columns(mine[:, None], mesh)
+            sums = every.sum(dim=1).to(torch.int32)
+            return (sums[2], sums[0], sums[1],
+                    every[3].max().to(torch.int32))
+
+        return img, rec.producing, stats
+
+    def render_xla(params, xy_dummy, cam, active):
+        """The reference's _loss_xla: replicated binning, this rank's rows
+        of tiles through the tiled rasterizer."""
+        proj, color, opac, xy = project_inputs(
+            params["means"], params["log_scales"], params["quats"],
+            params["sh_coeffs"], params["raw_opacity"], cam, img_size,
+            xy_dummy=xy_dummy, active=active)
+        attrs = GatherColumns.apply(torch.stack([
+            xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
+            proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
+        ]), mesh).t()
+        f = gather_columns(torch.cat([
+            proj.xy.t(), proj.depth[None], proj.conic.t()]).detach(), mesh)
+        i = gather_columns(torch.cat([
+            proj.radius[None], proj.tile_min.t(), proj.tile_max.t(),
+            proj.visible[None].to(torch.int32)]), mesh)
+        proj_f = Projection(xy=f[0:2].t(), depth=f[2], conic=f[3:6].t(),
+                            radius=i[0], tile_min=i[1:3].t(),
+                            tile_max=i[3:5].t(), visible=i[5] > 0)
+        mark("project_inputs")
+        isect = build_intersections(proj_f, attrs[:, 8].detach(),
+                                    (tiles_x, tiles_y), max_isects, align=1)
+        mark("binning")
+        img_l = xla_tiles(attrs, isect, tiles_x, max_isects, block_size,
+                          mesh.rank * tiles_per, tiles_per)
+        mark("xla raster")
+        img = assemble_image(
+            GatherStrips.apply(img_l, mesh)[:tiles_x * tiles_y], img_size,
+            tiles_x, tiles_y)
+        mark("assemble")
+        producing = isect.producing[mesh.rank * rows_per:
+                                    (mesh.rank + 1) * rows_per]
+        # The frame's stats on every rank; the pool is the frame's, so the
+        # peak per-rank demand is the frame's record count (:309-311).
+        return img, producing, lambda: (
+            isect.num_visible, isect.num_isects, isect.num_dropped,
+            isect.num_isects)
+
+    render_rows = render_xla if backend == "xla" else render_strips
+
     def step(state: TrainState, gt, viewmat, focal, pixel_center,
              lr_mean: float, step_idx: int):
         splats = state.splats
@@ -157,40 +246,18 @@ def make_sharded_train_step(
         params, xy_dummy = trainable(splats)
         cam = CameraParams(viewmat, focal, pixel_center)
         with full_f32():
-            rec = record_inputs(
-                params["means"], params["log_scales"], params["quats"],
-                params["sh_coeffs"], params["raw_opacity"], cam, img_size,
-                xy_dummy=xy_dummy, active=rows < splats.n_live, cell=cell)
-            mark("record_inputs")
-            attrs9 = GatherColumns.apply(rec.attrs9, mesh)
-            decode, depth_key = strip_decode(
-                gather_columns(meta_rows(rec, cell), mesh), row_lo,
-                row_lo + strip_crows)
-            mark("strip_inputs")
-            img_l, _, total, raw_total = RecordPipeline.apply(
-                attrs9, decode, depth_key, cells_x, num_cells, pool,
-                pack_grad_sort, cell, tile_base, cells_per)
-            img = assemble_image(GatherStrips.apply(img_l, mesh)[:num_cells],
-                                 img_size, cells_x, cells_y, cell)
-            mark("assemble")
+            img, producing, stats = render_rows(
+                params, xy_dummy, cam, rows < splats.n_live)
             loss = image_loss(img, gt, channels, config, ssim)
             mark("loss")
             loss.backward()
             mark("autograd rest")
-        # One gather of every rank's (records, dropped, visible, unclamped
-        # records): sums and the largest strip, without waiting.
-        mine = torch.stack([total.to(torch.int64),
-                            torch.clamp(raw_total - pool, min=0).to(
-                                torch.int64),
-                            rec.proj.visible.sum().to(torch.int64),
-                            raw_total.to(torch.int64)])
-        every = gather_columns(mine[:, None], mesh)
-        sums = every.sum(dim=1).to(torch.int32)
+        num_visible, num_isects, num_dropped, max_strip = stats()
         new_state = update_state(config, state, params, xy_dummy,
-                                 rec.producing, step_idx, img_size, lr_mean)
+                                 producing, step_idx, img_size, lr_mean)
         return new_state, StepStats(
-            loss=loss.detach(), num_visible=sums[2], num_isects=sums[0],
-            num_dropped=sums[1],
-            max_strip_isects=every[3].max().to(torch.int32))
+            loss=loss.detach(), num_visible=num_visible,
+            num_isects=num_isects, num_dropped=num_dropped,
+            max_strip_isects=max_strip)
 
     return step

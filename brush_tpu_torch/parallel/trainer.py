@@ -37,7 +37,8 @@ class ShardedTrainer(SplatTrainer):
     """SplatTrainer over the ranks of `mesh` (sharding.make_mesh): each
     rank runs it on the same batches and holds its block of the rows.
 
-    backend: as make_sharded_train_step's.
+    backend: as make_sharded_train_step's ("xla": the replicated
+    binning and the tiled rasterizer, on any device).
     """
 
     SLACK_START = 2.0   # the starting, and largest, strip-pool slack

@@ -1,18 +1,25 @@
-"""The render (port of brush_tpu/render.py, render_splats with
-backend="pallas").
+"""The render (port of brush_tpu/render.py, render_splats).
 
-Stages: project all splats densely with a validity mask; SH colour and
-opacity; the exact per-tile pretest (64-bit coverage masks); the depth key
-and the packed decode rows; then the record pipeline (ops/pipeline.py:
-sort -> expand kernel -> sort -> rasterize_fwd kernel); the tiles are
-assembled into the image. With cell=(gw, gh) the pretest, the decode rows
-and the whole record pipeline work in raster cells of gw x gh tiles (one
-record per (splat, cell)); cell (1, 1) is the tile path.
+Stages of the record pipeline (backend "pallas" or "auto"): project all
+splats densely with a validity mask; SH colour and opacity; the exact
+per-tile pretest (64-bit coverage masks); the depth key and the packed
+decode rows; then the record pipeline (ops/pipeline.py: sort -> expand
+kernel -> sort -> rasterize_fwd kernel); the tiles are assembled into the
+image. With cell=(gw, gh) the pretest, the decode rows and the whole
+record pipeline work in raster cells of gw x gh tiles (one record per
+(splat, cell)); cell (1, 1) is the tile path.
+
+The XLA backend (backend "xla", render.py:299-331 of the reference): the
+same projection, SH colour and opacity, then exact float32 binning
+(ops/binning.build_intersections) and the lockstep tiled rasterizer with
+its hand-written backward (ops/rasterize_tiled.py), plain PyTorch on any
+device: no quantized records, no colour clamp, no rounded pool.
 
 Differentiation (needs_grad=True): projection and SH are plain autograd;
 the record pipeline is the custom autograd Function RecordPipeline
-(rasterize_bwd and segment_sum kernels). The tile pretest, the depth key
-and the decode rows are integer bookkeeping built from detached tensors,
+(rasterize_bwd and segment_sum kernels), the XLA rasterizer the Function
+rasterize_tiled.TiledRaster. The tile pretest, the depth key, the decode
+rows and the binning are integer bookkeeping built from detached tensors,
 as the reference builds them from stop_gradient values. The reference
 threads a zero `xy_dummy` through the render so screen-space gradients
 surface for densification (render.py:22-25): it is added to the projected
@@ -21,6 +28,7 @@ centres, so d(loss)/d(xy_dummy) lands at global splat indices.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -29,7 +37,8 @@ import torch
 from brush_tpu_torch.constants import TILE_WIDTH
 from brush_tpu_torch.device import full_f32
 from brush_tpu_torch.ops.binning import (
-    TileMasks, cell_bbox, precompute_tile_masks,
+    Intersections, TileMasks, build_intersections, cell_bbox,
+    precompute_tile_masks,
 )
 from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell
 from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
@@ -133,15 +142,12 @@ class RecordInputs(NamedTuple):
     masks: TileMasks         # the exact pretest, in cell units
 
 
-def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
-                  cam: CameraParams, img_size, xy_dummy=None,
-                  active=None, cell=(1, 1)) -> RecordInputs:
-    """Projection, SH colour, opacity, the tile pretest, the depth key and
-    the decode rows (render.py:250-285), in float32 with TF32 off; the
-    pretest and the decode rows in units of cell=(gw, gh). Only attrs9
-    carries gradients: the pretest, the depth key and the decode rows see
-    detached tensors (render.py:275-277, :168), so autograd records none of
-    the pretest's (8, 8, N) float work."""
+def project_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
+                   cam: CameraParams, img_size, xy_dummy=None, active=None):
+    """The differentiable per-splat stages (render.py:250-273): the
+    projection and the SH colour in float32 with TF32 off, the sigmoid
+    opacity, and the centres plus xy_dummy. Returns (proj, color, opac,
+    xy)."""
     with full_f32():
         proj = project_splats(
             means, log_scales, normalize_quats(quats),
@@ -151,8 +157,26 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
         color = view_colors(means, sh_coeffs, cam)
     opac = torch.sigmoid(raw_opacity)
     xy = proj.xy if xy_dummy is None else proj.xy + xy_dummy
+    return proj, color, opac, xy
 
-    proj_sg = Projection(*(t.detach() for t in proj))
+
+def detached(proj: Projection) -> Projection:
+    return Projection(*(t.detach() for t in proj))
+
+
+def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
+                  cam: CameraParams, img_size, xy_dummy=None,
+                  active=None, cell=(1, 1)) -> RecordInputs:
+    """project_inputs, then the tile pretest, the depth key and the decode
+    rows (render.py:275-285), the pretest and the decode rows in units of
+    cell=(gw, gh). Only attrs9 carries gradients: the pretest, the depth
+    key and the decode rows see detached tensors (render.py:275-277,
+    :168), so autograd records none of the pretest's (8, 8, N) float
+    work."""
+    proj, color, opac, xy = project_inputs(
+        means, log_scales, quats, sh_coeffs, raw_opacity, cam, img_size,
+        xy_dummy=xy_dummy, active=active)
+    proj_sg = detached(proj)
     masks = precompute_tile_masks(proj_sg, opac.detach(), cell=cell)
     producing = proj_sg.visible & (masks.counts > 0)
     counts_g = torch.where(producing, masks.counts, 0)
@@ -167,6 +191,60 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     decode = pack_decode_rows(proj_sg, masks, counts_g, cell=cell)
     return RecordInputs(attrs9, decode, depth_key, proj_sg, producing,
                         masks)
+
+
+def xla_tiles(attrs: torch.Tensor, isect: Intersections, tiles_x: int,
+              max_isects: int, block_size: int, first_tile: int = 0,
+              count: int | None = None) -> torch.Tensor:
+    """The XLA rasterizer over tiles [first_tile, first_tile + count) of
+    the binned frame (all of it by default): attrs (N, 9) in global order
+    (x, y, cxx, cxy, cyy, r, g, b, opac), gathered into depth order by one
+    differentiable row gather (render.py:311-315); tiles past the frame
+    render empty. Returns (count, 256, 4)."""
+    from brush_tpu_torch.ops.rasterize_tiled import make_rasterizer
+
+    num_tiles = isect.starts.shape[0]
+    count = num_tiles if count is None else count
+    a = attrs[isect.order]
+    pad = max(first_tile + count - num_tiles, 0)
+    starts = torch.nn.functional.pad(isect.starts, (0, pad))
+    ends = torch.nn.functional.pad(isect.ends, (0, pad))
+    sl = slice(first_tile, first_tile + count)
+    tile_ids = torch.arange(first_tile, first_tile + count,
+                            dtype=torch.int64, device=attrs.device)
+    raster = make_rasterizer(tiles_x, count, max_isects, block_size)
+    return raster(a[:, 0:2], a[:, 2:5], a[:, 5:8], a[:, 8], isect.isect_gid,
+                  starts[sl], ends[sl], tile_ids)
+
+
+def _render_xla(means, log_scales, quats, sh_coeffs, raw_opacity, cam,
+                img_size, xy_dummy, active, max_isects, block_size):
+    """The XLA backend (render.py:299-331): exact binning on the detached
+    projection and opacity (align 1), the (N, 9) row gather into depth
+    order, the tiled rasterizer, the image."""
+    tiles_x = -(-int(img_size[0]) // TILE_WIDTH)
+    tiles_y = -(-int(img_size[1]) // TILE_WIDTH)
+    proj, color, opac, xy = project_inputs(
+        means, log_scales, quats, sh_coeffs, raw_opacity, cam, img_size,
+        xy_dummy=xy_dummy, active=active)
+    mark("project_inputs")
+    isect = build_intersections(detached(proj), opac.detach(),
+                                (tiles_x, tiles_y), max_isects, align=1)
+    mark("binning")
+    attrs = torch.cat([xy, proj.conic, color, opac[:, None]], dim=1)
+    img_tiles = xla_tiles(attrs, isect, tiles_x, max_isects, block_size)
+    mark("xla raster")
+    aux = RenderAux(
+        num_visible=isect.num_visible,
+        num_isects=isect.num_isects,
+        num_dropped=isect.num_dropped,
+        visible=proj.visible,
+        order=isect.order,
+        producing=isect.producing,
+    )
+    img = assemble_image(img_tiles, img_size, tiles_x, tiles_y)
+    mark("assemble")
+    return img, aux
 
 
 BACKENDS = ("auto", "pallas", "xla")
@@ -194,23 +272,33 @@ def render_splats(
     """Render (h, w, 4) RGBA on the tensors' device; img_size is (w, h).
 
     The arguments are the reference's (brush_tpu/render.py:185-202).
-    quats are normalized internally. The pool (max_isects, default
-    default_max_isects) rounds up to a multiple of lcm(max(128,
-    block_size), 512) exactly as the reference's record pipeline does, so
-    num_dropped agrees; block_size has no other effect here.
-    backend is checked and selects nothing: the record pipeline always
-    runs through the kernel wrappers, which launch the CUDA kernels on
-    CUDA tensors and run their plain PyTorch versions on CPU tensors.
-    "xla" (the reference's plain path) is refused on CUDA tensors, where
-    the port has no plain path. scan_passes and bwd_tiles_per_step are
-    accepted and do nothing: the port computes what scan_passes=3 computes
-    (the log-T scan's truncation at 2 is not reproduced), and the backward
-    takes no tiles-per-step knob.
-    needs_grad=True renders through the differentiable RecordPipeline
-    (pack_grad_sort: the backward's conic and colour cotangents ride the
-    grad re-sort as bf16 pairs, the reference's default; False keeps them
-    float32); needs_grad=False through the inference pipeline, which
-    refuses inputs that require grad and returns aux.order as zeros.
+    quats are normalized internally.
+
+    backend selects the path, on CPU and CUDA tensors alike:
+    - "pallas" and "auto": the record pipeline through the kernel
+      wrappers, which launch the CUDA kernels on CUDA tensors and run
+      their plain PyTorch versions on CPU tensors. The pool (max_isects,
+      default default_max_isects) rounds up to a multiple of lcm(max(128,
+      block_size), 512) exactly as the reference's record pipeline does,
+      so num_dropped agrees; block_size has no other effect here. Unlike
+      the reference's "auto", which takes its XLA path on the CPU
+      (render.py:236-237), "auto" is the record pipeline on every device:
+      on the CPU the kernels' plain versions are what stands for the card.
+    - "xla": the reference's XLA path in plain PyTorch (see the module
+      docstring): colour and opacity in float32 without quantization or
+      clamp, rounds of block_size records, the pool exactly max_isects.
+      cell, pack_grad_sort and needs_grad=False's inference pipeline do
+      not apply; needs_grad=False runs it without autograd. No backend
+      falls back to another.
+    scan_passes and bwd_tiles_per_step are accepted and do nothing: the
+    port computes what scan_passes=3 computes (the log-T scan's truncation
+    at 2 is not reproduced), and the backward takes no tiles-per-step knob.
+    needs_grad=True renders the record pipeline through the differentiable
+    RecordPipeline (pack_grad_sort: the backward's conic and colour
+    cotangents ride the grad re-sort as bf16 pairs, the reference's
+    default; False keeps them float32); needs_grad=False through the
+    inference pipeline, which refuses inputs that require grad and returns
+    aux.order as zeros.
     cell=(gw, gh) rasterizes in raster cells of gw x gh tiles: one record
     per (splat, cell), P = 256 gw gh pixels swept per record; (1, 1) is
     the tile path. The image is the same but for alpha-threshold flips
@@ -221,9 +309,13 @@ def render_splats(
     del scan_passes, bwd_tiles_per_step   # documented no-ops
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "xla" and means.is_cuda:
-        raise ValueError('backend="xla" runs on CPU tensors only: on the '
-                         "card the record pipeline is the CUDA kernels")
+    if backend == "xla":
+        if max_isects is None:
+            max_isects = default_max_isects(means.shape[0], img_size)
+        with contextlib.nullcontext() if needs_grad else torch.no_grad():
+            return _render_xla(means, log_scales, quats, sh_coeffs,
+                               raw_opacity, cam, img_size, xy_dummy, active,
+                               max_isects, block_size)
     cell = check_cell(cell)
     n = means.shape[0]
     w, h = int(img_size[0]), int(img_size[1])

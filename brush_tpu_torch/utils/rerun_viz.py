@@ -142,47 +142,40 @@ class RerunVisualizer:
     def log_tile_heatmaps(self, step: int, splats, camera, img_size,
                           max_isects: int = 1 << 20) -> None:
         """Per-tile intersection counts and mean depth as (tiles_y,
-        tiles_x) images, from the port's record pipeline at cell (1, 1):
-        record_inputs -> depth_order -> expand -> the tile sort and bins.
-        Where that pipeline and the JAX package's XLA build_intersections
-        could differ, this follows the JAX package: the masks come from the
-        unquantized sigmoid opacity (record_inputs' pretest does so too);
-        the pool is exactly max_isects, not the render's rounded pool, so
-        the same records past it drop; the bins are unaligned; and the mean
-        depth is a float32 cumsum difference on the host, in the same
-        order (rerun_viz.py:166-183). On a card, expand runs as its kernel.
+        tiles_x) images, recomputed through the XLA backend's binning
+        (ops/binning.build_intersections, unaligned, the pool exactly
+        max_isects) at debug cadence, as brush_tpu/utils/rerun_viz.py:
+        144-183 does; the mean depth is a float32 cumsum difference on the
+        host, in the same order. The reference reads tile_bins and
+        final_index back from its RenderAux instead.
         """
         if not self.active:
             return
-        from brush_tpu_torch.ops.cuda.expand import expand
-        from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
+        from brush_tpu_torch.ops.binning import build_intersections
         from brush_tpu_torch.ops.rasterize_reference import camera_params
-        from brush_tpu_torch.render import record_inputs
+        from brush_tpu_torch.render import detached, project_inputs
 
         self._time(step)
         tiles_x = -(-int(img_size[0]) // TILE_WIDTH)
         tiles_y = -(-int(img_size[1]) // TILE_WIDTH)
-        num_tiles = tiles_x * tiles_y
         with torch.no_grad():
             cp = camera_params(camera, img_size, device=splats.device)
-            rec = record_inputs(
+            proj, _, opac, _ = project_inputs(
                 splats.means, splats.log_scales, splats.quats,
                 splats.sh_coeffs, splats.raw_opacity, cp, img_size,
                 active=splats.active_mask())
-            d = depth_order(rec.attrs9, rec.decode, rec.depth_key, max_isects)
-            keys, recs = expand(d.f5, d.u5, d.cum, d.total, tiles_x,
-                                num_tiles, max_isects)
-            packed, starts, ends = tile_bins(keys, recs, num_tiles)
-            depth_c = _host(rec.proj.depth[d.order])
-        starts = _host(starts)
-        ends = _host(ends)
+            isect = build_intersections(detached(proj), opac,
+                                        (tiles_x, tiles_y), max_isects)
+            depth_c = _host(proj.depth[isect.order])
+            gid = _host(isect.isect_gid)
+            starts = _host(isect.starts)
+            ends = _host(isect.ends)
         counts = (ends - starts).reshape(tiles_y, tiles_x)
-        # Mean depth of each tile's splats: record row 7 holds the compact
-        # ids in tile order, the records of tile t at [starts[t], ends[t]).
-        num = int(ends[-1]) if num_tiles else 0
-        gid = _host(packed[7, :num])
+        # Mean depth of each tile's splats: the records of tile t are
+        # [starts[t], ends[t]) in tile order.
+        num = int(isect.num_isects)
         cum = np.concatenate([[0.0], np.cumsum(
-            depth_c[np.clip(gid, 0, len(depth_c) - 1)]
+            depth_c[np.clip(gid[:num], 0, len(depth_c) - 1)]
         )])
         s = np.clip(starts, 0, num)
         e = np.clip(ends, 0, num)

@@ -108,7 +108,15 @@ result line; each phase prints its seconds):
      the NeRF castle through the API (pause, eval, export, resume, load of
      the COLMAP twin); `cli view` in a subprocess; `cli train --rerun`
      with a recording stub SDK; profiler.trace around a bench render;
- 10. print {"kernels": [...]}: launches from the "cli" train run, the other
+ 10. "xla", the XLA backend on the card (xla_phase): the castle on view 0
+     with gradients and the bench render through render_splats(
+     backend="xla") held to the record pipeline's kernels (images within
+     assert_close_quantized's defaults, gradients within the castle
+     test's render-grad rule), no kernel launched on the XLA path, both
+     paths' times and peak memory; ShardedTrainer(backend="xla") at world
+     size 1 over NCCL on the castle's views, its first loss within 1e-3
+     relative of the pipeline trainer's;
+ 11. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
      "cell" those of the training at CELL and under "strip" the strip
@@ -185,6 +193,12 @@ VIEW_TRAIN_ITER = 150
 VIEW_RERUN_ITERS = 12
 PAGE_SIZE = (512, 384)   # page.html's default frame
 
+# The "xla" phase: the XLA backend (exact binning, the tiled rasterizer,
+# plain PyTorch) on the card, held to the record pipeline's kernels.
+XLA_BLOCK = 32         # render_splats' default block_size: rounds of 32
+XLA_TIMED = 3          # CUDA-event-timed bench renders of each path
+XLA_SHARD_STEPS = 6    # ShardedTrainer(backend="xla") steps on the castle
+CASTLE_NAMES = ("means", "log_scales", "quats", "sh_coeffs", "raw_opacity")
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
              pool=2162688)
@@ -2380,6 +2394,314 @@ def viewer_phase(data: dict, d: str) -> dict:
     return counted
 
 
+def close_quantized(got, want, what: str, atol=2e-4, flip_tol=0.01,
+                    max_flip_frac=2e-3):
+    """tests/conftest.assert_close_quantized on tensors: within atol but
+    for at most max_flip_frac of the values (alpha and transmittance
+    threshold flips, counted), each within flip_tol. Returns (largest
+    difference, values beyond atol)."""
+    d = (got.detach().float() - want.detach().float()).abs()
+    big, beyond = float(d.max()), int((d > atol).sum())
+    limit = max(1, int(max_flip_frac * d.numel()))
+    if big > flip_tol or beyond > limit:
+        raise AssertionError(f"[xla] {what}: largest difference {big:.3e} "
+                             f"(limit {flip_tol}), {beyond} values beyond "
+                             f"{atol} (limit {limit})")
+    return big, beyond
+
+
+T_CUT_ALPHA = 1.0 - 2e-4   # a pixel's T reached the 1e-4 early-out
+
+
+def close_image(got, want, what: str):
+    """Two (h, w, 4) renders: close_quantized's defaults, but a pixel where
+    either render's transmittance reached the early-out threshold (alpha
+    >= T_CUT_ALPHA) may differ by up to 0.05. A flip at that threshold
+    keeps or drops a whole record of alpha up to 0.999 behind a T of up to
+    0.1 (both paths stop before the record that would take T below 1e-4,
+    and compute T in other orders), not a record of alpha 1/255, so it can
+    move a value by more than the 0.01 that alpha flips stay within. Such
+    pixels are counted: at most 1e-5 of the pixels (at least one).
+    Returns (largest difference, values beyond 2e-4, T-cut pixels beyond
+    0.01)."""
+    d = (got - want).abs().amax(dim=-1)
+    cut = (d > 0.01) & (got[..., 3].maximum(want[..., 3]) >= T_CUT_ALPHA)
+    n_cut = int(cut.sum())
+    limit = max(1, int(1e-5 * d.numel()))
+    if n_cut > limit or float(d.max()) > 0.05:
+        raise AssertionError(f"[xla] {what}: {n_cut} pixels beyond 0.01 at "
+                             f"the transmittance cut (limit {limit}), "
+                             f"largest difference {float(d.max()):.3e}")
+    keep = ~cut
+    big, beyond = close_quantized(got[keep], want[keep], what)
+    return max(big, float(d.max())), beyond, n_cut
+
+
+def pinned_castle(splats, cp):
+    """The castle with each splat whose view colour leaves [-3.9, 3.9]
+    replaced by that colour, clamped, as a DC term alone (the record
+    pipeline stores colours as u16 over [-4, 4], the XLA path keeps them;
+    tests/test_torch_castle.py pins them so). Returns (splats, pinned)."""
+    from brush_tpu_torch.constants import SH_C0
+    from brush_tpu_torch.ops.rasterize_reference import view_colors
+
+    col = view_colors(splats.means, splats.sh_coeffs, cp)
+    out = (col.abs() > 3.9).any(dim=1) & splats.active_mask()
+    sh = splats.sh_coeffs.clone()
+    sh[out] = 0.0
+    sh[out, 0] = (col[out].clamp(-3.9, 3.9) - 0.5) / SH_C0
+    return splats.replace(sh_coeffs=sh), int(out.sum())
+
+
+def event_times(fn, reps: int) -> list:
+    """CUDA-event ms of reps calls of fn, each synchronized."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop))
+    return out
+
+
+def peak_mib(fn) -> tuple:
+    """(fn(), peak device memory above what was allocated before, MiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
+    """Phase 10, "xla": render_splats(backend="xla") and the sharded step's
+    XLA path on the card, an exact float32 render built apart from the
+    record pipeline (no kernel, no quantized record), held to the CUDA
+    kernels' path. Every XLA run resets the launch counts before it and
+    must have launched no kernel.
+    1. the castle at 800x800 on view 0 with gradients of a seeded image
+       cotangent, its out-of-range view colours pinned (pinned_castle):
+       the XLA image within assert_close_quantized's defaults of the
+       pipeline's; each of the five parameter gradients of the pipeline
+       with float32 gradient records (pack_grad_sort=False), scaled by the
+       XLA one's largest entry, within tests/test_torch_castle.py's
+       render-grad rule (3e-4, at most 2e-3 of the entries beyond, each
+       within 0.05), and the default bf16 pairs' errors reported; each
+       path's peak memory;
+    2. the bench scene (1M splats, 1024x1024, pool BENCH["pool"]):
+       render_splats(backend="xla", needs_grad=False) against phase 3's
+       image, within assert_close_quantized's defaults, the same record
+       count; the median of XLA_TIMED CUDA-event times of each path (the
+       pipeline as phase 3 renders) and each path's peak memory;
+    3. ShardedTrainer(backend="xla") at world size 1 over NCCL,
+       XLA_SHARD_STEPS steps on the castle's four views: every loss finite,
+       the first within 1e-3 relative of the pipeline ShardedTrainer's on
+       the same batch; step times and peak memory.
+    Returns the numbers for the summary."""
+    import torch
+    from brush_tpu_torch.datasets.ply import load_splats_from_ply
+    from brush_tpu_torch.ops.binning import build_intersections
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.parallel import ShardedTrainer, make_mesh, multihost
+    from brush_tpu_torch.render import (
+        detached, project_inputs, render_splats,
+    )
+    from brush_tpu_torch.train import SceneBatch
+    from brush_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    res = {}
+
+    # 1. The castle, view 0, with gradients.
+    with open(CASTLE_PLY, "rb") as f:
+        castle = load_splats_from_ply(f.read(), device="cuda")
+    cams = castle_cameras()
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    cp = camera_params(cams[0], size, device="cuda")
+    castle, pinned = pinned_castle(castle, cp)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.randn((CASTLE_SIZE, CASTLE_SIZE, 4), generator=gen,
+                      device="cuda")
+    got = {}
+    # The pipeline with float32 gradient records (the gate) and with its
+    # default bf16 pairs for the conic and colour cotangents (reported).
+    for label, kw in (("pipeline", dict(backend="pallas",
+                                        pack_grad_sort=False)),
+                      ("pipeline bf16", dict(backend="pallas")),
+                      ("xla", dict(backend="xla"))):
+        params = [getattr(castle, k).clone().requires_grad_(True)
+                  for k in CASTLE_NAMES]
+
+        def fwd_bwd():
+            img, aux = render_splats(*params, cp, size,
+                                     active=castle.active_mask(),
+                                     max_isects=castle_pool, **kw)
+            (img * cot).sum().backward()
+            return img.detach(), aux
+
+        reset_launches()
+        (img, aux), mib = peak_mib(fwd_bwd)
+        counts = read_launches()
+        got[label] = (img, [p.grad for p in params], aux, counts, mib)
+        if int(aux.num_dropped):
+            raise AssertionError(f"[xla] castle {label} dropped records")
+    img_p, g_p, aux_p, counts_p, mib_p = got["pipeline"]
+    img_x, g_x, aux_x, counts_x, mib_x = got["xla"]
+    if any(counts_x.values()) or min(counts_p.values()) < 1:
+        raise AssertionError(f"[xla] castle launches: xla {counts_x}, "
+                             f"pipeline {counts_p}")
+    img_err = close_image(img_p, img_x, "castle image")
+
+    def grad_errors(grads, gate: bool) -> dict:
+        """(largest scaled error, entries beyond 3e-4) of each gradient
+        against the XLA one's, raising beyond the rule if gate."""
+        out = {}
+        for name, a, b in zip(CASTLE_NAMES, grads, g_x):
+            if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+                raise AssertionError(f"[xla] castle grad {name} not finite")
+            scale = float(b.abs().max())
+            if scale <= 0:
+                raise AssertionError(f"[xla] castle grad {name} is zero")
+            d = (a - b).abs() / scale
+            if gate:
+                close_quantized(a / scale, b / scale, f"castle grad {name}",
+                                atol=3e-4, flip_tol=0.05)
+            out[name] = (round(float(d.max()), 6), int((d > 3e-4).sum()),
+                         d.numel())
+        return out
+
+    grad_err = grad_errors(g_p, gate=True)
+    bf16_err = grad_errors(got["pipeline bf16"][1], gate=False)
+    print(f"[xla] castle view 0 {CASTLE_SIZE}x{CASTLE_SIZE} with gradients "
+          f"({pinned} view colours pinned): records xla "
+          f"{int(aux_x.num_isects)}, pipeline {int(aux_p.num_isects)}; "
+          f"image against the pipeline: largest {img_err[0]:.3e}, "
+          f"{img_err[1]} values beyond 2e-4 elsewhere, {img_err[2]} pixels "
+          f"beyond 0.01 at the transmittance cut; gradients against the XLA "
+          f"ones (largest scaled error, entries beyond 3e-4, entries): "
+          f"float32 records {grad_err}, bf16 pairs (the default, not "
+          f"gated) {bf16_err}; launches xla {counts_x}, pipeline "
+          f"{counts_p}; peak memory xla {mib_x:.1f} MiB, pipeline "
+          f"{mib_p:.1f} MiB; {smi}")
+    res["castle_peak_mib"] = (mib_x, mib_p)
+    del got, g_p, g_x, img_p, img_x
+
+    # 2. The bench scene, inference.
+    splats, bcp, bsize = make_scene(BENCH, "cuda")
+
+    def render(backend):
+        return render_splats(
+            splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+            splats.raw_opacity, bcp, bsize, active=splats.active_mask(),
+            block_size=BENCH["block"] if backend == "pallas" else XLA_BLOCK,
+            max_isects=BENCH["pool"], needs_grad=False, backend=backend)
+
+    reset_launches()
+    (img_x, aux_x), mib_x = peak_mib(lambda: render("xla"))
+    counts_x = read_launches()
+    (img_p, aux_p), mib_p = peak_mib(lambda: render("pallas"))
+    if any(counts_x.values()):
+        raise AssertionError(f"[xla] bench launches {counts_x}")
+    if int(aux_x.num_dropped) or int(aux_x.num_isects) != int(
+            aux_p.num_isects):
+        raise AssertionError(f"[xla] bench records {int(aux_x.num_isects)} "
+                             f"(dropped {int(aux_x.num_dropped)}) against "
+                             f"the pipeline's {int(aux_p.num_isects)}")
+    img_err = close_image(img_x, bench_img.to("cuda"),
+                          "bench image against phase 3's")
+    if not torch.equal(img_p.cpu(), bench_img):
+        raise AssertionError("[xla] the pipeline's bench render is not "
+                             "phase 3's")
+    times = {"pallas": [], "xla": []}
+    for _ in range(XLA_TIMED):       # in turns, one of each
+        for backend in times:
+            times[backend] += event_times(lambda: render(backend), 1)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    with profiler.record() as stages:
+        render("xla")
+    # The round count: the longest tile range over the rounds' width.
+    proj, _, opac, _ = project_inputs(
+        splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+        splats.raw_opacity, bcp, bsize, active=splats.active_mask())
+    isect = build_intersections(detached(proj), opac.detach(),
+                                (-(-bsize[0] // 16), -(-bsize[1] // 16)),
+                                BENCH["pool"])
+    longest = int((isect.ends - isect.starts).max())
+    del proj, opac, isect
+    print(f"[xla] bench {bsize[0]}x{bsize[1]}, {BENCH['n']} splats, no "
+          f"gradients: records {int(aux_x.num_isects)} (pipeline "
+          f"{int(aux_p.num_isects)}); image against phase 3's: largest "
+          f"{img_err[0]:.3e}, {img_err[1]} values beyond 2e-4 elsewhere, "
+          f"{img_err[2]} pixels beyond 0.01 at the transmittance cut; "
+          f"median of "
+          f"{XLA_TIMED} renders xla {ms['xla']:.3f} ms (block {XLA_BLOCK}), "
+          f"pipeline {ms['pallas']:.3f} ms; all ms "
+          f"{ {k: [round(t, 3) for t in v] for k, v in times.items()} }; "
+          f"peak memory xla {mib_x:.1f} MiB, pipeline {mib_p:.1f} MiB; "
+          f"launches xla {counts_x}; {smi}")
+    print(f"[xla] bench XLA render stages (ms) "
+          f"{[(k, round(v, 3)) for k, v in stages]}; longest tile range "
+          f"{longest} records, {-(-longest // XLA_BLOCK)} rounds of "
+          f"{XLA_BLOCK}")
+    res.update(bench_ms=ms, bench_peak_mib=(mib_x, mib_p))
+    del splats, img_x, img_p
+
+    # 3. The sharded step's XLA path, world size 1.
+    batches = [SceneBatch(gts[i % len(gts)], cams[i % len(cams)])
+               for i in range(XLA_SHARD_STEPS)]
+    with multihost.process_group("cuda"):
+        mesh = make_mesh("cuda")
+        pipe = ShardedTrainer(mesh)
+        _, st = pipe.step(pipe.init_state(castle), batches[0])
+        loss_p = float(st.loss)
+        del pipe, st
+        trainer = ShardedTrainer(mesh, backend="xla")
+        state = trainer.init_state(castle)
+        del castle
+        losses, step_ms = [], []
+        reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, st = trainer.step(state, b)
+            stop.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+            losses.append(float(st.loss))
+        counts = read_launches()
+        mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        group = torch.distributed.get_backend()
+        del state
+    rel = abs(losses[0] - loss_p) / abs(loss_p)
+    print(f"[xla] ShardedTrainer(backend=\"xla\") at world size 1 over "
+          f"{group}, castle ({XLA_SHARD_STEPS} steps on its "
+          f"{len(cams)} views): losses {losses}; the first against the "
+          f"pipeline ShardedTrainer's {loss_p} (relative {rel:.3e}); step ms "
+          f"{[round(t, 3) for t in step_ms]} (median "
+          f"{statistics.median(step_ms[1:]):.3f} after the first); peak "
+          f"memory {mib:.1f} MiB; launches {counts}; {smi}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(np.isfinite(losses)) or rel > 1e-3 or any(counts.values()):
+        raise AssertionError("[xla] sharded XLA steps: a loss not finite, "
+                             "the first too far from the pipeline's, or a "
+                             "kernel launched")
+    res.update(shard_ms=statistics.median(step_ms[1:]), shard_peak_mib=mib,
+               seconds=time.perf_counter() - t_phase)
+    return res
+
+
 def read_jsonl(path: str) -> list:
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -2442,6 +2764,7 @@ def main() -> int:
           f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
           f"{time.perf_counter() - t_c:.1f} s")
     forward_times(kc, f"bench render inputs at cell {CELL}")
+    bench_img = img_1.cpu()      # phase 3's image, for the "xla" phase
     del k, kc, img_1, img_c
     torch.cuda.empty_cache()
     strips = strip_phase(splats, cp, size)
@@ -2480,6 +2803,8 @@ def main() -> int:
         del castle
         torch.cuda.empty_cache()
         view_counts = viewer_phase(cli_data, d)
+    torch.cuda.empty_cache()
+    xla = xla_phase(gts, castle_pool, bench_img, smi)
 
     def row(name, src, replaces):
         def fields(t):
@@ -2554,7 +2879,12 @@ def main() -> int:
           f"{METRIC_STEPS} warm steps at the final capacity), at cell {CELL} "
           f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "
           f"{TRAIN_STEPS}-step window {window_ms:.3f} "
-          f"ms, at cell {CELL} {window_ms_c:.3f}; total "
+          f"ms, at cell {CELL} {window_ms_c:.3f}; XLA backend (no "
+          f"kernel): bench render {xla['bench_ms']['xla']:.3f} ms against "
+          f"the pipeline's {xla['bench_ms']['pallas']:.3f}, peak "
+          f"{xla['bench_peak_mib'][0]:.1f} MiB against "
+          f"{xla['bench_peak_mib'][1]:.1f}, sharded castle step "
+          f"{xla['shard_ms']:.3f} ms, phase {xla['seconds']:.1f} s; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,16 +4,18 @@ The trained castle (docs/castle_r5_30k.ply: 90,977 splats, SH degree 3)
 seen from a camera of its training orbit, rendered with gradients by
 brush_tpu.render.render_splats(backend="xla") and by the port's pipeline
 on CPU tensors (the plain versions of its kernels): the image, and the
-gradients of sum(img^2) with respect to all five parameters. And a crop of
-the castle at raster cell (2, 2) against (1, 1), in both packages.
+gradients of sum(img^2) with respect to all five parameters; the same
+view by the port's XLA backend against brush_tpu's; and a crop of the
+castle at raster cell (2, 2) against (1, 1), in both packages.
 
 The record pipeline (the port's, and the reference's Pallas one) stores
 colours as u16 over [-4, 4] (ops/cuda/rasterize_fwd.quantize_color), which
 the XLA path does not. 56 of the castle's splats leave that range in this
 view (up to 17.4; their DC coefficients reach 40), and the blue of the
-pixels they cover differs by up to 0.02 between the two paths. So both
-packages render a copy of the castle whose out-of-range splats keep their
-view colour, clamped to [-3.9, 3.9], as a DC term alone.
+pixels they cover differs by up to 0.02 between the two paths. So for the
+pipeline case both packages render a copy of the castle whose
+out-of-range splats keep their view colour, clamped to [-3.9, 3.9], as a
+DC term alone.
 """
 
 import os
@@ -105,6 +107,53 @@ def test_castle_matches_reference_xla(castle, case):
         assert scale > 0, name
         assert_close_quantized(a / scale, b / scale, atol=3e-4, flip_tol=0.05,
                                err_msg=f"castle {case} grad {name}")
+
+
+def test_castle_xla_matches_reference_xla(castle):
+    """The port's XLA backend against brush_tpu's at 200x200, both exact
+    float32, so no colour is pinned (the out-of-range splats render as
+    they are on both sides), with gradients of sum(img^2). Image: within
+    1e-5 but for at most 5e-4 of the values, each within 5e-3 (alpha and
+    transmittance threshold flips of float32 rounding; measured 27 of
+    160,000 beyond 1e-5, the largest 1.9e-3). Gradients, each scaled by
+    the reference's largest entry: within 1e-4 but for at most 5e-4 of the
+    entries, each within 0.02 (measured at most 1.4e-4 of them, on the
+    means, the largest 0.0104), tighter than the pipeline case's 3e-4,
+    2e-3 and 0.05."""
+    js, ts = castle
+    side, fov = CASES["view"]
+    size = (side, side)
+    c2w = dt.orbit_views(1, seed=1)[0]
+    cp = camera_params(camera_from_transform(c2w, fov, side, side), size,
+                       device="cpu")
+    cpj = j_cp(j_cam(c2w, fov, side, side), size)
+
+    @jax.jit
+    def grads(*params):
+        def f(*params):
+            img, _ = j_render(*params, cpj, size, active=js.active_mask(),
+                              backend="xla")
+            return jnp.sum(img ** 2), img
+        return jax.value_and_grad(f, argnums=(0, 1, 2, 3, 4),
+                                  has_aux=True)(*params)
+
+    (_, img_j), g_j = grads(*(getattr(js, k) for k in NAMES))
+    params = [getattr(ts, k).clone().requires_grad_(True) for k in NAMES]
+    img, aux = render_splats(*params, cp, size, active=ts.active_mask(),
+                             backend="xla")
+    (img ** 2).sum().backward()
+    assert int(aux.num_dropped) == 0 and int(aux.num_isects) > 150_000
+    assert_close_quantized(img.detach().numpy(), np.asarray(img_j),
+                           atol=1e-5, flip_tol=5e-3, max_flip_frac=5e-4,
+                           err_msg="castle xla image")
+    for name, p, want in zip(NAMES, params, g_j):
+        a, b = p.grad.numpy(), np.asarray(want)
+        assert np.isfinite(a).all(), name
+        scale = np.abs(b).max()
+        assert scale > 0, name
+        assert_close_quantized(a / scale, b / scale, atol=1e-4,
+                               flip_tol=0.02, max_flip_frac=5e-4,
+                               err_msg=f"castle xla grad {name}")
 
 
 def test_castle_cell_fringe_matches_pallas(castle):

@@ -554,6 +554,40 @@ def test_cuda_render_grads_match_cpu():
                          flip_tol=0.05, what=name)
 
 
+@pytest.mark.cuda
+def test_cuda_render_xla_matches_cpu():
+    """render_splats(backend="xla") on the card (plain PyTorch: exact
+    binning and the tiled rasterizer, no kernel launched) against the
+    same on the CPU: the record counts equal, the image within 1e-5 and the
+    gradients within 1e-4 of each one's largest entry, with a counted few
+    threshold flips (index_add_ on the card sums with atomics)."""
+    _need_cuda()
+    sc = make_scene(512, 16)
+    names = ["means", "log_scales", "quats", "sh_coeffs", "raw_opacity"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        for mod in (t_expand, t_raster, t_bwd, t_seg):
+            mod.launches = 0
+        p = [torch.tensor(sc[k], device=dev, requires_grad=True)
+             for k in names]
+        img, aux = render_splats(*p, camera_params(Camera(**CAM), (64, 48),
+                                                   device=dev), (64, 48),
+                                 backend="xla")
+        (img ** 2).sum().backward()
+        assert not any(m.launches for m in (t_expand, t_raster, t_bwd,
+                                            t_seg))
+        out[dev] = (img.detach().cpu(), [x.grad.cpu() for x in p], aux)
+    (img_c, g_c, aux_c), (img_g, g_g, aux_g) = out["cpu"], out["cuda"]
+    for f in ("num_visible", "num_isects", "num_dropped"):
+        assert int(getattr(aux_g, f)) == int(getattr(aux_c, f)), f
+    close_with_flips(img_g.numpy(), img_c.numpy(), atol=1e-5, what="img")
+    for name, a, b in zip(names, g_g, g_c):
+        assert torch.isfinite(a).all(), name
+        close_with_flips((a / b.abs().max()).numpy(),
+                         (b / b.abs().max()).numpy(), atol=1e-4,
+                         flip_tol=0.05, what=name)
+
+
 # ---- stage marks (brush_tpu_torch.utils.profiler) ---------------------
 
 TRAIN_STAGES = [

@@ -140,14 +140,19 @@ def test_render_refuses_gradients_and_cells():
         assert p.grad.abs().max() > 0
 
 
-def test_render_backend_arguments():
-    """The reference's backend, scan_passes and bwd_tiles_per_step are
-    accepted and select nothing: on CPU tensors "pallas", "auto" and "xla"
-    run the same kernel wrappers (here their plain versions) and give the
-    same bits, with gradients too; scan_passes and bwd_tiles_per_step
-    change nothing; "xla" is refused on a CUDA tensor (the check comes
-    before any work, so a tensor that reports itself on CUDA shows it
-    here); an unknown backend raises."""
+def test_render_backend_arguments(monkeypatch):
+    """backend selects the path, on CPU and CUDA tensors alike. "pallas"
+    and "auto" run the record pipeline through the kernel wrappers (here
+    their plain versions) and give the same bits, with gradients too;
+    scan_passes and bwd_tiles_per_step change nothing. "xla" runs the XLA
+    backend (exact binning and the tiled rasterizer): float32 colours and
+    opacities where the pipeline's are u16, so its image is within the
+    quantization bound of the pipeline's but not equal to it. Neither path
+    falls back to the other: each gives the same bits with the other's
+    entry point made to raise. An unknown backend raises."""
+    import brush_tpu_torch.render as render_mod
+    from brush_tpu_torch.ops import rasterize_tiled
+
     ts, cp = _scene()
     args = (ts.means, ts.log_scales, ts.quats, ts.sh_coeffs, ts.raw_opacity,
             cp, (32, 32))
@@ -158,20 +163,29 @@ def test_render_backend_arguments():
         (img ** 2).sum().backward()
         return [img.detach()] + [p.grad for p in params]
 
+    def raises(*a, **kw):
+        raise AssertionError("the other backend's path ran")
+
     want = grads()
     for kw in (dict(backend="pallas"), dict(backend="auto", scan_passes=3),
-               dict(backend="xla", bwd_tiles_per_step=4)):
+               dict(backend="pallas", bwd_tiles_per_step=4)):
         for a, b in zip(grads(**kw), want):
             assert torch.equal(a, b), kw
+    xla = grads(backend="xla")
+    assert not torch.equal(xla[0], want[0])
+    assert_close_quantized(xla[0].numpy(), want[0].numpy(),
+                           err_msg="xla against the record pipeline")
+    with monkeypatch.context() as m:
+        m.setattr(render_mod.RecordPipeline, "apply", raises)
+        m.setattr(render_mod, "infer_pipeline", raises)
+        for a, b in zip(grads(backend="xla", bwd_tiles_per_step=4), xla):
+            assert torch.equal(a, b)
+    with monkeypatch.context() as m:
+        m.setattr(rasterize_tiled, "make_rasterizer", raises)
+        for a, b in zip(grads(backend="auto"), want):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="backend"):
         render_splats(*args, backend="mosaic")
-
-    class OnCard(torch.Tensor):
-        is_cuda = True
-
-    with pytest.raises(ValueError, match="CPU tensors only"):
-        render_splats(ts.means.as_subclass(OnCard), *args[1:],
-                      backend="xla")
 
 
 def test_render_empty_and_behind_camera_is_finite():

@@ -6,8 +6,8 @@ rank, one thread each, a file store under tmp_path so that parallel
 workers never race for a port), which import neither JAX nor brush_tpu
 and write npz files that this process compares. The reference's sharded
 step runs here on four of the conftest's virtual CPU devices with
-backend="pallas_interpret", on the scenes of tests/test_sharded.py, each
-computed once for the module.
+backend="pallas_interpret" (and "xla" for the port's XLA path), on the
+scenes of tests/test_sharded.py, each computed once for the module.
 """
 
 import contextlib
@@ -53,6 +53,11 @@ SCENES = {
                    (1, 1)),
     "cells": (4, ([-2] * 3, [2] * 3), 64, 1, (80, 48), (2, 2)),
 }
+# The compared steps: every scene on the strip pipeline (brush_tpu's
+# "pallas_interpret"), and the "uneven" scene on the XLA path (replicated
+# binning, the tiled rasterizer; brush_tpu's "xla").
+CASES = {**{n: (n, "pallas") for n in SCENES}, "uneven_xla": ("uneven",
+                                                              "xla")}
 # The step index of the compared step: past the warm-up, so that the
 # screen-space gradient norms accumulate (at index 0 they are gated off),
 # and no refine boundary (index 1 is one), which would zero them.
@@ -61,7 +66,7 @@ WORLD = 4
 # Bounds against the reference's sharded step: those of
 # tests/test_sharded.py:137-146 (uneven, imbalanced) and :278-290 (cells).
 TOLS = {"uneven": (1e-5, 1e-4, 5e-4), "imbalanced": (1e-5, 1e-4, 5e-4),
-        "cells": (1e-4, 5e-4, 1e-3)}
+        "cells": (1e-4, 5e-4, 1e-3), "uneven_xla": (1e-5, 1e-4, 5e-4)}
 
 
 def write_scene(path, seed, bounds, count, degree, size):
@@ -107,19 +112,22 @@ def rows(parts, key):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """The reference's sharded step on 4 devices for each scene, and the
+    """The reference's sharded step on 4 devices for each case, and the
     scenes' input files."""
     tmp = tmp_path_factory.mktemp("scenes")
     mesh = j_make_mesh(jax.devices()[:WORLD])
     cfg = JTrainConfig(warmup_steps=0)
     out = {}
-    for name, (seed, bounds, count, degree, size, cell) in SCENES.items():
-        path = str(tmp / f"{name}.npz")
+    for name, (scene, backend) in CASES.items():
+        seed, bounds, count, degree, size, cell = SCENES[scene]
+        path = str(tmp / f"{scene}.npz")
         js, gt = write_scene(path, seed, bounds, count, degree, size)
         cp = j_cp(JCamera(**CAM, fov_x=FOV, fov_y=FOV), size)
         step = j_sharded_step(mesh, cfg, js.capacity, size, 3,
                               js.sh_coeffs.shape[1], block_size=128,
-                              backend="pallas_interpret", cell=cell)
+                              backend="pallas_interpret"
+                              if backend == "pallas" else backend,
+                              cell=cell)
         state = j_shard_state(JSplatTrainer(cfg).init_state(js), mesh)
         state, stats = step(state, jnp.asarray(gt), cp.viewmat, cp.focal,
                             cp.pixel_center,
@@ -137,10 +145,11 @@ def reference(tmp_path_factory):
 
 
 def step_job(name, inputs, single=False):
-    _, _, _, _, size, cell = SCENES[name]
+    scene, backend = CASES[name]
+    _, _, _, _, size, cell = SCENES[scene]
     return dict(kind="step", name=name, inputs=inputs, img_size=list(size),
                 cell=list(cell), block_size=128, single=single,
-                step=STEP, config=dict(warmup_steps=0))
+                backend=backend, step=STEP, config=dict(warmup_steps=0))
 
 
 @pytest.fixture(scope="module")
@@ -148,15 +157,16 @@ def port_world4(reference, tmp_path_factory):
     """The port's sharded step on 4 gloo ranks for each scene."""
     tmp = tmp_path_factory.mktemp("world4")
     got, _ = run_ranks(tmp, WORLD, [step_job(n, reference[n]["inputs"])
-                                    for n in SCENES])
+                                    for n in CASES])
     return got
 
 
-@pytest.mark.parametrize("name", list(SCENES))
+@pytest.mark.parametrize("name", list(CASES))
 def test_sharded_step_matches_reference(name, reference, port_world4):
     """Four ranks against the reference's four devices: loss, the stats
-    (summed over ranks, and the largest strip), the parameters after Adam
-    and the screen-space gradient accumulation. Adam's step does not see
+    (summed over ranks, and the largest strip; on the XLA path the
+    frame's), the parameters after Adam and the screen-space gradient
+    accumulation. Adam's step does not see
     a gradient's scale; the accumulation does. The reference's sharded
     gradients are WORLD times the single-device ones (its image gather's
     transpose sums the ranks' cotangents of one replicated loss; ROADMAP
@@ -403,24 +413,55 @@ def test_train2d_shard_runs_at_world1(tmp_path, capsys):
 
 
 def test_sharded_step_checks_its_arguments():
-    """The capacity must split over the ranks; the backend is render's
-    (checked, selecting nothing), and "xla" is refused on the card."""
+    """The capacity must split over the ranks; the backend is render's:
+    "pallas" and "auto" the strip pipeline, bit-equal, and "xla" the
+    replicated binning and tiled rasterizer (the CUDA refusal is gone), at
+    world size 1 the XLA render's records and a loss within the u16
+    quantization of the pipeline's; an unknown backend raises."""
+    from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.config import TrainConfig
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.parallel import make_sharded_train_step
     from brush_tpu_torch.parallel.sharding import Mesh
+    from brush_tpu_torch.render import render_splats
+    from brush_tpu_torch.splats import from_random
+    from brush_tpu_torch.train import SplatTrainer
 
-    cpu, two = Mesh(1, 0, torch.device("cpu")), Mesh(2, 0,
-                                                     torch.device("cpu"))
-    args = (TrainConfig(), 256, (32, 32), 3, 4)
-    for backend in ("auto", "pallas", "xla"):
-        make_sharded_train_step(cpu, *args, backend=backend)
+    two = Mesh(2, 0, torch.device("cpu"))
+    cfg = TrainConfig(warmup_steps=0)
     with pytest.raises(ValueError, match="backend"):
-        make_sharded_train_step(cpu, *args, backend="pallas_interpret")
-    with pytest.raises(ValueError, match="xla"):
-        make_sharded_train_step(Mesh(1, 0, torch.device("cuda")), *args,
-                                backend="xla")
+        make_sharded_train_step(two, cfg, 256, (32, 32), 3, 4,
+                                backend="pallas_interpret")
     with pytest.raises(ValueError, match="divisible"):
-        make_sharded_train_step(two, TrainConfig(), 255, (32, 32), 3, 4)
+        make_sharded_train_step(two, cfg, 255, (32, 32), 3, 4)
+
+    sp = from_random(np.random.default_rng(3), [-2] * 3, [2] * 3, count=48,
+                     sh_degree=1, capacity=64, device="cpu")
+    cam = Camera(**CAM, fov_x=FOV, fov_y=FOV)
+    cp = camera_params(cam, (48, 32), device="cpu")
+    gt = torch.tensor(np.random.default_rng(4).uniform(
+        0, 1, (32, 48, 3)).astype(np.float32))
+    stats = {}
+    with multihost.process_group("cpu"):
+        mesh = make_mesh("cpu")
+        for backend in ("auto", "pallas", "xla"):
+            step = make_sharded_train_step(mesh, cfg, 64, (48, 32), 3, 4,
+                                           backend=backend)
+            _, stats[backend] = step(SplatTrainer(cfg).init_state(sp), gt,
+                                     cp.viewmat, cp.focal, cp.pixel_center,
+                                     1e-4, 2)
+    _, aux = render_splats(sp.means, sp.log_scales, sp.quats, sp.sh_coeffs,
+                           sp.raw_opacity, cp, (48, 32),
+                           active=sp.active_mask(), backend="xla",
+                           needs_grad=False)
+    for f in stats["xla"]._fields:
+        assert torch.equal(getattr(stats["auto"], f),
+                           getattr(stats["pallas"], f)), f
+    x = stats["xla"]
+    for f in ("num_visible", "num_isects", "num_dropped"):
+        assert int(getattr(x, f)) == int(getattr(aux, f)), f
+    assert int(x.max_strip_isects) == int(aux.num_isects) > 0
+    assert abs(float(x.loss) - float(stats["pallas"].loss)) < 1e-4
 
 
 def test_make_mesh_checks_its_group():

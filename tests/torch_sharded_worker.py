@@ -6,9 +6,10 @@ gloo process that imports neither JAX nor brush_tpu.
 SPEC.json: {"store": file-store path, "world": ranks, "out": directory,
 "jobs": [...]}; each job writes <out>/<name>_rank<RANK>.npz (or, for
 "cli", what the CLI writes). Jobs:
-  step        one make_sharded_train_step at step index `step` on a scene
-              (inputs npz: the splat leaves, n_live, gt, camera); with
-              "single" also SplatTrainer's step there, in this process;
+  step        one make_sharded_train_step (`backend`) at step index
+              `step` on a scene (inputs npz: the splat leaves, n_live, gt,
+              camera); with "single" also SplatTrainer's step there, in
+              this process;
   trainer     ShardedTrainer for `steps` steps; rank 0 also SplatTrainer;
   collectives GatherColumns and GatherStrips, forward and backward;
   multihost   process_view_slice and is_coordinator;
@@ -72,8 +73,8 @@ def run_step(job, mesh):
     pool = single._pool_size(splats.capacity) if job["single"] else None
     step = make_sharded_train_step(
         mesh, cfg, splats.capacity, size, gt.shape[2], splats.sh_count,
-        max_isects=pool, block_size=job["block_size"], backend="pallas",
-        cell=tuple(job["cell"]))
+        max_isects=pool, block_size=job["block_size"],
+        backend=job["backend"], cell=tuple(job["cell"]))
     state = shard_state(SplatTrainer(cfg).init_state(splats), mesh)
     state, stats = step(state, torch.tensor(gt), cp.viewmat, cp.focal,
                         cp.pixel_center, cfg.lr_mean_at(job["step"]),
