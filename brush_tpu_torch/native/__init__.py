@@ -1,17 +1,19 @@
 """Native (C++) host code, loaded with ctypes (port of brush_tpu/native/).
 
-Two pieces: a single-pass COLMAP points3D.bin parser (colmap.cpp, the
-port's own copy of the reference's source), where per-record
-`struct.unpack` is too slow for a point cloud of millions; and the PNG
-row unfilter (png.cpp), whose Average and Paeth rows are sequential along
-a row. The reference's other native piece, the KD-tree k-NN of knn.cpp,
-has its counterpart on the card: `splats.knn_mean_distance`.
+Three pieces: the KD-tree k-NN of the initial splat scales (knn.cpp)
+and a single-pass COLMAP points3D.bin parser (colmap.cpp), the port's own
+copies of the reference's sources, where the brute force is O(n^2) and
+per-record `struct.unpack` is too slow for a point cloud of millions; and
+the PNG row unfilter (png.cpp), whose Average and Paeth rows are
+sequential along a row.
 
 The library is built with g++ at first use into native/build/ (listed in
 .gitignore) under a name that carries a hash of the sources, so an edited
-source rebuilds. Where no compiler is found, `available()` is False and
-the callers run in Python and numpy (`datasets.colmap.read_points3d`,
-`datasets.png`).
+source rebuilds; with OpenMP where the toolchain has it (the k-NN queries
+run in parallel), as the reference builds it. Where no compiler is found,
+`available()` is False and each caller takes its other route: the
+brute-force k-NN on the points' device (`splats.knn_route`), Python and
+numpy (`datasets.colmap.read_points3d`, `datasets.png`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = [os.path.join(_DIR, name) for name in ("colmap.cpp", "png.cpp")]
+_SOURCES = [os.path.join(_DIR, name)
+            for name in ("knn.cpp", "colmap.cpp", "png.cpp")]
 BUILD_DIR = os.path.join(_DIR, "build")
 
 _lock = threading.Lock()
@@ -43,9 +46,10 @@ def _lib_path() -> str:
 
 
 def _build(path: str) -> bool:
-    """g++ the sources into `path`; False when there is no compiler or the
-    build fails. -march=native is safe: the library is never shipped, it
-    is built on the machine that loads it."""
+    """g++ the sources into `path`, with -fopenmp and, where the toolchain
+    has no OpenMP, without; False when there is no compiler or the build
+    fails. -march=native is safe: the library is never shipped, it is
+    built on the machine that loads it."""
     gxx = shutil.which("g++")
     if gxx is None:
         return False
@@ -53,12 +57,15 @@ def _build(path: str) -> bool:
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [gxx, "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            "-o", tmp, *_SOURCES]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (OSError, subprocess.SubprocessError):
-        return False
-    os.replace(tmp, path)
-    return True
+    for flags in (["-fopenmp"], []):
+        try:
+            subprocess.run(cmd + flags, check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            continue
+        os.replace(tmp, path)
+        return True
+    return False
 
 
 def _load():
@@ -71,6 +78,11 @@ def _load():
             _build_failed = True
             return None
         lib = ctypes.CDLL(path)
+        lib.knn_mean_distance.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.knn_mean_distance.restype = None
         lib.colmap_points3d_count.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
         ]
@@ -91,6 +103,29 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def knn_distances(positions: np.ndarray, k: int = 3) -> np.ndarray:
+    """sqrt(sum of the k smallest squared distances) / k of each point of
+    positions (n, 3), the point itself among its k (reference:
+    gaussian_splats.rs:108-120), float32 (n,). With fewer than k points
+    the missing neighbours count 0 and the sum is still divided by k, as
+    in brush_tpu.native.knn_distances; k above 16 counts as 16."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    pts = np.ascontiguousarray(positions, dtype=np.float32)
+    if pts.ndim != 2 or pts.shape[1] != 3:
+        raise ValueError(f"positions must be (n, 3), got {pts.shape}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    n = pts.shape[0]
+    out = np.empty(n, dtype=np.float32)
+    lib.knn_mean_distance(
+        pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(n), ctypes.c_int(k),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
 
 
 def read_points3d_bin(data: bytes):

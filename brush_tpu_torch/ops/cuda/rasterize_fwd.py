@@ -17,7 +17,8 @@ The packed pool is (8, pool) int32 holding u32 bit patterns:
   rows 0-4: x, y, cxx, cxy, cyy as bitcast float32;
   row  5:   colour r | g << 16 as u16 fixed point (quantize_color);
   row  6:   colour b | opacity << 16 (quantize_opac);
-  row  7:   compact splat id (read only by the backward; zero in inference).
+  row  7:   splat id, read only by the backward: the record pipeline's
+            compact id, pack_isect_splats' global id.
 Colour quantizes over [COLOR_LO, COLOR_HI] (step ~1.2e-4) and opacity over
 [0, 1] (step 1.5e-5). torch.round, like jnp.round, rounds half to even.
 """
@@ -85,6 +86,40 @@ def pack_record_rows(xy0, xy1, cxx, cxy, cyy, qr, qg, qb, qo, splat_id):
     bc = lambda v: v.contiguous().view(torch.int32)
     return [bc(xy0), bc(xy1), bc(cxx), bc(cxy), bc(cyy),
             pack_colop(qr, qg), pack_colop(qb, qo), splat_id.to(torch.int32)]
+
+
+def pack_isect_splats(xy, conic, color, opac, isect_gid, max_isects: int,
+                      k_lanes: int = 512) -> torch.Tensor:
+    """Per-splat attributes gathered into the record order of
+    ops/binning.build_intersections, packed: the (PACK_ROWS, max_isects +
+    k_lanes) int32 pool of brush_tpu/ops/pallas/rasterize_fwd.py
+    (pack_isect_splats, :110-131), bit for bit. xy (n, 2), conic (n, 3),
+    color (n, 3), opac (n,) float32; isect_gid (max_isects,) ids in [0, n]
+    of any integer dtype; row 7 holds the global id.
+
+    A padding slot carries id n. JAX's gather clamps it, so the slot holds
+    splat n - 1's record; torch's raises on an index past the end, so the
+    ids are clamped here as JAX does (with n = 0 the slots stay zero, where
+    JAX's gather refuses). The k_lanes zero columns are the TPU kernel's
+    slack for a batch window near the pool's end; no range reaches them.
+    """
+    if tuple(isect_gid.shape) != (max_isects,):
+        raise ValueError(f"isect_gid must be ({max_isects},), got "
+                         f"{tuple(isect_gid.shape)}")
+    n = xy.shape[0]
+    dev = xy.device
+    packed = torch.zeros((PACK_ROWS, max_isects + k_lanes),
+                         dtype=torch.int32, device=dev)
+    if n == 0:
+        return packed
+    rows = torch.stack(pack_record_rows(
+        xy[:, 0], xy[:, 1], conic[:, 0], conic[:, 1], conic[:, 2],
+        quantize_color(color[:, 0]), quantize_color(color[:, 1]),
+        quantize_color(color[:, 2]), quantize_opac(opac),
+        torch.arange(n, dtype=torch.int32, device=dev)), dim=1)  # (n, 8)
+    gid = isect_gid.to(device=dev, dtype=torch.int64).clamp(max=n - 1)
+    packed[:, :max_isects] = rows[gid].T
+    return packed
 
 
 def unpack_record_rows(blk: torch.Tensor):

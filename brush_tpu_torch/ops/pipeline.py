@@ -52,6 +52,12 @@ differentiable version; its backward
   4. the per-splat rows return to global order through `order`.
 Gradients are taken at the quantized colour and opacity and passed
 straight through to the unquantized inputs, as in the reference.
+
+`make_pallas_rasterizer` (raster_vjp.py:453-512) is the other way to feed
+the two rasterizers: the records of ops/binning.build_intersections(
+align=k_lanes) in place of expand's, packed by pack_isect_splats, and a
+backward that is one row scatter-add over the records' global ids in place
+of the re-sort and segment_sum.
 """
 
 from __future__ import annotations
@@ -64,8 +70,8 @@ from brush_tpu_torch.ops.binning import popcount_u32
 from brush_tpu_torch.ops.cuda.expand import expand
 from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
 from brush_tpu_torch.ops.cuda.rasterize_fwd import (
-    PACK_ROWS, pack_colop, quantize_color, quantize_opac, rasterize_fwd,
-    to_i32_bits,
+    PACK_ROWS, pack_colop, pack_isect_splats, quantize_color, quantize_opac,
+    rasterize_fwd, to_i32_bits,
 )
 from brush_tpu_torch.ops.cuda.segsum import segment_sum
 from brush_tpu_torch.utils.profiler import mark
@@ -269,3 +275,91 @@ class RecordPipeline(torch.autograd.Function):
         acc[:, order] = per_splat
         mark("to_global")
         return acc, None, None, None, None, None, None, None, None, None
+
+
+def strip_base(tile_ids: torch.Tensor, num_tiles: int) -> int:
+    """tile_base of `tile_ids` (num_tiles,), which must be the contiguous
+    run of tiles from tile_ids[0] (the only form the JAX package passes);
+    raises otherwise. Reads tile_ids to the host."""
+    if tuple(tile_ids.shape) != (num_tiles,):
+        raise ValueError(f"tile_ids must be ({num_tiles},), got "
+                         f"{tuple(tile_ids.shape)}")
+    ids = tile_ids.to("cpu", torch.int64)
+    base = int(ids[0]) if num_tiles else 0
+    if base < 0 or not torch.equal(ids, torch.arange(base, base + num_tiles)):
+        raise ValueError("tile_ids must be a contiguous run of tiles "
+                         "from tile_ids[0]")
+    return base
+
+
+class AlignedRaster(torch.autograd.Function):
+    """make_pallas_rasterizer's autograd Function; gradients reach xy,
+    conic, color and opac only."""
+
+    @staticmethod
+    def forward(ctx, xy, conic, color, opac, isect_gid, starts, ends,
+                tiles_x, tile_base, max_isects, k_lanes):
+        packed = pack_isect_splats(xy, conic, color, opac, isect_gid,
+                                   max_isects, k_lanes)
+        starts, ends = (t.to(torch.int32).contiguous() for t in (starts,
+                                                                 ends))
+        img, log_t, fidx = rasterize_fwd(packed, starts, ends, tiles_x,
+                                         (1, 1), tile_base)
+        ctx.save_for_backward(packed, isect_gid, starts, ends, log_t, fidx)
+        ctx.tiles_x, ctx.tile_base, ctx.n = tiles_x, tile_base, xy.shape[0]
+        return img
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, isect_gid, starts, ends, log_t, fidx = ctx.saved_tensors
+        grads = rasterize_bwd(packed, starts, ends, ctx.tiles_x,
+                              g.contiguous(), log_t, fidx, (1, 1),
+                              ctx.tile_base)
+        # Padding slots carry id n and the slack lanes take n too: their
+        # rows land in the scratch row n, sliced off. One fused row
+        # scatter-add (raster_vjp.py:497-506).
+        n = ctx.n
+        gid = torch.full((packed.shape[1],), n, dtype=torch.int64,
+                         device=grads.device)
+        gid[:isect_gid.shape[0]] = isect_gid
+        acc = torch.zeros((n + 1, 9), dtype=torch.float32,
+                          device=grads.device)
+        acc.index_add_(0, gid, grads.T)
+        acc = acc[:n]
+        return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8],
+                None, None, None, None, None, None, None)
+
+
+def make_pallas_rasterizer(tiles_x: int, num_tiles: int, max_isects: int,
+                           k_lanes: int):
+    """The rasterizer on aligned records (brush_tpu/ops/pallas/
+    raster_vjp.py:453-512), the call signature of ops/rasterize_tiled.
+    make_rasterizer: raster(xy, conic, color, opac, isect_gid, starts, ends,
+    tile_ids) -> (num_tiles, TILE_SIZE, 4), with the per-compact-splat
+    attributes and the records of build_intersections(align=k_lanes).
+
+    Runs the CUDA kernels (rasterize_fwd, then rasterize_bwd in the
+    backward) on CUDA tensors and their plain versions on CPU tensors; a
+    failed build or launch raises. The forward packs the pool with
+    pack_isect_splats (max_isects + k_lanes slots); the backward sums the
+    per-record gradient rows per splat with one index_add_, which on CUDA
+    tensors adds with atomics, so repeats may differ in the last bits (the
+    kernels' own outputs repeat bit for bit). Gradients are taken at the
+    quantized colour and opacity and passed straight through.
+
+    The kernels take a strip's first tile, not a list: tile_ids must be the
+    contiguous run from tile_ids[0] (strip_base raises otherwise), which
+    costs one read to the host a call. Only tests and chip_smoke.py call
+    this; the training step runs the record pipeline.
+    """
+
+    def raster(xy, conic, color, opac, isect_gid, starts, ends, tile_ids):
+        tile_base = strip_base(tile_ids, num_tiles)
+        if tuple(starts.shape) != (num_tiles,):
+            raise ValueError(f"starts must be ({num_tiles},), got "
+                             f"{tuple(starts.shape)}")
+        return AlignedRaster.apply(xy, conic, color, opac, isect_gid, starts,
+                                   ends, tiles_x, tile_base, max_isects,
+                                   k_lanes)
+
+    return raster

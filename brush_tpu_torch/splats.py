@@ -10,10 +10,12 @@ PyTorch runs eagerly, so nothing needs it as a device scalar.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from brush_tpu_torch import native
 from brush_tpu_torch.constants import SH_C0, sh_coeffs_for_degree
 from brush_tpu_torch.device import resolve_device
 
@@ -176,15 +178,37 @@ def knn_mean_distance(points: torch.Tensor, k: int = 3) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def knn_route() -> str:
+    """Who computes the initial scales' k-NN, chosen once a process by
+    what builds: "native" (native.knn_distances, the KD-tree, O(n log n))
+    where g++ builds the native library, else "device"
+    (knn_mean_distance, the brute force on the points' device, O(n^2)).
+    Both are exact and agree to float32 rounding."""
+    return "native" if native.available() else "device"
+
+
+def knn_extents(positions: np.ndarray, device, k: int = 3) -> torch.Tensor:
+    """The k-NN extents (knn_mean_distance's function, k clamped to
+    [1, n]) of float32 points (n, 3) on `device`, by knn_route()."""
+    k = max(1, min(k, positions.shape[0]))
+    if knn_route() == "native":
+        return torch.as_tensor(native.knn_distances(positions, k),
+                               device=device)
+    return knn_mean_distance(torch.as_tensor(positions, device=device), k)
+
+
 def from_point_cloud(positions, colors, sh_degree: int,
                      capacity: int | None = None, device="cuda") -> Splats:
     """Init from a point cloud (reference: gaussian_splats.rs:71-136).
 
     DC SH = (rgb - 0.5) / SH_C0, higher orders zero; rotation identity;
-    opacity sigmoid^-1(0.1); isotropic log-scale from 3-NN mean distance.
+    opacity sigmoid^-1(0.1); isotropic log-scale from 3-NN mean distance
+    (knn_extents).
     """
     dev = resolve_device(device)
-    pos = torch.as_tensor(np.asarray(positions, np.float32), device=dev)
+    positions = np.asarray(positions, np.float32)
+    pos = torch.as_tensor(positions, device=dev)
     n = pos.shape[0]
     sh = torch.zeros((n, sh_coeffs_for_degree(sh_degree), 3),
                      dtype=torch.float32, device=dev)
@@ -194,7 +218,7 @@ def from_point_cloud(positions, colors, sh_degree: int,
     quats[:, 0] = 1.0
     raw_opac = torch.full((n,), inverse_sigmoid(0.1), dtype=torch.float32,
                           device=dev)
-    extents = knn_mean_distance(pos, 3)
+    extents = knn_extents(positions, dev, 3)
     log_scales = torch.log(torch.clamp(extents, min=1e-7))[:, None]
     return from_dense(pos, sh, quats, raw_opac, log_scales.repeat(1, 3),
                       capacity, device=dev)

@@ -116,15 +116,24 @@ result line; each phase prints its seconds):
      paths' times and peak memory; ShardedTrainer(backend="xla") at world
      size 1 over NCCL on the castle's views, its first loss within 1e-3
      relative of the pipeline trainer's;
- 11. print {"kernels": [...]}: launches from the "cli" train run, the other
+ 11. "aligned", the rasterizers on build_intersections(align=128)'s
+     records through make_pallas_rasterizer (aligned_phase): the castle
+     on view 0 with gradients held to the XLA rasterizer on the same
+     records (image by close_image, gradients by the castle rule), one
+     rasterize_fwd and one rasterize_bwd launch and nothing else, both
+     kernels against their plain versions on these records; the bench
+     render's aligned records equal to the pipeline's tile by tile, its
+     image held to phase 3's, rasterize_fwd timed on both pools in turns;
+     the k-NN of the initial scales on the bench's 1M points, and its
+     native and card routes at 262,144 points within 1e-6;
+ 12. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
-     "cell" those of the training at CELL and under "strip" the strip
-     phase's per strip (launches: the sharded training's), and for expand
-     and rasterize_fwd under "viewer" the viewer's frames' launches; the
-     nvidia-smi
-     line; and last
-     {"ok": true, "device": {...}}.
+     "cell" those of the training at CELL, under "strip" the strip
+     phase's per strip (launches: the sharded training's) and under
+     "aligned" the aligned phase's, and for expand and rasterize_fwd
+     under "viewer" the viewer's frames' launches; the nvidia-smi line;
+     and last {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
 
@@ -198,6 +207,11 @@ PAGE_SIZE = (512, 384)   # page.html's default frame
 XLA_BLOCK = 32         # render_splats' default block_size: rounds of 32
 XLA_TIMED = 3          # CUDA-event-timed bench renders of each path
 XLA_SHARD_STEPS = 6    # ShardedTrainer(backend="xla") steps on the castle
+# The "aligned" phase: build_intersections' records aligned to this many
+# lanes (brush_tpu's kernel tests' k_lanes) through make_pallas_rasterizer;
+# the k-NN's two routes compared at this many points.
+ALIGN_LANES = 128
+KNN_BOTH_N = 262144
 CASTLE_NAMES = ("means", "log_scales", "quats", "sh_coeffs", "raw_opacity")
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -236,18 +250,24 @@ _scenes: dict = {}
 
 def make_scene(cfg, device):
     """A scene's splats (seed 0), camera parameters and size. The splats
-    of a scene are drawn once (from_random's 3-NN scales of the bench
-    scene's 1M points take about 30 s on the card) and kept on the host;
-    each call gets its own copy on the device."""
+    of a scene are drawn once, timed (from_random: the draw, the 3-NN
+    scales by splats.knn_route()'s route, the upload), and kept on the
+    host; each call gets its own copy on the device."""
+    import torch
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.ops.rasterize_reference import camera_params
-    from brush_tpu_torch.splats import from_random
+    from brush_tpu_torch.splats import from_random, knn_route
 
     key = (cfg["n"], cfg["lo"], cfg["hi"])
     if key not in _scenes:
+        t0 = time.perf_counter()
         drawn = from_random(
             np.random.default_rng(0), [cfg["lo"]] * 3, [cfg["hi"]] * 3,
             count=cfg["n"], sh_degree=1, capacity=cfg["n"], device=device)
+        torch.cuda.synchronize()
+        print(f"[scene] from_random of {cfg['n']} splats on the card: "
+              f"{time.perf_counter() - t0:.3f} s (k-NN route "
+              f"{knn_route()})")
         _scenes[key] = drawn.replace(
             **{k: v.cpu() for k, v in drawn.params().items()})
     base = _scenes[key]
@@ -538,23 +558,21 @@ def kernel_phase(cfg, label, backward: bool):
     return splats, cp, size, k
 
 
-def bounds(k, fwd, bwd):
-    """Least times (ms) for this run's inputs, with what bounds each:
-    expand, rasterize_fwd, rasterize_bwd, segment_sum. fwd and bwd are
-    check_raster's and check_bwd's results, whose plain versions counted
-    the pairs each sweep evaluates and those that need alpha."""
-    f5, u5, cum, total = k["exp_args"][:4]
-    pool = k["exp_args"][6]
-    n = f5.shape[1]
-    live = int(total[0])
-    n_cells = k["r_args"][1].shape[0]
-    cell = k["r_args"][4]
+def _bound(nbytes, nops):
+    """(least ms, "bytes" or "operations"): the larger of nbytes over the
+    memory rate and nops over the float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / F32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
+
+
+def raster_bounds(live: int, n_cells: int, cell, pool: int, fwd, bwd):
+    """The rasterizers' least times (ms) and what bounds each, over `live`
+    records in n_cells cells of `cell` and a pool of `pool` slots. fwd and
+    bwd are check_raster's and check_bwd's results, whose plain versions
+    counted the pairs each sweep evaluates and those that need alpha."""
     px = 256 * cell[0] * cell[1]   # a cell's pixels
-    ms = lambda b: b / HBM_BYTES_PER_S * 1e3
-    ops = lambda o: o / F32_OPS_PER_S * 1e3
-    pick = lambda b, o: (max(ms(b), ops(o)),
-                         "operations" if ops(o) >= ms(b) else "bytes")
-    exp_b = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
     fwd_b = 28 * live + 8 * n_cells + 24 * px * n_cells
     # bwd: records and cell ranges read, v_out + log T + final_idx read,
     # the (9, pool) gradient rows written once.
@@ -562,12 +580,25 @@ def bounds(k, fwd, bwd):
     fwd_o = PAIR_SIGMA_OPS * fwd["pairs"] + PAIR_ALPHA_OPS * fwd["active"]
     bwd_o = PAIR_SIGMA_OPS * bwd["swept"] + (
         PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"]
+    return {"rasterize_fwd": _bound(fwd_b, fwd_o),
+            "rasterize_bwd": _bound(bwd_b, bwd_o)}
+
+
+def bounds(k, fwd, bwd):
+    """Least times (ms) for this run's inputs, with what bounds each:
+    expand, rasterize_fwd, rasterize_bwd, segment_sum (raster_bounds for
+    the two rasterizers)."""
+    f5, u5, cum, total = k["exp_args"][:4]
+    pool = k["exp_args"][6]
+    n = f5.shape[1]
+    live = int(total[0])
+    exp_b = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
     # segsum: the live slots' nine rows, offsets and cum read; (9, n) out.
     seg_b = 36 * live + 8 * n + 4 + 36 * n
-    return {"expand": (ms(exp_b), "bytes"),
-            "rasterize_fwd": pick(fwd_b, fwd_o),
-            "rasterize_bwd": pick(bwd_b, bwd_o),
-            "segment_sum": pick(seg_b, 9 * live)}
+    return {"expand": _bound(exp_b, 0),
+            **raster_bounds(live, k["r_args"][1].shape[0], k["r_args"][4],
+                            pool, fwd, bwd),
+            "segment_sum": _bound(seg_b, 9 * live)}
 
 
 def forward_times(k, label):
@@ -2404,7 +2435,7 @@ def close_quantized(got, want, what: str, atol=2e-4, flip_tol=0.01,
     big, beyond = float(d.max()), int((d > atol).sum())
     limit = max(1, int(max_flip_frac * d.numel()))
     if big > flip_tol or beyond > limit:
-        raise AssertionError(f"[xla] {what}: largest difference {big:.3e} "
+        raise AssertionError(f"{what}: largest difference {big:.3e} "
                              f"(limit {flip_tol}), {beyond} values beyond "
                              f"{atol} (limit {limit})")
     return big, beyond
@@ -2429,12 +2460,36 @@ def close_image(got, want, what: str):
     n_cut = int(cut.sum())
     limit = max(1, int(1e-5 * d.numel()))
     if n_cut > limit or float(d.max()) > 0.05:
-        raise AssertionError(f"[xla] {what}: {n_cut} pixels beyond 0.01 at "
+        raise AssertionError(f"{what}: {n_cut} pixels beyond 0.01 at "
                              f"the transmittance cut (limit {limit}), "
                              f"largest difference {float(d.max()):.3e}")
     keep = ~cut
     big, beyond = close_quantized(got[keep], want[keep], what)
     return max(big, float(d.max())), beyond, n_cut
+
+
+def grad_errors(grads, refs, names, tag: str, gate: bool) -> dict:
+    """(largest scaled error, entries beyond 3e-4, entries) of each
+    gradient against the reference's (refs, the XLA path's), raising if
+    one is not finite or, with gate, beyond tests/test_torch_castle.py's
+    render-grad rule: within 3e-4 of the reference's largest |entry| but
+    for at most 2e-3 of the entries, each within 0.05."""
+    import torch
+
+    out = {}
+    for name, a, b in zip(names, grads, refs):
+        if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
+            raise AssertionError(f"{tag} grad {name} not finite")
+        scale = float(b.abs().max())
+        if scale <= 0:
+            raise AssertionError(f"{tag} grad {name} is zero")
+        d = (a - b).abs() / scale
+        if gate:
+            close_quantized(a / scale, b / scale, f"{tag} grad {name}",
+                            atol=3e-4, flip_tol=0.05)
+        out[name] = (round(float(d.max()), 6), int((d > 3e-4).sum()),
+                     d.numel())
+    return out
 
 
 def pinned_castle(splats, cp):
@@ -2558,28 +2613,11 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     if any(counts_x.values()) or min(counts_p.values()) < 1:
         raise AssertionError(f"[xla] castle launches: xla {counts_x}, "
                              f"pipeline {counts_p}")
-    img_err = close_image(img_p, img_x, "castle image")
+    img_err = close_image(img_p, img_x, "[xla] castle image")
 
-    def grad_errors(grads, gate: bool) -> dict:
-        """(largest scaled error, entries beyond 3e-4) of each gradient
-        against the XLA one's, raising beyond the rule if gate."""
-        out = {}
-        for name, a, b in zip(CASTLE_NAMES, grads, g_x):
-            if not bool(torch.isfinite(a).all() & torch.isfinite(b).all()):
-                raise AssertionError(f"[xla] castle grad {name} not finite")
-            scale = float(b.abs().max())
-            if scale <= 0:
-                raise AssertionError(f"[xla] castle grad {name} is zero")
-            d = (a - b).abs() / scale
-            if gate:
-                close_quantized(a / scale, b / scale, f"castle grad {name}",
-                                atol=3e-4, flip_tol=0.05)
-            out[name] = (round(float(d.max()), 6), int((d > 3e-4).sum()),
-                         d.numel())
-        return out
-
-    grad_err = grad_errors(g_p, gate=True)
-    bf16_err = grad_errors(got["pipeline bf16"][1], gate=False)
+    grad_err = grad_errors(g_p, g_x, CASTLE_NAMES, "[xla] castle", gate=True)
+    bf16_err = grad_errors(got["pipeline bf16"][1], g_x, CASTLE_NAMES,
+                           "[xla] castle", gate=False)
     print(f"[xla] castle view 0 {CASTLE_SIZE}x{CASTLE_SIZE} with gradients "
           f"({pinned} view colours pinned): records xla "
           f"{int(aux_x.num_isects)}, pipeline {int(aux_p.num_isects)}; "
@@ -2616,7 +2654,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
                              f"(dropped {int(aux_x.num_dropped)}) against "
                              f"the pipeline's {int(aux_p.num_isects)}")
     img_err = close_image(img_x, bench_img.to("cuda"),
-                          "bench image against phase 3's")
+                          "[xla] bench image against phase 3's")
     if not torch.equal(img_p.cpu(), bench_img):
         raise AssertionError("[xla] the pipeline's bench render is not "
                              "phase 3's")
@@ -2702,6 +2740,304 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     return res
 
 
+def aligned_pool(records: int, num_tiles: int) -> int:
+    """A pool that drops none of `records` aligned to ALIGN_LANES: each
+    tile's range pads to a multiple of ALIGN_LANES (at most ALIGN_LANES - 1
+    slots a tile), the sum rounded up to ALIGN_LANES."""
+    k = ALIGN_LANES
+    return -(-(records + num_tiles * (k - 1)) // k) * k
+
+
+def aligned_records(proj, opac, size):
+    """build_intersections(align=ALIGN_LANES) of a view in aligned_pool
+    of its records (the tile pretest's counts of its visible splats):
+    every record kept, every range starting on a multiple of
+    ALIGN_LANES. Returns (isect, pool, records, median CUDA-event ms of 3
+    aligned builds)."""
+    import torch
+    from brush_tpu_torch.ops.binning import (
+        build_intersections, precompute_tile_masks,
+    )
+
+    tiles = (-(-size[0] // 16), -(-size[1] // 16))
+    counts = precompute_tile_masks(proj, opac).counts
+    records = int(torch.where(proj.visible, counts, 0).sum())
+    pool = aligned_pool(records, tiles[0] * tiles[1])
+
+    def build():
+        return build_intersections(proj, opac, tiles, pool,
+                                   align=ALIGN_LANES)
+
+    isect = build()
+    ms = statistics.median(event_times(build, 3))
+    held = int((isect.ends - isect.starts).sum())
+    if int(isect.num_dropped) or held != records or bool(
+            (isect.starts % ALIGN_LANES).any()):
+        raise AssertionError(f"[aligned] the aligned layout holds {held} of "
+                             f"{records} records (dropped "
+                             f"{int(isect.num_dropped)}) or a range is not "
+                             f"aligned")
+    return isect, pool, records, ms
+
+
+def same_records(packed_a, starts_a, ends_a, packed_p, starts_p, ends_p):
+    """Do two pools hold the same records (rows 0-6, bit for bit) in each
+    tile, in the same order? Row 7 differs by design (global ids against
+    compact ones)."""
+    import torch
+
+    lens = (ends_a - starts_a).to(torch.int64)
+    if not torch.equal(lens, (ends_p - starts_p).to(torch.int64)):
+        return False
+    tiles = torch.arange(lens.shape[0], device=lens.device)
+    tile_of = torch.repeat_interleave(tiles, lens)
+    first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens)
+    within = torch.arange(tile_of.shape[0], device=lens.device) - first
+    pos_a = starts_a.to(torch.int64)[tile_of] + within
+    pos_p = starts_p.to(torch.int64)[tile_of] + within
+    return torch.equal(packed_a[:7, pos_a], packed_p[:7, pos_p])
+
+
+def view_inputs(splats, cp, size):
+    """A view's projection, opacity and the rasterizers' per-splat inputs
+    [xy, conic, colour, opacity] in global order, without gradients."""
+    import torch
+    from brush_tpu_torch.render import project_inputs
+
+    with torch.no_grad():
+        proj, color, opac, xy = project_inputs(
+            splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
+            splats.raw_opacity, cp, size, active=splats.active_mask())
+    return proj, opac, [xy, proj.conic, color, opac]
+
+
+def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
+                  smi: str) -> dict:
+    """Phase 11, "aligned": the two rasterizers on the records of
+    build_intersections(align=ALIGN_LANES), packed by pack_isect_splats
+    (padding slots, the pool's ALIGN_LANES slack lanes, global ids in row
+    7), through make_pallas_rasterizer; and the k-NN of the initial scales.
+    1. the castle on view 0 at 800x800 with gradients of a seeded tile
+       cotangent, its out-of-range view colours pinned (pinned_castle):
+       one rasterize_fwd and one rasterize_bwd launch, no expand or
+       segment_sum; the image within close_image of the XLA rasterizer's
+       (ops/rasterize_tiled.make_rasterizer) on the same records, the four
+       gradients within the "xla" phase's castle rule of its; both kernels
+       against their plain versions on these records (phase 2's
+       tolerances, repeats bit-equal); their times and bounds;
+    2. the bench scene (1M splats, 1024x1024) without gradients, in a pool
+       of aligned_pool(its records): its records those of the record
+       pipeline tile by tile (rows 0-6 bit for bit), its image within
+       close_image of phase 3's, one rasterize_fwd launch; rasterize_fwd's
+       time on the aligned pool beside the pipeline's, in turns, and
+       build_intersections' time;
+    3. the k-NN: native.knn_distances on the bench scene's 1M-point draw,
+       and both routes (the KD-tree, the brute force on the card) at
+       KNN_BOTH_N points, equal within 1e-6 relative.
+    Returns the numbers for the summary and the result line."""
+    import torch
+    from brush_tpu_torch import native
+    from brush_tpu_torch.datasets.ply import load_splats_from_ply
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import (
+        pack_isect_splats, rasterize_fwd,
+    )
+    from brush_tpu_torch.ops.pipeline import make_pallas_rasterizer
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.ops.rasterize_tiled import make_rasterizer
+    from brush_tpu_torch.render import assemble_image
+    from brush_tpu_torch.splats import knn_mean_distance, knn_route
+
+    t_phase = time.perf_counter()
+    res = {}
+    names = ("xy", "conic", "color", "opac")
+    one_each = {"expand": 0, "rasterize_fwd": 1, "rasterize_bwd": 1,
+                "segment_sum": 0}
+
+    # 1. The castle, view 0, with gradients.
+    t0 = time.perf_counter()
+    with open(CASTLE_PLY, "rb") as f:
+        castle = load_splats_from_ply(f.read(), device="cuda")
+    size = (CASTLE_SIZE, CASTLE_SIZE)
+    cp = camera_params(castle_cameras()[0], size, device="cuda")
+    castle, pinned = pinned_castle(castle, cp)
+    proj, opac, attrs = view_inputs(castle, cp, size)
+    isect, pool, records, bin_ms = aligned_records(proj, opac, size)
+    leaves = [t[isect.order] for t in attrs]
+    del castle, proj, opac, attrs
+    tiles_x = CASTLE_SIZE // 16
+    num_tiles = tiles_x * tiles_x
+    tile_ids = torch.arange(num_tiles, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cot = torch.randn((num_tiles, 256, 4), generator=gen, device="cuda")
+
+    def fwd_bwd(raster):
+        params = [t.clone().requires_grad_(True) for t in leaves]
+        img = raster(*params, isect.isect_gid, isect.starts, isect.ends,
+                     tile_ids)
+        (img * cot).sum().backward()
+        return img.detach(), [p.grad for p in params]
+
+    reset_launches()
+    img_a, g_a = fwd_bwd(make_pallas_rasterizer(tiles_x, num_tiles, pool,
+                                                ALIGN_LANES))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    reset_launches()
+    img_x, g_x = fwd_bwd(make_rasterizer(tiles_x, num_tiles, pool,
+                                         XLA_BLOCK))
+    torch.cuda.synchronize()
+    counts_x = read_launches()
+    if counts != one_each or any(counts_x.values()):
+        raise AssertionError(f"[aligned] castle launches {counts} (want "
+                             f"{one_each}), XLA rasterizer {counts_x}")
+    img_err = close_image(img_a, img_x, "[aligned] castle image")
+    grad_err = grad_errors(g_a, g_x, names, "[aligned] castle", gate=True)
+
+    # The kernels on these records against their plain versions.
+    packed = pack_isect_splats(*leaves, isect.isect_gid, pool, ALIGN_LANES)
+    starts, ends = (t.to(torch.int32) for t in (isect.starts, isect.ends))
+    r_args = (packed, starts, ends, tiles_x, (1, 1))
+    fwd = check_raster(r_args)
+    if not torch.equal(fwd["out"][0], img_a):
+        raise AssertionError("[aligned] make_pallas_rasterizer's image is "
+                             "not rasterize_fwd's on its pool")
+    b_args = (packed, starts, ends, tiles_x, cot, fwd["out"][1],
+              fwd["out"][2], (1, 1))
+    bwd = check_bwd(b_args, "aligned castle")
+    fwd_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
+    bwd_ms = cuda_ms(lambda: rasterize_bwd(*b_args), reps=20)
+    bound = raster_bounds(records, num_tiles, (1, 1), packed.shape[1], fwd,
+                          bwd)
+    castle_row = {
+        "rasterize_fwd": dict(ms=fwd_ms, plain_ms=fwd["plain_ms"],
+                              max_abs_err=fwd["err"], launches=1,
+                              bound_ms=bound["rasterize_fwd"][0],
+                              bound_by=bound["rasterize_fwd"][1]),
+        "rasterize_bwd": dict(ms=bwd_ms, plain_ms=bwd["plain_ms"],
+                              max_abs_err=bwd["abs"], launches=1,
+                              bound_ms=bound["rasterize_bwd"][0],
+                              bound_by=bound["rasterize_bwd"][1])}
+    print(f"[aligned] castle view 0 {CASTLE_SIZE}x{CASTLE_SIZE} with "
+          f"gradients ({pinned} view colours pinned): {records} records in "
+          f"a pool of {pool} + {ALIGN_LANES} (build_intersections "
+          f"{bin_ms:.3f} ms); launches {counts}; image against the XLA "
+          f"rasterizer's on the same records: largest {img_err[0]:.3e}, "
+          f"{img_err[1]} values beyond 2e-4 elsewhere, {img_err[2]} pixels "
+          f"beyond 0.01 at the transmittance cut; gradients against its "
+          f"(largest scaled error, entries beyond 3e-4, entries) "
+          f"{grad_err}; rasterize_fwd against plain: max err "
+          f"{fwd['err']:.3e}, {fwd['flips']} flipped pixels; rasterize_bwd "
+          f"row error {bwd['err']:.3e} (max abs {bwd['abs']:.3e}); repeats "
+          f"bit-equal; ms fwd {fwd_ms:.4f} (plain {fwd['plain_ms']:.1f}, "
+          f"bound {bound['rasterize_fwd'][0]:.4f} by "
+          f"{bound['rasterize_fwd'][1]}), bwd {bwd_ms:.4f} (plain "
+          f"{bwd['plain_ms']:.1f}, bound {bound['rasterize_bwd'][0]:.4f} by "
+          f"{bound['rasterize_bwd'][1]}); {smi}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del leaves, img_a, img_x, g_a, g_x, fwd, bwd, packed, r_args, b_args
+    torch.cuda.empty_cache()
+
+    # 2. The bench scene, no gradients.
+    t0 = time.perf_counter()
+    splats, bcp, bsize = make_scene(BENCH, "cuda")
+    proj, opac, attrs = view_inputs(splats, bcp, bsize)
+    isect, pool, b_records, b_bin_ms = aligned_records(proj, opac, bsize)
+    if b_records != bench_records:
+        raise AssertionError(f"[aligned] bench records {b_records}, the "
+                             f"pipeline's {bench_records}")
+    leaves = [t[isect.order] for t in attrs]
+    del proj, opac, attrs
+    tiles_x = bsize[0] // 16
+    num_tiles = tiles_x * (bsize[1] // 16)
+    raster = make_pallas_rasterizer(tiles_x, num_tiles, pool, ALIGN_LANES)
+    tile_ids = torch.arange(num_tiles, device="cuda")
+    reset_launches()
+    img_tiles = raster(*leaves, isect.isect_gid, isect.starts, isect.ends,
+                       tile_ids)
+    torch.cuda.synchronize()
+    b_counts = read_launches()
+    if b_counts != dict(one_each, rasterize_bwd=0):
+        raise AssertionError(f"[aligned] bench launches {b_counts}")
+    img = assemble_image(img_tiles, bsize, tiles_x, bsize[1] // 16)
+    want = bench_img.to("cuda")
+    b_img_err = close_image(img, want, "[aligned] bench image against "
+                            "phase 3's")
+    img_equal = torch.equal(img, want)
+    packed = pack_isect_splats(*leaves, isect.isect_gid, pool, ALIGN_LANES)
+    starts, ends = (t.to(torch.int32) for t in (isect.starts, isect.ends))
+    k = kernel_inputs(splats, bcp, bsize, BENCH["pool"])
+    if not same_records(packed, starts, ends, *k["r_args"][:3]):
+        raise AssertionError("[aligned] the bench's aligned records are not "
+                             "the record pipeline's")
+    r_a = (packed, starts, ends, tiles_x, (1, 1))
+    times = {"aligned": [], "pipeline": []}
+    for _ in range(3):      # in turns
+        times["aligned"].append(cuda_ms(lambda: rasterize_fwd(*r_a),
+                                        reps=10))
+        times["pipeline"].append(cuda_ms(
+            lambda: rasterize_fwd(*k["r_args"]), reps=10))
+    b_ms = {key: statistics.median(v) for key, v in times.items()}
+    # The same records in each tile: the pairs phase 3's plain version
+    # counted on the pipeline's pool are these records' pairs.
+    b_bound = raster_bounds(b_records, num_tiles, (1, 1), packed.shape[1],
+                            bench_fwd, dict(swept=0, active=0))
+    bench_row = dict(ms=b_ms["aligned"], pipeline_ms=b_ms["pipeline"],
+                     launches=1, bound_ms=b_bound["rasterize_fwd"][0],
+                     bound_by=b_bound["rasterize_fwd"][1],
+                     build_intersections_ms=b_bin_ms)
+    print(f"[aligned] bench {bsize[0]}x{bsize[1]}, {BENCH['n']} splats, no "
+          f"gradients: {b_records} records (the pipeline's, tile by tile, "
+          f"bit for bit) in a pool of {pool} + {ALIGN_LANES}, dropped "
+          f"{int(isect.num_dropped)}; launches {b_counts}; image against "
+          f"phase 3's: largest {b_img_err[0]:.3e}, bit-equal {img_equal}; "
+          f"rasterize_fwd median of 3 x 10 launches aligned "
+          f"{b_ms['aligned']:.4f} ms, pipeline {b_ms['pipeline']:.4f} ms "
+          f"(all {times}), bound {b_bound['rasterize_fwd'][0]:.4f} by "
+          f"{b_bound['rasterize_fwd'][1]}; build_intersections(align="
+          f"{ALIGN_LANES}) {b_bin_ms:.3f} ms; {smi}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del splats, leaves, img_tiles, img, packed, k, isect
+    torch.cuda.empty_cache()
+
+    # 3. The k-NN of the initial scales (from_random's first draw).
+    t0 = time.perf_counter()
+    if knn_route() != "native":
+        raise AssertionError("[aligned] no native k-NN: g++ did not build "
+                             "the native library")
+    pts = np.random.default_rng(0).uniform(
+        np.asarray([BENCH["lo"]] * 3, np.float32),
+        np.asarray([BENCH["hi"]] * 3, np.float32),
+        size=(BENCH["n"], 3)).astype(np.float32)
+    t1 = time.perf_counter()
+    native.knn_distances(pts, 3)
+    knn_1m = time.perf_counter() - t1
+    few = pts[:KNN_BOTH_N]
+    t1 = time.perf_counter()
+    kd = native.knn_distances(few, 3)
+    knn_kd = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    brute = knn_mean_distance(torch.from_numpy(few).cuda(), 3).cpu().numpy()
+    knn_brute = time.perf_counter() - t1
+    rel = float(np.max(np.abs(kd - brute) / np.abs(brute)))
+    print(f"[aligned] k-NN (k 3) host s: native KD-tree on the bench "
+          f"scene's {BENCH['n']} points {knn_1m:.3f}; at {KNN_BOTH_N} "
+          f"points KD-tree {knn_kd:.3f}, brute force on the card "
+          f"{knn_brute:.3f}, largest relative difference {rel:.3e}; {smi}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rel > 1e-6:
+        raise AssertionError(f"[aligned] k-NN routes differ by {rel:.3e}")
+    res.update(
+        kernels={"rasterize_fwd": {"castle": castle_row["rasterize_fwd"],
+                                   "bench": bench_row},
+                 "rasterize_bwd": {"castle": castle_row["rasterize_bwd"]}},
+        castle_records=records, bench_records=b_records, bench_ms=b_ms,
+        knn_s=dict(native_1m=knn_1m, native=knn_kd, brute=knn_brute),
+        seconds=time.perf_counter() - t_phase)
+    print(f"[aligned] phase {res['seconds']:.1f} s")
+    return res
+
+
 def read_jsonl(path: str) -> list:
     with open(path) as f:
         return [json.loads(line) for line in f]
@@ -2764,7 +3100,8 @@ def main() -> int:
           f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
           f"{time.perf_counter() - t_c:.1f} s")
     forward_times(kc, f"bench render inputs at cell {CELL}")
-    bench_img = img_1.cpu()      # phase 3's image, for the "xla" phase
+    bench_img = img_1.cpu()      # phase 3's image, for "xla", "aligned"
+    bench_fwd = {key: k["fwd"][key] for key in ("pairs", "active")}
     del k, kc, img_1, img_c
     torch.cuda.empty_cache()
     strips = strip_phase(splats, cp, size)
@@ -2805,6 +3142,8 @@ def main() -> int:
         view_counts = viewer_phase(cli_data, d)
     torch.cuda.empty_cache()
     xla = xla_phase(gts, castle_pool, bench_img, smi)
+    torch.cuda.empty_cache()
+    aligned = aligned_phase(bench_img, records_1, bench_fwd, smi)
 
     def row(name, src, replaces):
         def fields(t):
@@ -2833,6 +3172,13 @@ def main() -> int:
                 "from": f"the viewer phase's 8 /api/frame requests (4 castle "
                         f"views at {CASTLE_SIZE}x{CASTLE_SIZE} and "
                         f"{PAGE_SIZE[0]}x{PAGE_SIZE[1]}), no worker running"}
+        if name in aligned["kernels"]:
+            # "aligned": the "aligned" phase's fields on the records of
+            # build_intersections(align=ALIGN_LANES), launches its calls'.
+            out["aligned"] = {
+                "align": ALIGN_LANES, **aligned["kernels"][name],
+                "from": "make_pallas_rasterizer: castle view 0 with "
+                        "gradients; bench render inputs, no gradients"}
         if name.startswith("rasterize"):
             # "cell": the same fields on the bench training's arguments at
             # raster cell CELL; launches: that run's.
@@ -2884,7 +3230,12 @@ def main() -> int:
           f"the pipeline's {xla['bench_ms']['pallas']:.3f}, peak "
           f"{xla['bench_peak_mib'][0]:.1f} MiB against "
           f"{xla['bench_peak_mib'][1]:.1f}, sharded castle step "
-          f"{xla['shard_ms']:.3f} ms, phase {xla['seconds']:.1f} s; total "
+          f"{xla['shard_ms']:.3f} ms, phase {xla['seconds']:.1f} s; "
+          f"aligned records: bench rasterize_fwd "
+          f"{aligned['bench_ms']['aligned']:.4f} ms against the pipeline's "
+          f"{aligned['bench_ms']['pipeline']:.4f}, k-NN of 1M points "
+          f"{aligned['knn_s']['native_1m']:.3f} s, phase "
+          f"{aligned['seconds']:.1f} s; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
