@@ -1,8 +1,9 @@
 """Expansion: depth-ordered splats -> per-intersection (key, record) pool.
 
 Replaces brush_tpu/ops/pallas/expand.py (expand_pallas, :374). The CUDA
-kernel is brush_tpu_torch/csrc/expand.cu (one thread per pool slot; its
-header gives the design and the bound). `expand_plain` below is the same
+kernel is brush_tpu_torch/csrc/expand.cu (a block per 1024 consecutive
+slots, its owners staged in shared memory; its header gives the design
+and the bound). `expand_plain` below is the same
 function in PyTorch: CPU tensors take it, and tests and chip_smoke.py hold
 the kernel to it.
 
@@ -21,6 +22,7 @@ Outputs: keys (pool,) int32 tile ids (num_tiles past `total`) and records
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -79,6 +81,16 @@ def expand_plain(f5, u5, cum, total, tiles_x: int, num_tiles: int,
     return keys, recs
 
 
+@functools.cache
+def _launcher():
+    """The kernel's C entry, its ctypes signature set once, when the
+    library is loaded."""
+    fn = build.load("expand").expand_launch
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+    fn.restype = _I
+    return fn
+
+
 def _check_inputs(f5, u5, cum, total, pool):
     n = f5.shape[1]
     if f5.dtype != torch.float32 or f5.shape != (5, n):
@@ -110,10 +122,7 @@ def expand(f5, u5, cum, total, tiles_x: int, num_tiles: int, pool: int):
     keys = torch.empty((pool,), dtype=torch.int32, device=f5.device)
     recs = torch.empty((PACK_ROWS, pool), dtype=torch.int32,
                        device=f5.device)
-    lib = build.load("expand")
-    fn = lib.expand_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-    fn.restype = _I
+    fn = _launcher()
     with torch.cuda.device(f5.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(f5.data_ptr(), u5.data_ptr(), cum.data_ptr(),

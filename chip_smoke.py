@@ -10,7 +10,8 @@ result line; each phase prints its seconds):
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the entry scene (16384 splats, 256x256) and at the bench scene's
-     render inputs: expand byte-equal; rasterize_fwd img and log_t within
+     render inputs: expand byte-equal (and a second launch bit-equal,
+     wherever it is checked below); rasterize_fwd img and log_t within
      1e-5 with threshold flips counted and bounded (<= 2e-3 of the pixels,
      img and T = exp(log_t) within 0.01 at each) and final_idx equal on
      every other pixel, and a second launch on the same inputs
@@ -29,19 +30,28 @@ result line; each phase prints its seconds):
      entry scene in raster cells of (2, 2) and (4, 2) tiles (CHECK_CELLS);
      segment_sum also on a layout made by hand
      (a segment of 100,003 slots, runs of empty splats, n no multiple of
-     the kernel's block, `total` cutting a segment and `total` 0);
+     the kernel's block, `total` cutting a segment and `total` 0); expand
+     also on the splat layouts of ops/cuda/testing.hand_expand (a bbox
+     splat over three kernel blocks, owners of count 0 inside the live
+     range and in a run wider than the kernel's owner window, full 64-bit
+     masks and rank 63, ranks in the high word, `total` == pool, `total`
+     0, n 0, owners starting on block starts, pool % 4 != 0);
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after; then
      the median of 10 CUDA-event-timed renders and the forward kernels'
-     times at these inputs; then the same at raster cell CELL (2, 2), its
+     times at these inputs (each kernel timed twice, here and in phases 6
+     and 8: its wrapper by cuda_ms and the device by device_ms, the calls
+     replayed from a CUDA graph); then the same at raster cell CELL (2, 2),
+     its
      kernels held to their plain versions on its inputs, its records
      beside (1, 1)'s and its image held to (1, 1)'s with rasterize_fwd's
      tolerance (the differing pixels counted); then the strip phase: the
      bench render's inputs cut into STRIPS strips of cell rows, as STRIPS
      ranks of the sharded step cut them, at (1, 1) and at CELL: each
      strip's pipeline through the kernels on its own restricted inputs and
-     pool, both rasterizers held to their plain versions on the strip's
+     pool, expand byte-equal and both rasterizers held to their plain
+     versions on the strip's
      arguments (tolerances as above, repeats bit-equal) and timed beside
      the whole frame's; the strips' img and log T equal to the frame's in
      every bit, the per-splat gradients summed over the strips within
@@ -132,7 +142,11 @@ result line; each phase prints its seconds):
      "cell" those of the training at CELL, under "strip" the strip
      phase's per strip (launches: the sharded training's) and under
      "aligned" the aligned phase's, and for expand and rasterize_fwd
-     under "viewer" the viewer's frames' launches; the nvidia-smi line;
+     under "viewer" the viewer's frames' launches and under "render"
+     phase 3's times at (1, 1) and CELL; beside each "ms" (the wrapper's,
+     what a host-bound step pays) its "device_ms", and beside
+     segment_sum's "library_ms" (index_add_) its "library_device_ms";
+     the nvidia-smi line;
      and last {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package.
 """
@@ -229,7 +243,9 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds of fn() over reps runs between two CUDA events."""
+    """Mean milliseconds of fn() over reps runs between two CUDA events:
+    the wrapper's time, which is the host's where a call's host work
+    (checks, allocations, the ctypes call) outlasts its kernels."""
     import torch
 
     for _ in range(warm):
@@ -243,6 +259,37 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int, warm: int = 1) -> float:
+    """Mean device milliseconds of fn() over reps calls captured in one
+    CUDA graph, the graph replayed once between two CUDA events: the
+    kernels' own time (with the wrapper's allocations and memsets), none
+    of the host's. fn must not wait for the device: every kernel wrapper
+    and index_add_ qualify (tests/test_torch_cuda.py replays each)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
 
 
 _scenes: dict = {}
@@ -314,18 +361,45 @@ def timed(fn):
 
 
 def check_expand(exp_args):
-    """Kernel vs plain, byte for byte: returns the plain version's ms."""
+    """Kernel vs plain, byte for byte, and two launches bit-equal: returns
+    the plain version's ms."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand, expand_plain
 
     keys, recs = expand(*exp_args)
+    again = expand(*exp_args)
     torch.cuda.synchronize()
+    if not (torch.equal(keys, again[0]) and torch.equal(recs, again[1])):
+        raise AssertionError("expand: two launches on the same inputs "
+                             "differ")
     (pk, pr), plain_ms = timed(lambda: expand_plain(*exp_args))
     bad = int((keys != pk).sum()) + int((recs != pr).sum())
     if bad:
         raise AssertionError(f"expand: {bad} words differ from the plain "
                              "version")
     return plain_ms
+
+
+def check_expand_hand():
+    """expand against its plain version on the splat layouts of
+    ops/cuda/testing.hand_expand (check_expand: byte-equal, repeats
+    bit-equal)."""
+    import torch
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_EXPAND_CASES, hand_expand,
+    )
+
+    t0 = time.perf_counter()
+    sizes = {}
+    for case in HAND_EXPAND_CASES:
+        f5, u5, cum, total, tiles_x, num_tiles, pool = hand_expand(case)
+        check_expand((*(torch.tensor(a, device="cuda")
+                        for a in (f5, u5, cum, total)),
+                      tiles_x, num_tiles, pool))
+        sizes[case] = (f5.shape[1], int(total[0]), pool)
+    print(f"[hand] expand byte-equal to the plain version, two launches "
+          f"bit-equal, on splat layouts (n, total, pool) {sizes}; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def raster_diff(out, plain, atol=1e-5):
@@ -588,11 +662,18 @@ def bounds(k, fwd, bwd):
     """Least times (ms) for this run's inputs, with what bounds each:
     expand, rasterize_fwd, rasterize_bwd, segment_sum (raster_bounds for
     the two rasterizers)."""
+    import torch
+
     f5, u5, cum, total = k["exp_args"][:4]
     pool = k["exp_args"][6]
     n = f5.shape[1]
     live = int(total[0])
-    exp_b = (20 + 20 + 4) * n + 4 + (4 + 32) * pool
+    # expand reads cum and the ten field words of each splat that owns a
+    # live slot (count > 0, first slot below total) and writes the key and
+    # 8 record words of every pool slot.
+    counts = cum - torch.cat([cum.new_zeros(1), cum[:-1]])
+    owners = int(((counts > 0) & (cum - counts < live)).sum())
+    exp_b = 44 * owners + 4 + 36 * pool
     # segsum: the live slots' nine rows, offsets and cum read; (9, n) out.
     seg_b = 36 * live + 8 * n + 4 + 36 * n
     return {"expand": _bound(exp_b, 0),
@@ -603,22 +684,29 @@ def bounds(k, fwd, bwd):
 
 def forward_times(k, label):
     """The forward kernels' times at a render's inputs (launches after the
-    render path's counts were read), beside their plain versions' (the
-    call the check compared with) and their bounds."""
+    render path's counts were read), the wrapper's (cuda_ms) and the
+    device's (device_ms), beside their plain versions' (the call the check
+    compared with) and their bounds. Returns {kernel: those fields}."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
 
     exp_args, r_args = k["exp_args"], k["r_args"]
-    e_ms = cuda_ms(lambda: expand(*exp_args), reps=20)
-    r_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
+    calls = {"expand": lambda: expand(*exp_args),
+             "rasterize_fwd": lambda: rasterize_fwd(*r_args)}
     # No backward ran on these inputs: its bound is not read.
     bound = bounds(k, k["fwd"], dict(swept=0, active=0))
-    print(f"[kernels] {label}: expand {e_ms:.4f} ms (plain "
-          f"{k['expand_plain_ms']:.3f}, bound {bound['expand'][0]:.4f} by "
-          f"{bound['expand'][1]}); rasterize_fwd {r_ms:.4f} ms (plain "
-          f"{k['fwd']['plain_ms']:.3f}, bound "
-          f"{bound['rasterize_fwd'][0]:.4f} by "
-          f"{bound['rasterize_fwd'][1]})")
+    plain = {"expand": k["expand_plain_ms"],
+             "rasterize_fwd": k["fwd"]["plain_ms"]}
+    out = {name: {"ms": cuda_ms(fn, reps=20),
+                  "device_ms": device_ms(fn, reps=20),
+                  "plain_ms": plain[name], "bound_ms": bound[name][0],
+                  "bound_by": bound[name][1]}
+           for name, fn in calls.items()}
+    print(f"[kernels] {label}: " + "; ".join(
+        f"{name} {t['ms']:.4f} ms, device {t['device_ms']:.4f} (plain "
+        f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} by "
+        f"{t['bound_by']})" for name, t in out.items()))
+    return out
 
 
 def main_path(splats, cp, size, cfg, cell=(1, 1)):
@@ -1084,20 +1172,27 @@ def train_kernels(kept, tag="train"):
     ids = slot_owners(cum, total, rows.shape[1])
     live_rows = rows[:, :ids.shape[0]].contiguous()
     n = cum.shape[0]
-    ms = {"expand": cuda_ms(lambda: expand(*exp_args), reps=20),
-          "rasterize_fwd": cuda_ms(lambda: rasterize_fwd(*r_args), reps=20),
-          "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(*b_args), reps=10),
-          "segment_sum": cuda_ms(lambda: segment_sum(*s_args), reps=20)}
-    s_lib = cuda_ms(lambda: torch.zeros((9, n), device=rows.device).index_add_(
-        1, ids, live_rows), reps=20)
+    calls = {"expand": (lambda: expand(*exp_args), 20),
+             "rasterize_fwd": (lambda: rasterize_fwd(*r_args), 20),
+             "rasterize_bwd": (lambda: rasterize_bwd(*b_args), 10),
+             "segment_sum": (lambda: segment_sum(*s_args), 20)}
+    ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in calls.items()}
+    dev = {name: device_ms(fn, reps) for name, (fn, reps) in calls.items()}
+
+    def library():
+        return torch.zeros((9, n), device=rows.device).index_add_(
+            1, ids, live_rows)
+
+    s_lib, s_lib_dev = cuda_ms(library, 20), device_ms(library, 20)
     print(f"[{tag} kernels] {when}: "
-          + "; ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
-          + f"; index_add_ {s_lib:.4f} ms; "
+          + "; ".join(f"{name} {t:.4f} ms, device {dev[name]:.4f}"
+                      for name, t in ms.items())
+          + f"; index_add_ {s_lib:.4f} ms, device {s_lib_dev:.4f}; "
           f"{time.perf_counter() - t0:.1f} s")
-    return dict(ms=ms, plain={"expand": e_plain,
-                              "rasterize_fwd": r["plain_ms"],
-                              "rasterize_bwd": b["plain_ms"],
-                              "segment_sum": s["plain_ms"]},
+    return dict(ms=ms, device=dev, library_device=s_lib_dev,
+                plain={"expand": e_plain, "rasterize_fwd": r["plain_ms"],
+                       "rasterize_bwd": b["plain_ms"],
+                       "segment_sum": s["plain_ms"]},
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
@@ -1196,6 +1291,7 @@ def strip_phase(splats, cp, size):
             pool_s = strip_pool(pool, 2.0, STRIPS, BENCH["block"])
             ds = depth_order(a9, dec, key, pool_s)
             exp_args = (ds.f5, ds.u5, ds.cum, ds.total, cells_x, num, pool_s)
+            check_expand(exp_args)
             keys_s, recs_s = expand(*exp_args)
             bins_s = strip_bins(keys_s, recs_s, num, base, k)
             r_args = (*bins_s, cells_x, cell, base)
@@ -3073,10 +3169,11 @@ def main() -> int:
     del splats, k
     check_segsum_hand()
     check_raster_hand()
+    check_expand_hand()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
                                                           BENCH)
-    forward_times(k, "bench render inputs")
+    render_times = {(1, 1): forward_times(k, "bench render inputs")}
 
     # The bench render at raster cell CELL: the kernels against their
     # plain versions on its inputs, its records beside (1, 1)'s, its image
@@ -3099,7 +3196,8 @@ def main() -> int:
           f"differ {d['differ']}, beyond 1e-5 {d['flips']} (largest there "
           f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
           f"{time.perf_counter() - t_c:.1f} s")
-    forward_times(kc, f"bench render inputs at cell {CELL}")
+    render_times[CELL] = forward_times(
+        kc, f"bench render inputs at cell {CELL}")
     bench_img = img_1.cpu()      # phase 3's image, for "xla", "aligned"
     bench_fwd = {key: k["fwd"][key] for key in ("pairs", "active")}
     del k, kc, img_1, img_c
@@ -3147,11 +3245,14 @@ def main() -> int:
 
     def row(name, src, replaces):
         def fields(t):
+            lib = name == "segment_sum"
             return {"max_abs_err": t["err"][name], "ms": t["ms"][name],
+                    "device_ms": t["device"][name],
                     "plain_ms": t["plain"][name],
                     "bound_ms": t["bound"][name][0],
                     "bound_by": t["bound"][name][1],
-                    "library_ms": t["library"] if name == "segment_sum"
+                    "library_ms": t["library"] if lib else None,
+                    "library_device_ms": t["library_device"] if lib
                     else None}
 
         # launches: the "cli" train run's; the other fields: the bench
@@ -3166,6 +3267,12 @@ def main() -> int:
                "fields_from": f"bench training arguments, {tk['when']}",
                "cli": {**fields(cli_tk),
                        "from": f"cli train arguments, {cli_tk['when']}"}}
+        if name in render_times[CELL]:
+            # "render": the same fields on the bench render's inputs, at
+            # (1, 1) and at CELL ("ms" the wrapper's, "device_ms" the
+            # device's).
+            out["render"] = {f"{c[0]}x{c[1]}": render_times[c][name]
+                             for c in ((1, 1), CELL)}
         if name in view_counts:
             out["viewer"] = {
                 "launches": view_counts[name],

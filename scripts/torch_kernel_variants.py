@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Variants of the port's rasterize_fwd, rasterize_bwd and segment_sum CUDA
-kernels, timed in turns on one NVIDIA GPU within one process.
+"""Variants of the port's expand, rasterize_fwd, rasterize_bwd and
+segment_sum CUDA kernels, timed in turns on one NVIDIA GPU within one
+process.
 
 A variant is the repository's source (brush_tpu_torch/csrc/<kernel>.cu)
 with text substitutions applied ("OLD=>NEW": a constant, a line), or
@@ -16,10 +17,18 @@ commit's kernel:
         --cell 2x2
     python3 scripts/torch_kernel_variants.py \\
         --variant "bwd 64-record batches" rasterize_bwd "kBatch = 192;=>kBatch = 64;"
+    git show HEAD~1:brush_tpu_torch/csrc/expand.cu > runs/parent/expand.cu
+    python3 scripts/torch_kernel_variants.py --old-dir runs/parent \\
+        --kernels expand
 
-Without --variant the DEFAULT_VARIANTS below run. Inputs: the bench scene
-of chip_smoke.py (1M random splats, 1024x1024, pool 2162688) through the
-port's own stages: rasterize_fwd on the render's packed pool and on the
+Without --variant the DEFAULT_VARIANTS below run; --kernels picks the
+kernels (all four by default). Inputs: the bench scene of chip_smoke.py
+(1M random splats, 1024x1024, pool 2162688) through the port's own
+stages: expand on the render's depth-ordered inputs ("R") and on the same
+splats followed by padding rows of count 0 up to 4194304 in a pool of
+4194304 ("T", the shape a training run reaches at 4M), each source also
+held byte for byte to expand_plain; rasterize_fwd on the render's packed
+pool and on the
 same records in a pool of 4194304, the shape a training run reaches;
 rasterize_bwd on the forward kernel's log T and final_idx and a seeded
 image cotangent; segment_sum on the re-sorted rows of that backward, and
@@ -28,7 +37,9 @@ variant is built by nvcc (registers and shared memory printed), checked
 against the repository's kernel on the same inputs (largest error of each
 output row over that row's largest value, and whether every bit is equal;
 two launches bit-equal) and
-timed with CUDA events in two rounds, one variant after the other;
+timed in two rounds, the second in the reverse order (A, B, B, A), each
+time with CUDA events around 20 launches (the wrapper's time) and around
+one replay of a CUDA graph of them (chip_smoke.device_ms, the device's);
 index_add_ is timed beside segment_sum. --timeline also runs the
 repository's rasterize_fwd and rasterize_bwd with %globaltimer and %smid
 recorded at each block's start and end and prints when tiles start, how
@@ -52,13 +63,14 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from brush_tpu_torch.ops.cuda import build  # noqa: E402
+from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd  # noqa: E402
 from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd  # noqa: E402
 from brush_tpu_torch.ops.cuda.segsum import slot_owners  # noqa: E402
 from brush_tpu_torch.ops.pipeline import grad_resort  # noqa: E402
 from brush_tpu_torch.render import pool_size  # noqa: E402
 
 OUT = os.path.join(build.BUILD_DIR, "variants")
-KERNELS = ("rasterize_fwd", "rasterize_bwd", "segsum")
+KERNELS = ("expand", "rasterize_fwd", "rasterize_bwd", "segsum")
 PAD = ("  __shared__ int s_max[kWarps];",
        "  __shared__ int s_max[kWarps];\n"
        "  __shared__ volatile char s_pad[14000]; s_pad[threadIdx.x] = 0;")
@@ -72,13 +84,118 @@ SUM_OF_LOGS = [
     "        log_t = after;\n        t_cur = expf(after);\n",
     "log_t_out[p] = logf(t_cur);=>log_t_out[p] = log_t;",
 ]
+
+
+def expand_bounds(blocks: int) -> str:
+    """expand with its occupancy bound at `blocks` an SM."""
+    return ("__launch_bounds__(kThreads, 6)\nexpand_kernel(=>"
+            f"__launch_bounds__(kThreads, {blocks})\nexpand_kernel(")
+
+
+# expand in two kernels: the first finds each live block's window ends and
+# parks them in the block's own first slot (key and row 7), the second
+# reads them there instead of searching.
+EXPAND_TWO_PASS = [
+    "    const int firsts[2] = {s0, live_end - 1};\n    int ends[2];\n"
+    "    block_first_above(cum, n, firsts, ends);\n"
+    "=>    const int ends[2] = {keys[s0], recs[(kRows - 1) * P + s0]};\n",
+    "__global__ void __launch_bounds__(kThreads, 6)\nexpand_kernel("
+    "=>__global__ void __launch_bounds__(kThreads)\n"
+    "window_kernel(const int* __restrict__ cum, const int* __restrict__ "
+    "total_p, int n, int pool, int* __restrict__ keys, "
+    "int* __restrict__ recs) {\n"
+    "  const size_t P = static_cast<size_t>(pool);\n"
+    "  const int total = n > 0 ? min(*total_p, pool) : 0;\n"
+    "  const int s0 = blockIdx.x * kSlots;\n"
+    "  if (s0 >= total) return;\n"
+    "  const int firsts[2] = {s0, min(s0 + kSlots, total) - 1};\n"
+    "  int ends[2];\n"
+    "  block_first_above(cum, n, firsts, ends);\n"
+    "  if (threadIdx.x == 0) {\n"
+    "    keys[s0] = ends[0];\n"
+    "    recs[(kRows - 1) * P + s0] = ends[1];\n"
+    "  }\n}\n\n"
+    "__global__ void __launch_bounds__(kThreads, 6)\nexpand_kernel(",
+    "  expand_kernel<<<blocks,=>  window_kernel<<<blocks, kThreads, 0, "
+    "static_cast<cudaStream_t>(stream)>>>(cum, total, n, pool, keys, "
+    "recs);\n  expand_kernel<<<blocks,",
+]
+# expand on a persistent grid (the card's SMs times the blocks an SM
+# holds), each block searching the next slot block's window and asking L2
+# for its first chunk right after it stores the current one.
+EXPAND_PIPELINED = [
+    "__global__ void __launch_bounds__(kThreads, 6)\nexpand_kernel("
+    "=>__device__ void find_window(const int* __restrict__ cum, int n, "
+    "int total, int b, int (&ends)[2]) {\n"
+    "  const int s0 = b * kSlots;\n"
+    "  const int firsts[2] = {s0, min(s0 + kSlots, total) - 1};\n"
+    "  block_first_above(cum, n, firsts, ends);\n}\n\n"
+    "__device__ void prefetch_window(const float* __restrict__ f5, "
+    "const int* __restrict__ u5, const int* __restrict__ cum, size_t N, "
+    "int n, const int (&ends)[2]) {\n"
+    "  const int w0 = min(ends[0], n - 1);\n"
+    "  const int lo = max(w0 - 1, 0);\n"
+    "  const int hi = min(min(ends[1], n - 1) + 1, w0 + kChunk);\n"
+    "  const int first = lo >> 5, lines = ((hi - 1) >> 5) - first + 2;\n"
+    "  for (int i = threadIdx.x; i < 11 * lines; i += kThreads) {\n"
+    "    const int row = i / lines;\n"
+    "    const size_t idx = static_cast<size_t>(first + i % lines) << 5;\n"
+    "    const void* ptr = row == 0 ? static_cast<const void*>(cum + idx)\n"
+    "        : row <= 5 ? static_cast<const void*>(f5 + (row - 1) * N + idx)\n"
+    "        : static_cast<const void*>(u5 + (row - 6) * N + idx);\n"
+    '    asm volatile("prefetch.global.L2 [%0];" ::"l"(ptr));\n'
+    "  }\n}\n\n"
+    "__global__ void __launch_bounds__(kThreads, 6)\nexpand_kernel(",
+    "  for (int b = blockIdx.x; b < blocks; b += gridDim.x) {"
+    "=>  int ends[2] = {0, 0};\n"
+    "  if (static_cast<int>(blockIdx.x) * kSlots < total)\n"
+    "    find_window(cum, n, total, blockIdx.x, ends);\n"
+    "  for (int b = blockIdx.x; b < blocks; b += gridDim.x) {",
+    "    const int firsts[2] = {s0, live_end - 1};\n    int ends[2];\n"
+    "    block_first_above(cum, n, firsts, ends);\n=>",
+    "      wa += cnt;\n    }\n=>      wa += cnt;\n    }\n"
+    "    const int nb = b + gridDim.x;\n"
+    "    if (nb < blocks && nb * kSlots < total) {\n"
+    "      find_window(cum, n, total, nb, ends);\n"
+    "      prefetch_window(f5, u5, cum, N, n, ends);\n"
+    "    }\n",
+    "  expand_kernel<<<blocks,=>  static int grid_cap = 0;\n"
+    "  if (grid_cap == 0) {\n"
+    "    int dev = 0, sms = 0, per_sm = 0;\n"
+    "    cudaGetDevice(&dev);\n"
+    "    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+    "    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, "
+    "expand_kernel, kThreads, 0);\n"
+    "    grid_cap = sms * per_sm;\n"
+    "  }\n"
+    "  expand_kernel<<<min(blocks, grid_cap),",
+]
 DEFAULT_VARIANTS = [
+    ("expand 1024-owner chunks, 5 blocks an SM", "expand",
+     ["kChunk = kSlots / 2;=>kChunk = kSlots;", expand_bounds(5)]),
+    ("expand 7 blocks an SM", "expand", [expand_bounds(7)]),
+    ("expand 128 threads a block, 12 blocks an SM", "expand",
+     ["kThreads = 256;=>kThreads = 128;", expand_bounds(12)]),
+    ("expand 512 threads a block, 3 blocks an SM", "expand",
+     ["kThreads = 256;=>kThreads = 512;", expand_bounds(3)]),
+    ("expand persistent grid, 6 blocks an SM", "expand",
+     ["expand_kernel<<<blocks,"
+      "=>expand_kernel<<<(blocks < 792 ? blocks : 792),"]),
+    ("expand streaming stores", "expand",
+     ["*reinterpret_cast<int4*>(row + base) = "
+      "make_int4(v[0], v[1], v[2], v[3]);"
+      "=>__stcs(reinterpret_cast<int4*>(row + base), "
+      "make_int4(v[0], v[1], v[2], v[3]));"]),
+    ("expand window search in a pass of its own", "expand", EXPAND_TWO_PASS),
+    ("expand persistent, next window searched and prefetched into L2 "
+     "during the stores", "expand", EXPAND_PIPELINED),
     ("fwd 1 record a step", "rasterize_fwd", ["kUnroll = 8;=>kUnroll = 1;"]),
     ("fwd 4 records a step", "rasterize_fwd", ["kUnroll = 8;=>kUnroll = 4;"]),
     ("fwd 16 records a step", "rasterize_fwd",
      ["kUnroll = 8;=>kUnroll = 16;"]),
     ("fwd tiles in index order", "rasterize_fwd",
-     ["order[blockIdx.x]=>blockIdx.x"]),
+     ["order[kCells ? blockIdx.x / tiles_a_cell : blockIdx.x]"
+      "=>(kCells ? blockIdx.x / tiles_a_cell : blockIdx.x)"]),
     ("fwd pretest off", "rasterize_fwd", ["sigma[u] <= sigma_max;=>true;"]),
     ("fwd 192-record batches", "rasterize_fwd",
      ["kBatch = 384;=>kBatch = 192;"]),
@@ -117,6 +234,35 @@ TIMELINE_SUBS = [
      "    }\n"
      "  };\n"),
     ("}\n\n}  // namespace", "  tl_end();\n}\n\n}  // namespace"),
+]
+# expand: each slot block's SM and the %globaltimer at its start, after
+# the window search, after the window is staged and at its end (a sentinel
+# block: its start and end).
+EXPAND_TIMELINE_SUBS = [
+    ("namespace {\n",
+     "namespace {\n__device__ unsigned long long g_timeline[5 * 8192];\n"
+     "__device__ __forceinline__ unsigned long long tl_now() {\n"
+     "  unsigned long long t;\n"
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n'
+     "  return t;\n}\n"
+     "__device__ void tl_record(int b, const unsigned long long (&tl)[3]) {\n"
+     "  if (threadIdx.x != 0 || b >= 8192) return;\n"
+     "  unsigned sm;\n"
+     '  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));\n'
+     "  g_timeline[5 * b] = sm;\n"
+     "  for (int i = 0; i < 3; ++i) g_timeline[5 * b + 1 + i] = tl[i];\n"
+     "  g_timeline[5 * b + 4] = tl_now();\n}\n"),
+    ("b += gridDim.x) {\n",
+     "b += gridDim.x) {\n    unsigned long long tl[3] = {tl_now(), 0, 0};\n"),
+    ("    if (s0 >= total) continue;",
+     "    if (s0 >= total) { tl_record(b, tl); continue; }"),
+    ("    block_first_above(cum, n, firsts, ends);\n",
+     "    block_first_above(cum, n, firsts, ends);\n    tl[1] = tl_now();\n"),
+    ("      __syncthreads();\n      // Slots in [done, hi_slot)",
+     "      __syncthreads();\n      if (!tl[2]) tl[2] = tl_now();\n"
+     "      // Slots in [done, hi_slot)"),
+    ("      wa += cnt;\n    }\n",
+     "      wa += cnt;\n    }\n    tl_record(b, tl);\n"),
 ]
 TIMELINE_BWD_SUBS = [   # the backward's early return
     ("  if (last <= start) return;",
@@ -232,6 +378,26 @@ def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
     return grads
 
 
+def run_exp(job, f5, u5, cum, total, tiles_x, num_tiles, pool):
+    keys = torch.empty((pool,), dtype=torch.int32, device="cuda")
+    recs = torch.empty((8, pool), dtype=torch.int32, device="cuda")
+    fn = job["lib"].expand_launch
+    fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
+    fn.restype = I
+    build.check(fn(f5.data_ptr(), u5.data_ptr(), cum.data_ptr(),
+                   total.data_ptr(), f5.shape[1], pool, tiles_x, num_tiles,
+                   keys.data_ptr(), recs.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream), job["label"])
+    return keys, recs
+
+
+def exp_rows(out):
+    """expand's outputs as rows: the key, then the 8 record rows (int32
+    values, exact in float64)."""
+    keys, recs = out
+    return torch.cat([keys[None], recs]).to(torch.float64)
+
+
 def run_seg(job, rows, offsets, cum, total):
     n = offsets.shape[0]
     out = torch.empty((9, n), device="cuda")
@@ -258,12 +424,41 @@ def compare(tag, jobs, run, args, reps, extra=None, rows=lambda out: out):
               f"{cs.row_error(got, ref):.3e}, bit-equal to it: {bits}; two "
               f"launches bit-equal: {same}")
     for rnd in range(2):
-        for j in jobs:
+        for j in (jobs if rnd == 0 else jobs[::-1]):
             ms = cs.cuda_ms(lambda: run(j, *args), reps=reps)
-            print(f"[{tag}] round {rnd}: {j['label']}: {ms:.4f} ms")
+            dev = cs.device_ms(lambda: run(j, *args), reps=reps)
+            print(f"[{tag}] round {rnd}: {j['label']}: {ms:.4f} ms, device "
+                  f"{dev:.4f} ms")
         if extra:
             print(f"[{tag}] round {rnd}: {extra[0]}: "
-                  f"{cs.cuda_ms(extra[1], reps=reps):.4f} ms")
+                  f"{cs.cuda_ms(extra[1], reps=reps):.4f} ms, device "
+                  f"{cs.device_ms(extra[1], reps=reps):.4f} ms")
+
+
+def expand_sources(jobs, exp_args, n4, pool4, timeline=False):
+    """Every expand source on the bench render's arguments (R) and on the
+    same splats padded with rows of count 0 to n4 in a pool of pool4 (T):
+    byte-equal to expand_plain, then the sources timed in turns."""
+    from brush_tpu_torch.ops.cuda.expand import expand_plain
+
+    stamped = timeline and build_timeline("timeline expand", "expand",
+                                          EXPAND_TIMELINE_SUBS)
+    f5, u5, cum, total, tiles_x, num_tiles, pool = exp_args
+    pad = n4 - f5.shape[1]
+    t_args = (torch.cat([f5, f5.new_zeros((5, pad))], 1),
+              torch.cat([u5, u5.new_zeros((5, pad))], 1),
+              torch.cat([cum, cum[-1:].expand(pad)]), total, tiles_x,
+              num_tiles, pool4)
+    for tag, args in ((f"expand R, n {f5.shape[1]}, pool {pool}", exp_args),
+                      (f"expand T, n {n4}, pool {pool4}", t_args)):
+        want = exp_rows(expand_plain(*args))
+        for j in jobs:
+            got = exp_rows(run_exp(j, *args))
+            print(f"[{tag}] {j['label']}: byte-equal to expand_plain: "
+                  f"{torch.equal(got, want)}")
+        compare(tag, jobs, run_exp, args, reps=20, rows=exp_rows)
+        if timeline:
+            expand_timeline(stamped, tag, args)
 
 
 def castle_views(fwd_jobs):
@@ -294,24 +489,71 @@ def castle_views(fwd_jobs):
                   f"final_idx mismatches elsewhere {d['fidx']}")
 
 
+def build_timeline(label, kernel, subs):
+    """A source with subs applied and a timeline_read entry that copies
+    g_timeline out, built and loaded."""
+    return finish_builds([start_build(
+        label, kernel, substituted(kernel, subs)
+        + '\nextern "C" int timeline_read(unsigned long long* out) {\n'
+        "  return (int)cudaMemcpyFromSymbol(out, g_timeline, "
+        "sizeof(g_timeline));\n}\n")])[0]
+
+
+def read_timeline(job, size):
+    buf = np.zeros(size, np.uint64)
+    fn = job["lib"].timeline_read
+    fn.argtypes = [P]
+    fn.restype = I
+    build.check(fn(buf.ctypes.data), "timeline_read")
+    return buf
+
+
+def expand_timeline(job, tag, args):
+    """job: the repository's expand with each slot block's phases stamped
+    (EXPAND_TIMELINE_SUBS). Prints how long the window search, the staging
+    and the stores take, how many blocks an SM runs at once, and when the
+    live and the sentinel blocks run."""
+    for _ in range(3):
+        run_exp(job, *args)
+    torch.cuda.synchronize()
+    pool, total = args[6], int(args[3][0])
+    blocks = -(-pool // 1024)
+    if blocks > 8192:
+        raise SystemExit("the timeline buffer holds 8192 blocks")
+    sm, t0, t1, t2, t3 = read_timeline(job, 5 * 8192).reshape(-1, 5)[
+        :blocks].astype(np.int64).T
+    live = np.arange(blocks) * 1024 < total
+    first = t0.min()
+    def us(v):
+        return v / 1e3
+
+    def q(v):   # p10/p50/p90
+        if not len(v):
+            return "-"
+        return "/".join(f"{x:.2f}" for x in np.percentile(v, [10, 50, 90]))
+
+    # Blocks of one SM in flight at each block's start.
+    conc = [int(((sm == sm[i]) & (t0 <= t0[i]) & (t3 > t0[i])).sum())
+            for i in range(blocks)]
+    print(f"[timeline] {tag}: {blocks} blocks ({int(live.sum())} live), "
+          f"span {us(t3.max() - first):.1f} us; live blocks us p10/p50/p90: "
+          f"search {q(us(t1 - t0)[live])}, staging {q(us(t2 - t1)[live])}, "
+          f"stores {q(us(t3 - t2)[live])}, whole {q(us(t3 - t0)[live])}; "
+          f"sentinel blocks whole {q(us(t3 - t0)[~live])}; "
+          f"live blocks end by {us(t3[live].max() - first):.1f} us; blocks "
+          f"an SM runs at once p10/p50/p90 {q(np.array(conc))}")
+
+
 def timeline(kernel, run, k_args):
     """Per-tile start, end and SM of the repository's rasterize_fwd or
     rasterize_bwd; k_args start (packed, starts, ends, ...)."""
     subs = TIMELINE_SUBS + (TIMELINE_BWD_SUBS if kernel == "rasterize_bwd"
                             else [])
-    job = finish_builds([start_build(
-        f"timeline {kernel}", kernel, substituted(kernel, subs)
-        + '\nextern "C" int timeline_read(unsigned long long* out) {\n'
-        "  return (int)cudaMemcpyFromSymbol(out, g_timeline, "
-        "sizeof(g_timeline));\n}\n")])[0]
+    job = build_timeline(f"timeline {kernel}", kernel, subs)
     for _ in range(3):
         run(job, *k_args)
     torch.cuda.synchronize()
-    buf = np.zeros(3 * 8192, np.uint64)
-    fn = job["lib"].timeline_read
-    fn.argtypes = [P]
-    fn.restype = I
-    build.check(fn(buf.ctypes.data), "timeline_read")
+    buf = read_timeline(job, 3 * 8192)
     n_tiles = k_args[1].shape[0]
     if n_tiles > 8192:
         raise SystemExit("the timeline buffer holds 8192 tiles")
@@ -344,8 +586,9 @@ def timeline(kernel, run, k_args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-dir", help="directory holding other sources "
-                    "of these kernels (<kernel>.cu), timed beside them")
+    ap.add_argument("--old-dir", nargs="+", default=[], help="directories "
+                    "holding other sources of these kernels (<kernel>.cu), "
+                    "timed beside them")
     ap.add_argument("--variant", nargs="+", action="append", default=[],
                     metavar="ARG", help="LABEL KERNEL 'OLD=>NEW' ...")
     ap.add_argument("--timeline", action="store_true")
@@ -357,6 +600,9 @@ def main():
                     "--old-dir's (no default variants)")
     ap.add_argument("--cell", default="1x1", help="raster cell GWxGH of the "
                     "inputs (sources before the cell mode run 1x1 only)")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS), help="the kernels to build and "
+                    "time (default: all)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -365,14 +611,15 @@ def main():
         raise SystemExit("--timeline times tiles: run it at --cell 1x1")
     variants = [(v[0], v[1], v[2:]) for v in opts.variant] or (
         [] if opts.old_only else DEFAULT_VARIANTS)
+    variants = [v for v in variants if v[1] in opts.kernels]
     pending = [start_build(f"repository's {k}", k, substituted(k, []))
-               for k in KERNELS]
-    for k in KERNELS:
-        path = os.path.join(opts.old_dir or "", f"{k}.cu")
-        if opts.old_dir and os.path.exists(path):
-            with open(path) as f:
-                pending.append(start_build(f"{opts.old_dir}'s {k}", k,
-                                           f.read()))
+               for k in opts.kernels]
+    for k in opts.kernels:
+        for old in opts.old_dir:
+            path = os.path.join(old, f"{k}.cu")
+            if os.path.exists(path):
+                with open(path) as f:
+                    pending.append(start_build(f"{old}'s {k}", k, f.read()))
     for label, kernel, subs in variants:
         if kernel not in KERNELS:
             raise SystemExit(f"unknown kernel {kernel!r}: {KERNELS}")
@@ -387,15 +634,19 @@ def main():
     packed, starts, ends, tiles_x, _ = k["r_args"]
     print(f"[inputs] bench render at cell {cell}: {starts.shape[0]} cells, "
           f"{int(k['exp_args'][3][0])} records")
-    fwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_fwd"]
     n4 = pool4 = 1 << 22
+    exp_jobs = [j for j in jobs if j["kernel"] == "expand"]
+    if exp_jobs:
+        expand_sources(exp_jobs, k["exp_args"], n4, pool4, opts.timeline)
+    fwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_fwd"]
     packed4 = torch.zeros((8, pool4), dtype=torch.int32, device="cuda")
     packed4[:, :packed.shape[1]] = packed
     for tag, f_args in (
             ("rasterize_fwd, bench render inputs", k["r_args"]),
             (f"rasterize_fwd, the same records in a pool of {pool4}",
              (packed4, starts, ends, tiles_x, cell))):
-        compare(tag, fwd_jobs, run_fwd, f_args, reps=20, rows=fwd_rows)
+        if fwd_jobs:
+            compare(tag, fwd_jobs, run_fwd, f_args, reps=20, rows=fwd_rows)
     del packed4
     if opts.castle:
         castle_views(fwd_jobs)
@@ -406,18 +657,21 @@ def main():
     v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
     b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
     bwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_bwd"]
-    compare("rasterize_bwd, bench render inputs", bwd_jobs, run_bwd, b_args,
-            reps=10)
+    if bwd_jobs:
+        compare("rasterize_bwd, bench render inputs", bwd_jobs, run_bwd,
+                b_args, reps=10)
     if opts.timeline:
         timeline("rasterize_bwd", run_bwd, b_args)
 
     total, cum, offsets = k["exp_args"][3], k["exp_args"][2], k["offsets"]
-    rows = grad_resort(run_bwd(bwd_jobs[0], *b_args), packed[7], total,
+    rows = grad_resort(rasterize_bwd(*b_args), packed[7], total,
                        pack_grad_sort=False)
     rows4 = torch.zeros((9, pool4), device="cuda")
     rows4[:, :rows.shape[1]] = rows
     tail = total.expand(n4 - offsets.shape[0])   # padding splats: no slot
     seg_jobs = [j for j in jobs if j["kernel"] == "segsum"]
+    if not seg_jobs:
+        return
     for tag, s_args in (
             ("segment_sum, n 1048576, pool 2162688",
              (rows, offsets, cum, total)),

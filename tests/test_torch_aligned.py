@@ -228,9 +228,10 @@ def test_aligned_tile_ids_must_be_contiguous():
     assert torch.equal(strip[:num_tiles - tx], frame[tx:])
 
 
-def _port_pipeline_inputs(n=80, img_size=(48, 32), seed=0):
+def _port_pipeline_inputs(n=80, img_size=(48, 32), seed=0,
+                          max_isects=MAX_ISECTS):
     """build_pipeline_inputs' scene through the port's own projection, SH
-    and build_intersections(align=128), on CPU tensors."""
+    and build_intersections(max_isects, align=128), on CPU tensors."""
     rng = np.random.default_rng(seed)
     means = rng.uniform(-2.5, 2.5, size=(n, 3)).astype(np.float32)
     log_scales = np.log(rng.uniform(0.1, 0.8, size=(n, 3))).astype(
@@ -254,7 +255,7 @@ def _port_pipeline_inputs(n=80, img_size=(48, 32), seed=0):
     color = sh_to_color(0, viewdir, torch.tensor(sh))
     opac = torch.sigmoid(torch.tensor(opac_raw))
     tiles_x, tiles_y = -(-img_size[0] // 16), -(-img_size[1] // 16)
-    isect = build_intersections(proj, opac, (tiles_x, tiles_y), MAX_ISECTS,
+    isect = build_intersections(proj, opac, (tiles_x, tiles_y), max_isects,
                                 align=K_LANES)
     o = isect.order
     return (proj.xy[o], proj.conic[o], color[o], opac[o], isect, tiles_x,
@@ -300,3 +301,22 @@ def test_aligned_slice_matches_reference():
         scale = np.abs(a).max() + 1e-8
         np.testing.assert_allclose(b / scale, a / scale, atol=3e-4,
                                    err_msg=label)
+
+
+def test_aligned_num_dropped_undercounts_like_the_reference():
+    """ROADMAP Queue 3 #11, pinned: a pool of 512 holds the scene's 219
+    records, but aligned to 128 its six tiles need 640 + 23 slots, so the
+    last two tiles' records fall past the pool. Both packages count
+    num_dropped before the re-layout (brush_tpu/ops/binning.py:570) and
+    report 0; their pools are the same, bit for bit."""
+    pool = 512
+    want = build_pipeline_inputs(max_isects=pool)[4]
+    got = _port_pipeline_inputs(max_isects=pool)[4]
+    for field in ("isect_gid", "starts", "ends", "num_isects",
+                  "num_dropped"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    kept = int((got.ends - got.starts).sum())
+    assert int(got.num_dropped) == 0
+    assert kept < int(got.num_isects) == 219 <= pool

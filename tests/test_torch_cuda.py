@@ -23,7 +23,8 @@ from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
 from brush_tpu_torch.ops.cuda.testing import (
-    HAND_POISON_FROM, HAND_TILE_CASES, hand_tiles,
+    HAND_EXPAND_CASES, HAND_POISON_FROM, HAND_TILE_CASES, hand_expand,
+    hand_tiles,
 )
 from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -208,6 +209,76 @@ def test_expand_plain_canonicalizes_negative_zero():
     assert int(r["total"][0]) > 0 and not recs[3].any()
 
 
+def hand_expand_args(case, device):
+    """hand_expand(case) as the expand wrapper's arguments."""
+    f5, u5, cum, total, tiles_x, num_tiles, pool = hand_expand(case)
+    return (*(torch.tensor(a, device=device) for a in (f5, u5, cum, total)),
+            tiles_x, num_tiles, pool)
+
+
+# The expand kernel's slots a block (csrc/expand.cu kThreads * kPer).
+EXPAND_BLOCK = 1024
+
+
+@pytest.mark.parametrize("case", HAND_EXPAND_CASES)
+def test_hand_expand_layouts_reach_their_cases(case):
+    """Each layout of ops/cuda/testing.hand_expand has what its name says,
+    and the wrapper (the plain version here) expands it into tile keys
+    inside the grid, records in slot order and sentinels past `total`."""
+    f5, u5, cum, total, tiles_x, num_tiles, pool = hand_expand_args(
+        case, "cpu")
+    n, live = f5.shape[1], int(total[0])
+    counts = torch.diff(cum, prepend=torch.zeros(1, dtype=torch.int32))
+    offsets = cum - counts
+    u = u5.to(torch.int64) & 0xFFFFFFFF
+    small = ((u[2] >> 10) & 1) == 1
+    keys, recs = t_expand.expand(f5, u5, cum, total, tiles_x, num_tiles,
+                                 pool)
+    assert bool((keys[live:] == num_tiles).all())
+    assert bool((recs[:7, live:] == 0).all() and (recs[7, live:] == n).all())
+    assert bool(((keys[:live] >= 0) & (keys[:live] < num_tiles)).all())
+    owners = recs[7, :live].to(torch.int64)
+    assert bool((owners[1:] >= owners[:-1]).all())
+    if n:
+        assert torch.equal(counts[small], (torch.stack(
+            [((u[3] >> b) & 1) + ((u[4] >> b) & 1) for b in range(32)])
+            .sum(0))[small].to(torch.int32))
+    rank = torch.arange(live) - offsets[owners]
+    in_live = offsets < live
+    if case == "bbox_span":
+        w = int(torch.argmax(torch.where(small, 0, counts)))
+        first, last = int(offsets[w]), int(cum[w]) - 1
+        assert last // EXPAND_BLOCK - first // EXPAND_BLOCK >= 2
+    elif case in ("zero_owners", "zero_run"):
+        zero_inside = (counts == 0) & (cum < live)
+        assert int(zero_inside.sum()) >= (2600 if case == "zero_run"
+                                          else 50)
+        if case == "zero_run":   # the run lies inside one kernel block
+            at = offsets[zero_inside]
+            assert int(at.max()) // EXPAND_BLOCK == int(at.min()) \
+                // EXPAND_BLOCK
+    elif case == "full_mask":
+        assert int(rank.max()) == 63
+        assert bool(((u[3] == 0xFFFFFFFF) & (u[4] == 0xFFFFFFFF)).any())
+        assert bool(((u[3] == 0) & (u[4] == 1 << 31)).any())
+    elif case == "high_word":
+        in_hi = rank >= torch.stack([(u[3] >> b) & 1 for b in range(32)]
+                                    ).sum(0)[owners]
+        assert float(in_hi.float().mean()) > 0.8
+    elif case == "total_pool":
+        assert live == pool == int(cum[-1])
+    elif case == "total_zero":
+        assert live == 0 < int(cum[-1])
+    elif case == "n_zero":
+        assert n == 0 and live == 0 and pool > 0
+    elif case == "block_start":
+        starts = set(offsets[in_live & (counts > 0)].tolist())
+        assert {512, 1024, 2048, 3072} <= starts
+        assert bool((~small & (counts > 0)).any() and small.any())
+    else:   # ragged
+        assert pool % 4 and 0 < live == int(cum[-1]) < pool
+
+
 def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
     """A library's file name carries a hash of its source and of every
     header beside it, so editing a shared header (tile_order.cuh) can
@@ -260,6 +331,68 @@ def test_cuda_expand_equals_plain(name):
     assert t_expand.launches == before + 1
     pk, pr = t_expand.expand_plain(*args)
     assert torch.equal(keys, pk) and torch.equal(recs, pr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_EXPAND_CASES)
+def test_cuda_expand_hand_layouts_equal_plain(case):
+    """The layouts made by hand (ops/cuda/testing.hand_expand): the kernel
+    byte-equal to the plain version, and two launches bit-equal."""
+    _need_cuda()
+    args = hand_expand_args(case, "cuda")
+    keys, recs = t_expand.expand(*args)
+    again = t_expand.expand(*args)
+    torch.cuda.synchronize()
+    pk, pr = t_expand.expand_plain(*args)
+    assert torch.equal(keys, pk) and torch.equal(recs, pr)
+    assert torch.equal(keys, again[0]) and torch.equal(recs, again[1])
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_replay_in_a_graph():
+    """Each kernel wrapper (and index_add_, segment_sum's library call)
+    captured in a CUDA graph replays to its eager outputs: chip_smoke.py
+    times kernels on the device by such replays (device_ms)."""
+    _need_cuda()
+    n, img_size, pool, scale_hi = SCENES["small"]
+    r = port_records(make_scene(n, 5, scale_hi), img_size, pool, "cuda")
+    r_args = (r["packed"], r["starts"], r["ends"], r["tiles_x"])
+    img, log_t, fidx = t_raster.rasterize_fwd(*r_args)
+    v_out = torch.randn(img.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3))
+    rows = torch.randn((t_bwd.GRAD_ROWS, pool), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(4))
+    ids = t_seg.slot_owners(r["cum"], r["total"], pool)
+    n_splats = r["cum"].shape[0]
+    calls = {
+        "expand": lambda: t_expand.expand(
+            r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
+            r["num_tiles"], pool),
+        "rasterize_fwd": lambda: t_raster.rasterize_fwd(*r_args),
+        "rasterize_bwd": lambda: (t_bwd.rasterize_bwd(
+            *r_args, v_out, log_t, fidx),),
+        "segment_sum": lambda: (t_seg.segment_sum(
+            rows, r["offsets"], r["cum"], r["total"]),),
+        "index_add_": lambda: (torch.zeros(
+            (t_bwd.GRAD_ROWS, n_splats), device="cuda").index_add_(
+                1, ids, rows[:, :ids.shape[0]].contiguous()),)}
+    for name, call in calls.items():
+        want = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if name in ("index_add_",):   # atomic adds: order may differ
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+            else:
+                assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -19,14 +19,15 @@ from brush_tpu.ops.pallas.rasterize_fwd import quantize_color as j_qc
 from brush_tpu.ops.pallas.rasterize_fwd import quantize_opac as j_qo
 from brush_tpu.ops.pallas.rasterize_fwd import rasterize_fwd_pallas
 
+from brush_tpu_torch.ops.cuda import expand as t_expand
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda.testing import (
-    HAND_DEEP, HAND_OPAQUE_FROM, HAND_POISON_FROM, HAND_TILE_CASES,
-    hand_tiles,
+    HAND_DEEP, HAND_EXPAND_PALLAS, HAND_OPAQUE_FROM, HAND_POISON_FROM,
+    HAND_TILE_CASES, hand_tiles,
 )
 from test_torch_cuda import (
-    SCENES, flip_check, hand_tile_args, kernel_constant, make_scene,
-    port_records,
+    SCENES, flip_check, hand_expand_args, hand_tile_args, kernel_constant,
+    make_scene, port_records,
 )
 
 K_EXP = 512
@@ -76,6 +77,24 @@ def test_expand_plain_byte_equal_to_pallas(name):
         assert int(got["raw_total"]) > pool == int(got["total"][0])
     else:
         assert 0 < int(got["total"][0]) == int(got["cum"][-1]) < pool
+
+
+@pytest.mark.parametrize("case", HAND_EXPAND_PALLAS)
+def test_expand_hand_layouts_byte_equal_to_pallas(case):
+    """The splat layouts made by hand (ops/cuda/testing.hand_expand) whose
+    pool is whole 512-slot blocks and whose blocks keep the Pallas
+    kernel's window (at most 512 + 128 owners a block): expand_plain
+    byte-equal to expand_pallas in interpret mode."""
+    f5, u5, cum, total, tiles_x, num_tiles, pool = hand_expand_args(
+        case, "cpu")
+    assert pool % K_EXP == 0
+    keys, recs = t_expand.expand_plain(f5, u5, cum, total, tiles_x,
+                                       num_tiles, pool)
+    j_keys, j_recs = jax_expand(dict(f5=f5, u5=u5, cum=cum, total=total,
+                                     tiles_x=tiles_x, num_tiles=num_tiles),
+                                pool)
+    np.testing.assert_array_equal(u32(keys), j_keys)
+    np.testing.assert_array_equal(u32(recs), j_recs)
 
 
 def test_tile_bins_groups_records_stably():
