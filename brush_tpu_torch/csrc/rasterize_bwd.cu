@@ -31,90 +31,118 @@
 // needs the forward's 13 float32 operations (sigma and the pretest's two
 // compares), and each active pair 7 for alpha and ~45 more, the nine-term
 // pixel reduction's share among them; records are 28 bytes read and 36
-// written. That bound counts lanes, not warps: in the
-// bench scene about 8 % of the pairs are active, and a warp pays for 32
-// lanes whenever one is. It also counts exp and the reciprocal at the
-// float32 rate.
+// written. That bound counts lanes, not warps: in the bench scene about
+// 8 % of the pairs are active, and a warp pays for 32 lanes whenever one
+// is. It also counts exp and the reciprocal at the float32 rate.
 //
-// What held the first version back: one thread a pixel, and for every
-// (warp, record) with an active lane nine five-step xor reductions (45
-// shuffles, 45 adds, nine lone shared stores), nine scalar shared loads a
-// record from nine arrays, a log1p, two exps and a division a pair, the
-// per-record loop overhead repeated by 256 threads, eight warps' partials
-// through 36 KB of shared memory, records staged by plain loads between
-// two barriers. It was bound by issue slots on the few SMs that
-// held the heavy tiles: a tile's sweep is serial, all tiles started at
-// once in index order, and an SM that drew several heavy tiles ran long after
-// one that drew none had gone idle.
+// The tile sweep (one block of 128 threads a tile, two pixels a thread,
+// four records a step, a sigma pretest, one folded butterfly for the nine
+// pixel sums, records decoded once a batch into shared memory, cp.async
+// staging, heavy tiles first) replaced a first version that was bound by
+// issue slots: one thread a pixel, 45 shuffles and a log1p, two exps and a
+// division a pair.
+//
+// What held the raster-cell mode back: one block of four warps owned a
+// whole cell. For every batch of records it swept the batch once per tile
+// of the cell, in series, re-reading the tile's v_out, log T and
+// final_idx (an expf a pixel) before each sweep and parking each pixel's
+// T and colour behind in a global scratch between them. At cell (2, 2) a
+// heavy cell's critical path was four tile sweeps on four warps: 5.99 ms
+// at the bench's training arguments, 17.6 times its bound, where the tile
+// mode takes 1.29 ms for 1.4 times fewer records. And in both modes every
+// warp ran the pretest on every record of the batch, also on the records
+// whose footprint misses its 16x4 patch, most of them at cells.
 //
 // Design, on the CUDA cores. The TPU kernel's moment matmuls and MXU
 // prefix scan are not carried over: a tensor-core version needs a
 // (record, pixel) fragment layout that breaks the per-pixel back-to-front
 // dependency of T and the colour behind, and TF32 products would not hold
 // the 1e-4 row tolerance without a three-way split of the operands.
+//   - A block a tile, also at cells. A cell of G = cell_w cell_h tiles
+//     takes G blocks (block b: cell order[b / G], tile b % G), as
+//     rasterize_fwd.cu does; each holds its tile's pixel state (T, colour
+//     behind, v_out, t_final v_a, final_idx) in registers for the whole
+//     sweep and stages and decodes each batch once. Every block of a cell
+//     sweeps the same range [start, last), last from the whole cell's
+//     final_idx, and writes a row for each record of it: tile 0 into the
+//     gradient rows, tile g > 0 into its own (9, pool) slice of a scratch.
+//     A second kernel (cell_sum_kernel, eight blocks a cell, a record a
+//     thread) adds the slices into the rows, record by record in tile
+//     order, over the range tile 0 leaves past the scratch's slices. A record's row is a
+//     sum over all of a cell's pixels, which float atomics would make
+//     differ from launch to launch; the fixed order keeps two launches
+//     bit-equal. (One block of G warp groups a cell, its partials added in
+//     shared memory, needs 128 G threads: at the sweep's 81-90 registers a
+//     thread one such block fills an SM at (2, 2), and (4, 2) would need
+//     1024 threads of 64 registers. A cluster of G blocks adding through
+//     distributed shared memory would keep the sweeps in lock step batch
+//     by batch.) At cell (1, 1) there is one block a tile, no scratch and
+//     no second kernel. Any cell size runs. The scratch holds (G - 1) x 9
+//     floats a pool slot: 453 MB at (2, 2) and the bench's 4M pool. (A
+//     block a cell for the second pass took 0.40 ms at (2, 2): the heavy
+//     cells' records ran through a few blocks.)
+//   - Per-warp record lists. After a batch is decoded each warp tests
+//     every record against its own 16x4 patch of pixel centres and keeps,
+//     in depth order, the records that may reach it: j <= the warp's
+//     largest final_idx, and unless the conic is positive definite and
+//     its least sigma over the patch's rectangle (found on the rectangle's
+//     edges, each a one-dimensional quadratic, when the centre lies
+//     outside) exceeds sigma_max by more than the rounding of the
+//     sweep's sigma (1e-5 of the terms' magnitude, ~170 ulp), where no
+//     pair of the warp can pass the pretest. The sweep walks only the
+//     warp's list, back to front, so a record left off changes nothing:
+//     every record's sums and every pixel's running state are those of a
+//     sweep of the whole batch, and at cell (1, 1) the rows are the tile
+//     kernel's bit for bit. The lists are built by ballots, one record a
+//     lane, before the sweep; a conic that is not positive definite (the
+//     projection can emit one) is always kept.
 //   - Two pixels a thread, 128 threads a tile. A warp covers a compact
 //     16 x 4 patch as two 8x4 sub-patches and a lane owns the same position
-//     in each, so a small splat activates few sub-patches. A thread adds
-//     its pixels' nine terms in registers before any lane exchange. (Four
-//     and eight pixels a thread measured slower: with few heavy tiles an
-//     SM, the warps they take away are missed more than the exchanges
-//     they save.)
-//   - The sweep takes four records a step. First the eight (record, pixel)
-//     sigmas of a thread, independent of one another, so one warp keeps
-//     the pipeline full; a pair is kept only if sigma <= log(255 o) + a
-//     margin, without which alpha cannot reach ALPHA_EPS, so exp runs only
-//     for pairs that are all but surely active. One warp-wide OR tells
-//     which of the four records reach the warp at all; the others cost
-//     the warp nothing more, not even a store.
+//     in each. A thread adds its pixels' nine terms in registers before any
+//     lane exchange.
+//   - The sweep takes four list entries a step: first the eight (record,
+//     pixel) sigmas of a thread, independent of one another; a pair is kept
+//     only if 0 <= sigma <= log(255 o) + a margin, without which alpha
+//     cannot reach ALPHA_EPS, so exp runs only for pairs that are all but
+//     surely active. One warp-wide OR tells which of the four records
+//     reach a lane at all; the others cost the warp nothing more.
 //   - One folded butterfly for all nine terms. Rows 0-7 reduce together:
 //     at each of the first three steps a lane sends half of the values it
 //     still holds to its partner and adds the half it receives (4 + 2 + 1
 //     shuffles), then two plain steps; row 8 takes five: 14 shuffles, not
 //     45, in a fixed order. Lanes 0, 4, .., 28 and lane 1 end holding the
 //     nine sums and store them with a single store.
-//   - Records as a structure. Each batch is decoded once into 12-float
-//     records in shared memory, read as 16-byte broadcast loads.
-//   - Asynchronous staging. The next batch's packed rows arrive by
-//     cp.async while this batch is swept; decode happens on arrival.
+//   - Records as a structure, decoded once a batch into 12-float records
+//     in shared memory, read as 16-byte broadcast loads; the next batch's
+//     packed rows arrive by cp.async while this batch is swept.
 //   - Each warp's sums land in its own zero-filled shared buffer,
 //     record-major (stride 9, no bank conflicts); after a batch the threads
 //     add the four warps' partials in warp order and write each gradient
 //     row coalesced over records.
-//   - Heavy tiles first. A one-block kernel (tile_order.cuh) orders the
-//     tiles by record count, and block b sweeps tile
-//     order[b]: the heavy tiles spread round-robin over the SMs and the
-//     light ones fill in as SMs come free. 192 records a batch make a block
-//     42 KB of shared memory, five blocks an SM, which measured best:
-//     fewer resident blocks leave more tiles to be handed out late.
-//   - Raster cells (the TPU kernel's cell=(gw, gh) mode, rasterize_bwd.py
-//     :76,449). A record's row is a sum over all P pixels of its cell, so
-//     one block owns a cell: splitting a cell over blocks that met in float
-//     atomics would make two launches differ. The block sweeps each batch
-//     of records once for each 16x16 tile of the cell, in a fixed order;
-//     a warp's sums for a record add up over the tiles in its shared
-//     buffer (the first tile stores, the later ones add), and the flush
-//     adds the warps in warp order as before. A pixel's transmittance and
-//     colour behind carry from one batch to the next; with several tiles a
-//     cell they wait in a global scratch buffer (2 floats a pixel, written
-//     and read by the thread that owns the pixel) between a tile's sweeps,
-//     and its inputs (v_out, log T, final_idx) are read again for each
-//     sweep. The block shape stays fixed, so any cell size runs (kPix is 2,
-//     4 or 8 and cannot carry a cell's pixels). At cell (1, 1) the state
-//     stays in registers and every sum is the tile kernel's, bit for bit.
-//     The TPU kernel's cell knobs (k_lanes VMEM budget, tiles_per_step
-//     shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM limits and have
-//     no counterpart here.
+//   - Heavy cells first (tile_order.cuh): the heavy cells' blocks spread
+//     over the SMs and the light ones fill in as SMs come free. 192 records
+//     a batch make a block 43 KB of shared memory, five blocks an SM (81
+//     registers).
 //   - Strips (the TPU kernel's tile_ids, rasterize_bwd.py:203): as in
 //     rasterize_fwd.cu, a launch's cells are the contiguous run of the
 //     image's cells from tile_base; local cell t takes its pixel origin from
 //     global cell tile_base + t, everything else stays indexed by t. Cells
 //     past the image have starts == ends and return at once. tile_base 0 is
 //     the whole-frame kernel, bit for bit.
-// No atomics on floats: each record belongs to one tile and every sum has
-// a fixed order, so two launches are bit-equal (the tile order's integer
-// atomics move no result). Sigma and the colour decode use the forward's
-// explicitly rounded intrinsics and the same expf, so the active set is
-// the forward's and matches the PyTorch version's.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, row 3;
+// scripts/torch_kernel_variants.py, the last version in the same process):
+// at the bench's training arguments at 4M 1.06 ms against 1.30, 7.6 times
+// the bound, the rows bit-equal to the last version's; at cell (2, 2) on
+// the bench render's inputs 1.47-1.49 against 5.97-6.00, of which
+// cell_sum_kernel takes 0.10. The lists save 1.10 ms at (2, 2) and 0.23 at
+// (1, 1).
+// The TPU kernel's cell knobs (k_lanes VMEM budget, tiles_per_step shrink,
+// raster_vjp.py:154-168) are Mosaic scoped-VMEM limits and have no
+// counterpart here. No atomics on floats: every sum has a fixed order, so
+// two launches are bit-equal (the tile order's integer atomics move no
+// result). Sigma and the colour decode use the forward's explicitly
+// rounded intrinsics and the same expf, so the active set is the
+// forward's and matches the PyTorch version's.
 
 #include <cuda_runtime.h>
 
@@ -128,10 +156,13 @@ constexpr int kPix = 2;                   // pixels a thread
 constexpr int kUnroll = 4;                // records a step of the sweep
 constexpr int kThreads = kPixels / kPix;  // threads a tile
 constexpr int kWarps = kThreads / 32;
+constexpr int kPatchH = 2 * kPix;         // rows of a warp's 16-wide patch
 constexpr int kBatch = 192;   // records staged per batch (see the header)
 constexpr int kRows = 9;      // gradient rows
 constexpr int kRawRows = 7;   // packed rows the sweep reads (row 7: ids)
 constexpr int kRecFloats = 12;  // x y cxx cxy | cyy sigma_max o r | g b - -
+constexpr int kSumThreads = 256;  // cell_sum_kernel: threads a block
+constexpr int kSumSplit = 8;      // and blocks a cell
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 constexpr float kAlphaMax = static_cast<float>(0.999);
@@ -140,9 +171,11 @@ constexpr float kColorLo = -4.0f;
 constexpr float kColorStep = static_cast<float>(1.0 / (65535.0 / 8.0));
 constexpr float kOpacStep = static_cast<float>(1.0 / 65535.0);
 constexpr float kSigmaMargin = 1e-4f;  // see the decode
+constexpr float kReachMargin = 1e-5f;  // see may_reach
 
 static_assert(kPix == 2 || kPix == 4 || kPix == 8, "pixels a thread");
 static_assert(kUnroll * kPix <= 32, "one bit a pair in a step");
+static_assert(kBatch <= 256, "list entries are bytes");
 
 __device__ __forceinline__ float decode_color(unsigned q) {
   return __fadd_rn(__fmul_rn(static_cast<float>(q), kColorStep), kColorLo);
@@ -171,6 +204,45 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float quad_sigma(float cxx, float cxy, float cyy,
+                                            float dx, float dy) {
+  return 0.5f * (cxx * dx * dx + cyy * dy * dy) + cxy * dx * dy;
+}
+
+// False only if no pixel centre of the rectangle [xa, xb] x [ya, yb] can
+// pass the sweep's pretest sigma <= sigma_max. Over the rectangle, d = xy -
+// pixel spans [x - xb, x - xa] x [y - yb, y - ya], and the sweep's rounded
+// d of every centre lies in that box (the same subtractions, and rounding
+// is monotone). A positive-definite conic whose centre lies outside the box
+// takes its least sigma on an edge, a one-dimensional quadratic minimized
+// at its clamped vertex. The sweep's sigma rounds by a few ulp of
+// |cxx| dx^2 + |cyy| dy^2 + 2 |cxy dx dy|, and so does this one: the
+// margin, 1e-5 of that magnitude over the box, is about 170 ulp. Any other
+// conic, and any NaN in the test, keeps the record.
+__device__ __forceinline__ bool may_reach(float x, float y, float cxx,
+                                          float cxy, float cyy,
+                                          float sigma_max, float xa, float xb,
+                                          float ya, float yb) {
+  if (!(cxx > 0.0f && cyy > 0.0f && cxx * cyy - cxy * cxy > 0.0f)) {
+    return true;
+  }
+  const float dxl = x - xb, dxh = x - xa, dyl = y - yb, dyh = y - ya;
+  if (!(dxl > 0.0f || dxh < 0.0f || dyl > 0.0f || dyh < 0.0f)) return true;
+  float least = quad_sigma(
+      cxx, cxy, cyy, fminf(fmaxf(-cxy * dyl / cxx, dxl), dxh), dyl);
+  least = fminf(least, quad_sigma(
+      cxx, cxy, cyy, fminf(fmaxf(-cxy * dyh / cxx, dxl), dxh), dyh));
+  least = fminf(least, quad_sigma(
+      cxx, cxy, cyy, dxl, fminf(fmaxf(-cxy * dxl / cyy, dyl), dyh)));
+  least = fminf(least, quad_sigma(
+      cxx, cxy, cyy, dxh, fminf(fmaxf(-cxy * dxh / cyy, dyl), dyh)));
+  const float mx = fmaxf(fabsf(dxl), fabsf(dxh));
+  const float my = fmaxf(fabsf(dyl), fabsf(dyh));
+  const float mag =
+      cxx * mx * mx + cyy * my * my + 2.0f * fabsf(cxy) * mx * my;
+  return !(least > sigma_max + kReachMargin * (mag + 1.0f));
 }
 
 // Sums g[0..8] over the warp's 32 lanes in a fixed order. Returns, in
@@ -202,102 +274,114 @@ __device__ __forceinline__ float folded_sum(const float (&g)[kRows],
   return m;
 }
 
+// Past the (G - 1) partial slices of the scratch: each cell's end of the
+// range its sweep wrote (int), for cell_sum_kernel.
+__device__ __forceinline__ int* cell_last(float* partial, int tiles_a_cell,
+                                          size_t pool) {
+  return reinterpret_cast<int*>(
+      partial + static_cast<size_t>(tiles_a_cell - 1) * kRows * pool);
+}
+
+// The largest final_idx over the P pixels of cell t, in every thread of
+// the block (nthreads threads, a multiple of 32; s_max holds a value a
+// warp).
+__device__ __forceinline__ int cell_max_fidx(const int* __restrict__ fidx_in,
+                                             size_t cell_base, int p,
+                                             int nthreads, int* s_max) {
+  int m = -1;
+  for (int i = threadIdx.x; i < p; i += nthreads) {
+    m = max(m, fidx_in[cell_base + i]);
+  }
+  m = __reduce_max_sync(kFull, m);
+  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  int tmax = s_max[0];
+  for (int w = 1; w < nthreads / 32; ++w) tmax = max(tmax, s_max[w]);
+  return tmax;
+}
+
 __global__ void __launch_bounds__(kThreads)
 rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
-                     const int* __restrict__ ends, int num_cells,
-                     int tile_base, int cells_x, int cell_w, int cell_h,
+                     const int* __restrict__ ends, int tile_base,
+                     int cells_x, int cell_w, int cell_h,
                      const float* __restrict__ v_out,
                      const float* __restrict__ log_t_in,
                      const int* __restrict__ fidx_in,
                      float* __restrict__ grads,
-                     float* __restrict__ state) {
+                     float* __restrict__ partial) {
   __shared__ int s_raw[kRawRows][kBatch];
   __shared__ __align__(16) float s_rec[kBatch][kRecFloats];
   __shared__ __align__(16) float s_part[kWarps][kBatch * kRows];
+  __shared__ unsigned char s_list[kWarps][kBatch];
   __shared__ int s_max[kWarps];
 
-  const int t = order[blockIdx.x];  // the cell
-  const int gc = tile_base + t;     // its place in the image
+  const int tiles_a_cell = cell_w * cell_h;
+  const int t = order[blockIdx.x / tiles_a_cell];  // the cell
+  const int sub = blockIdx.x % tiles_a_cell;       // this block's tile
+  const int gc = tile_base + t;                    // the cell in the image
   const int tid = threadIdx.x;
   const unsigned lane = tid & 31;
   const int warp = tid >> 5;
   const size_t P = static_cast<size_t>(pool);
   const int start = starts[t];
   const int end = ends[t];
-  const int tiles_a_cell = cell_w * cell_h;
   const int cell_px = kTile * cell_w;  // pixels a cell row
   const size_t cell_base = static_cast<size_t>(t) * kPixels * tiles_a_cell;
-  // Pixels of all cells, the stride between the scratch's two rows.
-  const size_t all_px = static_cast<size_t>(num_cells) * kPixels * tiles_a_cell;
+  // Tile 0 writes the gradient rows, tile g > 0 its slice of the scratch.
+  float* __restrict__ out =
+      sub == 0 ? grads : partial + static_cast<size_t>(sub - 1) * kRows * P;
 
-  // Pixel q of this thread in tile `sub` of the cell: sub-patch
-  // warp * kPix + q (8 wide, 4 high, two to a row of sub-patches),
-  // position (lane % 8, lane / 8) inside it; lx, ly from the tile's corner.
-  const int lx = lane & 7;
-  const int ly = (lane >> 3) + warp * (kPix / 2) * 4;
-  auto pixel_index = [&](int sub, int q) {
-    const int x = (sub % cell_w) * kTile + lx + (q & 1) * 8;
-    const int y = (sub / cell_w) * kTile + ly + (q >> 1) * 4;
-    return cell_base + static_cast<size_t>(y) * cell_px + x;
-  };
-
-  // The last record any pixel of the cell composited.
-  int wmax = -1;
-  for (int sub = 0; sub < tiles_a_cell; ++sub) {
-#pragma unroll
-    for (int q = 0; q < kPix; ++q) wmax = max(wmax, fidx_in[pixel_index(sub, q)]);
+  // Every block of the cell sweeps down from the last record any pixel of
+  // the cell composited; tile 0 leaves it for cell_sum_kernel.
+  const int last = min(end, cell_max_fidx(fidx_in, cell_base,
+                                          kPixels * tiles_a_cell, kThreads,
+                                          s_max) + 1);
+  if (tiles_a_cell > 1 && sub == 0 && tid == 0) {
+    cell_last(partial, tiles_a_cell, P)[t] = max(last, start);
   }
-  wmax = __reduce_max_sync(kFull, wmax);
-  if (lane == 0) s_max[warp] = wmax;
-  __syncthreads();
-  int tmax = s_max[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) tmax = max(tmax, s_max[w]);
-  const int last = min(end, tmax + 1);
   if (last <= start) return;  // uniform: empty cell or nothing composited
 
-  float px0 = 0.0f, py0 = 0.0f;
+  // Pixel q of this thread: sub-patch warp * kPix + q of the tile (8 wide,
+  // 4 high, two to a row of sub-patches), position (lane % 8, lane / 8)
+  // inside it; lx, ly from the tile's corner, tx, ty the tile's corner in
+  // the image.
+  const int lx = lane & 7;
+  const int ly = (lane >> 3) + warp * kPatchH;
+  const int tx = (gc % cells_x) * cell_px + (sub % cell_w) * kTile;
+  const int ty = (gc / cells_x) * kTile * cell_h + (sub / cell_w) * kTile;
+  const float px0 = static_cast<float>(tx + lx) + 0.5f;
+  const float py0 = static_cast<float>(ty + ly) + 0.5f;
   int fidx[kPix];
   float vr[kPix], vg[kPix], vb[kPix], tfva[kPix], t_cur[kPix], s_behind[kPix];
-  // This thread's pixels of tile `sub`, and the last record any pixel of
-  // the warp composited there; `first`: T and the colour behind start
-  // (else they come from the scratch).
-  auto load_pixels = [&](int sub, bool first) {
-    px0 = static_cast<float>((gc % cells_x) * cell_px +
-                             (sub % cell_w) * kTile + lx) + 0.5f;
-    py0 = static_cast<float>((gc / cells_x) * kTile * cell_h +
-                             (sub / cell_w) * kTile + ly) + 0.5f;
-    wmax = -1;
+  int wmax = -1;  // the last record any pixel of the warp composited
 #pragma unroll
-    for (int q = 0; q < kPix; ++q) {
-      const size_t p = pixel_index(sub, q);
-      fidx[q] = fidx_in[p];
-      vr[q] = v_out[p * 4 + 0];
-      vg[q] = v_out[p * 4 + 1];
-      vb[q] = v_out[p * 4 + 2];
-      const float t_final = expf(log_t_in[p]);
-      tfva[q] = t_final * v_out[p * 4 + 3];
-      t_cur[q] = first ? t_final : state[p];  // T behind the record swept
-      s_behind[q] = first ? 0.0f : state[all_px + p];
-      wmax = max(wmax, fidx[q]);
-    }
-    wmax = __reduce_max_sync(kFull, wmax);
-  };
-  auto save_pixels = [&](int sub) {
-#pragma unroll
-    for (int q = 0; q < kPix; ++q) {
-      const size_t p = pixel_index(sub, q);
-      state[p] = t_cur[q];
-      state[all_px + p] = s_behind[q];
-    }
-  };
-  if (tiles_a_cell == 1) load_pixels(0, true);  // kept in registers
+  for (int q = 0; q < kPix; ++q) {
+    const int x = (sub % cell_w) * kTile + lx + (q & 1) * 8;
+    const int y = (sub / cell_w) * kTile + ly + (q >> 1) * 4;
+    const size_t p = cell_base + static_cast<size_t>(y) * cell_px + x;
+    fidx[q] = fidx_in[p];
+    vr[q] = v_out[p * 4 + 0];
+    vg[q] = v_out[p * 4 + 1];
+    vb[q] = v_out[p * 4 + 2];
+    const float t_final = expf(log_t_in[p]);
+    tfva[q] = t_final * v_out[p * 4 + 3];
+    t_cur[q] = t_final;  // T behind the record swept
+    s_behind[q] = 0.0f;
+    wmax = max(wmax, fidx[q]);
+  }
+  wmax = __reduce_max_sync(kFull, wmax);
+  // The warp's patch of pixel centres.
+  const float xa = static_cast<float>(tx) + 0.5f;
+  const float xb = xa + static_cast<float>(kTile - 1);
+  const float ya = static_cast<float>(ty + warp * kPatchH) + 0.5f;
+  const float yb = ya + static_cast<float>(kPatchH - 1);
 
   // Lane 4r ends a folded sum holding row r (r < 8); lane 1 stores row 8.
   const int my_row = (lane & 3) == 0 ? lane >> 2 : (lane == 1 ? 8 : -1);
   float* part = s_part[warp];
+  unsigned char* list = s_list[warp];
 
   auto stage = [&](int b_start, int count) {
     for (int r = 0; r < kRawRows; ++r) {
@@ -343,92 +427,101 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
       stage(n_start, b_start - n_start);
     }
 
-    for (int sub = 0; sub < tiles_a_cell; ++sub) {
-      if (tiles_a_cell > 1) load_pixels(sub, b_end == last);
-      // The sweep, kUnroll records at a time. First every (record, pixel)
-      // pair's sigma and its test, independent of one another; then,
-      // record by record back to front, the pairs that passed.
-      for (int k0 = count - 1; k0 >= 0; k0 -= kUnroll) {
-        float sigma[kUnroll][kPix];
-        unsigned mine = 0;  // bit u * kPix + q: pair (record k0 - u, pixel q)
-        if (b_start + k0 - (kUnroll - 1) <= wmax) {  // warp-uniform
+    // This warp's list: the batch's records that may reach its patch, in
+    // depth order, one record a lane.
+    int n_list = 0;
+    for (int k0 = 0; k0 < count; k0 += 32) {
+      const int k = k0 + static_cast<int>(lane);
+      bool keep = false;
+      if (k < count && b_start + k <= wmax) {
+        const float4 ra4 = reinterpret_cast<const float4*>(s_rec[k])[0];
+        keep = may_reach(ra4.x, ra4.y, ra4.z, ra4.w, s_rec[k][4],
+                         s_rec[k][5], xa, xb, ya, yb);
+      }
+      const unsigned votes = __ballot_sync(kFull, keep);
+      if (keep) {
+        list[n_list + __popc(votes & ((1u << lane) - 1u))] =
+            static_cast<unsigned char>(k);
+      }
+      n_list += __popc(votes);
+    }
+    __syncwarp();
+
+    // The sweep, kUnroll list entries at a time. First every (record,
+    // pixel) pair's sigma and its test, independent of one another; then,
+    // record by record back to front, the pairs that passed.
+    for (int i0 = n_list - 1; i0 >= 0; i0 -= kUnroll) {
+      float sigma[kUnroll][kPix];
+      int ks[kUnroll];
+      unsigned mine = 0;  // bit u * kPix + q: pair (entry i0 - u, pixel q)
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const float4* rec =
-                reinterpret_cast<const float4*>(s_rec[max(k0 - u, 0)]);
-            const float4 ra4 = rec[0];
-            const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
-            const float cyy = s_rec[max(k0 - u, 0)][4];
-            const float sigma_max = s_rec[max(k0 - u, 0)][5];
-            const int j = b_start + k0 - u;
+      for (int u = 0; u < kUnroll; ++u) {
+        ks[u] = list[max(i0 - u, 0)];
+        const float4 ra4 = reinterpret_cast<const float4*>(s_rec[ks[u]])[0];
+        const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
+        const float cyy = s_rec[ks[u]][4];
+        const float sigma_max = s_rec[ks[u]][5];
+        const int j = b_start + ks[u];
 #pragma unroll
-            for (int q = 0; q < kPix; ++q) {
-              const float dx = __fsub_rn(x, pixel_x(px0, q));
-              const float dy = __fsub_rn(y, pixel_y(py0, q));
-              const float quad = __fadd_rn(__fmul_rn(__fmul_rn(cxx, dx), dx),
-                                           __fmul_rn(__fmul_rn(cyy, dy), dy));
-              sigma[u][q] = __fadd_rn(__fmul_rn(0.5f, quad),
-                                      __fmul_rn(__fmul_rn(cxy, dx), dy));
-              const bool maybe = k0 - u >= 0 && j <= fidx[q] &&
-                                 sigma[u][q] >= 0.0f &&
-                                 sigma[u][q] <= sigma_max;
-              mine |= static_cast<unsigned>(maybe) << (u * kPix + q);
-            }
-          }
-        }
-        const unsigned warps = __reduce_or_sync(kFull, mine);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int k = k0 - u;
-          if (k < 0) break;
-          if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
-            const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
-            const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
-            const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
-            const float cyy = rb4.x, o = rb4.z;
-            const float cr = rb4.w, cg = rc4.x, cb = rc4.y;
-            float g[kRows];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
-#pragma unroll
-            for (int q = 0; q < kPix; ++q) {
-              if (!((mine >> (u * kPix + q)) & 1u)) continue;
-              const float vis = expf(-sigma[u][q]);
-              const float alpha = fminf(kAlphaMax, __fmul_rn(o, vis));
-              if (alpha < kAlphaEps) continue;
-              const float dx = __fsub_rn(x, pixel_x(px0, q));
-              const float dy = __fsub_rn(y, pixel_y(py0, q));
-              const float ra = __fdividef(1.0f, 1.0f - alpha);
-              const float t_before = t_cur[q] * ra;
-              const float fac = alpha * t_before;
-              const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
-              const float v_alpha =
-                  cw * t_before + ra * (tfva[q] - s_behind[q]);
-              s_behind[q] += cw * fac;
-              t_cur[q] = t_before;
-              const float vs = -o * vis * v_alpha;
-              const float vx = vs * dx, vy = vs * dy;
-              g[0] += cxx * vx + cxy * vy;
-              g[1] += cxy * vx + cyy * vy;
-              g[2] += 0.5f * vx * dx;
-              g[3] += vx * dy;
-              g[4] += 0.5f * vy * dy;
-              g[5] += fac * vr[q];
-              g[6] += fac * vg[q];
-              g[7] += fac * vb[q];
-              g[8] += vis * v_alpha;
-            }
-            float m8;
-            const float m = folded_sum(g, lane, &m8);
-            if (my_row >= 0) {
-              const float v = lane == 1 ? m8 : m;
-              float& slot = part[k * kRows + my_row];
-              slot = sub == 0 ? v : slot + v;  // the tiles in a fixed order
-            }
-          }
+        for (int q = 0; q < kPix; ++q) {
+          const float dx = __fsub_rn(x, pixel_x(px0, q));
+          const float dy = __fsub_rn(y, pixel_y(py0, q));
+          const float quad = __fadd_rn(__fmul_rn(__fmul_rn(cxx, dx), dx),
+                                       __fmul_rn(__fmul_rn(cyy, dy), dy));
+          sigma[u][q] = __fadd_rn(__fmul_rn(0.5f, quad),
+                                  __fmul_rn(__fmul_rn(cxy, dx), dy));
+          const bool maybe = i0 - u >= 0 && j <= fidx[q] &&
+                             sigma[u][q] >= 0.0f && sigma[u][q] <= sigma_max;
+          mine |= static_cast<unsigned>(maybe) << (u * kPix + q);
         }
       }
-      if (tiles_a_cell > 1 && b_start > start) save_pixels(sub);
+      const unsigned warps = __reduce_or_sync(kFull, mine);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i0 - u < 0) break;
+        const int k = ks[u];
+        if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
+          const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
+          const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
+          const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
+          const float cyy = rb4.x, o = rb4.z;
+          const float cr = rb4.w, cg = rc4.x, cb = rc4.y;
+          float g[kRows];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
+#pragma unroll
+          for (int q = 0; q < kPix; ++q) {
+            if (!((mine >> (u * kPix + q)) & 1u)) continue;
+            const float vis = expf(-sigma[u][q]);
+            const float alpha = fminf(kAlphaMax, __fmul_rn(o, vis));
+            if (alpha < kAlphaEps) continue;
+            const float dx = __fsub_rn(x, pixel_x(px0, q));
+            const float dy = __fsub_rn(y, pixel_y(py0, q));
+            const float ra = __fdividef(1.0f, 1.0f - alpha);
+            const float t_before = t_cur[q] * ra;
+            const float fac = alpha * t_before;
+            const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
+            const float v_alpha =
+                cw * t_before + ra * (tfva[q] - s_behind[q]);
+            s_behind[q] += cw * fac;
+            t_cur[q] = t_before;
+            const float vs = -o * vis * v_alpha;
+            const float vx = vs * dx, vy = vs * dy;
+            g[0] += cxx * vx + cxy * vy;
+            g[1] += cxy * vx + cyy * vy;
+            g[2] += 0.5f * vx * dx;
+            g[3] += vx * dy;
+            g[4] += 0.5f * vy * dy;
+            g[5] += fac * vr[q];
+            g[6] += fac * vg[q];
+            g[7] += fac * vb[q];
+            g[8] += vis * v_alpha;
+          }
+          float m8;
+          const float m = folded_sum(g, lane, &m8);
+          if (my_row >= 0) part[k * kRows + my_row] = lane == 1 ? m8 : m;
+        }
+      }
     }
     __syncthreads();
     // Add the warps' partials of every (row, record) in warp order.
@@ -437,9 +530,38 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
         float acc = s_part[0][k * kRows + r];
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) acc += s_part[w][k * kRows + r];
-        grads[r * P + static_cast<size_t>(b_start + k)] = acc;
+        out[r * P + static_cast<size_t>(b_start + k)] = acc;
       }
     }
+  }
+}
+
+// Cells of several tiles: each record's row is tile 0's (in grads) plus
+// the other tiles' partial rows, added in tile order. kSumSplit blocks a
+// cell over the range the sweep wrote, a record a thread, its nine rows'
+// loads in flight together.
+__global__ void __launch_bounds__(kSumThreads)
+cell_sum_kernel(int pool, const int* __restrict__ starts, int tiles_a_cell,
+                float* __restrict__ grads, float* __restrict__ partial) {
+  const int t = blockIdx.x / kSumSplit;
+  const size_t P = static_cast<size_t>(pool);
+  const int last = cell_last(partial, tiles_a_cell, P)[t];
+  for (int j = starts[t] + (blockIdx.x % kSumSplit) * kSumThreads +
+               threadIdx.x;
+       j < last; j += kSumSplit * kSumThreads) {
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = grads[r * P + j];
+    for (int g = 1; g < tiles_a_cell; ++g) {
+      const float* src = partial + static_cast<size_t>(g - 1) * kRows * P + j;
+      float v[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) v[r] = src[r * P];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] += v[r];
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) grads[r * P + j] = acc[r];
   }
 }
 
@@ -447,26 +569,32 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
 // tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
-// whole frame). order: num_cells ints of scratch; state: with several
-// tiles a cell, 2 floats of scratch a pixel of the launch's cells (unread
-// at (1, 1)).
+// whole frame). order: num_cells ints of scratch; partial: with G = cell_w
+// cell_h > 1 tiles a cell, (G - 1) x 9 x pool floats and then num_cells
+// ints of scratch (unread at (1, 1)).
 extern "C" int rasterize_bwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
                                     int num_cells, int tile_base,
                                     int cells_x, int cell_w, int cell_h,
                                     const float* v_out, const float* log_t,
                                     const int* fidx, float* grads, int* order,
-                                    float* state, void* stream) {
+                                    float* partial, void* stream) {
   if (num_cells <= 0) return 0;
-  if (cell_w < 1 || cell_h < 1 || tile_base < 0 ||
+  const long long blocks = static_cast<long long>(num_cells) * cell_w * cell_h;
+  if (cell_w < 1 || cell_h < 1 || tile_base < 0 || blocks > 0x7FFFFFFFLL ||
+      static_cast<long long>(num_cells) * kSumSplit > 0x7FFFFFFFLL ||
       static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  rasterize_bwd_kernel<<<num_cells, kThreads, 0, s>>>(
-      packed, pool, order, starts, ends, num_cells, tile_base, cells_x,
-      cell_w, cell_h, v_out, log_t, fidx, grads, state);
+  rasterize_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
+      v_out, log_t, fidx, grads, partial);
+  if (cell_w * cell_h > 1) {
+    cell_sum_kernel<<<num_cells * kSumSplit, kSumThreads, 0, s>>>(
+        pool, starts, cell_w * cell_h, grads, partial);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,10 @@
 Replaces brush_tpu/ops/pallas/rasterize_bwd.py (rasterize_bwd_pallas,
 :414), its tile mode, its raster-cell mode and its strip mode (tile_base,
 as in rasterize_fwd). The CUDA kernel is
-brush_tpu_torch/csrc/rasterize_bwd.cu (one block per tile or cell,
-several pixels a thread, a back-to-front sweep, one folded warp butterfly
+brush_tpu_torch/csrc/rasterize_bwd.cu (one block per tile, also per
+tile of a raster cell, whose tiles' partial rows a second kernel adds in
+tile order; two pixels a thread, per-warp lists of the records that may
+reach a warp's pixels, a back-to-front sweep, one folded warp butterfly
 for the nine pixel sums; its header gives the formulas, the design and
 the bound). `rasterize_bwd_plain` below is the same function in PyTorch:
 CPU tensors take it, and tests and chip_smoke.py hold the kernel to it.
@@ -22,6 +24,7 @@ the P pixels of the record's cell; slots that no sweep reaches are zero.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -116,6 +119,17 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
     return grads
 
 
+@functools.cache
+def _launcher():
+    """The kernel's C entry, its ctypes signature set once, when the
+    library is loaded."""
+    fn = build.load("rasterize_bwd").rasterize_bwd_launch
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P, _P]
+    fn.restype = _I
+    return fn
+
+
 def _check_inputs(packed, starts, ends, v_out, log_t, fidx, cell):
     _check_pool(packed, starts, ends)
     t = starts.shape[0]
@@ -153,22 +167,20 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
     grads = torch.zeros((GRAD_ROWS, packed.shape[1]), dtype=torch.float32,
                         device=dev)
     # Scratch for the kernel's own cell order (heaviest cells start first),
-    # and, for a cell of several tiles, each pixel's transmittance and
-    # colour behind between the sweeps of its tile.
+    # and, for a cell of several tiles, the partial rows of every tile but
+    # the first, which a second kernel adds into grads in tile order, and
+    # each cell's end of the range swept (an int a cell).
     order = torch.empty_like(starts)
-    state = torch.empty((2, log_t.numel() if gw * gh > 1 else 1),
-                        dtype=torch.float32, device=dev)
-    lib = build.load("rasterize_bwd")
-    fn = lib.rasterize_bwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                   _P, _P]
-    fn.restype = _I
+    partial = torch.empty(
+        ((gw * gh - 1) * GRAD_ROWS * packed.shape[1] + starts.shape[0]
+         if gw * gh > 1 else 1,), dtype=torch.float32, device=dev)
+    fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
                 ends.data_ptr(), starts.shape[0], tile_base, tiles_x, gw, gh,
                 v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
-                grads.data_ptr(), order.data_ptr(), state.data_ptr(), stream)
+                grads.data_ptr(), order.data_ptr(), partial.data_ptr(), stream)
     build.check(rc, "rasterize_bwd")
     launches += 1
     return grads

@@ -1,11 +1,13 @@
 """Segment sum: gradient rows sorted by compact splat id -> per-splat sums.
 
 Replaces brush_tpu/ops/pallas/segsum.py (segment_sum_pallas, :136). The
-CUDA kernel is brush_tpu_torch/csrc/segsum.cu (a block-wide segmented
-sum: 256 splats a block, their contiguous slots streamed through shared
-memory; its header gives the design and the bound). `segment_sum_plain` below is the
-same function in PyTorch: CPU tensors take it, and tests and chip_smoke.py
-hold the kernel to it.
+CUDA kernels are in brush_tpu_torch/csrc/segsum.cu: from 131072 splats, a
+block a run of 256 splats whose slots stream through shared memory;
+below, the work split by slots, a block a span of 1024 live slots, the
+splats that cross spans joined by a second kernel in span order (its
+header gives the design, the choice and the bound).
+`segment_sum_plain` below is the same function in PyTorch: CPU tensors
+take it, and tests and chip_smoke.py hold the kernel to it.
 
 Inputs: rows (GRAD_ROWS, pool) float32 in compact-id order; offsets and
 cum (n,) int32, each splat's exclusive and inclusive record-count cumsums
@@ -18,6 +20,7 @@ only the slots below `total`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,6 +53,20 @@ def segment_sum_plain(rows, offsets, cum, total):
     return out.index_add_(1, owner, rows[:, :owner.shape[0]])
 
 
+@functools.cache
+def _launcher():
+    """The kernel's C entries, their ctypes signatures set once, when the
+    library is loaded: (launch, scratch floats for a pool)."""
+    lib = build.load("segsum")
+    fn = lib.segsum_launch
+    fn.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P]
+    fn.restype = _I
+    scratch = lib.segsum_scratch_floats
+    scratch.argtypes = [_I]
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
 def _check_inputs(rows, offsets, cum, total):
     if rows.dtype != torch.float32 or rows.dim() != 2 \
             or rows.shape[0] != GRAD_ROWS:
@@ -78,15 +95,17 @@ def segment_sum(rows, offsets, cum, total):
     rows, offsets, cum, total = (t.contiguous()
                                  for t in (rows, offsets, cum, total))
     n = offsets.shape[0]
+    pool = rows.shape[1]
     out = torch.empty((GRAD_ROWS, n), dtype=torch.float32, device=rows.device)
-    lib = build.load("segsum")
-    fn = lib.segsum_launch
-    fn.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P]
-    fn.restype = _I
+    fn, scratch_floats = _launcher()
+    # Per span of slots: the partial sums of the splats that cross it.
+    scratch = torch.empty((max(1, scratch_floats(pool)),),
+                          dtype=torch.float32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rows.data_ptr(), rows.shape[1], offsets.data_ptr(),
-                cum.data_ptr(), total.data_ptr(), n, out.data_ptr(), stream)
+        rc = fn(rows.data_ptr(), pool, offsets.data_ptr(), cum.data_ptr(),
+                total.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
+                stream)
     build.check(rc, "segsum")
     launches += 1
     return out

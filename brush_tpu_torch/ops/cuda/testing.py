@@ -1,9 +1,12 @@
 """Kernel arguments made by hand, which the scenes do not reach.
 
-chip_smoke.py and the tests (tests/test_torch_kernels.py against the Pallas
-kernels, tests/test_torch_cuda.py on the card) hold rasterize_fwd and
-rasterize_bwd to their plain versions on these tile layouts
-(`hand_tiles`), and expand on these splat layouts (`hand_expand`).
+chip_smoke.py and the tests (tests/test_torch_kernels.py and
+test_torch_grads.py against the Pallas kernels, tests/test_torch_cuda.py
+on the card) hold rasterize_fwd and rasterize_bwd to their plain versions
+on these tile layouts (`hand_tiles`) and raster-cell layouts
+(`hand_cells`), expand on these splat layouts (`hand_expand`), and
+segment_sum on these segment layouts (`hand_segments`,
+`hand_small_pool`).
 """
 
 import numpy as np
@@ -81,22 +84,33 @@ def hand_tiles(case):
     else:
         tiles = [records(t, int(rng.integers(40, 101)), 0.02, 0.6, 1.5, 6.0)
                  for t in range(tiles_x * tiles_y)]
-    counts = np.array([len(rec["x"]) for rec in tiles])
+    packed, starts, ends = _pack(tiles)
+    return packed, starts, ends, tiles_x
+
+
+def _pack(cells, pool=None):
+    """Records given cell by cell (dicts of x, y, cxx, cxy, cyy, rgb (3,
+    count) u16 words, o u16 words) as (packed (8, pool) int32, starts,
+    ends): the records in order, splat ids 0, 1, .. in row 7; pool defaults
+    to the records rounded up to 256, plus 256."""
+    counts = np.array([len(rec["x"]) for rec in cells])
     ends = np.cumsum(counts)
     total = int(ends[-1])
-    pool = -(-total // 256) * 256 + 256
+    if pool is None:
+        pool = -(-total // 256) * 256 + 256
+    assert total <= pool
     packed = np.zeros((8, pool), np.uint32)
     for row, key in enumerate(("x", "y", "cxx", "cxy", "cyy")):
         packed[row, :total] = np.concatenate(
-            [rec[key] for rec in tiles]).astype(np.float32).view(np.uint32)
-    rgb = np.concatenate([rec["rgb"] for rec in tiles], axis=1).astype(
+            [rec[key] for rec in cells]).astype(np.float32).view(np.uint32)
+    rgb = np.concatenate([rec["rgb"] for rec in cells], axis=1).astype(
         np.uint32)
-    o = np.concatenate([rec["o"] for rec in tiles]).astype(np.uint32)
+    o = np.concatenate([rec["o"] for rec in cells]).astype(np.uint32)
     packed[5, :total] = rgb[0] | (rgb[1] << 16)
     packed[6, :total] = rgb[2] | (o << 16)
     packed[7, :total] = np.arange(total)
     return (packed.view(np.int32), (ends - counts).astype(np.int32),
-            ends.astype(np.int32), tiles_x)
+            ends.astype(np.int32))
 
 
 HAND_EXPAND_CASES = ("bbox_span", "zero_owners", "zero_run", "full_mask",
@@ -228,3 +242,245 @@ def hand_expand(case):
                    *meta[:3]]).astype(np.uint32).view(np.int32)
     return (f5, u5, cum, np.array([total], np.int32), tiles_x,
             tiles_x * tiles_y, pool)
+
+
+HAND_CELL_CASES = ("one_tile", "all_tiles", "corner_pixel", "deep_cell",
+                   "pretest_edge", "hyperbolic", "edge_4x2")
+HAND_CELL_POOL = 2048   # every (2, 2) layout: one pool, two cells
+HAND_EDGE_IMAGE = (80, 48)   # edge_4x2's image: 5 x 3 tiles
+
+
+def sigma_f32(x, y, cxx, cxy, cyy, px, py):
+    """The kernels' sigma in float32, operation by operation as the sweeps
+    round it (numpy broadcasting over records and pixel centres)."""
+    f = np.float32
+    dx = (f(x) - f(px)).astype(f)
+    dy = (f(y) - f(py)).astype(f)
+    quad = (f(cxx) * dx * dx).astype(f) + (f(cyy) * dy * dy).astype(f)
+    return (f(0.5) * quad.astype(f)).astype(f) + (f(cxy) * dx * dy).astype(f)
+
+
+def sigma_max_f32(o_words):
+    """The pretest's bound of each record, as the kernels decode it:
+    log(255 o) + 1e-4 in float32 (rasterize_fwd.cu, rasterize_bwd.cu)."""
+    o = (np.asarray(o_words, np.float32) * np.float32(1.0 / 65535.0)).astype(
+        np.float32)
+    with np.errstate(divide="ignore"):
+        return (np.log(np.float32(255.0) * o).astype(np.float32)
+                + np.float32(1e-4)).astype(np.float32)
+
+
+def cell_pixel_centres(cell, c, cells_x):
+    """Pixel centres (x, y) of cell c, row-major over the cell."""
+    gw, gh = cell
+    ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+    yy, xx = np.mgrid[0:16 * gh, 0:16 * gw]
+    return (ox + xx.ravel() + 0.5).astype(np.float32), \
+        (oy + yy.ravel() + 0.5).astype(np.float32)
+
+
+def warp_patches(cell, c, cells_x):
+    """The rasterize_bwd kernel's warp patches of cell c: a list of
+    (x0, y0) corners of 16 x 4 pixel blocks, four a tile, tile by tile."""
+    gw, gh = cell
+    ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+    return [(ox + 16 * (sub % gw), oy + 16 * (sub // gw) + 4 * w)
+            for sub in range(gw * gh) for w in range(4)]
+
+
+def hand_cells(case):
+    """Backward arguments at raster cells made by hand, which the scenes do
+    not reach: (packed (8, pool) int32, starts, ends, cells_x, cell) as
+    numpy arrays and ints. Every (2, 2) layout has two cells side by side
+    in a pool of HAND_CELL_POOL slots (one shape for the Pallas kernel).
+      one_tile: records whose footprint (sigma <= log(255 o)) reaches one
+        tile of their cell only, in every tile;
+      all_tiles: wide records at the cell's centre, each reaching all four
+        tiles;
+      corner_pixel: among faint wide records, one record at each corner of
+        the first cell that reaches its corner pixel and no other (o 1,
+        sigma 5.3 there, 8.1 at the next pixel);
+      deep_cell: HAND_DEEP faint records in the first cell, more than
+        three staging batches of either rasterizer;
+      pretest_edge: records outside a warp's 16 x 4 patch whose least
+        sigma over the patch's pixel centres lies within 3e-4 (relative)
+        of log(255 o), on either side, with anisotropic and rotated
+        conics: the per-warp lists must keep every one whose pair can
+        pass;
+      hyperbolic: every fifth record has an indefinite conic (cxx cyy <
+        cxy^2), the rest ordinary;
+      edge_4x2: cells of (4, 2) tiles over an 80 x 48 image (5 x 3 tiles,
+        which (4, 2) does not divide: the right and bottom cells lie
+        partly outside), records in and across the image's edge."""
+    rng = np.random.default_rng(HAND_CELL_CASES.index(case) + 71)
+    cell = (4, 2) if case == "edge_4x2" else (2, 2)
+    gw, gh = cell
+    cells_x = 2
+
+    def records(count, x, y, radius, opac, aniso=0.3):
+        inv = 1.0 / np.asarray(radius, np.float64) ** 2
+        return dict(
+            x=np.asarray(x, np.float64), y=np.asarray(y, np.float64),
+            cxx=inv * np.ones(count),
+            cxy=inv * rng.uniform(-aniso, aniso, count),
+            cyy=inv * rng.uniform(1.0 - aniso, 1.0 + aniso, count),
+            rgb=rng.integers(30300, 45050, (3, count)),
+            o=np.round(np.asarray(opac, np.float64) * 65535.0))
+
+    def spread(c, count, opac_lo, opac_hi, radius_lo, radius_hi):
+        ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+        return records(count, ox + rng.uniform(0, 16 * gw, count),
+                       oy + rng.uniform(0, 16 * gh, count),
+                       rng.uniform(radius_lo, radius_hi, count),
+                       rng.uniform(opac_lo, opac_hi, count))
+
+    def join(parts):
+        return {k: np.concatenate([p[k] for p in parts], axis=-1)
+                for k in parts[0]}
+
+    cells = []
+    if case == "one_tile":
+        for c in range(2):
+            sub = rng.integers(0, 4, 160)
+            ox = 32 * c + 16 * (sub % 2) + rng.uniform(5.0, 11.0, 160)
+            oy = 16 * (sub // 2) + rng.uniform(5.0, 11.0, 160)
+            cells.append(records(160, ox, oy, rng.uniform(0.5, 0.9, 160),
+                                 rng.uniform(0.3, 0.9, 160), aniso=0.2))
+    elif case == "all_tiles":
+        for c in range(2):
+            cells.append(records(
+                120, 32 * c + 16 + rng.uniform(-3, 3, 120),
+                16 + rng.uniform(-3, 3, 120), rng.uniform(6.0, 12.0, 120),
+                rng.uniform(0.02, 0.3, 120)))
+    elif case == "corner_pixel":
+        back = spread(0, 100, 0.01, 0.05, 6.0, 12.0)
+        a = np.sqrt(5.3)   # 0.5 (a^2 + a^2) = 5.3 at the corner pixel
+        corners = dict(
+            x=np.array([0.5 - a, 31.5 + a, 0.5 - a, 31.5 + a]),
+            y=np.array([0.5 - a, 0.5 - a, 31.5 + a, 31.5 + a]),
+            cxx=np.ones(4), cxy=np.zeros(4), cyy=np.ones(4),
+            rgb=rng.integers(30300, 45050, (3, 4)),
+            o=np.full(4, 65535.0))
+        parts = []
+        for i, at in enumerate((10, 40, 70, 95)):   # depth places
+            prev = (0, 10, 40, 70)[i]
+            parts.append({k: v[..., prev:at] for k, v in back.items()})
+            parts.append({k: v[..., i:i + 1] for k, v in corners.items()})
+        parts.append({k: v[..., 95:] for k, v in back.items()})
+        cells = [join(parts), spread(1, 60, 0.02, 0.3, 2.0, 6.0)]
+    elif case == "deep_cell":
+        cells = [spread(0, HAND_DEEP, 0.005, 0.015, 3.0, 8.0),
+                 spread(1, 130, 0.008, 0.03, 3.0, 8.0)]
+    elif case == "pretest_edge":
+        for c in range(2):
+            count = 96
+            patches = warp_patches(cell, c, cells_x)
+            pick = rng.integers(0, len(patches), count)
+            o = np.round(rng.uniform(0.05, 1.0, count) * 65535.0)
+            rec = dict(x=np.zeros(count), y=np.zeros(count),
+                       cxx=np.zeros(count), cxy=np.zeros(count),
+                       cyy=np.zeros(count),
+                       rgb=rng.integers(30300, 45050, (3, count)), o=o)
+            target = np.log(255.0 * (o / 65535.0)) * (
+                1.0 + rng.uniform(-3e-4, 3e-4, count))
+            for i in range(count):
+                x0, y0 = patches[pick[i]]
+                px, py = np.meshgrid(x0 + 0.5 + np.arange(16),
+                                     y0 + 0.5 + np.arange(4))
+                # A centre 1-6 pixels outside the patch, on any side.
+                side = rng.integers(0, 4)
+                gap = rng.uniform(1.0, 6.0)
+                along = rng.uniform(-2.0, 18.0)
+                cx, cy = [(x0 + along, y0 - gap), (x0 + along, y0 + 4 + gap),
+                          (x0 - gap, y0 + rng.uniform(-2, 6)),
+                          (x0 + 16 + gap, y0 + rng.uniform(-2, 6))][side]
+                cyy = rng.uniform(0.3, 3.0)
+                cxy = rng.uniform(-0.8, 0.8) * np.sqrt(cyy)
+                d_x, d_y = cx - px, cy - py
+                least = (0.5 * (d_x ** 2 + cyy * d_y ** 2)
+                         + cxy * d_x * d_y).min()
+                k = target[i] / least
+                rec["x"][i], rec["y"][i] = cx, cy
+                rec["cxx"][i], rec["cxy"][i], rec["cyy"][i] = (
+                    k, k * cxy, k * cyy)
+            cells.append(join([spread(c, 40, 0.01, 0.05, 4.0, 10.0), rec]))
+    elif case == "hyperbolic":
+        for c in range(2):
+            rec = spread(c, 200, 0.02, 0.5, 1.5, 6.0)
+            inv = 1.0 / rng.uniform(2.0, 6.0, 40) ** 2
+            rec["cxx"][::5] = inv
+            rec["cxy"][::5] = -1.5 * inv
+            rec["cyy"][::5] = inv
+            cells.append(rec)
+    else:   # edge_4x2: 2 x 2 cells over 5 x 3 tiles
+        w_img, h_img = HAND_EDGE_IMAGE
+        for c in range(4):
+            ox, oy = 64 * (c % 2), 32 * (c // 2)
+            w = min(64, w_img - ox) + 3.0   # a little past the image edge
+            h = min(32, h_img - oy) + 3.0
+            cells.append(records(
+                90, ox + rng.uniform(-1.0, w, 90),
+                oy + rng.uniform(-1.0, h, 90), rng.uniform(1.5, 6.0, 90),
+                rng.uniform(0.02, 0.6, 90)))
+    pool = HAND_CELL_POOL if cell == (2, 2) else None
+    packed, starts, ends = _pack(cells, pool)
+    return packed, starts, ends, cells_x, cell
+
+
+# segment_sum's hand layouts (the kernel's spans: csrc/segsum.cu kSpan).
+HAND_LAYOUTS = ["long_segment", "empty_runs", "straddle", "total_zero"]
+HAND_POOL = 4096
+
+
+def hand_segments(case):
+    """(offsets, cum, total) int32 numpy for 700 splats (no multiple of a
+    256-splat block) of 1-4 slots each in a pool of HAND_POOL, the last 40
+    empty. long_segment: one splat of 1101 slots, longer than a 1024-slot
+    span; empty_runs: 20 empty splats after every 16; straddle: `total`
+    falls one slot into a splat, which keeps that slot, and every later
+    splat gets zero; total_zero: no live slot."""
+    rng = np.random.default_rng(31)
+    counts = rng.integers(1, 5, 700)
+    if case == "long_segment":
+        counts[300] = 1101
+    if case == "empty_runs":
+        for i in range(16, 700, 36):
+            counts[i:i + 20] = 0
+    counts[-40:] = 0
+    cum = np.cumsum(counts)
+    offsets = cum - counts
+    total = int(cum[-1])
+    assert total <= HAND_POOL
+    if case == "straddle":
+        w = 350 + int(np.argmax(counts[350:] >= 3))
+        total = int(offsets[w]) + 1
+    if case == "total_zero":
+        total = 0
+    return (offsets.astype(np.int32), cum.astype(np.int32),
+            np.array([total], np.int32))
+
+
+HAND_SMALL_N = 8192       # the CLI's capacity
+HAND_SMALL_LIVE = 3000    # splats in front of the camera
+HAND_SMALL_POOL = 131072
+
+
+def hand_small_pool():
+    """segment_sum at the CLI's sizes: (offsets, cum, total) int32 numpy
+    for HAND_SMALL_N splats in a pool of HAND_SMALL_POOL. The first
+    HAND_SMALL_LIVE own 1-40 slots each, one in 20 of them none, every
+    200th 2,000-6,000 (over several spans of the kernel, some of them
+    wholly), and the rest of the capacity none (padding rows); about
+    120,000 live slots, so spans crossed by one splat and spans holding
+    dozens."""
+    rng = np.random.default_rng(43)
+    counts = np.zeros(HAND_SMALL_N, np.int64)
+    live = HAND_SMALL_LIVE
+    counts[:live] = rng.integers(1, 41, live)
+    counts[:live][rng.random(live) < 0.05] = 0
+    counts[100:live:200] = rng.integers(2000, 6001, len(range(100, live, 200)))
+    cum = np.cumsum(counts)
+    total = int(cum[-1])
+    assert total <= HAND_SMALL_POOL
+    return ((cum - counts).astype(np.int32), cum.astype(np.int32),
+            np.array([total], np.int32))

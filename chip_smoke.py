@@ -28,9 +28,15 @@ result line; each phase prints its seconds):
      twice on the same inputs must give the same bits, here and wherever
      they are checked below; the same checks of all four kernels at the
      entry scene in raster cells of (2, 2) and (4, 2) tiles (CHECK_CELLS);
-     segment_sum also on a layout made by hand
-     (a segment of 100,003 slots, runs of empty splats, n no multiple of
-     the kernel's block, `total` cutting a segment and `total` 0); expand
+     segment_sum also on layouts made by hand, equal to the plain version
+     in every bit on rows of multiples of 1/16 (a segment of 100,003
+     slots, runs of empty splats; the CLI's sizes, 8192 splats and about
+     120,000 live slots, spans inside one splat and spans holding dozens;
+     `total` cutting a segment and `total` 0); rasterize_bwd also on the
+     raster-cell layouts of ops/cuda/testing.hand_cells (records reaching
+     one tile of a cell, all four, a single corner pixel; a deep cell; sigma
+     at the pretest's edge of a warp's patch; hyperbolic conics; edge cells
+     at (4, 2)); expand
      also on the splat layouts of ops/cuda/testing.hand_expand (a bbox
      splat over three kernel blocks, owners of count 0 inside the live
      range and in a run wider than the kernel's owner window, full 64-bit
@@ -144,11 +150,15 @@ result line; each phase prints its seconds):
      "aligned" the aligned phase's, and for expand and rasterize_fwd
      under "viewer" the viewer's frames' launches and under "render"
      phase 3's times at (1, 1) and CELL; beside each "ms" (the wrapper's,
-     what a host-bound step pays) its "device_ms", and beside
+     what a host-bound step pays) its "device_ms" (the median of
+     DEVICE_REPLAYS replays of a CUDA graph of the calls), and beside
      segment_sum's "library_ms" (index_add_) its "library_device_ms";
      the nvidia-smi line;
      and last {"ok": true, "device": {...}}.
-The script imports nothing of JAX or of the JAX package.
+The script imports nothing of JAX or of the JAX package. With
+--save-kernel-args DIR it also saves the backward kernels' arguments of
+phase 6's and the cli run's last step into DIR, for
+scripts/torch_kernel_variants.py --args-file.
 """
 
 import contextlib
@@ -261,12 +271,16 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
+DEVICE_REPLAYS = 7   # device_ms: replays of the graph, the median taken
+
+
 def device_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean device milliseconds of fn() over reps calls captured in one
-    CUDA graph, the graph replayed once between two CUDA events: the
-    kernels' own time (with the wrapper's allocations and memsets), none
-    of the host's. fn must not wait for the device: every kernel wrapper
-    and index_add_ qualify (tests/test_torch_cuda.py replays each)."""
+    """Device milliseconds of one fn() call: reps calls captured in one
+    CUDA graph, the graph replayed DEVICE_REPLAYS times, each between two
+    CUDA events, and the median of those replays over reps. The kernels' own
+    time (with the wrapper's allocations and memsets), none of the host's.
+    fn must not wait for the device: every kernel wrapper and index_add_
+    qualify (tests/test_torch_cuda.py replays each)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -283,16 +297,21 @@ def device_ms(fn, reps: int, warm: int = 1) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / reps
+    times = []
+    for _ in range(DEVICE_REPLAYS):
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
     del graph
-    return ms
+    return statistics.median(times)
 
 
 _scenes: dict = {}
+# --save-kernel-args DIR: where train_kernels saves each run's last
+# rasterize_bwd and segment_sum arguments (None: nowhere).
+SAVE_ARGS_DIR = None
 
 
 def make_scene(cfg, device):
@@ -515,9 +534,10 @@ def check_bwd(b_args, label):
                 plain_ms=plain_ms, swept=swept, active=active, grads=grads)
 
 
-def check_segsum(s_args, label):
-    """segment_sum vs plain on s_args (rows, offsets, cum, total): returns
-    dict(err=row error, abs=max abs error, plain_ms)."""
+def check_segsum(s_args, label, exact=False):
+    """segment_sum vs plain on s_args (rows, offsets, cum, total), with
+    `exact` equal in every bit: returns dict(err=row error, abs=max abs
+    error, plain_ms)."""
     import torch
     from brush_tpu_torch.ops.cuda.segsum import (
         segment_sum, segment_sum_plain,
@@ -530,23 +550,34 @@ def check_segsum(s_args, label):
                              "same inputs differ")
     plain, plain_ms = timed(lambda: segment_sum_plain(*s_args))
     err = row_error(seg, plain)
-    if err > SEG_RTOL:
+    if err > SEG_RTOL or (exact and not torch.equal(seg, plain)):
         raise AssertionError(f"[{label}] segment_sum: row error "
-                             f"{err:.3e} > {SEG_RTOL:.0e}")
+                             f"{err:.3e} (limit {SEG_RTOL:.0e}, exact: "
+                             f"{exact})")
     return dict(err=err, abs=float((seg - plain).abs().max()),
                 plain_ms=plain_ms)
 
 
 def check_segsum_hand():
-    """segment_sum against its plain version on a layout made by hand,
-    which the scenes do not reach: 70,001 splats (no multiple of the
-    kernel's 256-splat block) of 0-3 slots each, 800 empty splats in a run
-    and 300 at the end, one segment of 100,003 slots, a hundred of 70 and
-    one of 600; `total` at the last slot, one slot into the long segment,
-    in its middle, and 0. The rows are multiples of 1/16 below 4, so every
-    order of summation gives the same float32 and the plain version's
-    atomic adds cost it nothing: the two must agree to SEG_RTOL."""
+    """segment_sum against its plain version on layouts made by hand,
+    which the scenes do not reach: 70,001 splats of 0-3 slots each, 800
+    empty splats in a run and 300 at the end, one segment of 100,003
+    slots, a hundred of 70 and one of 600 (the span kernel), and the same
+    followed by padding splats of count 0 up to 140,000 (the splat
+    kernel, csrc/segsum.cu's choice from 131,072 splats); the layouts of
+    ops/cuda/testing.hand_segments (700 splats); the CLI's sizes
+    (ops/cuda/testing.hand_small_pool: 8192 splats, about 3,000 of 1-40
+    slots and every 200th of 2,000-6,000, some 120,000 live slots in a pool
+    of 131,072). `total` at the last slot, one slot into the long(est)
+    segment, in its middle, and 0. The rows are multiples of 1/16 below 4,
+    so every order of summation gives the same float32 and the plain
+    version's atomic adds cost it nothing: the two must be equal in every
+    bit."""
     import torch
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_LAYOUTS, HAND_POOL, HAND_SMALL_POOL, hand_segments,
+        hand_small_pool,
+    )
 
     n, pool = 70001, 262144
     t0 = time.perf_counter()
@@ -567,16 +598,66 @@ def check_segsum_hand():
         torch.float32).cuda() / 16.0
     long_lo = int(offsets[1000])
     errs = {}
-    for name, value in (("all", raw), ("straddle", long_lo + 1),
-                        ("mid", long_lo + 50_001), ("zero", 0)):
-        total = torch.tensor([value], dtype=torch.int32, device="cuda")
-        s = check_segsum((rows, offsets, cum, total), f"hand {name}")
-        errs[name] = s["err"]
-    print(f"[hand] segment_sum n={n} pool={pool}, {raw} slots, a segment "
-          f"of {int(counts.max())}: row errors at total = all, one slot "
-          f"into the long segment, its middle, 0: "
-          f"{[errs[k] for k in ('all', 'straddle', 'mid', 'zero')]}; two "
-          f"launches bit-equal; {time.perf_counter() - t0:.1f} s")
+    pad = cum[-1:].expand(140_000 - n)
+    for n_all in (n, 140_000):
+        o, c = torch.cat([offsets, pad])[:n_all], torch.cat([cum, pad])[:n_all]
+        for name, value in (("all", raw), ("straddle", long_lo + 1),
+                            ("mid", long_lo + 50_001), ("zero", 0)):
+            total = torch.tensor([value], dtype=torch.int32, device="cuda")
+            s = check_segsum((rows, o, c, total), f"hand n={n_all} {name}",
+                             exact=True)
+            errs[f"n={n_all} {name}"] = s["err"]
+    print(f"[hand] segment_sum n={n} (and padded to 140000) pool={pool}, "
+          f"{raw} slots, a segment of {int(counts.max())}: row errors at "
+          f"total = all, one slot into the long segment, its middle, 0: "
+          f"{errs}; two launches bit-equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for case in HAND_LAYOUTS:
+        check_segsum((rows[:, :HAND_POOL], *(
+            torch.tensor(a).cuda() for a in hand_segments(case))),
+            f"hand {case}", exact=True)
+    offsets, cum, total = (torch.tensor(a).cuda() for a in hand_small_pool())
+    rows = torch.randint(-63, 64, (9, HAND_SMALL_POOL), generator=gen).to(
+        torch.float32).cuda() / 16.0
+    w = int(torch.argmax(cum - offsets))
+    lo, hi = int(offsets[w]), int(cum[w])
+    for name, value in (("all", int(total[0])), ("straddle", lo + 1),
+                        ("mid", (lo + hi) // 2), ("zero", 0)):
+        check_segsum((rows, offsets, cum, torch.tensor(
+            [value], dtype=torch.int32, device="cuda")),
+            f"hand small pool {name}", exact=True)
+    print(f"[hand] segment_sum on ops/cuda/testing.hand_segments' "
+          f"{HAND_LAYOUTS} and at the CLI's sizes: n={cum.shape[0]}, pool "
+          f"{HAND_SMALL_POOL}, {int(total[0])} live slots, the longest "
+          f"splat {hi - lo}: equal to the plain version in every bit at "
+          f"total = all, one slot into the longest splat, its middle, 0; "
+          f"two launches bit-equal")
+
+
+def check_bwd_hand():
+    """rasterize_bwd against its plain version (check_bwd: BWD_RTOL, two
+    launches bit-equal) on the raster-cell layouts of
+    ops/cuda/testing.hand_cells, on the kernel forward's log T and
+    final_idx and a seeded image cotangent."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.cuda.testing import HAND_CELL_CASES, hand_cells
+
+    t0 = time.perf_counter()
+    errs = {}
+    for case in HAND_CELL_CASES:
+        packed, starts, ends, cells_x, cell = hand_cells(case)
+        args = (torch.tensor(packed).cuda(), torch.tensor(starts).cuda(),
+                torch.tensor(ends).cuda(), cells_x, cell)
+        _, log_t, fidx = rasterize_fwd(*args)
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+        b = check_bwd((*args[:4], v_out, log_t, fidx, cell),
+                      f"hand cells {case}")
+        errs[f"{case} {cell[0]}x{cell[1]}"] = b["err"]
+    print(f"[hand] rasterize_bwd row errors on the raster-cell layouts "
+          f"{errs}; two launches bit-equal; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_backward(k, label, seed):
@@ -1184,6 +1265,14 @@ def train_kernels(kept, tag="train"):
             1, ids, live_rows)
 
     s_lib, s_lib_dev = cuda_ms(library, 20), device_ms(library, 20)
+    if SAVE_ARGS_DIR:
+        # The backward kernels' last arguments, for
+        # scripts/torch_kernel_variants.py --args-file.
+        os.makedirs(SAVE_ARGS_DIR, exist_ok=True)
+        name = re.sub(r"[^A-Za-z0-9]+", "_", tag).strip("_")
+        torch.save({"when": f"{tag}, {when}", "rasterize_bwd": b_args,
+                    "segment_sum": s_args},
+                   os.path.join(SAVE_ARGS_DIR, f"{name}.pt"))
     print(f"[{tag} kernels] {when}: "
           + "; ".join(f"{name} {t:.4f} ms, device {dev[name]:.4f}"
                       for name, t in ms.items())
@@ -3148,8 +3237,18 @@ def text_field(text: str, pattern: str) -> tuple:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    global SAVE_ARGS_DIR
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--save-kernel-args", metavar="DIR", help="save the "
+                    "bench training's, the training at CELL's and the cli "
+                    "run's last rasterize_bwd and segment_sum arguments "
+                    "into DIR (for scripts/torch_kernel_variants.py "
+                    "--args-file)")
+    SAVE_ARGS_DIR = ap.parse_args().save_kernel_args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3169,6 +3268,7 @@ def main() -> int:
     del splats, k
     check_segsum_hand()
     check_raster_hand()
+    check_bwd_hand()
     check_expand_hand()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,

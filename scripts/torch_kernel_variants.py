@@ -31,8 +31,10 @@ held byte for byte to expand_plain; rasterize_fwd on the render's packed
 pool and on the
 same records in a pool of 4194304, the shape a training run reaches;
 rasterize_bwd on the forward kernel's log T and final_idx and a seeded
-image cotangent; segment_sum on the re-sorted rows of that backward, and
-on the same layout padded to 4194304 splats and a pool of 4194304. Every
+image cotangent; segment_sum on the re-sorted rows of that backward, on
+the same layout padded to 4194304 splats and a pool of 4194304, on
+ops/cuda/testing.hand_small_pool (the CLI's sizes) with seeded rows, and
+on the bench layout with every 2, 8, 16, 32 or 64 splats merged into one. Every
 variant is built by nvcc (registers and shared memory printed), checked
 against the repository's kernel on the same inputs (largest error of each
 output row over that row's largest value, and whether every bit is equal;
@@ -208,15 +210,32 @@ DEFAULT_VARIANTS = [
      ["kPix = 2;=>kPix = 8;", "kUnroll = 4;=>kUnroll = 1;"]),
     ("bwd 1 record a step", "rasterize_bwd", ["kUnroll = 4;=>kUnroll = 1;"]),
     ("bwd tiles in index order", "rasterize_bwd",
-     ["order[blockIdx.x]=>blockIdx.x"]),
+     ["order[blockIdx.x / tiles_a_cell]=>(blockIdx.x / tiles_a_cell)"]),
+    ("bwd without the per-warp lists (every record in every list)",
+     "rasterize_bwd", ["keep = may_reach(=>keep = true || may_reach("]),
     ("bwd 128-record batches (8 blocks an SM)", "rasterize_bwd",
      ["kBatch = 192;=>kBatch = 128;"]),
     ("bwd 128-record batches, padded to 5 blocks an SM", "rasterize_bwd",
      ["kBatch = 192;=>kBatch = 128;", "=>".join(PAD)]),
     ("bwd IEEE division", "rasterize_bwd",
      ["__fdividef(1.0f, 1.0f - alpha)=>1.0f / (1.0f - alpha)"]),
-    ("seg 256-slot chunks", "segsum", ["kChunk = 512;=>kChunk = 256;"]),
+    ("seg 512-slot spans", "segsum", ["kSpan = 1024;=>kSpan = 512;"]),
+    ("seg zero blocks after the span blocks", "segsum",
+     ["bid < 2 * both ? (bid & 1) : span_blocks < zero_blocks;"
+      "=>bid >= span_blocks;",
+      "bid < 2 * both ? bid >> 1 : bid - both;"
+      "=>bid >= span_blocks ? bid - span_blocks : bid;"]),
+    ("seg parts over 16 slots summed by a warp (block)", "segsum",
+     ["kLong = 64;=>kLong = 16;"]),
+    ("seg the span kernel everywhere", "segsum",
+     ["kSplatMinSplats = 131072;=>kSplatMinSplats = 1 << 30;"]),
+    ("seg the splat kernel everywhere", "segsum",
+     ["kSplatMinSplats = 131072;=>kSplatMinSplats = 0;"]),
 ]
+# segment_sum on the bench layout with every k consecutive splats merged
+# into one: k times the slots a splat, where csrc/segsum.cu's choice of
+# kernel turns.
+MERGED_SPLATS = (2, 8, 16, 32, 64)
 TIMELINE_SUBS = [
     ("namespace {\n",
      "namespace {\n__device__ unsigned long long g_timeline[3 * 8192];\n"),
@@ -233,8 +252,14 @@ TIMELINE_SUBS = [
      "      g_timeline[3 * t + 2] = t1;\n"
      "    }\n"
      "  };\n"),
-    ("}\n\n}  // namespace", "  tl_end();\n}\n\n}  // namespace"),
 ]
+# Where each kernel's tile body ends: the timeline's last stamp.
+TIMELINE_END = {
+    "rasterize_fwd": [("}\n\n}  // namespace",
+                       "  tl_end();\n}\n\n}  // namespace")],
+    "rasterize_bwd": [("  }\n}\n\n// Cells of several tiles",
+                       "  }\n  tl_end();\n}\n\n// Cells of several tiles")],
+}
 # expand: each slot block's SM and the %globaltimer at its start, after
 # the window search, after the window is staged and at its end (a sentinel
 # block: its start and end).
@@ -286,6 +311,8 @@ def start_build(label, kernel, text):
     return dict(label=label, kernel=kernel, so=stem + ".so",
                 legacy=kernel != "segsum" and "int* order" not in text,
                 cells="int cell_w" in text, strip="int tile_base" in text,
+                partial="float* partial" in text,
+                seg_scratch="segsum_scratch_floats" in text,
                 proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
 
@@ -365,9 +392,15 @@ def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
     if not job["legacy"]:   # sources before the tile order take no scratch
         order = torch.empty_like(starts)
         args.append(order.data_ptr())
-    if job["cells"]:        # the state scratch, unread at cell (1, 1)
-        state = torch.empty(2 * log_t.numel() if cell[0] * cell[1] > 1
-                            else 2, device="cuda")
+    tiles = cell[0] * cell[1]
+    if job["partial"]:      # other tiles' partial rows, unread at (1, 1)
+        scratch = torch.empty((tiles - 1) * 9 * packed.shape[1]
+                              + starts.shape[0] if tiles > 1 else 1,
+                              device="cuda")
+        args.append(scratch.data_ptr())
+    elif job["cells"]:      # the state scratch, unread at cell (1, 1)
+        state = torch.empty(2 * log_t.numel() if tiles > 1 else 2,
+                            device="cuda")
         args.append(state.data_ptr())
     args.append(torch.cuda.current_stream().cuda_stream)
     fn = job["lib"].rasterize_bwd_launch
@@ -402,11 +435,18 @@ def run_seg(job, rows, offsets, cum, total):
     n = offsets.shape[0]
     out = torch.empty((9, n), device="cuda")
     fn = job["lib"].segsum_launch
-    fn.argtypes = [P, I, P, P, P, I, P, P]
+    args = [rows.data_ptr(), rows.shape[1], offsets.data_ptr(),
+            cum.data_ptr(), total.data_ptr(), n, out.data_ptr()]
+    if job["seg_scratch"]:   # the crossing splats' partials, a span each
+        floats = job["lib"].segsum_scratch_floats
+        floats.argtypes = [I]
+        floats.restype = ctypes.c_longlong
+        scratch = torch.empty(max(1, floats(rows.shape[1])), device="cuda")
+        args.append(scratch.data_ptr())
+    args.append(torch.cuda.current_stream().cuda_stream)
+    fn.argtypes = [P, I, P, P, P, I] + [P] * (len(args) - 6)
     fn.restype = I
-    build.check(fn(rows.data_ptr(), rows.shape[1], offsets.data_ptr(),
-                   cum.data_ptr(), total.data_ptr(), n, out.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream), job["label"])
+    build.check(fn(*args), job["label"])
     return out
 
 
@@ -547,8 +587,8 @@ def expand_timeline(job, tag, args):
 def timeline(kernel, run, k_args):
     """Per-tile start, end and SM of the repository's rasterize_fwd or
     rasterize_bwd; k_args start (packed, starts, ends, ...)."""
-    subs = TIMELINE_SUBS + (TIMELINE_BWD_SUBS if kernel == "rasterize_bwd"
-                            else [])
+    subs = TIMELINE_SUBS + TIMELINE_END[kernel] + (
+        TIMELINE_BWD_SUBS if kernel == "rasterize_bwd" else [])
     job = build_timeline(f"timeline {kernel}", kernel, subs)
     for _ in range(3):
         run(job, *k_args)
@@ -584,6 +624,36 @@ def timeline(kernel, run, k_args):
           f"{ends.min():.0f}/{np.median(ends):.0f}/{ends.max():.0f}")
 
 
+def saved_args(path, jobs):
+    """Every rasterize_bwd and segsum job on the arguments saved in path
+    (chip_smoke.py --save-kernel-args): checked against the repository's
+    and timed in turns, index_add_ beside segment_sum."""
+    saved = torch.load(path, map_location="cuda")
+    tag = saved["when"]
+    bwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_bwd"]
+    if bwd_jobs:
+        b_args = saved["rasterize_bwd"]
+        if len(b_args) > 8:   # a tile_base: run_bwd takes the whole frame
+            assert b_args[8] == 0, "a strip's arguments"
+            b_args = b_args[:8]
+        print(f"[{tag}] rasterize_bwd: {b_args[1].shape[0]} cells of "
+              f"{b_args[7]}, {int(b_args[2][-1])} records, pool "
+              f"{b_args[0].shape[1]}")
+        compare(f"rasterize_bwd, {tag}", bwd_jobs, run_bwd, b_args, reps=10)
+    seg_jobs = [j for j in jobs if j["kernel"] == "segsum"]
+    if seg_jobs:
+        rows, offsets, cum, total = s_args = saved["segment_sum"]
+        ids = slot_owners(cum, total, rows.shape[1])
+        live = rows[:, :ids.shape[0]].contiguous()
+        n = offsets.shape[0]
+        print(f"[{tag}] segment_sum: n {n}, pool {rows.shape[1]}, live "
+              f"slots {int(total[0])}, splats with slots "
+              f"{int(((cum - offsets) > 0).sum())}")
+        compare(f"segment_sum, {tag}", seg_jobs, run_seg, s_args, reps=20,
+                extra=("index_add_", lambda: torch.zeros(
+                    (9, n), device="cuda").index_add_(1, ids, live)))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-dir", nargs="+", default=[], help="directories "
@@ -600,6 +670,11 @@ def main():
                     "--old-dir's (no default variants)")
     ap.add_argument("--cell", default="1x1", help="raster cell GWxGH of the "
                     "inputs (sources before the cell mode run 1x1 only)")
+    ap.add_argument("--args-file", nargs="+", default=[], help="files of "
+                    "rasterize_bwd and segment_sum arguments that "
+                    "chip_smoke.py --save-kernel-args wrote (a training "
+                    "run's last step: T, T at a cell, the CLI's C); every "
+                    "rasterize_bwd and segsum source is also timed on them")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=list(KERNELS), help="the kernels to build and "
                     "time (default: all)")
@@ -627,6 +702,11 @@ def main():
         pending.append(start_build(label, kernel, substituted(kernel, pairs)))
     jobs = finish_builds(pending)
     print(f"[device] {cs.smi_line()}")
+
+    for path in opts.args_file:
+        saved_args(path, jobs)
+    if opts.args_file and set(opts.kernels) <= {"rasterize_bwd", "segsum"}:
+        return
 
     splats, cp, size = cs.make_scene(cs.BENCH, "cuda")
     k = cs.kernel_inputs(splats, cp, size, pool_size(
@@ -672,13 +752,28 @@ def main():
     seg_jobs = [j for j in jobs if j["kernel"] == "segsum"]
     if not seg_jobs:
         return
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_SMALL_POOL, hand_small_pool,
+    )
+
+    small = tuple(torch.tensor(a, device="cuda") for a in hand_small_pool())
+    rows_small = torch.randn((9, HAND_SMALL_POOL), device="cuda",
+                             generator=gen)
     for tag, s_args in (
             ("segment_sum, n 1048576, pool 2162688",
              (rows, offsets, cum, total)),
             ("segment_sum, n 4194304, pool 4194304",
              (rows4, torch.cat([offsets, tail]), torch.cat([cum, tail]),
-              total))):
-        ids = slot_owners(s_args[2], total, s_args[0].shape[1])
+              total)),
+            (f"segment_sum, the CLI's sizes (hand_small_pool: n 8192, pool "
+             f"{HAND_SMALL_POOL})", (rows_small, *small)),
+            *((f"segment_sum, the bench layout with every {k} splats "
+               f"merged into one (n {offsets.shape[0] // k}, pool "
+               f"{rows.shape[1]})",
+               (rows, offsets[::k].contiguous(),
+                cum[k - 1::k].contiguous(), total))
+              for k in MERGED_SPLATS)):
+        ids = slot_owners(s_args[2], s_args[3], s_args[0].shape[1])
         live = s_args[0][:, :ids.shape[0]].contiguous()
         n = s_args[1].shape[0]
         compare(tag, seg_jobs, run_seg, s_args, reps=20, extra=(

@@ -23,8 +23,11 @@ from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
 from brush_tpu_torch.ops.cuda.testing import (
-    HAND_EXPAND_CASES, HAND_POISON_FROM, HAND_TILE_CASES, hand_expand,
-    hand_tiles,
+    HAND_CELL_CASES, HAND_DEEP, HAND_EDGE_IMAGE, HAND_EXPAND_CASES,
+    HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_SMALL_LIVE, HAND_SMALL_N,
+    HAND_SMALL_POOL, HAND_TILE_CASES, cell_pixel_centres, hand_cells,
+    hand_expand, hand_segments, hand_small_pool, hand_tiles, sigma_f32,
+    sigma_max_f32, warp_patches,
 )
 from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -39,9 +42,6 @@ SCENES = {
 }
 CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 2,
            fov_y=np.pi / 2)
-# Segment layouts made by hand, which the scenes do not reach.
-HAND_LAYOUTS = ["long_segment", "empty_runs", "straddle", "total_zero"]
-HAND_POOL = 4096
 
 
 def make_scene(n, seed, scale_hi=0.5, sh_degree=1):
@@ -79,34 +79,6 @@ def port_records(sc, img_size, pool, device="cpu", cell=(1, 1)):
                 raw_total=d.raw_total, offsets=d.offsets, order=d.order,
                 keys=keys, recs=recs, packed=packed, starts=starts,
                 ends=ends, tiles_x=tiles_x, num_tiles=num_tiles)
-
-
-def hand_segments(case):
-    """(offsets, cum, total) int32 numpy for 700 splats (no multiple of a
-    256-splat block) of 1-4 slots each in a pool of HAND_POOL, the last 40
-    empty. long_segment: one splat of 1101 slots, longer than two 512-slot
-    blocks; empty_runs: 20 empty splats after every 16; straddle: `total`
-    falls one slot into a splat, which keeps that slot, and every later
-    splat gets zero; total_zero: no live slot."""
-    rng = np.random.default_rng(31)
-    counts = rng.integers(1, 5, 700)
-    if case == "long_segment":
-        counts[300] = 1101
-    if case == "empty_runs":
-        for i in range(16, 700, 36):
-            counts[i:i + 20] = 0
-    counts[-40:] = 0
-    cum = np.cumsum(counts)
-    offsets = cum - counts
-    total = int(cum[-1])
-    assert total <= HAND_POOL
-    if case == "straddle":
-        w = 350 + int(np.argmax(counts[350:] >= 3))
-        total = int(offsets[w]) + 1
-    if case == "total_zero":
-        total = 0
-    return (offsets.astype(np.int32), cum.astype(np.int32),
-            np.array([total], np.int32))
 
 
 def hand_tile_args(case, device):
@@ -277,6 +249,127 @@ def test_hand_expand_layouts_reach_their_cases(case):
         assert bool((~small & (counts > 0)).any() and small.any())
     else:   # ragged
         assert pool % 4 and 0 < live == int(cum[-1]) < pool
+
+
+def _cell_reach(case):
+    """For each record of hand_cells(case): its cell, and the (pixel,
+    record) pairs of that cell that pass the kernels' pretest (0 <= sigma
+    <= sigma_max, float32 as the sweeps round it), as a (records, pixels)
+    bool array per cell, with the cell's pixel centres."""
+    packed, starts, ends, cells_x, cell = hand_cells(case)
+    f = packed[:5].view(np.float32)
+    o_words = packed[6].view(np.uint32) >> 16
+    out = []
+    for c, (s, e) in enumerate(zip(starts, ends)):
+        px, py = cell_pixel_centres(cell, c, cells_x)
+        sig = sigma_f32(*(f[r, s:e, None] for r in range(5)), px[None],
+                        py[None])
+        smax = sigma_max_f32(o_words[s:e])[:, None]
+        out.append(((sig >= 0) & (sig <= smax), px, py, sig, s, e))
+    return packed, starts, ends, cells_x, cell, out
+
+
+@pytest.mark.parametrize("case", HAND_CELL_CASES)
+def test_hand_cell_layouts_reach_their_cases(case):
+    """Each layout of ops/cuda/testing.hand_cells has what its name says,
+    counted with the kernels' own float32 pretest."""
+    packed, starts, ends, cells_x, cell, reach = _cell_reach(case)
+    gw, gh = cell
+    assert packed.shape[1] % 256 == 0 and int(ends[-1]) <= packed.shape[1]
+    assert bool((starts[1:] == ends[:-1]).all()) and starts[0] == 0
+    f = packed[:5].view(np.float32)
+    o_words = packed[6].view(np.uint32) >> 16
+
+    def tiles_hit(passes, px, py, c):
+        ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+        sub = ((py - oy) // 16).astype(int) * gw + ((px - ox) // 16).astype(
+            int)
+        return [set(sub[row].tolist()) for row in passes]
+
+    if case == "one_tile":
+        for c, (passes, px, py, *_) in enumerate(reach):
+            hit = tiles_hit(passes, px, py, c)
+            assert all(len(h) == 1 for h in hit)
+            assert set().union(*hit) == {0, 1, 2, 3}
+    elif case == "all_tiles":
+        for c, (passes, px, py, *_) in enumerate(reach):
+            assert all(h == {0, 1, 2, 3}
+                       for h in tiles_hit(passes, px, py, c))
+    elif case == "corner_pixel":
+        passes, px, py, sig, s, e = reach[0]
+        corner = np.flatnonzero(o_words[s:e] == 65535)
+        assert len(corner) == 4 and corner.min() > 0
+        assert sorted(int(passes[k].sum()) for k in corner) == [1] * 4
+        hit = {(float(px[passes[k]][0]), float(py[passes[k]][0]))
+               for k in corner}
+        assert hit == {(0.5, 0.5), (31.5, 0.5), (0.5, 31.5), (31.5, 31.5)}
+        # The one pixel is active: alpha = exp(-sigma) >= 1 / 255.
+        assert all(np.exp(-sig[k][passes[k]][0]) >= 1 / 255 for k in corner)
+    elif case == "deep_cell":
+        for kernel in ("rasterize_fwd", "rasterize_bwd"):
+            assert ends[0] - starts[0] == HAND_DEEP > 3 * kernel_constant(
+                kernel, "kBatch")
+    elif case == "pretest_edge":
+        lo = hi = 0
+        for c, (passes, px, py, sig, s, e) in enumerate(reach):
+            edge = np.arange(40, e - s)   # after 40 background records
+            bound = np.log(np.float32(255.0) * (
+                o_words[s:e].astype(np.float32) / np.float32(65535.0)))
+            for k in edge:
+                least = [sig[k][(px >= x0) & (px < x0 + 16) & (py >= y0)
+                                & (py < y0 + 4)].min()
+                         for x0, y0 in warp_patches(cell, c, cells_x)]
+                near = np.abs(np.array(least) - bound[k]) <= 4e-4 * abs(
+                    bound[k])
+                assert near.any(), (c, k)
+                lo += int(min(least) < bound[k])
+                hi += int(np.array(least)[near].min() > bound[k] + 1e-4)
+        assert lo >= 20 and hi >= 20, (lo, hi)
+    elif case == "hyperbolic":
+        cxx, cxy, cyy = f[2], f[3], f[4]
+        live = slice(0, int(ends[-1]))
+        indefinite = (cxx * cyy < cxy * cxy)[live]
+        assert int(indefinite.sum()) == 80
+        assert all(any(p.any(axis=1)[::5]) for p, *_ in reach)
+    else:   # edge_4x2
+        assert cell == (4, 2) and len(starts) == 4 and cells_x == 2
+        w_img, h_img = HAND_EDGE_IMAGE
+        assert (16 * 4 * cells_x > w_img) and (16 * 2 * 2 > h_img)
+        for c, (passes, px, py, *_) in enumerate(reach):
+            inside = (px < w_img) & (py < h_img)
+            assert passes[:, inside].any()
+            if c % 2 or c // 2:   # a cell that crosses the image's edge
+                assert passes[:, ~inside].any() and not inside.all()
+
+
+def test_hand_small_pool_reaches_its_cases():
+    """ops/cuda/testing.hand_small_pool: the CLI's capacity and live
+    splats, spans of segment_sum's kernel wholly inside one splat and spans
+    holding dozens, splats over several spans, padding rows; and on rows of
+    multiples of 1/16 the plain version's sums are exact."""
+    offsets, cum, total = hand_small_pool()
+    span = kernel_constant("segsum", "kSpan")
+    counts = cum - offsets
+    live = int(total[0])
+    assert len(cum) == HAND_SMALL_N and live == int(cum[-1]) < HAND_SMALL_POOL
+    assert 2500 < int((counts > 0).sum()) <= HAND_SMALL_LIVE
+    assert not counts[HAND_SMALL_LIVE:].any() and (counts == 0).sum() > 5000
+    starts_in = np.bincount(offsets[counts > 0] // span,
+                            minlength=-(-live // span))
+    assert starts_in.max() >= 30
+    first, last = offsets // span, (cum - 1) // span
+    assert int((last - first)[counts > 0].max()) >= 3
+    whole = (offsets <= span * (first + 1)) & (cum >= span * (first + 2))
+    assert bool((whole & (counts > 0)).any())   # a span inside one splat
+    rows = torch.tensor(np.random.default_rng(8).integers(
+        -63, 64, (t_bwd.GRAD_ROWS, HAND_SMALL_POOL)) / 16.0,
+        dtype=torch.float32)
+    got = t_seg.segment_sum(rows, *(torch.tensor(a) for a in (
+        offsets, cum, total)))
+    prefix = np.concatenate([np.zeros((t_bwd.GRAD_ROWS, 1)), np.cumsum(
+        rows.numpy().astype(np.float64), axis=1)], axis=1)
+    want = prefix[:, cum] - prefix[:, offsets]   # exact: 1/16 steps
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
@@ -454,6 +547,37 @@ def test_cuda_rasterize_bwd_on_hand_tiles(case):
     got = t_bwd.rasterize_bwd(*b_args)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
+    rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, case)
+    assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
+
+
+def hand_cell_args(case, device, seed=23):
+    """hand_cells(case) as rasterize_bwd's arguments on `device`: the
+    forward's log T and final_idx (the kernel's on the card, the plain
+    version's on the CPU) and a seeded image cotangent."""
+    packed, starts, ends, cells_x, cell = hand_cells(case)
+    args = (torch.tensor(packed, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(ends, device=device), cells_x)
+    _, log_t, fidx = t_raster.rasterize_fwd(*args, cell)
+    v_out = torch.tensor(np.random.default_rng(seed).normal(
+        size=(*log_t.shape, 4)).astype(np.float32), device=device)
+    return (*args, v_out, log_t, fidx, cell)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_CELL_CASES)
+def test_cuda_rasterize_bwd_hand_cells_match_plain(case):
+    """The raster-cell layouts made by hand (ops/cuda/testing.hand_cells):
+    the kernel within 1e-4 of each row's largest value of the plain
+    version's rows, one launch counted, and a second launch bit-equal."""
+    _need_cuda()
+    b_args = hand_cell_args(case, "cuda")
+    before = t_bwd.launches
+    got = t_bwd.rasterize_bwd(*b_args)
+    torch.cuda.synchronize()
+    assert t_bwd.launches == before + 1
+    assert torch.isfinite(got).all() and got.abs().max() > 0
     rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, case)
     assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
 
@@ -638,16 +762,25 @@ def test_cuda_segment_sum_matches_plain(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["span", "splat"])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("case", HAND_LAYOUTS)
-def test_cuda_segment_sum_hand_layouts(case, aligned):
-    """The hand-made layouts, kernel against plain; the rows also from a
-    buffer that starts 4 bytes off a 16-byte boundary, which takes the
-    kernel's 4-byte copies. Slots at and past `total` hold garbage that
-    must not be summed."""
+def test_cuda_segment_sum_hand_layouts(case, aligned, kernel):
+    """The hand-made layouts, kernel against plain: as they are (the span
+    kernel) and followed by splats of count 0 up to kSplatMinSplats splats,
+    a capacity's padding (the splat kernel: csrc/segsum.cu picks it from
+    that many splats on); the rows also from a buffer that starts 4 bytes
+    off a 16-byte boundary, which takes the kernel's 4-byte copies. Slots
+    at and past `total` hold garbage that must not be summed."""
     _need_cuda()
+    offsets, cum, total = hand_segments(case)
+    if kernel == "splat":
+        pad = np.full(kernel_constant("segsum", "kSplatMinSplats")
+                      - len(offsets), cum[-1], np.int32)
+        offsets, cum = np.concatenate([offsets, pad]), np.concatenate(
+            [cum, pad])
     offsets, cum, total = (torch.tensor(x, device="cuda")
-                           for x in hand_segments(case))
+                           for x in (offsets, cum, total))
     gen = torch.Generator(device="cuda").manual_seed(16)
     buf = torch.randn(t_bwd.GRAD_ROWS * HAND_POOL + 1, generator=gen,
                       device="cuda")
@@ -662,6 +795,34 @@ def test_cuda_segment_sum_hand_layouts(case, aligned):
     else:
         rows_close(got, want, 1e-5, case)
     assert torch.equal(got, t_seg.segment_sum(rows, offsets, cum, total))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_segment_sum_small_pool(aligned):
+    """The CLI-sized layout (ops/cuda/testing.hand_small_pool) with rows of
+    multiples of 1/16, so every order of summation gives the same floats:
+    the kernel equal to the plain version at `total` = all live slots, one
+    slot into and the middle of the longest splat, and 0; rows also from a
+    buffer 4 bytes off a 16-byte boundary; two launches bit-equal."""
+    _need_cuda()
+    offsets, cum, total = hand_small_pool()
+    w = int(np.argmax(cum - offsets))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    size = t_bwd.GRAD_ROWS * HAND_SMALL_POOL
+    buf = torch.randint(-63, 64, (size + 1,), generator=gen,
+                        device="cuda").to(torch.float32) / 16.0
+    rows = buf[0 if aligned else 1:][:size].view(t_bwd.GRAD_ROWS,
+                                                 HAND_SMALL_POOL)
+    offsets, cum = (torch.tensor(x, device="cuda") for x in (offsets, cum))
+    for value in (int(total[0]), int(offsets[w]) + 1,
+                  (int(offsets[w]) + int(cum[w])) // 2, 0):
+        t = torch.tensor([value], dtype=torch.int32, device="cuda")
+        got = t_seg.segment_sum(rows, offsets, cum, t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, t_seg.segment_sum_plain(rows, offsets, cum,
+                                                        t)), value
+        assert torch.equal(got, t_seg.segment_sum(rows, offsets, cum, t))
 
 
 @pytest.mark.cuda

@@ -29,10 +29,10 @@ from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import segsum as t_seg
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.ops.rasterize_reference import render_oracle
-from test_torch_cuda import (
-    CAM, HAND_LAYOUTS, HAND_POOL, SCENES, hand_segments, make_scene,
-    port_records,
+from brush_tpu_torch.ops.cuda.testing import (
+    HAND_LAYOUTS, HAND_POOL, hand_segments,
 )
+from test_torch_cuda import CAM, SCENES, make_scene, port_records
 
 K_LANES = 128
 K_SEG = 512
@@ -166,7 +166,7 @@ def plain_vs_pallas_segsum(got, pool, seed):
 
 @pytest.mark.parametrize("case", HAND_LAYOUTS)
 def test_segment_sum_plain_matches_pallas_on_hand_layouts(case):
-    """Offsets made by hand (test_torch_cuda.hand_segments): one segment
+    """Offsets made by hand (ops/cuda/testing.hand_segments): one segment
     longer than two of the TPU kernel's 512-record blocks, runs of empty
     splats between live ones, a straddle of `total`, and `total` 0."""
     offsets, cum, total = hand_segments(case)

@@ -1,4 +1,5 @@
-"""The port's expand and rasterize_fwd against the Pallas kernels.
+"""The port's expand and rasterize_fwd against the Pallas kernels, and
+rasterize_bwd on the layouts made by hand.
 
 The port builds a scene's record inputs with its own stages and the plain
 versions of its CUDA kernels (CPU tensors); the Pallas kernels then run in
@@ -15,19 +16,21 @@ import torch
 
 from brush_tpu.ops.pallas.expand import WINDOW_ALIGN, build_comp_rows
 from brush_tpu.ops.pallas.expand import expand_pallas
+from brush_tpu.ops.pallas.rasterize_bwd import rasterize_bwd_pallas
 from brush_tpu.ops.pallas.rasterize_fwd import quantize_color as j_qc
 from brush_tpu.ops.pallas.rasterize_fwd import quantize_opac as j_qo
 from brush_tpu.ops.pallas.rasterize_fwd import rasterize_fwd_pallas
 
 from brush_tpu_torch.ops.cuda import expand as t_expand
+from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda.testing import (
     HAND_DEEP, HAND_EXPAND_PALLAS, HAND_OPAQUE_FROM, HAND_POISON_FROM,
     HAND_TILE_CASES, hand_tiles,
 )
 from test_torch_cuda import (
-    SCENES, flip_check, hand_expand_args, hand_tile_args, kernel_constant,
-    make_scene, port_records,
+    SCENES, flip_check, hand_cell_args, hand_expand_args, hand_tile_args,
+    kernel_constant, make_scene, port_records,
 )
 
 K_EXP = 512
@@ -284,3 +287,47 @@ def test_record_rows_roundtrip():
     for a, b, scale in zip(dec[5:], q, [t_raster.decode_color] * 3
                            + [t_raster.decode_opac]):
         assert torch.equal(a, scale(b))
+
+
+# rasterize_bwd's hand layouts held to the Pallas kernel: two tiles of
+# hand_tiles at (1, 1), and the (2, 2) cells of hand_cells whose records
+# stay clear of the alpha threshold (pretest_edge puts records on it, where
+# the TPU kernel's polynomial sigma rounds to either side; the card tests
+# hold the kernel to the plain version there).
+BWD_HAND = [("tiles", "deep"), ("tiles", "opaque"), ("cells", "one_tile"),
+            ("cells", "all_tiles"), ("cells", "corner_pixel"),
+            ("cells", "deep_cell"), ("cells", "hyperbolic")]
+
+
+@pytest.mark.parametrize("kind,case", BWD_HAND)
+def test_rasterize_bwd_plain_hand_layouts_match_pallas(kind, case):
+    """rasterize_bwd_plain against rasterize_bwd_pallas in interpret mode
+    (scan_passes 3) on the same records, the same log T and final_idx (the
+    plain forward's) and a seeded cotangent, at (1, 1) and at cell (2, 2):
+    each row within 3e-4 of its largest value, the bound of
+    test_torch_grads.test_rasterize_bwd_plain_matches_pallas."""
+    if kind == "tiles":
+        args = hand_tile_args(case, "cpu")
+        _, log_t, fidx = t_raster.rasterize_fwd(*args)
+        v_out = torch.tensor(np.random.default_rng(29).normal(
+            size=(*log_t.shape, 4)).astype(np.float32))
+        b_args = (*args, v_out, log_t, fidx, (1, 1))
+    else:
+        b_args = hand_cell_args(case, "cpu")
+    packed, starts, ends, tiles_x, v_out, log_t, fidx, cell = b_args
+    pool, live = packed.shape[1], int(ends[-1])
+    want = np.asarray(rasterize_bwd_pallas(
+        jnp.asarray(np.pad(u32(packed), ((0, 0), (0, 128)))),
+        jnp.asarray(v_out.numpy()), jnp.asarray(log_t.numpy()),
+        jnp.asarray(fidx.numpy()), jnp.asarray(starts.numpy()),
+        jnp.asarray(ends.numpy()),
+        jnp.arange(starts.shape[0], dtype=jnp.int32), tiles_x=tiles_x,
+        num_tiles=starts.shape[0], max_isects=pool, k_lanes=128,
+        interpret=True, scan_passes=3, cell=cell))[:9, :live]
+    got = t_bwd.rasterize_bwd(*b_args).numpy()
+    assert np.isfinite(got).all() and not got[:, live:].any()
+    assert np.abs(want).max() > 0
+    for r in range(9):
+        scale = np.abs(want[r]).max() + 1e-8
+        np.testing.assert_allclose(got[r, :live] / scale, want[r] / scale,
+                                   atol=3e-4, err_msg=f"row {r} ({case})")
