@@ -89,7 +89,8 @@
 //     edges, each a one-dimensional quadratic, when the centre lies
 //     outside) exceeds sigma_max by more than the rounding of the
 //     sweep's sigma (1e-5 of the terms' magnitude, ~170 ulp), where no
-//     pair of the warp can pass the pretest. The sweep walks only the
+//     pair of the warp can pass the pretest (reach.cuh's may_reach, which
+//     rasterize_fwd.cu shares). The sweep walks only the
 //     warp's list, back to front, so a record left off changes nothing:
 //     every record's sums and every pixel's running state are those of a
 //     sweep of the whole batch, and at cell (1, 1) the rows are the tile
@@ -146,6 +147,7 @@
 
 #include <cuda_runtime.h>
 
+#include "reach.cuh"
 #include "tile_order.cuh"
 
 namespace {
@@ -171,7 +173,6 @@ constexpr float kColorLo = -4.0f;
 constexpr float kColorStep = static_cast<float>(1.0 / (65535.0 / 8.0));
 constexpr float kOpacStep = static_cast<float>(1.0 / 65535.0);
 constexpr float kSigmaMargin = 1e-4f;  // see the decode
-constexpr float kReachMargin = 1e-5f;  // see may_reach
 
 static_assert(kPix == 2 || kPix == 4 || kPix == 8, "pixels a thread");
 static_assert(kUnroll * kPix <= 32, "one bit a pair in a step");
@@ -204,45 +205,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float quad_sigma(float cxx, float cxy, float cyy,
-                                            float dx, float dy) {
-  return 0.5f * (cxx * dx * dx + cyy * dy * dy) + cxy * dx * dy;
-}
-
-// False only if no pixel centre of the rectangle [xa, xb] x [ya, yb] can
-// pass the sweep's pretest sigma <= sigma_max. Over the rectangle, d = xy -
-// pixel spans [x - xb, x - xa] x [y - yb, y - ya], and the sweep's rounded
-// d of every centre lies in that box (the same subtractions, and rounding
-// is monotone). A positive-definite conic whose centre lies outside the box
-// takes its least sigma on an edge, a one-dimensional quadratic minimized
-// at its clamped vertex. The sweep's sigma rounds by a few ulp of
-// |cxx| dx^2 + |cyy| dy^2 + 2 |cxy dx dy|, and so does this one: the
-// margin, 1e-5 of that magnitude over the box, is about 170 ulp. Any other
-// conic, and any NaN in the test, keeps the record.
-__device__ __forceinline__ bool may_reach(float x, float y, float cxx,
-                                          float cxy, float cyy,
-                                          float sigma_max, float xa, float xb,
-                                          float ya, float yb) {
-  if (!(cxx > 0.0f && cyy > 0.0f && cxx * cyy - cxy * cxy > 0.0f)) {
-    return true;
-  }
-  const float dxl = x - xb, dxh = x - xa, dyl = y - yb, dyh = y - ya;
-  if (!(dxl > 0.0f || dxh < 0.0f || dyl > 0.0f || dyh < 0.0f)) return true;
-  float least = quad_sigma(
-      cxx, cxy, cyy, fminf(fmaxf(-cxy * dyl / cxx, dxl), dxh), dyl);
-  least = fminf(least, quad_sigma(
-      cxx, cxy, cyy, fminf(fmaxf(-cxy * dyh / cxx, dxl), dxh), dyh));
-  least = fminf(least, quad_sigma(
-      cxx, cxy, cyy, dxl, fminf(fmaxf(-cxy * dxl / cyy, dyl), dyh)));
-  least = fminf(least, quad_sigma(
-      cxx, cxy, cyy, dxh, fminf(fmaxf(-cxy * dxh / cyy, dyl), dyh)));
-  const float mx = fmaxf(fabsf(dxl), fabsf(dxh));
-  const float my = fmaxf(fabsf(dyl), fabsf(dyh));
-  const float mag =
-      cxx * mx * mx + cyy * my * my + 2.0f * fabsf(cxy) * mx * my;
-  return !(least > sigma_max + kReachMargin * (mag + 1.0f));
 }
 
 // Sums g[0..8] over the warp's 32 lanes in a fixed order. Returns, in

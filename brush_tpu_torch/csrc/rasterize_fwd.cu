@@ -52,8 +52,9 @@
 // Design, on the CUDA cores; what it says was measured, was measured on an
 // NVIDIA H100 80GB HBM3 at a 700 W power limit with the bench scene (1M
 // random splats, 1024x1024) by scripts/torch_kernel_variants.py, where this
-// kernel takes 0.63 ms (5.7 times the bound above, 0.11 ms) and the first
-// version 1.95-1.99. The TPU kernel's polynomial sigma on the MXU and its
+// kernel takes 0.45 ms on the device (4 times the bound above, 0.11 ms),
+// the version without per-warp lists 0.63 and the first version
+// 1.95-1.99. The TPU kernel's polynomial sigma on the MXU and its
 // MXU prefix scan of log1p(-alpha) are not carried over: TF32
 // products would not hold the 1e-5 tolerance (the polynomial's
 // cancellation already costs the TPU kernel up to 7e-5 on log T), and a
@@ -88,19 +89,38 @@
 //   - Heavy tiles first (4). Block b takes tile order[b] (tile_order.cuh).
 //     (Dealing the head of the order to the SMs by %smid evened the
 //     records an SM to within 4 % and gained under 2 %: left out.)
+//   - Per-warp record lists. After a batch is decoded, each warp tests
+//     its records against its own 8x4 patch of pixel centres, one record a
+//     lane (reach.cuh's may_reach, the test of rasterize_bwd.cu's lists),
+//     and keeps those that may reach it, in depth order, in a list of
+//     16-bit batch slots padded to whole steps with a record no pair can
+//     pass; the sweep walks the list. A record left off is one whose
+//     least sigma over the patch lies above sigma_max plus the rounding
+//     margin: no pixel of the warp can pass the pretest with it, so every
+//     pixel's state, its crossing and the early-outs are those of a sweep
+//     of the whole batch, bit for bit. (Sweeping the whole batch in every
+//     warp took 0.63 ms at the bench render's inputs, the lists 0.45.)
 //   - Raster cells (the TPU kernel's cell=(gw, gh) mode, rasterize_fwd.py
 //     :201-240): one block a 16x16 tile of a cell, cell_w cell_h blocks a
-//     cell, each sweeping the whole cell's record range for its own 256
-//     pixels. Pixels are independent in the forward, so the body is the
-//     tile body with the pixel origin moved to the tile's place in its cell
-//     and the output index counted row-major over the cell; block b takes
-//     cell order[b / (cell_w cell_h)] (heavy cells first) and its tile
-//     b % (cell_w cell_h). Any cell size runs: the block shape does not
-//     change with it. At cell (1, 1) every pixel's arithmetic and output
-//     index are those of the tile kernel, bit for bit. The TPU kernel's
-//     knobs that the cell changes (its k_lanes VMEM budget and the
-//     tiles_per_step shrink, raster_vjp.py:154-168) are Mosaic scoped-VMEM
-//     limits and have no counterpart here.
+//     cell; block b takes cell order[b / (cell_w cell_h)] (heavy cells
+//     first) and its tile b % (cell_w cell_h). Every block stages the whole
+//     cell's record range, but most of a cell's records cannot reach a
+//     given tile. So at a cell a batch first passes a tile cull: a record
+//     a thread, tested against the block's tile by the same rule; only the
+//     records that may reach it are decoded into shared memory, in depth
+//     order (a round's warps in order, a warp's lanes by ballot), each
+//     with its slot in the batch, since final_idx is the record's pool
+//     index; the warp lists are then built over the kept records. A block
+//     whose tile keeps nothing of a batch still meets the batch's
+//     barriers. (Without the cull and the lists every warp of every block
+//     swept the whole cell's range: 1.41-1.44 ms at cell (2, 2) on the
+//     bench's inputs, 4.5 times the bound.) The pixel origin moves to the
+//     tile's place in its cell and the output index counts row-major over
+//     the cell; any cell size runs. At cell (1, 1) every record reaches
+//     its tile by construction, so the tile kernel (kCells false) has no
+//     cull. The TPU kernel's knobs that the cell changes (its k_lanes VMEM
+//     budget and the tiles_per_step shrink, raster_vjp.py:154-168) are
+//     Mosaic scoped-VMEM limits and have no counterpart here.
 //   - Strips (the TPU kernel's tile_ids, rasterize_fwd.py:230-240,
 //     :407-408): the num_cells cells of a launch are the contiguous run of
 //     the image's cells from tile_base, and local cell t takes its pixel
@@ -117,8 +137,8 @@
 // What is left: the sweep is bound by issue slots. About 19 instructions a
 // (warp, record) are the common path (eleven of them sigma's separately
 // rounded operations, which the agreement with the PyTorch version and the
-// backward forbids to fuse), and more than half of the (warp, record)s
-// hold an active lane, though only 8 % of the pairs are active.
+// backward forbids to fuse); the lists keep only the (warp, record)s that
+// may hold an active lane, though only 8 % of the pairs are active.
 // No atomics on floats and no exchange between threads: a pixel's sums are
 // one thread's, in depth order, so two launches are bit-equal (the tile
 // order's integer atomics move no result). Sigma, the opacity and colour
@@ -129,6 +149,7 @@
 
 #include <cuda_runtime.h>
 
+#include "reach.cuh"
 #include "tile_order.cuh"
 
 namespace {
@@ -136,6 +157,7 @@ namespace {
 constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
 constexpr int kThreads = kPixels;  // one pixel a thread
+constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;         // records a step of the sweep
 constexpr int kBatch = 384;   // records staged per batch (see the header)
 constexpr int kRawRows = 7;   // packed rows the sweep reads (row 7: ids)
@@ -152,6 +174,7 @@ constexpr float kSigmaMargin = 1e-4f;  // see the decode
 
 static_assert(kUnroll <= 32, "one bit a record in a step");
 static_assert(kBatch % kUnroll == 0, "a batch is padded to whole steps");
+static_assert(kBatch < 65536, "list entries and slots are 16-bit");
 
 __device__ __forceinline__ float decode_color(unsigned q) {
   return __fadd_rn(__fmul_rn(static_cast<float>(q), kColorStep), kColorLo);
@@ -172,10 +195,48 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The record of batch slot k, decoded: x y cxx cxy | cyy sigma_max o r |
+// g b - -, from the packed rows staged in s_raw.
+struct Decoded {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ Decoded decode_record(const int (*s_raw)[kBatch],
+                                                 int k) {
+  const unsigned c0 = static_cast<unsigned>(s_raw[5][k]);
+  const unsigned c1 = static_cast<unsigned>(s_raw[6][k]);
+  const float o = __fmul_rn(static_cast<float>(c1 >> 16), kOpacStep);
+  Decoded d;
+  d.a = make_float4(__int_as_float(s_raw[0][k]), __int_as_float(s_raw[1][k]),
+                    __int_as_float(s_raw[2][k]), __int_as_float(s_raw[3][k]));
+  // alpha >= ALPHA_EPS needs o exp(-sigma) >= 1 / 255: no pair with
+  // sigma above log(255 o), and a margin far wider than the rounding of
+  // expf and the product, can be active (o = 0 gives -inf).
+  d.b = make_float4(__int_as_float(s_raw[4][k]),
+                    logf(255.0f * o) + kSigmaMargin, o,
+                    decode_color(c0 & 0xFFFFu));
+  d.c = make_float4(decode_color(c0 >> 16), decode_color(c1 & 0xFFFFu),
+                    0.0f, 0.0f);
+  return d;
+}
+
+__device__ __forceinline__ void store_record(float (*s_rec)[kRecFloats],
+                                             int k, const Decoded& d) {
+  float4* rec = reinterpret_cast<float4*>(s_rec[k]);
+  rec[0] = d.a;
+  rec[1] = d.b;
+  rec[2] = d.c;
+}
+
 // kCells: cells of several tiles (cell_w cell_h > 1); false compiles the
-// tile kernel, without the division that maps a block to its cell.
+// tile kernel, without the division that maps a block to its cell and
+// without the tile cull. Blocks an SM: four for tiles, three at cells
+// (measured on the bench's inputs in turns, device ms: tiles 0.446 at
+// four, 0.478 at three, 0.484 unbounded at 76 registers; (2, 2) 0.649 at
+// three, 0.684 at four, 0.760 unbounded at 98 registers, two blocks;
+// (4, 2) 0.829, 0.802, 0.934).
 template <bool kCells>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kCells ? 3 : 4)
 rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
@@ -185,7 +246,12 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      float* __restrict__ log_t_out,
                      int* __restrict__ fidx_out) {
   __shared__ int s_raw[kRawRows][kBatch];
-  __shared__ __align__(16) float s_rec[kBatch][kRecFloats];
+  // Slot kBatch: a record no pair can pass, where lists are padded.
+  __shared__ __align__(16) float s_rec[kBatch + 1][kRecFloats];
+  // At cells: batch slot of each record kept by the tile cull.
+  __shared__ unsigned short s_slot[kCells ? kBatch : 1];
+  __shared__ int s_kept[2][kWarps];  // the cull's counts, two rounds
+  __shared__ __align__(16) unsigned short s_list[kWarps][kBatch];
 
   const int tiles_a_cell = kCells ? cell_w * cell_h : 1;
   const int t = order[kCells ? blockIdx.x / tiles_a_cell : blockIdx.x];
@@ -202,13 +268,22 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
   // This thread's pixel: warp w covers the 8 wide, 4 high patch w of the
   // tile (two patches to a row), the lane is (lane % 8, lane / 8) inside;
   // (lx, ly) counts from the corner of the cell, whose place in the image
-  // is that of the global cell tile_base + t.
+  // is that of the global cell tile_base + t; (tx, ty) is the tile's
+  // corner in the image.
   const int lx = (lane & 7) + (warp & 1) * 8 + (sub % cell_w) * kTile;
   const int ly = (lane >> 3) + (warp >> 1) * 4 + (sub / cell_w) * kTile;
   const int gc = tile_base + t;
+  const int tx = (gc % cells_x) * cell_px + (sub % cell_w) * kTile;
+  const int ty = (gc / cells_x) * kTile * cell_h + (sub / cell_w) * kTile;
   const float px = static_cast<float>((gc % cells_x) * cell_px + lx) + 0.5f;
   const float py =
       static_cast<float>((gc / cells_x) * kTile * cell_h + ly) + 0.5f;
+  // The pixel centres of the tile and of this warp's patch.
+  const float tile_xa = static_cast<float>(tx) + 0.5f;
+  const float tile_ya = static_cast<float>(ty) + 0.5f;
+  const float warp_xa = tile_xa + static_cast<float>((warp & 1) * 8);
+  const float warp_ya = tile_ya + static_cast<float>((warp >> 1) * 4);
+  unsigned short* list = s_list[warp];
 
   float t_cur = 1.0f;  // T so far
   float r = 0.0f, g = 0.0f, b = 0.0f;
@@ -226,6 +301,13 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
     cp_async_commit();
   };
 
+  if (tid == 0) {
+    store_record(s_rec, kBatch,
+                 Decoded{make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                         make_float4(0.0f, __int_as_float(0xff800000), 0.0f,
+                                     0.0f),
+                         make_float4(0.0f, 0.0f, 0.0f, 0.0f)});
+  }
   if (start < end) stage(start, min(kBatch, end - start));
   for (int base = start; base < end; base += kBatch) {
     const int count = min(kBatch, end - base);
@@ -233,31 +315,41 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
     // The batch has arrived and the last sweep ended. The tile is done
     // once none of its pixels is live.
     if (__syncthreads_or(alive) == 0) break;
-    // Decode, padded to whole steps with records no pair can pass.
-    const int padded = (count + kUnroll - 1) / kUnroll * kUnroll;
-    for (int k = tid; k < padded; k += kThreads) {
-      float4* rec = reinterpret_cast<float4*>(s_rec[k]);
-      if (k >= count) {
-        rec[0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        rec[1] = make_float4(0.0f, __int_as_float(0xff800000) /* -inf */,
-                             0.0f, 0.0f);
-        continue;
+    int n_rec = count;  // records in s_rec
+    if (kCells) {
+      // The tile cull: a record a thread; those that may reach the tile
+      // are decoded into s_rec in depth order (a round's warps in order,
+      // each warp's lanes by ballot), each with its batch slot.
+      n_rec = 0;
+      for (int k0 = 0, round = 0; k0 < count; k0 += kThreads, ++round) {
+        const int k = k0 + tid;
+        Decoded d;
+        bool keep = false;
+        if (k < count) {
+          d = decode_record(s_raw, k);
+          keep = may_reach(d.a.x, d.a.y, d.a.z, d.a.w, d.b.x, d.b.y,
+                           tile_xa, tile_xa + (kTile - 1), tile_ya,
+                           tile_ya + (kTile - 1));
+        }
+        const unsigned votes = __ballot_sync(kFull, keep);
+        if (lane == 0) s_kept[round & 1][warp] = __popc(votes);
+        __syncthreads();
+        int at = n_rec;
+        for (int w = 0; w < kWarps; ++w) {
+          const int c = s_kept[round & 1][w];
+          at += w < warp ? c : 0;
+          n_rec += c;
+        }
+        if (keep) {
+          at += __popc(votes & ((1u << lane) - 1u));
+          store_record(s_rec, at, d);
+          s_slot[at] = static_cast<unsigned short>(k);
+        }
       }
-      const unsigned c0 = static_cast<unsigned>(s_raw[5][k]);
-      const unsigned c1 = static_cast<unsigned>(s_raw[6][k]);
-      rec[0] = make_float4(__int_as_float(s_raw[0][k]),
-                           __int_as_float(s_raw[1][k]),
-                           __int_as_float(s_raw[2][k]),
-                           __int_as_float(s_raw[3][k]));
-      const float o = __fmul_rn(static_cast<float>(c1 >> 16), kOpacStep);
-      // alpha >= ALPHA_EPS needs o exp(-sigma) >= 1 / 255: no pair with
-      // sigma above log(255 o), and a margin far wider than the rounding
-      // of expf and the product, can be active (o = 0 gives -inf).
-      rec[1] = make_float4(__int_as_float(s_raw[4][k]),
-                           logf(255.0f * o) + kSigmaMargin, o,
-                           decode_color(c0 & 0xFFFFu));
-      rec[2] = make_float4(decode_color(c0 >> 16),
-                           decode_color(c1 & 0xFFFFu), 0.0f, 0.0f);
+    } else {
+      for (int k = tid; k < count; k += kThreads) {
+        store_record(s_rec, k, decode_record(s_raw, k));
+      }
     }
     __syncthreads();  // s_rec is whole, s_raw is free
     if (base + kBatch < end) {
@@ -265,17 +357,54 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
     }
     if (!warp_live) continue;  // warp-uniform
 
+    // This warp's list: the records that may reach its patch, in depth
+    // order, one record a lane, padded to whole steps with slot kBatch.
+    int n_list = 0;
+    for (int k0 = 0; k0 < n_rec; k0 += 32) {
+      const int k = k0 + static_cast<int>(lane);
+      bool keep = false;
+      if (k < n_rec) {
+        const float4 ra4 = reinterpret_cast<const float4*>(s_rec[k])[0];
+        keep = may_reach(ra4.x, ra4.y, ra4.z, ra4.w, s_rec[k][4],
+                         s_rec[k][5], warp_xa, warp_xa + 7.0f, warp_ya,
+                         warp_ya + 3.0f);
+      }
+      const unsigned votes = __ballot_sync(kFull, keep);
+      if (keep) {
+        list[n_list + __popc(votes & ((1u << lane) - 1u))] =
+            static_cast<unsigned short>(k);
+      }
+      n_list += __popc(votes);
+    }
+    const int n_steps = (n_list + kUnroll - 1) / kUnroll * kUnroll;
+    if (n_list + static_cast<int>(lane) < n_steps) {
+      list[n_list + lane] = static_cast<unsigned short>(kBatch);
+    }
+    __syncwarp();
+
     // The sweep, kUnroll records at a time. First every record's sigma
     // and its test, independent of one another; then, record by record
     // front to back, those that passed.
-    for (int k0 = 0; k0 < count; k0 += kUnroll) {
+    for (int i0 = 0; i0 < n_steps; i0 += kUnroll) {
+      int ks[kUnroll];
+      if constexpr (kUnroll == 8) {  // one 16-byte load
+        const uint4 e = *reinterpret_cast<const uint4*>(&list[i0]);
+        const unsigned w4[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          ks[u] = (w4[u >> 1] >> ((u & 1) * 16)) & 0xFFFFu;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) ks[u] = list[i0 + u];
+      }
       float sigma[kUnroll];
-      unsigned mine = 0;  // bit u: record k0 + u passed for this pixel
+      unsigned mine = 0;  // bit u: record ks[u] passed for this pixel
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const float4 ra4 = *reinterpret_cast<const float4*>(s_rec[k0 + u]);
+        const float4 ra4 = *reinterpret_cast<const float4*>(s_rec[ks[u]]);
         const float2 rb2 =
-            *reinterpret_cast<const float2*>(&s_rec[k0 + u][4]);
+            *reinterpret_cast<const float2*>(&s_rec[ks[u]][4]);
         const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
         const float cyy = rb2.x, sigma_max = rb2.y;
         const float dx = __fsub_rn(x, px);
@@ -294,8 +423,9 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (!((warps >> u) & 1u)) continue;  // warp-uniform
-        const float2 oc = *reinterpret_cast<const float2*>(&s_rec[k0 + u][6]);
-        const float2 gb = *reinterpret_cast<const float2*>(&s_rec[k0 + u][8]);
+        const int k = ks[u];
+        const float2 oc = *reinterpret_cast<const float2*>(&s_rec[k][6]);
+        const float2 gb = *reinterpret_cast<const float2*>(&s_rec[k][8]);
         if (!(alive && ((mine >> u) & 1u))) continue;
         const float vis = expf(-sigma[u]);
         const float alpha = fminf(kAlphaMax, __fmul_rn(oc.x, vis));
@@ -310,7 +440,7 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
         g = fmaf(fac, gb.x, g);
         b = fmaf(fac, gb.y, b);
         t_cur = after;
-        fidx = base + k0 + u;
+        fidx = base + (kCells ? s_slot[k] : k);
       }
       warp_live = __any_sync(kFull, alive);
       if (!warp_live) break;
@@ -351,9 +481,9 @@ extern "C" int rasterize_fwd_launch(const int* packed, int pool,
         log_t, fidx);
   } else {
     rasterize_fwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 s>>>(packed, pool, order, starts, ends,
-                                      tile_base, cells_x, cell_w, cell_h, img,
-                                      log_t, fidx);
+                                 s>>>(
+            packed, pool, order, starts, ends, tile_base, cells_x, cell_w,
+            cell_h, img, log_t, fidx);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@ sequential along a row.
 The library is built with g++ at first use into native/build/ (listed in
 .gitignore) under a name that carries a hash of the sources, so an edited
 source rebuilds; with OpenMP where the toolchain has it (the k-NN queries
-run in parallel), as the reference builds it. Where no compiler is found,
+run in parallel), as the reference builds it. Processes that start at once
+(test workers) build one at a time under a file lock in native/build/, and
+each build lands by an atomic rename, so no process loads a half-written
+library and no build waits on another's compiler past its time limit. Where no compiler is found,
 `available()` is False and each caller takes its other route: the
 brute-force k-NN on the points' device (`splats.knn_route`), Python and
 numpy (`datasets.colmap.read_points3d`, `datasets.png`).
@@ -19,6 +22,7 @@ numpy (`datasets.colmap.read_points3d`, `datasets.png`).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -68,13 +72,28 @@ def _build(path: str) -> bool:
     return False
 
 
+def _build_once(path: str) -> bool:
+    """`path` built, by this process or another: one build at a time
+    across processes (an exclusive lock on a file in BUILD_DIR), each
+    looking for the library again once it holds the lock."""
+    if shutil.which("g++") is None:
+        return False
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return os.path.exists(path) or _build(path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def _load():
     global _lib, _build_failed
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
         path = _lib_path()
-        if not os.path.exists(path) and not _build(path):
+        if not os.path.exists(path) and not _build_once(path):
             _build_failed = True
             return None
         lib = ctypes.CDLL(path)

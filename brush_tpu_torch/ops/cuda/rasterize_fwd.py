@@ -42,6 +42,7 @@ COLOR_HI = 4.0
 COLOR_SCALE = 65535.0 / (COLOR_HI - COLOR_LO)
 OPAC_SCALE = 65535.0
 PLAIN_CHUNK = 1024  # records per block step of the plain rasterizer
+SIGMA_MARGIN = 1e-4  # the kernels' pretest: sigma <= log(255 o) + this
 
 # Launches of the CUDA kernel (not of the plain version) in this process.
 launches = 0
@@ -153,7 +154,8 @@ def cell_lanes(cells_x: int, cell, c: int, device):
 
 
 def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
-                        tile_base: int = 0, count_pairs: bool = False):
+                        tile_base: int = 0, count_pairs: bool = False,
+                        reach=None):
     """PyTorch version of csrc/rasterize_fwd.cu: one cell at a time, each
     cell's records in chunks of (P pixels x PLAIN_CHUNK) block math — the
     transmittance is exp of a cumsum of log1p(-alpha), and the early-out
@@ -168,7 +170,10 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
     (C, P), final_idx (C, P)); with count_pairs also (pairs, active): the
     (pixel, record) pairs the sequential loop evaluates (each live pixel's
     records up to its crossing one), and those of them whose alpha reaches
-    ALPHA_EPS.
+    ALPHA_EPS; with count_pairs and `reach` (ops/cuda/testing.may_reach_f32,
+    the kernel's cull rule) (pairs, active, reach_pairs): reach_pairs those
+    of the pairs whose record `reach` keeps for the pixel's 8x4 warp patch
+    of the kernel, the pairs a kernel that culls by that rule evaluates.
     """
     dev = packed.device
     n_cells = starts.shape[0]
@@ -176,11 +181,19 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
     img = torch.zeros((n_cells, p, 4), dtype=torch.float32, device=dev)
     log_t_out = torch.zeros((n_cells, p), dtype=torch.float32, device=dev)
     fidx_out = torch.full((n_cells, p), -1, dtype=torch.int32, device=dev)
-    pairs = active = 0
+    pairs = active = reach_pairs = 0
     for t, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
         if e <= s:
             continue
         pix = cell_lanes(tiles_x, cell, tile_base + t, dev)
+        if reach is not None:
+            # Each pixel's 8x4 patch (patches lie on multiples of 8 and 4
+            # in the image) as the corner centre of its rectangle.
+            corner = torch.stack([torch.floor(pix[:, 0] / 8.0) * 8.0,
+                                  torch.floor(pix[:, 1] / 4.0) * 4.0], 1)
+            patches, patch_of = torch.unique(corner, dim=0,
+                                             return_inverse=True)
+            pxa, pya = patches[:, 0] + 0.5, patches[:, 1] + 0.5
         log_t = torch.zeros(p, dtype=torch.float32, device=dev)
         rgb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
         alive = torch.ones(p, dtype=torch.bool, device=dev)
@@ -202,6 +215,13 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
                 seen = alive[:, None] & (before > LOG_T_EPS)
                 pairs += int(seen.sum())
                 active += int((seen & ok).sum())
+                if reach is not None:
+                    smax = torch.log(255.0 * o) + SIGMA_MARGIN
+                    keep = reach(x[:, None], y[:, None], cxx[:, None],
+                                 cxy[:, None], cyy[:, None], smax[:, None],
+                                 pxa[None], pxa[None] + 7.0, pya[None],
+                                 pya[None] + 3.0)
+                    reach_pairs += int((seen & keep[:, patch_of].T).sum())
             fac = alpha * torch.exp(before) * act
             rgb = rgb + fac @ torch.stack([cr, cg, cb], dim=1)
             log_t = log_t + (lom * act).sum(dim=1)
@@ -213,6 +233,8 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
         img[t, :, 3] = 1.0 - torch.exp(log_t)
         log_t_out[t] = log_t
         fidx_out[t] = fidx.to(torch.int32)
+    if count_pairs and reach is not None:
+        return img, log_t_out, fidx_out, (pairs, active, reach_pairs)
     if count_pairs:
         return img, log_t_out, fidx_out, (pairs, active)
     return img, log_t_out, fidx_out

@@ -6,7 +6,10 @@ on the card) hold rasterize_fwd and rasterize_bwd to their plain versions
 on these tile layouts (`hand_tiles`) and raster-cell layouts
 (`hand_cells`), expand on these splat layouts (`hand_expand`), and
 segment_sum on these segment layouts (`hand_segments`,
-`hand_small_pool`).
+`hand_small_pool`). `may_reach_f32` is the float32 twin of the rule by
+which both rasterizers leave records out of a tile's or a warp's work
+(csrc/reach.cuh), `warp_patches` and `fwd_warp_patches` the rectangles
+they apply it to.
 """
 
 import numpy as np
@@ -286,6 +289,61 @@ def warp_patches(cell, c, cells_x):
     ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
     return [(ox + 16 * (sub % gw), oy + 16 * (sub // gw) + 4 * w)
             for sub in range(gw * gh) for w in range(4)]
+
+
+def fwd_warp_patches(cell, c, cells_x):
+    """The rasterize_fwd kernel's warp patches of cell c: a list of
+    (x0, y0) corners of 8 x 4 pixel blocks, eight a tile (two to a row),
+    tile by tile."""
+    gw, gh = cell
+    ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+    return [(ox + 16 * (sub % gw) + 8 * (w % 2),
+             oy + 16 * (sub // gw) + 4 * (w // 2))
+            for sub in range(gw * gh) for w in range(8)]
+
+
+def may_reach_f32(x, y, cxx, cxy, cyy, sigma_max, xa, xb, ya, yb):
+    """csrc/reach.cuh's may_reach in float32, broadcasting over records
+    and rectangles (numpy arrays, or float32 torch tensors on one device):
+    False only where no pixel centre of [xa, xb] x [ya, yb] can pass the
+    pretest sigma <= sigma_max, that is where the conic is positive
+    definite, the record's centre lies outside the rectangle and its least
+    sigma over the rectangle (on the edges, each a quadratic minimized at
+    its clamped vertex) exceeds sigma_max by more than 1e-5 of the terms'
+    magnitude. Every operation rounds to float32 as the kernel's do, one
+    at a time (nvcc may fuse some into multiply-adds; the margin is some
+    170 ulp of the terms)."""
+    args = (x, y, cxx, cxy, cyy, sigma_max, xa, xb, ya, yb)
+    if isinstance(x, np.ndarray) or np.isscalar(x):
+        x, y, cxx, cxy, cyy, smax, xa, xb, ya, yb = (
+            np.asarray(a, np.float32) for a in args)
+        fmin, fmax = np.fmin, np.fmax   # fminf, fmaxf: NaN-dropping
+    else:
+        import torch
+
+        smax = sigma_max
+        fmin, fmax = torch.fmin, torch.fmax
+    with np.errstate(all="ignore"):
+        definite = (cxx > 0) & (cyy > 0) & (cxx * cyy - cxy * cxy > 0)
+        dxl, dxh, dyl, dyh = x - xb, x - xa, y - yb, y - ya
+        outside = (dxl > 0) | (dxh < 0) | (dyl > 0) | (dyh < 0)
+
+        def quad(dx, dy):
+            return 0.5 * (cxx * dx * dx + cyy * dy * dy) + cxy * dx * dy
+
+        def clamp(v, lo, hi):
+            return fmin(fmax(v, lo), hi)
+
+        least = fmin(
+            fmin(quad(clamp(-cxy * dyl / cxx, dxl, dxh), dyl),
+                 quad(clamp(-cxy * dyh / cxx, dxl, dxh), dyh)),
+            fmin(quad(dxl, clamp(-cxy * dxl / cyy, dyl, dyh)),
+                 quad(dxh, clamp(-cxy * dxh / cyy, dyl, dyh))))
+        mx = fmax(abs(dxl), abs(dxh))
+        my = fmax(abs(dyl), abs(dyh))
+        mag = cxx * mx * mx + cyy * my * my + 2.0 * abs(cxy) * mx * my
+        far = least > smax + 1e-5 * (mag + 1.0)   # reach.cuh kReachMargin
+    return ~(definite & outside & far)
 
 
 def hand_cells(case):

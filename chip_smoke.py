@@ -32,7 +32,8 @@ result line; each phase prints its seconds):
      in every bit on rows of multiples of 1/16 (a segment of 100,003
      slots, runs of empty splats; the CLI's sizes, 8192 splats and about
      120,000 live slots, spans inside one splat and spans holding dozens;
-     `total` cutting a segment and `total` 0); rasterize_bwd also on the
+     `total` cutting a segment and `total` 0); rasterize_fwd (the check
+     above) and rasterize_bwd also on the
      raster-cell layouts of ops/cuda/testing.hand_cells (records reaching
      one tile of a cell, all four, a single corner pixel; a deep cell; sigma
      at the pretest's edge of a warp's patch; hyperbolic conics; edge cells
@@ -152,7 +153,11 @@ result line; each phase prints its seconds):
      phase 3's times at (1, 1) and CELL; beside each "ms" (the wrapper's,
      what a host-bound step pays) its "device_ms" (the median of
      DEVICE_REPLAYS replays of a CUDA graph of the calls), and beside
-     segment_sum's "library_ms" (index_add_) its "library_device_ms";
+     segment_sum's "library_ms" (index_add_) its "library_device_ms",
+     and beside rasterize_fwd's "bound_ms" at the bench's render and
+     training inputs its "reach_bound_ms" (the same formula over the pairs
+     whose record may reach the pixel's warp patch, csrc/reach.cuh's rule:
+     the work left to a kernel that culls by it);
      the nvidia-smi line;
      and last {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package. With
@@ -448,14 +453,19 @@ def raster_diff(out, plain, atol=1e-5):
         fidx=int(((fidx != p_fidx) & ~flipped).sum()))
 
 
-def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3):
+def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3, reach=False):
     """Kernel vs plain, and two launches bit-equal: returns raster_diff's
     dict and pairs=(pixel, record) pairs the sweep evaluates, active=those
-    that reach the alpha threshold, plain_ms, out=the kernel's outputs."""
+    that reach the alpha threshold, plain_ms, out=the kernel's outputs;
+    with `reach` also reach_pairs=those of the pairs whose record may
+    reach the pixel's 8x4 warp patch (csrc/reach.cuh's rule, by its host
+    twin ops/cuda/testing.may_reach_f32, in a second, untimed plain
+    run)."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         rasterize_fwd, rasterize_fwd_plain,
     )
+    from brush_tpu_torch.ops.cuda.testing import may_reach_f32
 
     img, log_t, fidx = rasterize_fwd(*r_args)
     torch.cuda.synchronize()
@@ -472,8 +482,12 @@ def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3):
             f"rasterize_fwd: max err {d['err']:.3e}, {d['flips']} flipped "
             f"pixels (limit {limit}, largest {d['flip_err']:.3e}), "
             f"{d['fidx']} final_idx mismatches elsewhere")
-    return dict(d, pairs=pairs, active=active, plain_ms=plain_ms,
-                out=(img, log_t, fidx))
+    out = dict(d, pairs=pairs, active=active, plain_ms=plain_ms,
+               out=(img, log_t, fidx))
+    if reach:
+        *_, (_, _, out["reach_pairs"]) = rasterize_fwd_plain(
+            *r_args, count_pairs=True, reach=may_reach_f32)
+    return out
 
 
 def check_raster_hand():
@@ -634,6 +648,30 @@ def check_segsum_hand():
           f"two launches bit-equal")
 
 
+def check_raster_hand_cells():
+    """rasterize_fwd against its plain version (check_raster: the flip
+    rule, final_idx, two launches bit-equal) on the raster-cell layouts
+    of ops/cuda/testing.hand_cells, each at its cell: the layouts the
+    kernel's tile cull and per-warp lists must not get wrong."""
+    import torch
+    from brush_tpu_torch.ops.cuda.testing import HAND_CELL_CASES, hand_cells
+
+    t0 = time.perf_counter()
+    seen = {}
+    for case in HAND_CELL_CASES:
+        packed, starts, ends, cells_x, cell = hand_cells(case)
+        r = check_raster((torch.tensor(packed).cuda(),
+                          torch.tensor(starts).cuda(),
+                          torch.tensor(ends).cuda(), cells_x, cell))
+        if not bool((r["out"][2] >= 0).any()):
+            raise AssertionError(f"rasterize_fwd: nothing composited on "
+                                 f"the hand cell layout {case}")
+        seen[f"{case} {cell[0]}x{cell[1]}"] = (r["err"], r["flips"])
+    print(f"[hand] rasterize_fwd (max err, flipped pixels) on the "
+          f"raster-cell layouts {seen}; two launches bit-equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def check_bwd_hand():
     """rasterize_bwd against its plain version (check_bwd: BWD_RTOL, two
     launches bit-equal) on the raster-cell layouts of
@@ -688,9 +726,19 @@ def row_error(got, want) -> float:
     return float(((got - want).abs().amax(dim=1) / scale).max())
 
 
-def kernel_phase(cfg, label, backward: bool):
+def reach_note(r) -> str:
+    """check_raster's count of the pairs whose record may reach the
+    pixel's warp patch, where it counted them."""
+    if "reach_pairs" not in r:
+        return ""
+    return (f", whose record may reach the pixel's warp patch "
+            f"{r['reach_pairs']}")
+
+
+def kernel_phase(cfg, label, backward: bool, reach: bool = False):
     """Phase 2 at one scene, at the render's pool: expand and
-    rasterize_fwd, and with `backward` the backward kernels."""
+    rasterize_fwd (with `reach`, its pairs that may reach their warp
+    patch counted too), and with `backward` the backward kernels."""
     t0 = time.perf_counter()
     splats, cp, size = make_scene(cfg, "cuda")
     from brush_tpu_torch.render import pool_size
@@ -699,13 +747,13 @@ def kernel_phase(cfg, label, backward: bool):
                       pool_size(splats.capacity, size, cfg["pool"],
                                 cfg["block"]))
     k["expand_plain_ms"] = check_expand(k["exp_args"])
-    r = check_raster(k["r_args"])
+    r = check_raster(k["r_args"], reach=reach)
     total = int(k["exp_args"][3][0])
     print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} "
           f"pool={k['exp_args'][6]} records={total}: expand byte-equal; "
           f"rasterize_fwd max err {r['err']:.3e}, flipped pixels "
           f"{r['flips']}, pairs evaluated {r['pairs']}, of them active "
-          f"{r['active']}")
+          f"{r['active']}" + reach_note(r))
     if backward:
         check_backward(k, label, seed=1)
     print(f"[{label}] {time.perf_counter() - t0:.1f} s")
@@ -735,8 +783,17 @@ def raster_bounds(live: int, n_cells: int, cell, pool: int, fwd, bwd):
     fwd_o = PAIR_SIGMA_OPS * fwd["pairs"] + PAIR_ALPHA_OPS * fwd["active"]
     bwd_o = PAIR_SIGMA_OPS * bwd["swept"] + (
         PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"]
-    return {"rasterize_fwd": _bound(fwd_b, fwd_o),
-            "rasterize_bwd": _bound(bwd_b, bwd_o)}
+    out = {"rasterize_fwd": _bound(fwd_b, fwd_o),
+           "rasterize_bwd": _bound(bwd_b, bwd_o)}
+    if "reach_pairs" in fwd:
+        # The same formula over the pairs whose record may reach the
+        # pixel's warp patch: the work a kernel that culls by reach.cuh's
+        # rule must still do (at cells the pairs above count every pair of
+        # the cell, also those the culling kernel rightly never evaluates).
+        out["rasterize_fwd_reach"] = _bound(
+            fwd_b, PAIR_SIGMA_OPS * fwd["reach_pairs"]
+            + PAIR_ALPHA_OPS * fwd["active"])
+    return out
 
 
 def bounds(k, fwd, bwd):
@@ -783,10 +840,16 @@ def forward_times(k, label):
                   "plain_ms": plain[name], "bound_ms": bound[name][0],
                   "bound_by": bound[name][1]}
            for name, fn in calls.items()}
+    if "rasterize_fwd_reach" in bound:
+        out["rasterize_fwd"]["reach_bound_ms"] = \
+            bound["rasterize_fwd_reach"][0]
     print(f"[kernels] {label}: " + "; ".join(
         f"{name} {t['ms']:.4f} ms, device {t['device_ms']:.4f} (plain "
         f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.4f} by "
-        f"{t['bound_by']})" for name, t in out.items()))
+        f"{t['bound_by']}"
+        + (f", over the pairs that may reach their warp patch "
+           f"{t['reach_bound_ms']:.4f}" if "reach_bound_ms" in t else "")
+        + ")" for name, t in out.items()))
     return out
 
 
@@ -1235,12 +1298,13 @@ def train_kernels(kept, tag="train"):
         label = f"{tag} {when}"
         k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
         e_plain = check_expand(k["exp_args"])
-        r = check_raster(k["r_args"])
+        r = check_raster(k["r_args"], reach=when == list(kept)[-1])
         b = check_bwd(args["rasterize_bwd"], label)
         s = check_segsum(args["segment_sum"], label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
               f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
-              f"max err {r['err']:.3e}, flipped pixels {r['flips']}; "
+              f"max err {r['err']:.3e}, flipped pixels {r['flips']}, pairs "
+              f"evaluated {r['pairs']}, active {r['active']}{reach_note(r)}; "
               f"rasterize_bwd row error {b['err']:.3e} (max abs "
               f"{b['abs']:.3e}), pairs swept {b['swept']}, active "
               f"{b['active']}; segment_sum row error {s['err']:.3e} (max abs "
@@ -3268,9 +3332,11 @@ def main() -> int:
     del splats, k
     check_segsum_hand()
     check_raster_hand()
+    check_raster_hand_cells()
     check_bwd_hand()
     check_expand_hand()
-    splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False)
+    splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False,
+                                       reach=True)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
                                                           BENCH)
     render_times = {(1, 1): forward_times(k, "bench render inputs")}
@@ -3281,7 +3347,7 @@ def main() -> int:
     t_c = time.perf_counter()
     kc = dict(kernel_inputs(splats, cp, size, BENCH["pool"], CELL))
     kc["expand_plain_ms"] = check_expand(kc["exp_args"])
-    kc["fwd"] = check_raster(kc["r_args"])
+    kc["fwd"] = check_raster(kc["r_args"], reach=True)
     cell_counts, img_c, records_c, cell_ms = main_path(splats, cp, size,
                                                        BENCH, CELL)
     d = check_cell_image(img_c, img_1, f"bench cell {CELL}",
@@ -3292,7 +3358,8 @@ def main() -> int:
           f"against the plain version: max err {kc['fwd']['err']:.3e}, "
           f"flipped pixels {kc['fwd']['flips']}, pairs evaluated "
           f"{kc['fwd']['pairs']} ((1, 1): {k['fwd']['pairs']}), active "
-          f"{kc['fwd']['active']}; the image against (1, 1)'s: pixels that "
+          f"{kc['fwd']['active']}{reach_note(kc['fwd'])}; the image against "
+          f"(1, 1)'s: pixels that "
           f"differ {d['differ']}, beyond 1e-5 {d['flips']} (largest there "
           f"{d['flip_err']:.3e}), largest elsewhere {d['err']:.3e}; "
           f"{time.perf_counter() - t_c:.1f} s")
@@ -3353,7 +3420,9 @@ def main() -> int:
                     "bound_by": t["bound"][name][1],
                     "library_ms": t["library"] if lib else None,
                     "library_device_ms": t["library_device"] if lib
-                    else None}
+                    else None,
+                    **({"reach_bound_ms": t["bound"][f"{name}_reach"][0]}
+                       if f"{name}_reach" in t["bound"] else {})}
 
         # launches: the "cli" train run's; the other fields: the bench
         # training run's last arguments (phase 6); "cli": the same

@@ -13,8 +13,8 @@ commit's kernel:
         > runs/parent/rasterize_fwd.cu
     python3 scripts/torch_kernel_variants.py --old-dir runs/parent
     python3 scripts/torch_kernel_variants.py --old-dir runs/parent --old-only
-    python3 scripts/torch_kernel_variants.py --old-dir runs/other --old-only \
-        --cell 2x2
+    python3 scripts/torch_kernel_variants.py --old-dir runs/other --old-only \\
+        --cell 2x2 4x2
     python3 scripts/torch_kernel_variants.py \\
         --variant "bwd 64-record batches" rasterize_bwd "kBatch = 192;=>kBatch = 64;"
     git show HEAD~1:brush_tpu_torch/csrc/expand.cu > runs/parent/expand.cu
@@ -47,8 +47,19 @@ repository's rasterize_fwd and rasterize_bwd with %globaltimer and %smid
 recorded at each block's start and end and prints when tiles start, how
 long the heavy ones run and how the records spread over the SMs. --castle
 also holds every rasterize_fwd source to the plain version on the four
-castle views of chip_smoke.py, whose pixels saturate. --cell GWxGH builds
-the inputs at a raster cell (sources before the cell mode take 1x1 only).
+castle views of chip_smoke.py, whose pixels saturate, at each --cell,
+and says whether each source's outputs are bit-equal to the
+repository's. --cell GWxGH [GWxGH ...] builds the rasterizers' inputs at
+each raster cell in turn (sources before the cell mode take 1x1 only;
+expand and segsum run at the first). --bits says whether every
+rasterize_fwd source's outputs are bit-equal to the repository's on
+ops/cuda/testing.hand_tiles and hand_cells, on chip_smoke.STRIPS strips of
+cell rows of the bench inputs at each cell (tile_base, each strip also
+held to the frame) and on castle view 0's build_intersections(align=128)
+records:
+
+    python3 scripts/torch_kernel_variants.py --old-dir runs/parent \\
+        --old-only --kernels rasterize_fwd --cell 1x1 2x2 4x2 --bits --castle
 """
 
 import argparse
@@ -204,6 +215,13 @@ DEFAULT_VARIANTS = [
     ("fwd 512-record batches", "rasterize_fwd",
      ["kBatch = 384;=>kBatch = 512;"]),
     ("fwd log T as a sum of log1p", "rasterize_fwd", SUM_OF_LOGS),
+    ("fwd without the per-warp lists (every record in every list)",
+     "rasterize_fwd", ["keep = may_reach(ra4.x, ra4.y, ra4.z, ra4.w, "
+                       "s_rec[k][4],=>keep = true || may_reach(ra4.x, "
+                       "ra4.y, ra4.z, ra4.w, s_rec[k][4],"]),
+    ("fwd registers unbounded (2 blocks an SM at cells, 3 at tiles)",
+     "rasterize_fwd", ["__launch_bounds__(kThreads, kCells ? 3 : 4)"
+                       "=>__launch_bounds__(kThreads)"]),
     ("bwd 4 pixels a thread, 2 records a step", "rasterize_bwd",
      ["kPix = 2;=>kPix = 4;", "kUnroll = 4;=>kUnroll = 2;"]),
     ("bwd 8 pixels a thread, 1 record a step", "rasterize_bwd",
@@ -350,13 +368,16 @@ def cell_ints(job, cell):
     return []
 
 
-def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1)):
+def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0):
     n_tiles = starts.shape[0]
     px = 256 * cell[0] * cell[1]
     img = torch.empty((n_tiles, px, 4), device="cuda")
     log_t = torch.empty((n_tiles, px), device="cuda")
     fidx = torch.empty((n_tiles, px), dtype=torch.int32, device="cuda")
-    ints = [n_tiles] + [0] * job["strip"] + [tiles_x] + cell_ints(job, cell)
+    if tile_base and not job["strip"]:
+        raise SystemExit(f"{job['label']} takes no strip")
+    ints = ([n_tiles] + [tile_base] * job["strip"] + [tiles_x]
+            + cell_ints(job, cell))
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
             ends.data_ptr(), *ints]
     args += [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
@@ -501,11 +522,24 @@ def expand_sources(jobs, exp_args, n4, pool4, timeline=False):
             expand_timeline(stamped, tag, args)
 
 
-def castle_views(fwd_jobs):
+def bits_equal(tag, jobs, run, args):
+    """Whether each job's outputs on args are bit-equal to the first's (the
+    repository's source), printed; returns the first job's outputs."""
+    ref = run(jobs[0], *args)
+    same = {j["label"]: all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(run(j, *args), ref)) for j in jobs[1:]}
+    print(f"[bits] {tag}: bit-equal to the repository's: {same}")
+    return ref
+
+
+def castle_views(fwd_jobs, cells):
     """Every rasterize_fwd job against the plain version on the four castle
     views of chip_smoke.py (a trained model: pixels saturate, the early-out
-    ends tiles): the largest error, the flipped pixels and the largest img
-    or T difference at one, as chip_smoke.raster_diff counts them."""
+    ends tiles) at each of `cells`: the largest error, the flipped pixels
+    and the largest img or T difference at one, as chip_smoke.raster_diff
+    counts them, and whether the outputs are bit-equal to the
+    repository's."""
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd_plain
     from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -515,18 +549,73 @@ def castle_views(fwd_jobs):
     size = (cs.CASTLE_SIZE, cs.CASTLE_SIZE)
     for view, cam in enumerate(cs.castle_cameras()):
         cp = camera_params(cam, size, device="cuda")
-        pool = pool_size(splats.capacity, size)
-        k = cs.kernel_inputs(splats, cp, size, pool)
-        while k["raw_total"] > pool:   # as eval_view grows its pool
-            pool *= 2
-            k = cs.kernel_inputs(splats, cp, size, pool)
-        plain = rasterize_fwd_plain(*k["r_args"])
-        for j in fwd_jobs:
-            d = cs.raster_diff(run_fwd(j, *k["r_args"][:4]), plain)
-            print(f"[castle view {view}] {j['label']}: max err "
-                  f"{d['err']:.3e}, flipped pixels {d['flips']} (largest "
-                  f"img or T difference there {d['flip_err']:.3e}), "
-                  f"final_idx mismatches elsewhere {d['fidx']}")
+        for cell in cells:
+            pool = pool_size(splats.capacity, size)
+            k = cs.kernel_inputs(splats, cp, size, pool, cell)
+            while k["raw_total"] > pool:   # as eval_view grows its pool
+                pool *= 2
+                k = cs.kernel_inputs(splats, cp, size, pool, cell)
+            tag = f"castle view {view} at cell {cell[0]}x{cell[1]}"
+            plain = rasterize_fwd_plain(*k["r_args"])
+            for j in fwd_jobs:
+                d = cs.raster_diff(run_fwd(j, *k["r_args"]), plain)
+                print(f"[{tag}] {j['label']}: max err {d['err']:.3e}, "
+                      f"flipped pixels {d['flips']} (largest img or T "
+                      f"difference there {d['flip_err']:.3e}), final_idx "
+                      f"mismatches elsewhere {d['fidx']}")
+            bits_equal(tag, fwd_jobs, run_fwd, k["r_args"])
+
+
+def fwd_bits(fwd_jobs, inputs):
+    """--bits: every rasterize_fwd source on the layouts of
+    ops/cuda/testing.hand_tiles and hand_cells (each at its cell), on
+    cs.STRIPS strips of cell rows of the bench render's inputs at each
+    cell of `inputs` ({cell: r_args}; the strip's outputs also held to the
+    frame's), and on castle view 0's records of build_intersections(
+    align=cs.ALIGN_LANES) (the aligned path of make_pallas_rasterizer):
+    whether each source's outputs are bit-equal to the repository's."""
+    from brush_tpu_torch.datasets.ply import load_splats_from_ply
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import pack_isect_splats
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_CELL_CASES, HAND_TILE_CASES, hand_cells, hand_tiles,
+    )
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+
+    cuda = lambda a: torch.tensor(a, device="cuda")   # noqa: E731
+    for case in HAND_TILE_CASES:
+        packed, starts, ends, tiles_x = hand_tiles(case)
+        bits_equal(f"hand_tiles {case}", fwd_jobs, run_fwd,
+                   (cuda(packed), cuda(starts), cuda(ends), tiles_x))
+    for case in HAND_CELL_CASES:
+        packed, starts, ends, cells_x, cell = hand_cells(case)
+        bits_equal(f"hand_cells {case} at {cell[0]}x{cell[1]}", fwd_jobs,
+                   run_fwd, (cuda(packed), cuda(starts), cuda(ends),
+                             cells_x, cell))
+    for cell, (packed, starts, ends, cells_x, _) in inputs.items():
+        frame = run_fwd(fwd_jobs[0], packed, starts, ends, cells_x, cell)
+        rows = starts.shape[0] // cells_x
+        for i in range(cs.STRIPS):
+            a = i * rows // cs.STRIPS * cells_x
+            b = (i + 1) * rows // cs.STRIPS * cells_x
+            out = bits_equal(
+                f"bench strip {i} of {cs.STRIPS} at {cell[0]}x{cell[1]} "
+                f"(cells {a}-{b - 1})", fwd_jobs, run_fwd,
+                (packed, starts[a:b], ends[a:b], cells_x, cell, a))
+            if not all(torch.equal(x, f[a:b]) for x, f in zip(out, frame)):
+                raise SystemExit(f"strip {i} at {cell}: not the frame's")
+    with open(cs.CASTLE_PLY, "rb") as f:
+        castle = load_splats_from_ply(f.read(), device="cuda")
+    size = (cs.CASTLE_SIZE, cs.CASTLE_SIZE)
+    cp = camera_params(cs.castle_cameras()[0], size, device="cuda")
+    castle, _ = cs.pinned_castle(castle, cp)
+    proj, opac, attrs = cs.view_inputs(castle, cp, size)
+    isect, pool, _, _ = cs.aligned_records(proj, opac, size)
+    packed = pack_isect_splats(*(t[isect.order] for t in attrs),
+                               isect.isect_gid, pool, cs.ALIGN_LANES)
+    bits_equal("castle view 0, aligned records", fwd_jobs, run_fwd,
+               (packed, *(t.to(torch.int32) for t in (isect.starts,
+                                                       isect.ends)),
+                cs.CASTLE_SIZE // 16))
 
 
 def build_timeline(label, kernel, subs):
@@ -668,8 +757,15 @@ def main():
     ap.add_argument("--old-only", action="store_true", help="without "
                     "--variant, run only the repository's sources and "
                     "--old-dir's (no default variants)")
-    ap.add_argument("--cell", default="1x1", help="raster cell GWxGH of the "
-                    "inputs (sources before the cell mode run 1x1 only)")
+    ap.add_argument("--cell", nargs="+", default=["1x1"], help="raster "
+                    "cells GWxGH of the rasterizers' inputs, each timed in "
+                    "turn (sources before the cell mode run 1x1 only); "
+                    "expand and segsum take the first")
+    ap.add_argument("--bits", action="store_true", help="also say whether "
+                    "every rasterize_fwd source's outputs are bit-equal to "
+                    "the repository's on the hand-made tile and cell "
+                    "layouts, on strips of the bench inputs at each cell "
+                    "and on the castle's aligned records")
     ap.add_argument("--args-file", nargs="+", default=[], help="files of "
                     "rasterize_bwd and segment_sum arguments that "
                     "chip_smoke.py --save-kernel-args wrote (a training "
@@ -681,8 +777,8 @@ def main():
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    cell = tuple(int(v) for v in opts.cell.lower().split("x"))
-    if cell != (1, 1) and opts.timeline:
+    cells = [tuple(int(v) for v in c.lower().split("x")) for c in opts.cell]
+    if cells != [(1, 1)] and opts.timeline:
         raise SystemExit("--timeline times tiles: run it at --cell 1x1")
     variants = [(v[0], v[1], v[2:]) for v in opts.variant] or (
         [] if opts.old_only else DEFAULT_VARIANTS)
@@ -709,40 +805,51 @@ def main():
         return
 
     splats, cp, size = cs.make_scene(cs.BENCH, "cuda")
-    k = cs.kernel_inputs(splats, cp, size, pool_size(
-        splats.capacity, size, cs.BENCH["pool"], cs.BENCH["block"]), cell)
-    packed, starts, ends, tiles_x, _ = k["r_args"]
-    print(f"[inputs] bench render at cell {cell}: {starts.shape[0]} cells, "
-          f"{int(k['exp_args'][3][0])} records")
+    pool = pool_size(splats.capacity, size, cs.BENCH["pool"],
+                     cs.BENCH["block"])
     n4 = pool4 = 1 << 22
-    exp_jobs = [j for j in jobs if j["kernel"] == "expand"]
-    if exp_jobs:
-        expand_sources(exp_jobs, k["exp_args"], n4, pool4, opts.timeline)
     fwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_fwd"]
-    packed4 = torch.zeros((8, pool4), dtype=torch.int32, device="cuda")
-    packed4[:, :packed.shape[1]] = packed
-    for tag, f_args in (
-            ("rasterize_fwd, bench render inputs", k["r_args"]),
-            (f"rasterize_fwd, the same records in a pool of {pool4}",
-             (packed4, starts, ends, tiles_x, cell))):
-        if fwd_jobs:
-            compare(tag, fwd_jobs, run_fwd, f_args, reps=20, rows=fwd_rows)
-    del packed4
-    if opts.castle:
-        castle_views(fwd_jobs)
-    if opts.timeline:
-        timeline("rasterize_fwd", run_fwd, k["r_args"][:4])
-    _, log_t, fidx = rasterize_fwd(*k["r_args"])
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
-    b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
     bwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_bwd"]
-    if bwd_jobs:
-        compare("rasterize_bwd, bench render inputs", bwd_jobs, run_bwd,
-                b_args, reps=10)
-    if opts.timeline:
-        timeline("rasterize_bwd", run_bwd, b_args)
+    inputs = {}
+    for cell in cells:
+        k = cs.kernel_inputs(splats, cp, size, pool, cell)
+        packed, starts, ends, tiles_x, _ = inputs[cell] = k["r_args"]
+        print(f"[inputs] bench render at cell {cell}: {starts.shape[0]} "
+              f"cells, {int(k['exp_args'][3][0])} records")
+        at = f" at cell {cell[0]}x{cell[1]}"
+        exp_jobs = [j for j in jobs if j["kernel"] == "expand"]
+        if exp_jobs and cell == cells[0]:
+            expand_sources(exp_jobs, k["exp_args"], n4, pool4, opts.timeline)
+        packed4 = torch.zeros((8, pool4), dtype=torch.int32, device="cuda")
+        packed4[:, :packed.shape[1]] = packed
+        for tag, f_args in (
+                ("rasterize_fwd, bench render inputs" + at, k["r_args"]),
+                (f"rasterize_fwd, the same records in a pool of {pool4}"
+                 + at, (packed4, starts, ends, tiles_x, cell))):
+            if fwd_jobs:
+                compare(tag, fwd_jobs, run_fwd, f_args, reps=20,
+                        rows=fwd_rows)
+        del packed4
+        if opts.timeline:
+            timeline("rasterize_fwd", run_fwd, k["r_args"][:4])
+        _, log_t, fidx = rasterize_fwd(*k["r_args"])
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+        b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
+        if bwd_jobs:
+            compare("rasterize_bwd, bench render inputs" + at, bwd_jobs,
+                    run_bwd, b_args, reps=10)
+        if opts.timeline:
+            timeline("rasterize_bwd", run_bwd, b_args)
+        if cell == cells[0]:
+            first = dict(k=k, b_args=b_args, gen=gen)
+    if opts.bits and fwd_jobs:
+        fwd_bits(fwd_jobs, inputs)
+    if opts.castle:
+        castle_views(fwd_jobs, cells)
 
+    k, b_args, gen = first["k"], first["b_args"], first["gen"]
+    packed = b_args[0]
     total, cum, offsets = k["exp_args"][3], k["exp_args"][2], k["offsets"]
     rows = grad_resort(rasterize_bwd(*b_args), packed[7], total,
                        pack_grad_sort=False)

@@ -26,8 +26,8 @@ from brush_tpu_torch.ops.cuda.testing import (
     HAND_CELL_CASES, HAND_DEEP, HAND_EDGE_IMAGE, HAND_EXPAND_CASES,
     HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_SMALL_LIVE, HAND_SMALL_N,
     HAND_SMALL_POOL, HAND_TILE_CASES, cell_pixel_centres, hand_cells,
-    hand_expand, hand_segments, hand_small_pool, hand_tiles, sigma_f32,
-    sigma_max_f32, warp_patches,
+    fwd_warp_patches, hand_expand, hand_segments, hand_small_pool,
+    hand_tiles, may_reach_f32, sigma_f32, sigma_max_f32, warp_patches,
 )
 from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -256,7 +256,12 @@ def _cell_reach(case):
     record) pairs of that cell that pass the kernels' pretest (0 <= sigma
     <= sigma_max, float32 as the sweeps round it), as a (records, pixels)
     bool array per cell, with the cell's pixel centres."""
-    packed, starts, ends, cells_x, cell = hand_cells(case)
+    return _reach(*hand_cells(case))
+
+
+def _reach(packed, starts, ends, cells_x, cell):
+    """_cell_reach on any records: packed (8, pool) int32 numpy, starts
+    and ends a cell each."""
     f = packed[:5].view(np.float32)
     o_words = packed[6].view(np.uint32) >> 16
     out = []
@@ -340,6 +345,119 @@ def test_hand_cell_layouts_reach_their_cases(case):
             assert passes[:, inside].any()
             if c % 2 or c // 2:   # a cell that crosses the image's edge
                 assert passes[:, ~inside].any() and not inside.all()
+
+
+def _reach_rects(cell, c, cells_x):
+    """The rectangles of pixel centres the kernels cull cell c's records
+    against, as ((x0, y0) corners, width, height): rasterize_fwd's tiles
+    and its warps' 8x4 patches, rasterize_bwd's warps' 16x4 patches."""
+    gw, gh = cell
+    ox, oy = 16 * gw * (c % cells_x), 16 * gh * (c // cells_x)
+    tiles = [(ox + 16 * (sub % gw), oy + 16 * (sub // gw))
+             for sub in range(gw * gh)]
+    return {"fwd tile": (tiles, 16, 16),
+            "fwd 8x4": (fwd_warp_patches(cell, c, cells_x), 8, 4),
+            "bwd 16x4": (warp_patches(cell, c, cells_x), 16, 4)}
+
+
+def _kept(packed, s, e, corners, w, h):
+    """may_reach_f32 of records s..e against each rectangle (corners, w,
+    h), as the kernels call it: (records, rectangles) bool."""
+    f = packed[:5].view(np.float32)
+    smax = sigma_max_f32(packed[6, s:e].view(np.uint32) >> 16)
+    xa = np.array([x for x, _ in corners], np.float32) + np.float32(0.5)
+    ya = np.array([y for _, y in corners], np.float32) + np.float32(0.5)
+    return may_reach_f32(*(f[r, s:e, None] for r in range(5)),
+                         smax[:, None], xa[None], xa[None] + (w - 1),
+                         ya[None], ya[None] + (h - 1))
+
+
+def _scene_cell_args(cell):
+    """A seeded scene's records at raster cell `cell` (CPU, plain
+    kernels) as hand_cells gives its layouts: numpy packed, starts, ends,
+    cells_x and the cell."""
+    n, img_size, pool, scale_hi = SCENES["small"]
+    r = port_records(make_scene(n, 31, scale_hi), img_size, pool, "cpu",
+                     cell)
+    return (r["packed"].numpy(), r["starts"].numpy(), r["ends"].numpy(),
+            r["tiles_x"], cell)
+
+
+@pytest.mark.parametrize("layout", [f"hand {c}" for c in HAND_CELL_CASES]
+                         + ["scene 2x2", "scene 4x2"])
+def test_reach_rule_keeps_every_passing_pair(layout):
+    """csrc/reach.cuh's rule (its float32 twin, may_reach_f32) keeps every
+    record that has a (record, pixel) pair passing the kernels' float32
+    pretest, for the pixel's tile and 8x4 warp patch (rasterize_fwd's
+    culls) and its 16x4 warp patch (rasterize_bwd's lists): on the layouts
+    of ops/cuda/testing.hand_cells (pretest_edge puts records within 3e-4
+    of the bound) and on a seeded scene's records at cells (2, 2) and (4,
+    2)."""
+    kind, name = layout.split()
+    args = (hand_cells(name) if kind == "hand" else
+            _scene_cell_args(tuple(int(v) for v in name.split("x"))))
+    packed, starts, ends, cells_x, cell, reach = _reach(*args)
+    dropped = 0
+    for c, (passes, px, py, sig, s, e) in enumerate(reach):
+        assert passes.any()
+        for rect, (corners, w, h) in _reach_rects(cell, c, cells_x).items():
+            keep = _kept(packed, s, e, corners, w, h)
+            x0 = np.array([x for x, _ in corners])[:, None]
+            y0 = np.array([y for _, y in corners])[:, None]
+            inside = ((px[None] > x0) & (px[None] < x0 + w)
+                      & (py[None] > y0) & (py[None] < y0 + h))
+            assert (inside.sum(0) == 1).all()   # the rectangles tile it
+            missed = passes & ~keep[:, inside.argmax(0)]
+            assert not missed.any(), (rect, c, np.argwhere(missed)[:5])
+            dropped += int((~keep).sum())
+    assert dropped > 0   # the rule culls something on every layout
+
+
+def test_reach_rule_drops_one_tile_records_at_other_tiles():
+    """On hand_cells' one_tile layout (each record's footprint inside one
+    tile of its cell) may_reach_f32 drops nearly every record at the
+    cell's three other tiles: the work rasterize_fwd's tile cull saves."""
+    packed, starts, ends, cells_x, cell, reach = _cell_reach("one_tile")
+    others = dropped = 0
+    for c, (passes, px, py, sig, s, e) in enumerate(reach):
+        corners, w, h = _reach_rects(cell, c, cells_x)["fwd tile"]
+        keep = _kept(packed, s, e, corners, w, h)
+        ox, oy = 16 * cell[0] * (c % cells_x), 16 * cell[1] * (c // cells_x)
+        sub = (((py - oy) // 16).astype(int) * cell[0]
+               + ((px - ox) // 16).astype(int))
+        home = sub[passes.argmax(1)]   # the one tile each record reaches
+        assert passes.any(1).all()
+        other = np.ones_like(keep)
+        other[np.arange(len(home)), home] = False
+        assert keep[~other].all()
+        others += int(other.sum())
+        dropped += int((other & ~keep).sum())
+    assert dropped >= 0.95 * others, (dropped, others)
+
+
+def test_rasterize_fwd_plain_counts_reach_pairs():
+    """rasterize_fwd_plain(count_pairs=True, reach=may_reach_f32): the
+    pairs whose record may reach the pixel's warp patch lie between the
+    active pairs and all pairs, leave the outputs unchanged, and hardly
+    change with the cell (the work a culling kernel must do), where all
+    pairs grow with it (chip_smoke.raster_bounds' two bounds)."""
+    counts = {}
+    for cell in ((1, 1), (2, 2), (4, 2)):
+        n, img_size, pool, scale_hi = SCENES["small"]
+        r = port_records(make_scene(n, 2, scale_hi), img_size, pool, "cpu",
+                         cell)
+        args = (r["packed"], r["starts"], r["ends"], r["tiles_x"], cell)
+        *out, (pairs, active, reach) = t_raster.rasterize_fwd_plain(
+            *args, count_pairs=True, reach=may_reach_f32)
+        *want, (pairs_w, active_w) = t_raster.rasterize_fwd_plain(
+            *args, count_pairs=True)
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+        assert (pairs, active) == (pairs_w, active_w)
+        assert 0 < active <= reach < pairs
+        counts[cell] = (pairs, reach)
+    for cell in ((2, 2), (4, 2)):
+        assert counts[cell][0] > 2 * counts[(1, 1)][0]
+        assert abs(counts[cell][1] / counts[(1, 1)][1] - 1) < 0.01
 
 
 def test_hand_small_pool_reaches_its_cases():
@@ -563,6 +681,31 @@ def hand_cell_args(case, device, seed=23):
     v_out = torch.tensor(np.random.default_rng(seed).normal(
         size=(*log_t.shape, 4)).astype(np.float32), device=device)
     return (*args, v_out, log_t, fidx, cell)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_CELL_CASES)
+def test_cuda_rasterize_fwd_hand_cells_match_plain(case):
+    """The raster-cell layouts made by hand (ops/cuda/testing.hand_cells),
+    which the tile cull and the per-warp lists of the forward kernel must
+    get right (records reaching one tile, one corner pixel, sigma at a
+    patch's pretest edge, hyperbolic conics, edge cells at (4, 2)): the
+    kernel against plain at the tile tests' tolerances, one launch
+    counted, and a second launch bit-equal."""
+    _need_cuda()
+    packed, starts, ends, cells_x, cell = hand_cells(case)
+    args = (torch.tensor(packed, device="cuda"),
+            torch.tensor(starts, device="cuda"),
+            torch.tensor(ends, device="cuda"), cells_x, cell)
+    before = t_raster.launches
+    img, log_t, fidx = t_raster.rasterize_fwd(*args)
+    torch.cuda.synchronize()
+    assert t_raster.launches == before + 1
+    assert bool((fidx >= 0).any())
+    want = t_raster.rasterize_fwd_plain(*args)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args))
 
 
 @pytest.mark.cuda

@@ -1,9 +1,22 @@
 """The port's native k-NN (brush_tpu_torch/native/knn.cpp) against
 brush_tpu.native's and against the brute force, and the initial splat
-scales it gives, on the CPU. Skips only where g++ cannot build the native
-library, as tests/test_native.py does.
+scales it gives, on the CPU. Skips only where no g++ is found.
+
+brush_tpu.native builds its library with g++ straight onto its final path
+and, if a load fails, gives up for the life of the process. Test workers
+that start at once each begin that build (tests/test_native.py asks for
+the library while it is collected), and a worker that loads a
+half-written file loses the reference library for the whole test run.
+`reference_native` gets it loaded in such a worker; it touches only the
+module's private state and its build artefact, never its sources.
 """
 
+import fcntl
+import os
+import shutil
+import struct
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -20,12 +33,87 @@ from brush_tpu_torch.splats import (
 )
 
 
+# reference_native's lock and temporary builds (listed in .gitignore).
+REF_BUILD_DIR = native.BUILD_DIR
+REF_WAIT_S = 60.0     # how long a worker tries before it gives up
+REF_SETTLED_S = 2.0   # a library file untouched this long is no longer
+                      # being written by a compiler
+
+
+def _whole_library(path):
+    """Is `path` a complete 64-bit ELF file that no compiler is writing:
+    its section header table, which the linker writes last, lies inside
+    the file, and the file has not changed for REF_SETTLED_S?"""
+    try:
+        st = os.stat(path)
+        with open(path, "rb") as f:
+            head = f.read(64)
+    except OSError:
+        return False
+    if len(head) < 64 or head[:5] != b"\x7fELF\x02":
+        return False
+    (shoff,) = struct.unpack_from("<Q", head, 0x28)
+    shentsize, shnum = struct.unpack_from("<HH", head, 0x3A)
+    return (st.st_size >= shoff + shentsize * shnum
+            and time.time() - st.st_mtime >= REF_SETTLED_S)
+
+
+def _build_reference(target):
+    """brush_tpu.native's sources, with its own g++ flags (OpenMP, else
+    none), into a temporary file in REF_BUILD_DIR, renamed onto `target`
+    at once: a load never sees this build half-written."""
+    tmp = os.path.join(REF_BUILD_DIR, f"brush_tpu_native.{os.getpid()}.tmp")
+    sources = [os.path.join(j_native._DIR, s) for s in j_native._SOURCES]
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+           "-o", tmp, *sources]
+    for flags in (["-fopenmp"], []):
+        try:
+            subprocess.run(cmd + flags, check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            continue
+        os.replace(tmp, target)
+        return True
+    return False
+
+
+def reference_native():
+    """brush_tpu.native loaded, in a process whose first load lost the
+    race: where g++ exists, under an exclusive lock on a file in
+    REF_BUILD_DIR, wait until its library is a whole file that loads;
+    build it (_build_reference) when no such file is there, clear the
+    module's sticky failure and load again; retry for up to REF_WAIT_S.
+    Returns whether the library is loaded."""
+    if j_native.available():
+        return True
+    if shutil.which("g++") is None:
+        return False
+    os.makedirs(REF_BUILD_DIR, exist_ok=True)
+    deadline = time.monotonic() + REF_WAIT_S
+    with open(os.path.join(REF_BUILD_DIR, "brush_tpu_native.lock"),
+              "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while True:
+                target = j_native._LIB_PATH
+                if _whole_library(target) or _build_reference(target):
+                    j_native._build_failed = False
+                    j_native._lib = None
+                    if j_native.available():
+                        return True
+                if time.monotonic() > deadline:
+                    return False
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 @pytest.fixture(autouse=True)
 def native_library():
-    if not native.available():
-        pytest.skip("g++ cannot build the native library here")
-    if not j_native.available():
-        pytest.skip("g++ cannot build brush_tpu's native library here")
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ here to build the native libraries")
+    assert native.available(), "g++ is here, and the port's library fails"
+    assert reference_native(), "g++ is here, and brush_tpu's library fails"
 
 
 def _points(case):
@@ -119,3 +207,28 @@ def test_knn_large_is_fast():
     dt = time.perf_counter() - t0
     assert np.isfinite(out).all() and (out > 0).all()
     assert dt < 10.0, f"kd-tree too slow: {dt:.1f} s for 200k points"
+
+
+def test_reference_native_recovers_from_a_half_written_library(
+        tmp_path, monkeypatch):
+    """A worker whose brush_tpu.native load met a half-written library (the
+    load failed and the failure stuck; loading the truncated file here
+    would not even fail cleanly, dlopen can fault on it): reference_native
+    ends with the library loaded from a whole file, whose k-NN is the
+    port's bit for bit. Every patched global is restored afterwards."""
+    with open(j_native._LIB_PATH, "rb") as f:
+        whole = f.read()
+    lib = tmp_path / "libbrush_native.so"
+    lib.write_bytes(whole[:len(whole) // 3])
+    monkeypatch.setattr(j_native, "_LIB_PATH", str(lib))
+    monkeypatch.setattr(j_native, "_lib", None)
+    monkeypatch.setattr(j_native, "_build_failed", True)
+    monkeypatch.setattr(sys.modules[__name__], "REF_BUILD_DIR",
+                        str(tmp_path))
+    assert not _whole_library(str(lib)) and not j_native.available()
+    assert reference_native()
+    assert j_native._lib is not None and not j_native._build_failed
+    assert os.path.getsize(lib) > len(whole) // 3
+    pts = _points("uniform")
+    np.testing.assert_array_equal(j_native.knn_distances(pts, 3),
+                                  native.knn_distances(pts, 3))
