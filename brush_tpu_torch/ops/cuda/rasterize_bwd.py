@@ -31,8 +31,8 @@ import torch
 from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_fwd import (
-    PLAIN_CHUNK, _check_inputs as _check_pool, cell_lanes, cell_pixels,
-    check_cell, check_tile_base, unpack_record_rows,
+    PLAIN_CHUNK, SIGMA_MARGIN, _check_inputs as _check_pool, cell_lanes,
+    cell_pixels, check_cell, check_tile_base, unpack_record_rows,
 )
 
 GRAD_ROWS = 9
@@ -51,7 +51,7 @@ def _suffix_excl(v: torch.Tensor) -> torch.Tensor:
 
 def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
                         fidx, cell=(1, 1), tile_base: int = 0,
-                        count_pairs: bool = False):
+                        count_pairs: bool = False, reach=None):
     """PyTorch version of csrc/rasterize_bwd.cu: one cell at a time, the
     cell's records swept back to front in chunks of (P pixels x
     PLAIN_CHUNK) block math — the per-pixel log T and the colour "behind"
@@ -60,14 +60,19 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
     cell t is the image's cell tile_base + t, as in rasterize_fwd_plain.
 
     Returns grads (GRAD_ROWS, pool); with count_pairs also the (pixel,
-    record) pairs the sweep evaluates and how many of them are active.
+    record) pairs the sweep evaluates and how many of them are active;
+    with count_pairs and `reach` (ops/cuda/testing.may_reach_f32, the
+    kernel's list rule) also reach_pairs: the pairs whose record the
+    kernel's per-warp list keeps for the pixel's 16x4 warp patch (j at
+    most the patch's largest final_idx, and `reach` true for the patch's
+    rectangle), the pairs a sweep of those lists evaluates.
     """
     dev = packed.device
     pool = packed.shape[1]
     grads = torch.zeros((GRAD_ROWS, pool), dtype=torch.float32, device=dev)
     p = cell_pixels(cell)
     last_f = fidx.amax(dim=1) + 1 if fidx.numel() else fidx.new_zeros(0)
-    swept = active = 0
+    swept = active = reach_pairs = 0
     for t, (s, e, lf) in enumerate(zip(starts.tolist(), ends.tolist(),
                                        last_f.tolist())):
         last = min(e, lf)
@@ -75,6 +80,19 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
             continue
         pix_x, pix_y = cell_lanes(tiles_x, cell, tile_base + t,
                                   dev).unbind(dim=1)
+        if reach is not None:
+            # Each pixel's warp patch: 16 wide on its tile's columns, 4
+            # high on rows of multiples of 4 in the image; the patch's
+            # largest final_idx and its pixel count.
+            corner = torch.stack([torch.floor(pix_x / 16.0) * 16.0,
+                                  torch.floor(pix_y / 4.0) * 4.0], 1)
+            patches, patch_of = torch.unique(corner, dim=0,
+                                             return_inverse=True)
+            pxa, pya = patches[:, 0] + 0.5, patches[:, 1] + 0.5
+            wmax = torch.full((patches.shape[0],), -1, dtype=torch.int64,
+                              device=dev).scatter_reduce(
+                0, patch_of, fidx[t].to(torch.int64), "amax")
+            npix = torch.bincount(patch_of, minlength=patches.shape[0])
         v_rgb = v_out[t, :, :3]
         v_a = v_out[t, :, 3:4]
         lt = log_t[t]
@@ -95,6 +113,15 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
             if count_pairs:
                 swept += act.numel()
                 active += int(act.sum())
+                if reach is not None:
+                    smax = torch.log(255.0 * o) + SIGMA_MARGIN
+                    keep = reach(x[:, None], y[:, None], cxx[:, None],
+                                 cxy[:, None], cyy[:, None], smax[:, None],
+                                 pxa[None], pxa[None] + 15.0, pya[None],
+                                 pya[None] + 3.0)
+                    keep = keep & (idx[0][:, None] <= wmax[None, :])
+                    reach_pairs += int((keep.to(torch.int64)
+                                        * npix[None, :]).sum())
             alpha = torch.where(act, alpha, torch.zeros_like(alpha))
             m = torch.log1p(-alpha)
             t_before = torch.exp(lt[:, None] - _suffix_excl(m) - m)
@@ -114,6 +141,8 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
             grads[:, bs:be] = torch.stack([g.sum(dim=0) for g in terms])
             lt = lt - m.sum(dim=1)
             s_behind = s_behind + contrib.sum(dim=1)
+    if count_pairs and reach is not None:
+        return grads, swept, active, reach_pairs
     if count_pairs:
         return grads, swept, active
     return grads

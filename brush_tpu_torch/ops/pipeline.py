@@ -56,8 +56,8 @@ straight through to the unquantized inputs, as in the reference.
 `make_pallas_rasterizer` (raster_vjp.py:453-512) is the other way to feed
 the two rasterizers: the records of ops/binning.build_intersections(
 align=k_lanes) in place of expand's, packed by pack_isect_splats, and a
-backward that is one row scatter-add over the records' global ids in place
-of the re-sort and segment_sum.
+backward that sorts the gradient rows by the records' global ids (the
+reference scatter-adds them) and sums them per splat with segment_sum.
 """
 
 from __future__ import annotations
@@ -315,19 +315,31 @@ class AlignedRaster(torch.autograd.Function):
         grads = rasterize_bwd(packed, starts, ends, ctx.tiles_x,
                               g.contiguous(), log_t, fidx, (1, 1),
                               ctx.tile_base)
-        # Padding slots carry id n and the slack lanes take n too: their
-        # rows land in the scratch row n, sliced off. One fused row
-        # scatter-add (raster_vjp.py:497-506).
-        n = ctx.n
-        gid = torch.full((packed.shape[1],), n, dtype=torch.int64,
-                         device=grads.device)
-        gid[:isect_gid.shape[0]] = isect_gid
-        acc = torch.zeros((n + 1, 9), dtype=torch.float32,
-                          device=grads.device)
-        acc.index_add_(0, gid, grads.T)
-        acc = acc[:n]
+        acc = aligned_splat_sums(grads, isect_gid, ctx.n).T
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8],
                 None, None, None, None, None, None, None)
+
+
+def aligned_splat_sums(grads, isect_gid, n: int) -> torch.Tensor:
+    """The aligned backward's per-splat sums (raster_vjp.py:497-506, one
+    scatter-add there): grads (9, pool) in slot order, isect_gid the
+    slots' global ids (padding slots carry id n; the pool's slack lanes
+    past isect_gid take n too) -> (9, n). A stable sort by id groups each
+    splat's slots in slot order, and segment_sum adds them: the CUDA
+    kernel on CUDA tensors, whose fixed order repeats bit for bit, the
+    plain version on CPU tensors. Id n's slots sort last, past `total`."""
+    dev = grads.device
+    if n == 0:
+        return torch.zeros((grads.shape[0], 0), dtype=torch.float32,
+                           device=dev)
+    gid = torch.full((grads.shape[1],), n, dtype=torch.int64, device=dev)
+    gid[:isect_gid.shape[0]] = isect_gid
+    sorted_gid, perm = torch.sort(gid, stable=True)
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    offsets = torch.searchsorted(sorted_gid, ids).to(torch.int32)
+    cum = torch.searchsorted(sorted_gid, ids, right=True).to(torch.int32)
+    return segment_sum(grads[:, perm].contiguous(), offsets, cum,
+                       cum[-1:].contiguous())
 
 
 def make_pallas_rasterizer(tiles_x: int, num_tiles: int, max_isects: int,
@@ -338,14 +350,14 @@ def make_pallas_rasterizer(tiles_x: int, num_tiles: int, max_isects: int,
     tile_ids) -> (num_tiles, TILE_SIZE, 4), with the per-compact-splat
     attributes and the records of build_intersections(align=k_lanes).
 
-    Runs the CUDA kernels (rasterize_fwd, then rasterize_bwd in the
-    backward) on CUDA tensors and their plain versions on CPU tensors; a
-    failed build or launch raises. The forward packs the pool with
-    pack_isect_splats (max_isects + k_lanes slots); the backward sums the
-    per-record gradient rows per splat with one index_add_, which on CUDA
-    tensors adds with atomics, so repeats may differ in the last bits (the
-    kernels' own outputs repeat bit for bit). Gradients are taken at the
-    quantized colour and opacity and passed straight through.
+    Runs the CUDA kernels (rasterize_fwd, then rasterize_bwd and
+    segment_sum in the backward) on CUDA tensors and their plain versions
+    on CPU tensors; a failed build or launch raises. The forward packs the
+    pool with pack_isect_splats (max_isects + k_lanes slots); the backward
+    sums the per-record gradient rows per splat in slot order
+    (aligned_splat_sums: a stable sort by global id, then segment_sum), so
+    two backward passes on the card give the same bits. Gradients are
+    taken at the quantized colour and opacity and passed straight through.
 
     The kernels take a strip's first tile, not a list: tile_ids must be the
     contiguous run from tile_ids[0] (strip_base raises otherwise), which

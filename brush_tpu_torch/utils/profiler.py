@@ -17,7 +17,9 @@ of their stages ends. Inside `record()` on a CUDA device a mark records a
 CUDA event on the current stream, so a stage's time is the stream time
 between its mark and the one before it: its kernels and the host's gaps
 between their launches. Outside `record()` a mark is one read of a
-global.
+global. `record(host=True)` times the marks by the host's clock instead,
+for work on CPU tensors (done when each call returns): what a CPU run of a
+harness reads, never a device's time.
 
 The backward's marks fire on the autograd engine's thread. Its work goes
 to the same stream while the main thread waits in backward(), so the
@@ -38,6 +40,7 @@ import time
 import torch
 
 _marks: list | None = None
+_host_clock = {"enabled": False}   # marks read time.perf_counter()
 _sync = {"enabled": False}
 _timings: dict[str, list] = {}
 _trace_ids = itertools.count()
@@ -91,32 +94,43 @@ def reset_timings() -> None:
 def mark(name: str) -> None:
     """End the stage `name` here (a no-op outside record())."""
     if _marks is not None:
+        if _host_clock["enabled"]:
+            _marks.append((name, time.perf_counter()))
+            return
         event = torch.cuda.Event(enable_timing=True)
         event.record()
         _marks.append((name, event))
 
 
 @contextlib.contextmanager
-def record():
+def record(host: bool = False):
     """Time the marked stages of the enclosed work on the current CUDA
     device. Yields a list that, when the block exits (after a device
     synchronize), holds (name, ms) for each mark in order: the time since
-    the previous mark, the first one's since the block was entered."""
+    the previous mark, the first one's since the block was entered. With
+    host=True the same by the host's clock, on any machine (CPU work)."""
     global _marks
-    if not torch.cuda.is_available():
+    if not host and not torch.cuda.is_available():
         raise RuntimeError("profiler.record() needs a CUDA device")
     if _marks is not None:
         raise RuntimeError("profiler.record() is already open")
     stages: list = []
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if host:
+        start = time.perf_counter()
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    _host_clock["enabled"] = host
     _marks = []
     try:
         yield stages
     finally:
         marks, _marks = _marks, None
-        torch.cuda.synchronize()
+        _host_clock["enabled"] = False
         prev = start
-        for name, event in marks:
-            stages.append((name, prev.elapsed_time(event)))
-            prev = event
+        if not host:
+            torch.cuda.synchronize()
+        for name, at in marks:
+            stages.append((name, (at - prev) * 1e3 if host
+                           else prev.elapsed_time(at)))
+            prev = at

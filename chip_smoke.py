@@ -137,13 +137,28 @@ result line; each phase prints its seconds):
      records through make_pallas_rasterizer (aligned_phase): the castle
      on view 0 with gradients held to the XLA rasterizer on the same
      records (image by close_image, gradients by the castle rule), one
-     rasterize_fwd and one rasterize_bwd launch and nothing else, both
-     kernels against their plain versions on these records; the bench
+     launch each of rasterize_fwd, rasterize_bwd and segment_sum (the
+     backward's per-splat sums) and nothing else, a second backward pass
+     bit-equal to the first, both rasterizers against their plain
+     versions on these records; the bench
      render's aligned records equal to the pipeline's tile by tile, its
      image held to phase 3's, rasterize_fwd timed on both pools in turns;
      the k-NN of the initial scales on the bench's 1M points, and its
      native and card routes at 262,144 points within 1e-6;
- 12. print {"kernels": [...]}: launches from the "cli" train run, the other
+ 12. "scale", the bicycle-scale step of scripts/torch_probe_5m.py
+     (scale_phase): 5,242,880 splats, SH degree 3, 1248x1248, pool
+     10,485,760; one probe step (render with gradients, L1, backward,
+     Adam) with the counters reset just before and read just after: one
+     launch of each kernel, no record dropped, finite loss and parameters;
+     all four kernels against their plain versions on that step's own
+     arguments (phase 2's tolerances, repeats bit-equal), timed (wrapper
+     and device), with bounds (both rasterizers' reach bounds too) and
+     index_add_ beside segment_sum; the median of 8 probe steps on fixed
+     parameters and its peak memory; SCALE_TRAIN_STEPS SplatTrainer steps
+     (default config) with the pool set to the probe's before the first:
+     one launch of each kernel a step, no drop, finite losses and
+     parameters, the median step and its peak memory; one [scale] line;
+ 13. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
      "cell" those of the training at CELL, under "strip" the strip
@@ -157,7 +172,11 @@ result line; each phase prints its seconds):
      and beside rasterize_fwd's "bound_ms" at the bench's render and
      training inputs its "reach_bound_ms" (the same formula over the pairs
      whose record may reach the pixel's warp patch, csrc/reach.cuh's rule:
-     the work left to a kernel that culls by it);
+     the work left to a kernel that culls by it), and beside
+     rasterize_bwd's at the training inputs its "reach_bound_ms" (the
+     pairs its per-warp lists keep: the 16x4 patch's largest final_idx
+     and that rule); under "scale" the same fields on the "scale" phase's
+     probe step, launches its;
      the nvidia-smi line;
      and last {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package. With
@@ -241,6 +260,11 @@ XLA_SHARD_STEPS = 6    # ShardedTrainer(backend="xla") steps on the castle
 # the k-NN's two routes compared at this many points.
 ALIGN_LANES = 128
 KNN_BOTH_N = 262144
+# The "scale" phase: scripts/torch_probe_5m.py's defaults (5.0 M splats,
+# 1248x1248) and SplatTrainer steps at its pool.
+PROBE_SCRIPT = os.path.join(ROOT, "scripts", "torch_probe_5m.py")
+SCALE_MILLIONS, SCALE_SIZE = 5.0, 1248
+SCALE_TRAIN_STEPS = 5
 CASTLE_NAMES = ("means", "log_scales", "quats", "sh_coeffs", "raw_opacity")
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -523,15 +547,20 @@ def check_raster_hand():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def check_bwd(b_args, label):
+def check_bwd(b_args, label, reach=False):
     """rasterize_bwd vs plain on b_args (packed, starts, ends, tiles_x,
     v_out, log_t, final_idx): returns dict(err=row error, abs=max abs
     error, plain_ms, swept/active=(pixel, record) pairs the sweep
-    evaluates / that contribute, grads=the kernel's rows)."""
+    evaluates / that contribute, grads=the kernel's rows); with `reach`
+    also reach_pairs=the pairs whose record the kernel's per-warp lists
+    keep (the 16x4 patch's largest final_idx and csrc/reach.cuh's rule,
+    by its host twin ops/cuda/testing.may_reach_f32, in a second, untimed
+    plain run)."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_bwd import (
         rasterize_bwd, rasterize_bwd_plain,
     )
+    from brush_tpu_torch.ops.cuda.testing import may_reach_f32
 
     grads = rasterize_bwd(*b_args)
     torch.cuda.synchronize()
@@ -544,8 +573,12 @@ def check_bwd(b_args, label):
     if not torch.isfinite(grads).all() or err > BWD_RTOL:
         raise AssertionError(f"[{label}] rasterize_bwd: row error "
                              f"{err:.3e} > {BWD_RTOL:.0e}")
-    return dict(err=err, abs=float((grads - plain).abs().max()),
-                plain_ms=plain_ms, swept=swept, active=active, grads=grads)
+    out = dict(err=err, abs=float((grads - plain).abs().max()),
+               plain_ms=plain_ms, swept=swept, active=active, grads=grads)
+    if reach:
+        *_, out["reach_pairs"] = rasterize_bwd_plain(
+            *b_args, count_pairs=True, reach=may_reach_f32)
+    return out
 
 
 def check_segsum(s_args, label, exact=False):
@@ -727,8 +760,8 @@ def row_error(got, want) -> float:
 
 
 def reach_note(r) -> str:
-    """check_raster's count of the pairs whose record may reach the
-    pixel's warp patch, where it counted them."""
+    """check_raster's or check_bwd's count of the pairs whose record may
+    reach the pixel's warp patch, where it counted them."""
     if "reach_pairs" not in r:
         return ""
     return (f", whose record may reach the pixel's warp patch "
@@ -793,6 +826,12 @@ def raster_bounds(live: int, n_cells: int, cell, pool: int, fwd, bwd):
         out["rasterize_fwd_reach"] = _bound(
             fwd_b, PAIR_SIGMA_OPS * fwd["reach_pairs"]
             + PAIR_ALPHA_OPS * fwd["active"])
+    if "reach_pairs" in bwd:
+        # The backward's: the pairs its per-warp lists keep (the 16x4
+        # patch's largest final_idx and reach.cuh's rule).
+        out["rasterize_bwd_reach"] = _bound(
+            bwd_b, PAIR_SIGMA_OPS * bwd["reach_pairs"] + (
+                PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"])
     return out
 
 
@@ -1298,8 +1337,9 @@ def train_kernels(kept, tag="train"):
         label = f"{tag} {when}"
         k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
         e_plain = check_expand(k["exp_args"])
-        r = check_raster(k["r_args"], reach=when == list(kept)[-1])
-        b = check_bwd(args["rasterize_bwd"], label)
+        last = when == list(kept)[-1]
+        r = check_raster(k["r_args"], reach=last)
+        b = check_bwd(args["rasterize_bwd"], label, reach=last)
         s = check_segsum(args["segment_sum"], label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
               f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
@@ -1307,7 +1347,8 @@ def train_kernels(kept, tag="train"):
               f"evaluated {r['pairs']}, active {r['active']}{reach_note(r)}; "
               f"rasterize_bwd row error {b['err']:.3e} (max abs "
               f"{b['abs']:.3e}), pairs swept {b['swept']}, active "
-              f"{b['active']}; segment_sum row error {s['err']:.3e} (max abs "
+              f"{b['active']}{reach_note(b)}; segment_sum row error "
+              f"{s['err']:.3e} (max abs "
               f"{s['abs']:.3e}); {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3068,8 +3109,10 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     7), through make_pallas_rasterizer; and the k-NN of the initial scales.
     1. the castle on view 0 at 800x800 with gradients of a seeded tile
        cotangent, its out-of-range view colours pinned (pinned_castle):
-       one rasterize_fwd and one rasterize_bwd launch, no expand or
-       segment_sum; the image within close_image of the XLA rasterizer's
+       one launch each of rasterize_fwd, rasterize_bwd and segment_sum
+       (the backward's per-splat sums, aligned_splat_sums), no expand; a
+       second backward pass giving the same gradient bits; the image
+       within close_image of the XLA rasterizer's
        (ops/rasterize_tiled.make_rasterizer) on the same records, the four
        gradients within the "xla" phase's castle rule of its; both kernels
        against their plain versions on these records (phase 2's
@@ -3101,7 +3144,7 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     res = {}
     names = ("xy", "conic", "color", "opac")
     one_each = {"expand": 0, "rasterize_fwd": 1, "rasterize_bwd": 1,
-                "segment_sum": 0}
+                "segment_sum": 1}
 
     # 1. The castle, view 0, with gradients.
     t0 = time.perf_counter()
@@ -3140,6 +3183,14 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     if counts != one_each or any(counts_x.values()):
         raise AssertionError(f"[aligned] castle launches {counts} (want "
                              f"{one_each}), XLA rasterizer {counts_x}")
+    # The backward's per-splat sums run in a fixed order (segment_sum):
+    # a second pass gives the same bits.
+    _, g_again = fwd_bwd(make_pallas_rasterizer(tiles_x, num_tiles, pool,
+                                                ALIGN_LANES))
+    if not all(torch.equal(a, b) for a, b in zip(g_a, g_again)):
+        raise AssertionError("[aligned] two backward passes of "
+                             "make_pallas_rasterizer differ")
+    del g_again
     img_err = close_image(img_a, img_x, "[aligned] castle image")
     grad_err = grad_errors(g_a, g_x, names, "[aligned] castle", gate=True)
 
@@ -3175,7 +3226,8 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
           f"{img_err[1]} values beyond 2e-4 elsewhere, {img_err[2]} pixels "
           f"beyond 0.01 at the transmittance cut; gradients against its "
           f"(largest scaled error, entries beyond 3e-4, entries) "
-          f"{grad_err}; rasterize_fwd against plain: max err "
+          f"{grad_err}; a second backward pass bit-equal; rasterize_fwd "
+          f"against plain: max err "
           f"{fwd['err']:.3e}, {fwd['flips']} flipped pixels; rasterize_bwd "
           f"row error {bwd['err']:.3e} (max abs {bwd['abs']:.3e}); repeats "
           f"bit-equal; ms fwd {fwd_ms:.4f} (plain {fwd['plain_ms']:.1f}, "
@@ -3206,7 +3258,7 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
                        tile_ids)
     torch.cuda.synchronize()
     b_counts = read_launches()
-    if b_counts != dict(one_each, rasterize_bwd=0):
+    if b_counts != dict(one_each, rasterize_bwd=0, segment_sum=0):
         raise AssertionError(f"[aligned] bench launches {b_counts}")
     img = assemble_image(img_tiles, bsize, tiles_x, bsize[1] // 16)
     want = bench_img.to("cuda")
@@ -3285,6 +3337,103 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
         seconds=time.perf_counter() - t_phase)
     print(f"[aligned] phase {res['seconds']:.1f} s")
     return res
+
+
+def load_probe():
+    """scripts/torch_probe_5m.py as a module (its scene, step and
+    trainer runs)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_probe_5m",
+                                                  PROBE_SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def scale_phase(smi: str) -> dict:
+    """Phase 12, "scale": the bicycle-scale probe step and SplatTrainer
+    steps at scripts/torch_probe_5m.py's defaults (see the module
+    docstring). Returns the kernels' fields (train_kernels on the probe
+    step's arguments), launches, the medians and peaks."""
+    import torch
+
+    probe = load_probe()
+    t_phase = time.perf_counter()
+    n = probe.splat_count(SCALE_MILLIONS)
+    size = (SCALE_SIZE, SCALE_SIZE)
+    pool = probe.probe_pool(n)
+    t0 = time.perf_counter()
+    splats, cam, cp, gt = probe.make_scene(n, SCALE_SIZE, "cuda")
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    params = splats.params()
+    opt = probe.init_adam(params)
+    torch.cuda.empty_cache()
+
+    def step():
+        return probe.probe_step(params, opt, cp, size, gt, pool)
+
+    armed = [True]
+    with kept_kernel_args(armed) as seen:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        new_params, _, loss, records, dropped = step()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        kept = dict(seen)
+    loss, records, dropped = float(loss), int(records), int(dropped)
+    finite = all(bool(torch.isfinite(v).all()) for v in new_params.values())
+    del new_params
+    if counts != {name: 1 for name in KERNEL_WRAPPERS}:
+        raise AssertionError(f"[scale] probe step launches {counts}")
+    if dropped or not (finite and np.isfinite(loss)):
+        raise AssertionError(f"[scale] probe step dropped {dropped} "
+                             f"records (loss {loss}, finite parameters "
+                             f"{finite})")
+    probe_all = probe.fixed_step_ms(step)
+    probe_ms = statistics.median(probe_all)
+    probe_peak = torch.cuda.max_memory_allocated() / 2**20
+    del params, opt
+    torch.cuda.empty_cache()
+    tk = train_kernels({"probe step": kept}, "scale")
+    del kept
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    gt_np = np.zeros((SCALE_SIZE, SCALE_SIZE, 3), np.float32)
+    run = probe.trainer_run(splats, cam, gt_np, SCALE_TRAIN_STEPS, pool=pool)
+    probe.check_trainer_run(run)
+    train_ms = statistics.median(run["ms"][1:])
+    train_peak = torch.cuda.max_memory_allocated() / 2**20
+    del run["state"], splats
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[scale] n={n} SH 3 {size[0]}x{size[1]} pool={pool}: scene "
+          f"{scene_s:.1f} s; probe step launches {counts}, records "
+          f"{records}, dropped {dropped}, loss {loss:.6f}; median of "
+          f"{len(probe_all)} probe steps on fixed parameters "
+          f"{probe_ms:.3f} ms (all {[round(t, 3) for t in probe_all]}), "
+          f"peak {probe_peak:.1f} MiB; kernels on the probe step's "
+          f"arguments (wrapper / device ms, plain ms, bound ms): "
+          + "; ".join(
+              f"{k} {tk['ms'][k]:.4f} / {tk['device'][k]:.4f}, plain "
+              f"{tk['plain'][k]:.1f}, bound {tk['bound'][k][0]:.4f} by "
+              f"{tk['bound'][k][1]}"
+              + (f", reach bound {tk['bound'][k + '_reach'][0]:.4f}"
+                 if k + "_reach" in tk["bound"] else "")
+              for k in KERNEL_WRAPPERS)
+          + f", index_add_ {tk['library']:.4f} / "
+          f"{tk['library_device']:.4f}; SplatTrainer ({SCALE_TRAIN_STEPS} "
+          f"steps at pool {pool}) step ms "
+          f"{[round(t, 3) for t in run['ms']]}, median after the first "
+          f"{train_ms:.3f}, records {run['records']}, dropped "
+          f"{run['dropped']}, launches a step {run['launches'][0]}, peak "
+          f"{train_peak:.1f} MiB; {smi}; phase {seconds:.1f} s")
+    return dict(kernels=tk, launches=counts, records=records,
+                probe_ms=probe_ms, probe_peak_mib=probe_peak,
+                train_ms=train_ms, train_peak_mib=train_peak,
+                train_launches=run["launches"], seconds=seconds)
 
 
 def read_jsonl(path: str) -> list:
@@ -3409,6 +3558,8 @@ def main() -> int:
     xla = xla_phase(gts, castle_pool, bench_img, smi)
     torch.cuda.empty_cache()
     aligned = aligned_phase(bench_img, records_1, bench_fwd, smi)
+    torch.cuda.empty_cache()
+    scale = scale_phase(smi)
 
     def row(name, src, replaces):
         def fields(t):
@@ -3442,6 +3593,13 @@ def main() -> int:
             # device's).
             out["render"] = {f"{c[0]}x{c[1]}": render_times[c][name]
                              for c in ((1, 1), CELL)}
+        # "scale": the same fields on the "scale" phase's probe step
+        # (launches: that step's).
+        out["scale"] = {
+            **fields(scale["kernels"]), "launches": scale["launches"][name],
+            "from": f"scale phase: scripts/torch_probe_5m.py's step, "
+                    f"{SCALE_MILLIONS} M splats, SH 3, "
+                    f"{SCALE_SIZE}x{SCALE_SIZE}"}
         if name in view_counts:
             out["viewer"] = {
                 "launches": view_counts[name],
@@ -3511,7 +3669,12 @@ def main() -> int:
           f"{aligned['bench_ms']['aligned']:.4f} ms against the pipeline's "
           f"{aligned['bench_ms']['pipeline']:.4f}, k-NN of 1M points "
           f"{aligned['knn_s']['native_1m']:.3f} s, phase "
-          f"{aligned['seconds']:.1f} s; total "
+          f"{aligned['seconds']:.1f} s; scale ({SCALE_MILLIONS} M splats, "
+          f"SH 3, {SCALE_SIZE}x{SCALE_SIZE}): probe step "
+          f"{scale['probe_ms']:.3f} ms, peak {scale['probe_peak_mib']:.1f} "
+          f"MiB, SplatTrainer step {scale['train_ms']:.3f} ms, peak "
+          f"{scale['train_peak_mib']:.1f} MiB, phase "
+          f"{scale['seconds']:.1f} s; total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -35,6 +35,8 @@ from tests.test_pallas_fwd import build_pipeline_inputs
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.constants import SH_C0
 from brush_tpu_torch.ops.binning import build_intersections
+from brush_tpu_torch.ops import pipeline
+from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
 from brush_tpu_torch.ops.cuda.rasterize_fwd import (
     pack_isect_splats, rasterize_fwd,
 )
@@ -163,6 +165,60 @@ def test_aligned_grads_match_reference(name):
         assert scale > 1e-6, f"{label} is zero in the reference"
         np.testing.assert_allclose(b / scale, a / scale, atol=3e-4,
                                    err_msg=f"{name}: {label}")
+
+
+def test_aligned_backward_sums_in_slot_order_without_index_add(monkeypatch):
+    """ROADMAP Queue 3 #12, closed: the aligned backward calls no
+    index_add_ (a float scatter-add, atomic on CUDA tensors) outside
+    segment_sum, which it calls once; each splat's gradient is the sum of
+    its records' rows in slot order, bit for bit, with the padding slots
+    and the slack lanes left out."""
+    name = "vjp_matches_xla"
+    arrays, tiles_x, num_tiles = _case_inputs(name)
+    params = [torch.tensor(a, requires_grad=True) for a in arrays[:4]]
+    gid, starts, ends = (torch.tensor(a) for a in arrays[4:])
+    v = torch.tensor(_cotangent(name, num_tiles))
+    calls, inside = [], [False]
+    index_add = torch.Tensor.index_add_
+    segment_sum = pipeline.segment_sum
+
+    def spy_index_add(self, *args, **kwargs):
+        calls.append(("index_add_", inside[0]))
+        return index_add(self, *args, **kwargs)
+
+    def spy_segment_sum(*args):
+        calls.append(("segment_sum", False))
+        inside[0] = True
+        try:
+            return segment_sum(*args)
+        finally:
+            inside[0] = False
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", spy_index_add)
+    monkeypatch.setattr(pipeline, "segment_sum", spy_segment_sum)
+    raster = make_pallas_rasterizer(tiles_x, num_tiles, MAX_ISECTS, K_LANES)
+    img = raster(*params, gid, starts, ends, torch.arange(num_tiles))
+    (img * v).sum().backward()
+    monkeypatch.undo()
+    assert ("segment_sum", False) in calls
+    assert calls.count(("segment_sum", False)) == 1
+    assert ("index_add_", False) not in calls
+
+    n = arrays[0].shape[0]
+    packed = pack_isect_splats(*(p.detach() for p in params), gid,
+                               MAX_ISECTS, K_LANES)
+    _, log_t, fidx = rasterize_fwd(packed, starts, ends, tiles_x)
+    rows = rasterize_bwd(packed, starts, ends, tiles_x, v, log_t, fidx)
+    want = torch.zeros((9, n), dtype=torch.float32)
+    ids = torch.cat([gid.to(torch.int64), torch.full(
+        (rows.shape[1] - gid.shape[0],), n, dtype=torch.int64)])
+    for slot, w in enumerate(ids.tolist()):
+        if w < n:
+            want[:, w] = want[:, w] + rows[:, slot]
+    assert (ids == n).any() and want.abs().max() > 0
+    for p, lo, hi in zip(params, (0, 2, 5, 8), (2, 5, 8, 9)):
+        got = p.grad.reshape(n, -1)
+        assert torch.equal(got, want[lo:hi].T), (lo, hi)
 
 
 def test_aligned_zero_cotangent():

@@ -460,6 +460,36 @@ def test_rasterize_fwd_plain_counts_reach_pairs():
         assert abs(counts[cell][1] / counts[(1, 1)][1] - 1) < 0.01
 
 
+def test_rasterize_bwd_plain_counts_reach_pairs():
+    """rasterize_bwd_plain(count_pairs=True, reach=may_reach_f32): the
+    pairs whose record the kernel's per-warp list keeps (the 16x4 patch's
+    largest final_idx and reach.cuh's rule) lie between the active pairs
+    and all pairs the sweep evaluates, leave the rows unchanged, and
+    hardly change with the cell where all pairs grow with it
+    (chip_smoke.raster_bounds' rasterize_bwd_reach)."""
+    counts = {}
+    for cell in ((1, 1), (2, 2), (4, 2)):
+        n, img_size, pool, scale_hi = SCENES["small"]
+        r = port_records(make_scene(n, 2, scale_hi), img_size, pool, "cpu",
+                         cell)
+        args = (r["packed"], r["starts"], r["ends"], r["tiles_x"], cell)
+        _, log_t, fidx = t_raster.rasterize_fwd_plain(*args)
+        v_out = torch.tensor(np.random.default_rng(3).normal(
+            size=(*log_t.shape, 4)).astype(np.float32))
+        b_args = (*args[:4], v_out, log_t, fidx, cell)
+        grads, swept, active, reach = t_bwd.rasterize_bwd_plain(
+            *b_args, count_pairs=True, reach=may_reach_f32)
+        want, swept_w, active_w = t_bwd.rasterize_bwd_plain(
+            *b_args, count_pairs=True)
+        assert torch.equal(grads, want)
+        assert (swept, active) == (swept_w, active_w)
+        assert 0 < active <= reach < swept
+        counts[cell] = (swept, reach)
+    for cell in ((2, 2), (4, 2)):
+        assert counts[cell][0] > 2 * counts[(1, 1)][0]
+        assert abs(counts[cell][1] / counts[(1, 1)][1] - 1) < 0.05
+
+
 def test_hand_small_pool_reaches_its_cases():
     """ops/cuda/testing.hand_small_pool: the CLI's capacity and live
     splats, spans of segment_sum's kernel wholly inside one splat and spans
@@ -1027,12 +1057,13 @@ def test_cuda_render_xla_matches_cpu():
 
 @pytest.mark.cuda
 def test_cuda_aligned_rasterizer_matches_cpu():
-    """make_pallas_rasterizer on the card (rasterize_fwd and rasterize_bwd
-    on build_intersections(align=128) records: one launch each, no expand
-    or segment_sum) against the CPU (the plain versions) on the same
-    records: the pool bit-equal, the image within 1e-5 and the gradients
-    within 1e-4 of each one's largest entry, with a counted few threshold
-    flips (the backward's index_add_ sums with atomics on the card)."""
+    """make_pallas_rasterizer on the card (rasterize_fwd, rasterize_bwd
+    and the backward's segment_sum on build_intersections(align=128)
+    records: one launch each, no expand) against the CPU (the plain
+    versions) on the same records: the pool bit-equal, the image within
+    1e-5 and the gradients within 1e-4 of each one's largest entry, with
+    a counted few threshold flips; a second backward pass on the card
+    gives the same gradient bits (ROADMAP Queue 3 #12)."""
     _need_cuda()
     from brush_tpu_torch.ops.binning import build_intersections
     from brush_tpu_torch.ops.pipeline import make_pallas_rasterizer
@@ -1064,8 +1095,13 @@ def test_cuda_aligned_rasterizer_matches_cpu():
         raster = make_pallas_rasterizer(tiles[0], num_tiles, pool, lanes)
         img = raster(*params, *records, torch.arange(num_tiles, device=dev))
         (img * cot.to(dev)).sum().backward()
-        want = [0, 1, 1, 0] if dev == "cuda" else [0, 0, 0, 0]
+        want = [0, 1, 1, 1] if dev == "cuda" else [0, 0, 0, 0]
         assert [mod.launches for mod in mods] == want
+        again = [a.detach().to(dev).requires_grad_(True) for a in leaves]
+        (raster(*again, *records, torch.arange(num_tiles, device=dev))
+         * cot.to(dev)).sum().backward()
+        assert all(torch.equal(p.grad, q.grad)
+                   for p, q in zip(params, again))
         packed = t_raster.pack_isect_splats(
             *[a.to(dev) for a in leaves], records[0], pool, lanes)
         out[dev] = (img.detach().cpu(), [p.grad.cpu() for p in params],
