@@ -20,6 +20,7 @@ class EvalView(NamedTuple):
     ssim: float
     rendered: np.ndarray | None = None  # kept only when keep_image is set
     pool: int | None = None  # intersection pool that rendered clean
+    dropped: int = 0  # records still dropped after the pool's growth
 
 
 def psnr_from_mse(mse: torch.Tensor) -> torch.Tensor:
@@ -66,7 +67,7 @@ def eval_view(splats: Splats, camera, gt_image: np.ndarray,
     return EvalView(
         psnr=psnr, ssim=ssim,
         rendered=render_rgb.cpu().numpy() if keep_image else None,
-        pool=max_isects,
+        pool=max_isects, dropped=dropped,
     )
 
 

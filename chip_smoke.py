@@ -124,7 +124,9 @@ result line; each phase prints its seconds):
      composite, PNG encode, the rest), idle and while a TrainWorker trains
      the NeRF castle through the API (pause, eval, export, resume, load of
      the COLMAP twin); `cli view` in a subprocess; `cli train --rerun`
-     with a recording stub SDK; profiler.trace around a bench render;
+     with a recording stub SDK; profiler.trace around a bench render
+     (profiler_check: run after the "quality" phase, the last timed one,
+     since a trace slows the process's later launches);
  10. "xla", the XLA backend on the card (xla_phase): the castle on view 0
      with gradients and the bench render through render_splats(
      backend="xla") held to the record pipeline's kernels (images within
@@ -158,7 +160,29 @@ result line; each phase prints its seconds):
      (default config) with the pool set to the probe's before the first:
      one launch of each kernel a step, no drop, finite losses and
      parameters, the median step and its peak memory; one [scale] line;
- 13. print {"kernels": [...]}: launches from the "cli" train run, the other
+ 13. "quality", the port against independent ground truth
+     (quality_phase): the ray-traced castle of
+     brush_tpu_torch/datasets/raytrace.py (scripts/raytrace_scene.py's
+     scene, tracer and NeRF layout: 100 train and 16 val views, 800x800
+     RGBA PNG) traced on the card, val views 0 and 1 traced again on the
+     card and on the CPU (hit masks equal, RGBA within 1e-6; the dataset's
+     u8 pixels at most 1 from the CPU trace's in at most 1e-5 of the
+     pixels); the 16-view harvests of docs/castle_r5_30k.ply,
+     castle_r5fixed.ply and castle_r5pgs.ply (scripts/torch_harvest.py's
+     harvest: eval_view at block 512, no record dropped after pool growth)
+     within 0.01 dB and 0.0002 SSIM of the JAX package's 32.404 / 0.9756,
+     32.390 / 0.9760, 32.414 / 0.9762; `cli train` to docs/RESULTS.md's
+     command (--sh-degree 3 --init-count 32768 --block-size 512) for 3,200
+     steps, past the opacity reset at 3001 and the prune at 3101, all 16
+     val views evaluated at 1500, 3000 and 3200: finite logged losses,
+     finite parameters at 3000 and 3200, no record dropped at any eval,
+     eval PSNR at 1500 and 3000 no lower than the JAX run's 30.86 and
+     31.28 less 1.5 dB, one launch of each kernel a step and of the
+     forward two one an eval render; the four kernels held to their plain
+     versions (phase 2's tolerances, repeats bit-equal) on the arguments
+     of step 3002, the first after the reset, and timed there; one
+     [quality] line;
+ 14. print {"kernels": [...]}: launches from the "cli" train run, the other
      fields from phase 6's (1, 1) arguments, under "cli" the same fields
      on the cli run's last arguments, and for the two rasterizers under
      "cell" those of the training at CELL, under "strip" the strip
@@ -176,7 +200,8 @@ result line; each phase prints its seconds):
      rasterize_bwd's at the training inputs its "reach_bound_ms" (the
      pairs its per-warp lists keep: the 16x4 patch's largest final_idx
      and that rule); under "scale" the same fields on the "scale" phase's
-     probe step, launches its;
+     probe step, launches its; under "quality" the same fields on the
+     quality phase's step 3002, launches its cli train run's;
      the nvidia-smi line;
      and last {"ok": true, "device": {...}}.
 The script imports nothing of JAX or of the JAX package. With
@@ -265,6 +290,28 @@ KNN_BOTH_N = 262144
 PROBE_SCRIPT = os.path.join(ROOT, "scripts", "torch_probe_5m.py")
 SCALE_MILLIONS, SCALE_SIZE = 5.0, 1248
 SCALE_TRAIN_STEPS = 5
+# The "quality" phase: the ray-traced castle (brush_tpu_torch/datasets/
+# raytrace.py, scripts/raytrace_scene.py's scene) in the NeRF layout at its
+# published size; its val views held to the tracer on the CPU; the 16-view
+# harvests of the three models the JAX package trained on it (docs/), each
+# against the harvest the JAX package recorded (VERDICT.md:14-16 and
+# docs/RESULTS.md's round-5 appendix); `cli train` to docs/RESULTS.md's
+# command past the first opacity reset (TrainConfig: a refine every 100
+# steps from 501, the 30th, at 3001, resets every opacity; the next, at
+# 3101, prunes), its evals held to the JAX run r5_castle_fixed's
+# (docs/RESULTS.md:30-31) less QUALITY_GAP_DB.
+QUALITY_TRAIN, QUALITY_VAL, QUALITY_SIZE = 100, 16, 800
+QUALITY_CHECK_VIEWS = (0, 1)   # val views traced again on the CPU
+QUALITY_U8_FRAC = 1e-5         # pixels whose u8 values may differ, by 1
+QUALITY_ANCHORS = {"castle_r5_30k.ply": (32.404, 0.9756),
+                   "castle_r5fixed.ply": (32.390, 0.9760),
+                   "castle_r5pgs.ply": (32.414, 0.9762)}
+QUALITY_PSNR_TOL, QUALITY_SSIM_TOL = 0.01, 0.0002
+QUALITY_ITERS, QUALITY_EVAL_EVERY = 3200, 1500
+QUALITY_RESET_STEP = 3001
+QUALITY_JAX_PSNR = {1500: 30.86, 3000: 31.28}
+QUALITY_GAP_DB = 1.5
+HARVEST_SCRIPT = os.path.join(ROOT, "scripts", "torch_harvest.py")
 CASTLE_NAMES = ("means", "log_scales", "quats", "sh_coeffs", "raw_opacity")
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
 BENCH = dict(n=1 << 20, lo=-3.0, hi=3.0, z=-8.0, size=1024, block=512,
@@ -2413,12 +2460,9 @@ def viewer_phase(data: dict, d: str) -> dict:
        that view at that step in a pool of the heatmap's max_isects; each
        tile's mean depth lies in the depth range of the splats that render
        there (up to the float32 cumsum's rounding, in the JAX package's
-       arithmetic);
-    6. profiler.trace around one bench render in a sync-mode span: the
-       Chrome trace holds the span and the expand and rasterize_fwd
-       kernels; the span's time is at least the render's CUDA-event time.
-    Returns the launches of item 1's frames."""
-    import glob
+       arithmetic).
+    Its profiler.trace check is profiler_check, run after every timed
+    phase. Returns the launches of item 1's frames."""
     import threading
     import types
 
@@ -2429,7 +2473,6 @@ def viewer_phase(data: dict, d: str) -> dict:
     )
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.render import record_inputs, render_splats
-    from brush_tpu_torch.utils import profiler
     from brush_tpu_torch.utils import rerun_viz
     from brush_tpu_torch.viewer import server as vs
 
@@ -2669,7 +2712,24 @@ def viewer_phase(data: dict, d: str) -> dict:
           f"{inside.max():.4f} in [{lo:.4f}, {hi:.4f}] (+- {slack:.2e}); "
           f"{rr_log[-1][1]:.1f} s")
 
-    # 6. profiler.trace around a bench render in a sync-mode span.
+    print(f"[viewer] phase {time.perf_counter() - t_phase:.1f} s")
+    return counted
+
+
+def profiler_check() -> None:
+    """The viewer phase's profiler.trace check, run after every timed
+    phase: in this process a torch.profiler trace with CUDA activities
+    leaves every later kernel launch slower (ROADMAP Queue 3 #17), so
+    nothing timed may follow it. profiler.trace around one bench render
+    in a sync-mode span: the Chrome trace holds the span and the expand
+    and rasterize_fwd kernels; the span's time is at least the render's
+    CUDA-event time."""
+    import glob
+
+    import torch
+    from brush_tpu_torch.render import render_splats
+    from brush_tpu_torch.utils import profiler
+
     splats, cp, bsize = make_scene(BENCH, "cuda")
     go = lambda: render_splats(
         splats.means, splats.log_scales, splats.quats, splats.sh_coeffs,
@@ -2678,41 +2738,41 @@ def viewer_phase(data: dict, d: str) -> dict:
         needs_grad=False)
     go()
     torch.cuda.synchronize()
-    tdir = os.path.join(d, "trace")
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    profiler.reset_timings()
-    profiler.set_sync_mode(True)
-    try:
-        with profiler.trace(tdir):
-            with profiler.span("bench render", splats.means):
-                ev0.record()
-                go()
-                ev1.record()
-    finally:
-        profiler.set_sync_mode(False)
-    ev_ms = ev0.elapsed_time(ev1)
-    span_ms = profiler.timings()["bench render"] * 1e3
-    (tpath,) = glob.glob(os.path.join(tdir, "*.json"))
-    with open(tpath) as f:
-        events = json.load(f)["traceEvents"]
-    names = [e.get("name", "") for e in events]
-    kern = {k: [e.get("dur", 0.0) for e in events
-                if e.get("cat") == "kernel" and k in e.get("name", "")]
-            for k in ("expand_kernel", "rasterize_fwd_kernel")}
-    if "bench render" not in names or not all(kern.values()) or \
-            span_ms < ev_ms:
-        raise AssertionError(f"trace: span {'bench render' in names}, "
-                             f"kernels {kern}; span {span_ms} ms < render "
-                             f"{ev_ms} ms")
-    print(f"[viewer] profiler.trace of a bench render: {len(events)} events "
-          f"({os.path.getsize(tpath)} bytes), the span and the kernels "
-          f"{ {k: [round(x, 1) for x in v] for k, v in kern.items()} } (us); "
-          f"sync-mode span {span_ms:.3f} ms against {ev_ms:.3f} ms of CUDA "
-          f"events")
+    with tempfile.TemporaryDirectory(prefix="brush_trace_") as d:
+        tdir = os.path.join(d, "trace")
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        profiler.reset_timings()
+        profiler.set_sync_mode(True)
+        try:
+            with profiler.trace(tdir):
+                with profiler.span("bench render", splats.means):
+                    ev0.record()
+                    go()
+                    ev1.record()
+        finally:
+            profiler.set_sync_mode(False)
+        ev_ms = ev0.elapsed_time(ev1)
+        span_ms = profiler.timings()["bench render"] * 1e3
+        (tpath,) = glob.glob(os.path.join(tdir, "*.json"))
+        with open(tpath) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kern = {k: [e.get("dur", 0.0) for e in events
+                    if e.get("cat") == "kernel" and k in e.get("name", "")]
+                for k in ("expand_kernel", "rasterize_fwd_kernel")}
+        if "bench render" not in names or not all(kern.values()) or \
+                span_ms < ev_ms:
+            raise AssertionError(f"trace: span {'bench render' in names}, "
+                                 f"kernels {kern}; span {span_ms} ms < "
+                                 f"render {ev_ms} ms")
+        print(f"[profiler] profiler.trace of a bench render: {len(events)} "
+              f"events ({os.path.getsize(tpath)} bytes), the span and the "
+              f"kernels "
+              f"{ {k: [round(x, 1) for x in v] for k, v in kern.items()} } "
+              f"(us); sync-mode span {span_ms:.3f} ms against {ev_ms:.3f} ms "
+              f"of CUDA events")
     del splats
     torch.cuda.empty_cache()
-    print(f"[viewer] phase {time.perf_counter() - t_phase:.1f} s")
-    return counted
 
 
 def close_quantized(got, want, what: str, atol=2e-4, flip_tol=0.01,
@@ -3339,13 +3399,13 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     return res
 
 
-def load_probe():
-    """scripts/torch_probe_5m.py as a module (its scene, step and
-    trainer runs)."""
+def load_script(path: str):
+    """A script of scripts/ as a module: scripts/torch_probe_5m.py (its
+    scene, step and trainer runs), scripts/torch_harvest.py (harvest)."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location("torch_probe_5m",
-                                                  PROBE_SCRIPT)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -3358,7 +3418,7 @@ def scale_phase(smi: str) -> dict:
     step's arguments), launches, the medians and peaks."""
     import torch
 
-    probe = load_probe()
+    probe = load_script(PROBE_SCRIPT)
     t_phase = time.perf_counter()
     n = probe.splat_count(SCALE_MILLIONS)
     size = (SCALE_SIZE, SCALE_SIZE)
@@ -3434,6 +3494,250 @@ def scale_phase(smi: str) -> dict:
                 probe_ms=probe_ms, probe_peak_mib=probe_peak,
                 train_ms=train_ms, train_peak_mib=train_peak,
                 train_launches=run["launches"], seconds=seconds)
+
+
+def quality_trace(d: str) -> dict:
+    """The quality phase's dataset: the ray-traced castle written by
+    raytrace.write_nerf_scene on the card into d; val views
+    QUALITY_CHECK_VIEWS traced again on the card and on the CPU (float64
+    both): hit masks equal and RGBA within 1e-6; the dataset's u8 pixels
+    against the CPU trace's quantization, at most 1 apart in at most
+    QUALITY_U8_FRAC of the pixels. Returns the path, the loaded dataset
+    and the seconds."""
+    import torch
+    from brush_tpu_torch.datasets import load_dataset
+    from brush_tpu_torch.datasets import raytrace as rt
+    from brush_tpu_torch.datasets import testing as dt
+
+    scene = rt.build_scene()
+    src = os.path.join(d, "castle_raytraced.zip")
+    size = QUALITY_SIZE
+    secs = rt.write_nerf_scene(src, scene, QUALITY_TRAIN, QUALITY_VAL, size,
+                               device="cuda")
+    t0 = time.perf_counter()
+    ds = load_dataset(src)
+    load_s = time.perf_counter() - t0
+    if (len(ds.train.views), len(ds.eval.views)) != (
+            QUALITY_TRAIN, QUALITY_VAL):
+        raise AssertionError("the ray-traced castle loads wrong")
+    val = dt.orbit_views(QUALITY_VAL, seed=2)
+    checks = []
+    for i in QUALITY_CHECK_VIEWS:
+        t0 = time.perf_counter()
+        cpu = rt.render_view(scene, val[i], size, size, CASTLE_FOV_X,
+                             device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gpu = rt.render_view(scene, val[i], size, size, CASTLE_FOV_X,
+                             device="cuda").cpu()
+        err = float((gpu - cpu).abs().max())
+        masks = torch.equal(gpu[..., 3], cpu[..., 3])
+        got = np.rint(ds.eval.views[i].image * 255.0).astype(np.int16)
+        want = rt.quantize_u8(cpu).numpy().astype(np.int16)
+        du8 = np.abs(got - want)
+        px = int((du8.max(axis=-1) > 0).sum())
+        checks.append(dict(view=i, err=err, u8_max=int(du8.max()),
+                           u8_pixels=px, cpu_s=cpu_s,
+                           hit=float(cpu[..., 3].mean())))
+        if not masks or err > 1e-6:
+            raise AssertionError(f"[quality] val view {i}: the card's trace "
+                                 f"against the CPU's: hit masks equal "
+                                 f"{masks}, RGBA max err {err:.3e}")
+        if du8.max() > 1 or px > QUALITY_U8_FRAC * size * size:
+            raise AssertionError(f"[quality] val view {i}: dataset u8 "
+                                 f"pixels against the CPU trace: {px} "
+                                 f"differ, by up to {int(du8.max())}")
+    print(f"[quality] ray-traced castle {QUALITY_TRAIN} + {QUALITY_VAL} "
+          f"views {size}x{size}: traced on the card in "
+          f"{secs['trace_s']:.2f} s, PNG encode and zip "
+          f"{secs['encode_s']:.2f} s ({os.path.getsize(src)} bytes), "
+          f"load_dataset {load_s:.2f} s; against the CPU tracer: "
+          + "; ".join(f"val {c['view']} RGBA max err {c['err']:.3e}, hit "
+                      f"masks equal ({c['hit']:.4f} hit), u8 pixels "
+                      f"differing {c['u8_pixels']} (by up to "
+                      f"{c['u8_max']}), CPU trace {c['cpu_s']:.2f} s"
+                      for c in checks))
+    return dict(src=src, ds=ds, trace_s=secs["trace_s"],
+                encode_s=secs["encode_s"], checks=checks)
+
+
+def quality_harvests(ds) -> dict:
+    """The 16-view harvest of each model of QUALITY_ANCHORS on ds's val
+    views (scripts/torch_harvest.py's harvest: eval_view at block 512, the
+    pool grown until nothing drops), its means within QUALITY_PSNR_TOL and
+    QUALITY_SSIM_TOL of the JAX package's recorded harvest, no record
+    dropped."""
+    import torch
+    from brush_tpu_torch.datasets.ply import load_splats_from_ply
+
+    harvest = load_script(HARVEST_SCRIPT).harvest
+    views = [(v.camera, v.image) for v in ds.eval.views]
+    out = {}
+    for name, (psnr_want, ssim_want) in QUALITY_ANCHORS.items():
+        t0 = time.perf_counter()
+        with open(os.path.join(ROOT, "docs", name), "rb") as f:
+            splats = load_splats_from_ply(f.read(), device="cuda")
+        evals, _ = harvest(splats, views, keep=0)
+        torch.cuda.synchronize()
+        psnr = float(np.mean([e.psnr for e in evals]))
+        ssim = float(np.mean([e.ssim for e in evals]))
+        dropped = sum(e.dropped for e in evals)
+        out[name] = dict(psnr=psnr, ssim=ssim, splats=splats.n_live,
+                         dropped=dropped,
+                         pool=max(e.pool or 0 for e in evals) or "default",
+                         views=[round(e.psnr, 3) for e in evals],
+                         seconds=time.perf_counter() - t0)
+        print(f"[quality] harvest {name} ({splats.n_live} splats, "
+              f"{len(evals)} val views): MEAN PSNR {psnr:.3f} SSIM "
+              f"{ssim:.4f} (JAX package {psnr_want:.3f} / {ssim_want:.4f}: "
+              f"{psnr - psnr_want:+.4f} dB, {ssim - ssim_want:+.5f}); per "
+              f"view {out[name]['views']}; dropped {dropped}, pool "
+              f"{out[name]['pool']}; {out[name]['seconds']:.1f} s")
+        if dropped or len(evals) != QUALITY_VAL:
+            raise AssertionError(f"[quality] harvest {name}: {dropped} "
+                                 f"records dropped over {len(evals)} views")
+        if not (abs(psnr - psnr_want) <= QUALITY_PSNR_TOL
+                and abs(ssim - ssim_want) <= QUALITY_SSIM_TOL):
+            raise AssertionError(f"[quality] harvest {name}: PSNR {psnr:.4f}"
+                                 f" SSIM {ssim:.5f} against {psnr_want} / "
+                                 f"{ssim_want}")
+        del splats
+    return out
+
+
+def quality_phase(smi: str) -> dict:
+    """Phase 13, "quality" (see the module docstring): the ray-traced
+    castle traced on the card and held to the CPU tracer, the three
+    harvests against their JAX anchors, and `cli train` for QUALITY_ITERS
+    steps to docs/RESULTS.md's command, evaluated on all val views every
+    QUALITY_EVAL_EVERY steps and at the end, its kernels counted and held
+    to their plain versions on the first step after the opacity reset.
+    Returns that check's fields (train_kernels), the launches, the evals
+    and the seconds."""
+    import torch
+    from brush_tpu_torch import eval as eval_mod
+    from brush_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="brush_quality_") as d:
+        tr = quality_trace(d)
+        harvests = quality_harvests(tr["ds"])
+        del tr["ds"]
+        torch.cuda.empty_cache()
+
+        ck = os.path.join(d, "ckpt")
+        last_eval = max(QUALITY_JAX_PSNR)   # also checkpointed
+        log, steps, renders, evals = [], [], [], []
+        armed, kept = [False], {}
+        after_reset = QUALITY_RESET_STEP + 1
+
+        def arm(trainer, state):
+            armed[0] = trainer.iter == after_reset
+
+        def keep(trainer, it):
+            if armed[0]:
+                kept.update(seen)
+                armed[0] = False
+
+        reset_launches()
+        t_train = time.perf_counter()
+        with kept_kernel_args(armed) as seen, \
+                step_timer(steps, arm, keep), \
+                wrapped(eval_mod, "render_splats", lambda *a: None,
+                        lambda t, out, *a, **k: renders.append(
+                            int(out[1].num_dropped))), \
+                wrapped(eval_mod, "eval_view", lambda *a: None,
+                        lambda t, out, *a, **k: evals.append(out.dropped)):
+            text = run_cli([
+                "train", "--source", tr["src"], "--iters",
+                str(QUALITY_ITERS), "--sh-degree", "3", "--init-count",
+                "32768", "--block-size", "512", "--eval-every",
+                str(QUALITY_EVAL_EVERY), "--checkpoint-dir", ck,
+                "--checkpoint-every", str(last_eval)], log)
+        train_s = time.perf_counter() - t_train
+        counts = read_launches()
+        ms = event_ms(steps)
+        rows = read_jsonl(os.path.join(ck, "metrics.jsonl"))
+        final = [float(v) for v in text_field(
+            text, r"final eval: PSNR (\S+) SSIM (\S+)")]
+        finite = {}
+        for tag, name in ((last_eval, f"ckpt_{last_eval:07d}.npz"),
+                          (QUALITY_ITERS, "ckpt_final.npz")):
+            state, _, _, _ = load_checkpoint(os.path.join(ck, name), "cuda")
+            finite[tag] = all(bool(torch.isfinite(v).all())
+                              for v in state.splats.params().values())
+            del state
+    losses = {r["step"]: r["loss"] for r in rows if "loss" in r}
+    psnr = {r["step"]: r["eval_psnr"] for r in rows if "eval_psnr" in r}
+    ssim = {r["step"]: r["eval_ssim"] for r in rows if "eval_ssim" in r}
+    live = {r["step"]: r["splats"] for r in rows if "splats" in r}
+    refines = {r["step"]: {k[7:]: v for k, v in r.items()
+                           if k.startswith("refine_")}
+               for r in rows if "refine_cloned" in r}
+    psnr[QUALITY_ITERS], ssim[QUALITY_ITERS] = final
+    n_evals = QUALITY_VAL * (len(psnr))
+    retries = sum(1 for x in renders if x)
+    step_ms = statistics.median(ms)
+    around = {s: round(losses[s], 5) for s in sorted(losses)
+              if QUALITY_RESET_STEP - 31 <= s <= QUALITY_RESET_STEP + 39
+              or QUALITY_RESET_STEP + 89 <= s <= QUALITY_RESET_STEP + 129}
+    prune = refines.get(QUALITY_RESET_STEP + 100, {})
+    print(f"[quality] cli train {QUALITY_ITERS} steps (--sh-degree 3 "
+          f"--init-count 32768 --block-size 512, eval of all "
+          f"{QUALITY_VAL} val views every {QUALITY_EVAL_EVERY} and at the "
+          f"end): eval PSNR {psnr}, SSIM {ssim} (JAX r5_castle_fixed "
+          f"{QUALITY_JAX_PSNR}); live splats {live.get(last_eval)} at "
+          f"{last_eval}, {live.get(QUALITY_RESET_STEP + 109)} after the "
+          f"prune at {QUALITY_RESET_STEP + 100} ({prune}), "
+          f"{live.get(QUALITY_ITERS - 10)} at {QUALITY_ITERS - 10}; refine "
+          f"at {QUALITY_RESET_STEP} (the reset) "
+          f"{refines.get(QUALITY_RESET_STEP)}; losses around the reset "
+          f"{around}; median step {step_ms:.3f} ms (CUDA events), "
+          f"{len(steps) / train_s:.2f} steps/s over the command (host "
+          f"clock, evals and checkpoints in it); launches {counts} ("
+          f"{len(renders)} eval renders, {retries} retried in a grown "
+          f"pool); parameters finite at {last_eval} and {QUALITY_ITERS}: "
+          f"{finite}")
+    bad = [s for s, x in losses.items() if not np.isfinite(x)]
+    if len(steps) != QUALITY_ITERS or len(losses) != QUALITY_ITERS // 10 \
+            or bad:
+        raise AssertionError(f"[quality] cli train: {len(steps)} steps, "
+                             f"{len(losses)} logged losses, non-finite at "
+                             f"{bad[:10]}")
+    if not all(finite.values()):
+        raise AssertionError(f"[quality] non-finite parameters: {finite}")
+    if sorted(psnr) != [*sorted(QUALITY_JAX_PSNR), QUALITY_ITERS] \
+            or not np.isfinite(psnr[QUALITY_ITERS]) or any(
+            not psnr[s] >= p - QUALITY_GAP_DB
+            for s, p in QUALITY_JAX_PSNR.items()):
+        raise AssertionError(f"[quality] eval PSNR {psnr} against the JAX "
+                             f"run's {QUALITY_JAX_PSNR} less "
+                             f"{QUALITY_GAP_DB} dB")
+    if len(evals) != n_evals or any(evals):
+        raise AssertionError(f"[quality] {len(evals)} eval views (want "
+                             f"{n_evals}), dropped after pool growth "
+                             f"{[x for x in evals if x]}")
+    if QUALITY_RESET_STEP not in refines:
+        raise AssertionError(f"[quality] no refine at {QUALITY_RESET_STEP}: "
+                             f"{sorted(refines)}")
+    if counts != {"expand": QUALITY_ITERS + len(renders),
+                  "rasterize_fwd": QUALITY_ITERS + len(renders),
+                  "rasterize_bwd": QUALITY_ITERS,
+                  "segment_sum": QUALITY_ITERS}:
+        raise AssertionError(f"[quality] launches {counts}: not one a step "
+                             f"and one an eval render ({len(renders)})")
+    if sorted(kept) != sorted(KERNEL_WRAPPERS):
+        raise AssertionError(f"[quality] kept {sorted(kept)} at "
+                             f"{after_reset}")
+    tk = train_kernels({f"step {after_reset}, the first after the "
+                        f"reset": kept}, "quality")
+    del kept, seen
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[quality] phase {seconds:.1f} s (trace {tr['trace_s']:.2f} s, "
+          f"train command {train_s:.1f} s); {smi}")
+    return dict(kernels=tk, launches=counts, harvests=harvests, psnr=psnr,
+                ssim=ssim, step_ms=step_ms, trace_s=tr["trace_s"],
+                seconds=seconds)
 
 
 def read_jsonl(path: str) -> list:
@@ -3560,6 +3864,9 @@ def main() -> int:
     aligned = aligned_phase(bench_img, records_1, bench_fwd, smi)
     torch.cuda.empty_cache()
     scale = scale_phase(smi)
+    torch.cuda.empty_cache()
+    quality = quality_phase(smi)
+    profiler_check()
 
     def row(name, src, replaces):
         def fields(t):
@@ -3600,6 +3907,15 @@ def main() -> int:
             "from": f"scale phase: scripts/torch_probe_5m.py's step, "
                     f"{SCALE_MILLIONS} M splats, SH 3, "
                     f"{SCALE_SIZE}x{SCALE_SIZE}"}
+        # "quality": the same fields on the quality phase's arguments of
+        # the first step after the opacity reset; launches: its cli train
+        # run's, its eval renders included.
+        out["quality"] = {
+            **fields(quality["kernels"]),
+            "launches": quality["launches"][name],
+            "from": f"quality phase: cli train on the ray-traced castle "
+                    f"({QUALITY_ITERS} steps and its eval renders), "
+                    f"arguments of {quality['kernels']['when']}"}
         if name in view_counts:
             out["viewer"] = {
                 "launches": view_counts[name],
@@ -3674,7 +3990,13 @@ def main() -> int:
           f"{scale['probe_ms']:.3f} ms, peak {scale['probe_peak_mib']:.1f} "
           f"MiB, SplatTrainer step {scale['train_ms']:.3f} ms, peak "
           f"{scale['train_peak_mib']:.1f} MiB, phase "
-          f"{scale['seconds']:.1f} s; total "
+          f"{scale['seconds']:.1f} s; quality (ray-traced castle): "
+          f"harvests " + ", ".join(
+              f"{n} {h['psnr']:.3f} / {h['ssim']:.4f}"
+              for n, h in quality["harvests"].items())
+          + f", cli train eval PSNR {quality['psnr']}, step "
+          f"{quality['step_ms']:.3f} ms, phase {quality['seconds']:.1f} s; "
+          f"total "
           f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
