@@ -130,6 +130,20 @@
 //     global cell tile_base + t, everything else stays indexed by t. Cells
 //     past the image have starts == ends and return at once. tile_base 0 is
 //     the whole-frame kernel, bit for bit.
+//   - The TPU kernel's truncated scan (scan_passes < 3 with k_lanes a
+//     multiple of 128; scan.cuh) is a second instantiation (kTrunc);
+//     the exact path's code and bits stay as they were. The TPU kernel
+//     rebuilds log T and the colour behind each batch from suffix sums of
+//     m = log1p(-alpha) and of contrib = cw fac, both cut to `passes`
+//     bfloat16 parts, and carries the truncated batch totals to the batch
+//     in front (rasterize_bwd.py:236-252, 345-346); a deep pixel's
+//     rebuilt log T and colour behind therefore drift from the forward's,
+//     and this path follows that drift. Per pixel it carries the batch's
+//     end log T and colour behind and the truncated sums of the batch's
+//     records swept so far; t_before = expf(end log T - sum - m) with the
+//     exact m. Batch ends come from each passing record's pool index, as
+//     in rasterize_fwd.cu: every block of a cell sweeps the cell's range
+//     from the cell's start, so each tile sees the cell's batches.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, row 3;
 // scripts/torch_kernel_variants.py, the last version in the same process):
 // at the bench's training arguments at 4M 1.06 ms against 1.30, 7.6 times
@@ -148,6 +162,7 @@
 #include <cuda_runtime.h>
 
 #include "reach.cuh"
+#include "scan.cuh"
 #include "tile_order.cuh"
 
 namespace {
@@ -262,13 +277,17 @@ __device__ __forceinline__ int cell_max_fidx(const int* __restrict__ fidx_in,
   return tmax;
 }
 
+// kTrunc: the TPU kernel's truncated scan (scan.cuh: passes parts a term,
+// batches of k_lanes slots); false compiles the exact path, T carried by
+// division, unchanged by the mode.
+template <bool kTrunc>
 __global__ void __launch_bounds__(kThreads)
 rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends, int tile_base,
-                     int cells_x, int cell_w, int cell_h,
-                     const float* __restrict__ v_out,
+                     int cells_x, int cell_w, int cell_h, int passes,
+                     int k_lanes, const float* __restrict__ v_out,
                      const float* __restrict__ log_t_in,
                      const int* __restrict__ fidx_in,
                      float* __restrict__ grads,
@@ -317,6 +336,15 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
   const float py0 = static_cast<float>(ty + ly) + 0.5f;
   int fidx[kPix];
   float vr[kPix], vg[kPix], vb[kPix], tfva[kPix], t_cur[kPix], s_behind[kPix];
+  // The truncated scan: t_cur holds the scan batch's end log T and
+  // s_behind its colour behind, each carried to the batch in front by the
+  // batch's truncated totals (rasterize_bwd.py:345-346); sum_m and sum_c
+  // are the truncated sums of m = log1p(-alpha) and of cw fac over the
+  // batch's records swept so far (those behind the record), and
+  // scan_first the batch's first slot (warp-uniform).
+  float sum_m[kPix], sum_c[kPix];
+  const int scan_base = start / kLaneAlign * kLaneAlign;
+  int scan_first = 0x7FFFFFFF;
   int wmax = -1;  // the last record any pixel of the warp composited
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
@@ -329,8 +357,9 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
     vb[q] = v_out[p * 4 + 2];
     const float t_final = expf(log_t_in[p]);
     tfva[q] = t_final * v_out[p * 4 + 3];
-    t_cur[q] = t_final;  // T behind the record swept
+    t_cur[q] = kTrunc ? log_t_in[p] : t_final;  // T behind the record swept
     s_behind[q] = 0.0f;
+    sum_m[q] = sum_c[q] = 0.0f;
     wmax = max(wmax, fidx[q]);
   }
   wmax = __reduce_max_sync(kFull, wmax);
@@ -443,6 +472,18 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
         if (i0 - u < 0) break;
         const int k = ks[u];
         if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
+          if constexpr (kTrunc) {
+            const int j = b_start + k;
+            if (j < scan_first) {  // a scan batch in front: fold the sums
+              scan_first = scan_batch_start(j, scan_base, k_lanes);
+#pragma unroll
+              for (int q = 0; q < kPix; ++q) {
+                t_cur[q] = __fsub_rn(t_cur[q], sum_m[q]);
+                s_behind[q] = __fadd_rn(s_behind[q], sum_c[q]);
+                sum_m[q] = sum_c[q] = 0.0f;
+              }
+            }
+          }
           const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
           const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
           const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
@@ -460,13 +501,25 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
             const float dx = __fsub_rn(x, pixel_x(px0, q));
             const float dy = __fsub_rn(y, pixel_y(py0, q));
             const float ra = __fdividef(1.0f, 1.0f - alpha);
-            const float t_before = t_cur[q] * ra;
-            const float fac = alpha * t_before;
             const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
-            const float v_alpha =
-                cw * t_before + ra * (tfva[q] - s_behind[q]);
-            s_behind[q] += cw * fac;
-            t_cur[q] = t_before;
+            float t_before, fac, v_alpha;
+            if constexpr (kTrunc) {
+              // log T after the record from the truncated sum of the
+              // batch's records behind it; T before it by the exact m.
+              const float m = log1pf(-alpha);
+              t_before = expf(__fsub_rn(__fsub_rn(t_cur[q], sum_m[q]), m));
+              fac = alpha * t_before;
+              v_alpha = cw * t_before +
+                        ra * (tfva[q] - __fadd_rn(s_behind[q], sum_c[q]));
+              sum_m[q] = __fadd_rn(sum_m[q], scan_term(m, passes));
+              sum_c[q] = __fadd_rn(sum_c[q], scan_term(cw * fac, passes));
+            } else {
+              t_before = t_cur[q] * ra;
+              fac = alpha * t_before;
+              v_alpha = cw * t_before + ra * (tfva[q] - s_behind[q]);
+              s_behind[q] += cw * fac;
+              t_cur[q] = t_before;
+            }
             const float vs = -o * vis * v_alpha;
             const float vx = vs * dx, vy = vs * dy;
             g[0] += cxx * vx + cxy * vy;
@@ -531,13 +584,16 @@ cell_sum_kernel(int pool, const int* __restrict__ starts, int tiles_a_cell,
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
 // tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
-// whole frame). order: num_cells ints of scratch; partial: with G = cell_w
+// whole frame). passes 0: the exact scan; 1 or 2: the truncated scan of
+// that many bfloat16 parts over batches of k_lanes slots (a multiple of
+// 128). order: num_cells ints of scratch; partial: with G = cell_w
 // cell_h > 1 tiles a cell, (G - 1) x 9 x pool floats and then num_cells
 // ints of scratch (unread at (1, 1)).
 extern "C" int rasterize_bwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
                                     int num_cells, int tile_base,
                                     int cells_x, int cell_w, int cell_h,
+                                    int passes, int k_lanes,
                                     const float* v_out, const float* log_t,
                                     const int* fidx, float* grads, int* order,
                                     float* partial, void* stream) {
@@ -545,15 +601,25 @@ extern "C" int rasterize_bwd_launch(const int* packed, int pool,
   const long long blocks = static_cast<long long>(num_cells) * cell_w * cell_h;
   if (cell_w < 1 || cell_h < 1 || tile_base < 0 || blocks > 0x7FFFFFFFLL ||
       static_cast<long long>(num_cells) * kSumSplit > 0x7FFFFFFFLL ||
-      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL) {
+      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL ||
+      passes < 0 || passes > 2 ||
+      (passes > 0 && (k_lanes < kLaneAlign || k_lanes % kLaneAlign))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  rasterize_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
-      v_out, log_t, fidx, grads, partial);
+  if (passes > 0) {
+    rasterize_bwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 s>>>(
+        packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
+        passes, k_lanes, v_out, log_t, fidx, grads, partial);
+  } else {
+    rasterize_bwd_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                  s>>>(
+        packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
+        passes, k_lanes, v_out, log_t, fidx, grads, partial);
+  }
   if (cell_w * cell_h > 1) {
     cell_sum_kernel<<<num_cells * kSumSplit, kSumThreads, 0, s>>>(
         pool, starts, cell_w * cell_h, grads, partial);

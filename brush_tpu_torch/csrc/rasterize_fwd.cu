@@ -82,6 +82,26 @@
 //   - T as a running product, so an active pair costs an expf, five
 //     multiplies and three fused multiply-adds and no log1pf (a third
 //     slower with the sum of logs).
+//   - The TPU kernel's truncated scan (its scan_passes < 3 with k_lanes a
+//     multiple of 128; scan.cuh), the reference's shipping default,
+//     is a second instantiation (kTrunc), so the exact path's code and
+//     bits stay as they were. Within each batch of k_lanes pool slots
+//     from the cell's start rounded down to 128, the crossing test and
+//     each record's T take the prefix sum of its log1p(-alpha) terms cut
+//     to `passes` bfloat16 parts; log T carries from batch to batch by
+//     the exact terms (rasterize_fwd.py:437-469). A running product
+//     cannot express a truncated prefix, so this path works in the log
+//     domain: per pixel the carry over the earlier batches, this batch's
+//     exact sum and its truncated sum; T before a record is
+//     expf(carry + truncated - log1p(-alpha)), and the pixel stops where
+//     carry + truncated <= log(1e-4). A batch's end is found from each
+//     passing record's pool index (its slot, at cells), not from the
+//     staging batches of kBatch records, which start at the cell's start
+//     and bear no relation to the TPU kernel's; a record left off a list
+//     or failing the pretest has alpha 0, log1p 0 and bfloat16 parts 0,
+//     so folding the sums at the next passing record's batch is exact.
+//     The log1pf and the second expf cost about a third more per active
+//     pair (PERF.md §6 has the times).
 //   - The early-out. A pixel that crossed the threshold drops out of the
 //     pretest; a warp whose pixels have all crossed skips its sweeps, and
 //     the block leaves its loop when no pixel of the tile is live. The
@@ -150,6 +170,7 @@
 #include <cuda_runtime.h>
 
 #include "reach.cuh"
+#include "scan.cuh"
 #include "tile_order.cuh"
 
 namespace {
@@ -167,6 +188,9 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kAlphaMax = static_cast<float>(0.999);
 constexpr float kAlphaEps = static_cast<float>(1.0 / 255.0);
 constexpr float kTEps = 1e-4f;  // TRANSMITTANCE_EPS
+// log(TRANSMITTANCE_EPS) rounded to float, as the plain version and the
+// TPU kernel compare a float32 log T with it.
+constexpr float kLogTEps = static_cast<float>(-9.210340371976182);
 constexpr float kColorLo = -4.0f;
 constexpr float kColorStep = static_cast<float>(1.0 / (65535.0 / 8.0));
 constexpr float kOpacStep = static_cast<float>(1.0 / 65535.0);
@@ -230,19 +254,21 @@ __device__ __forceinline__ void store_record(float (*s_rec)[kRecFloats],
 
 // kCells: cells of several tiles (cell_w cell_h > 1); false compiles the
 // tile kernel, without the division that maps a block to its cell and
-// without the tile cull. Blocks an SM: four for tiles, three at cells
+// without the tile cull. kTrunc: the TPU kernel's truncated scan (scan.cuh,
+// passes parts a term, batches of k_lanes slots); false compiles the exact
+// path, T as a running product, unchanged by the mode. Blocks an SM: four for tiles, three at cells
 // (measured on the bench's inputs in turns, device ms: tiles 0.446 at
 // four, 0.478 at three, 0.484 unbounded at 76 registers; (2, 2) 0.649 at
 // three, 0.684 at four, 0.760 unbounded at 98 registers, two blocks;
 // (4, 2) 0.829, 0.802, 0.934).
-template <bool kCells>
+template <bool kCells, bool kTrunc>
 __global__ void __launch_bounds__(kThreads, kCells ? 3 : 4)
 rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends, int tile_base,
-                     int cells_x, int cell_w, int cell_h,
-                     float* __restrict__ img,
+                     int cells_x, int cell_w, int cell_h, int passes,
+                     int k_lanes, float* __restrict__ img,
                      float* __restrict__ log_t_out,
                      int* __restrict__ fidx_out) {
   __shared__ int s_raw[kRawRows][kBatch];
@@ -285,7 +311,14 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
   const float warp_ya = tile_ya + static_cast<float>((warp >> 1) * 4);
   unsigned short* list = s_list[warp];
 
-  float t_cur = 1.0f;  // T so far
+  float t_cur = 1.0f;  // T so far (the exact path)
+  // The truncated scan carries log T: lt_carry over the scan batches
+  // before this one (exact terms), lt_exact and lt_scan this batch's
+  // exact and truncated sums so far; scan_end is the slot past this scan
+  // batch (warp-uniform: the list is the warp's, in depth order).
+  float lt_carry = 0.0f, lt_exact = 0.0f, lt_scan = 0.0f;
+  const int scan_base = start / kLaneAlign * kLaneAlign;
+  int scan_end = -1;
   float r = 0.0f, g = 0.0f, b = 0.0f;
   int fidx = -1;
   bool alive = true;      // the pixel has not crossed the threshold
@@ -424,23 +457,48 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
       for (int u = 0; u < kUnroll; ++u) {
         if (!((warps >> u) & 1u)) continue;  // warp-uniform
         const int k = ks[u];
+        const int j = base + (kCells ? s_slot[k] : k);
+        if constexpr (kTrunc) {
+          if (j >= scan_end) {  // a new scan batch: fold the exact sum
+            const int first = scan_batch_start(j, scan_base, k_lanes);
+            scan_end = first + k_lanes;
+            lt_carry = __fadd_rn(lt_carry, lt_exact);
+            lt_exact = lt_scan = 0.0f;
+          }
+        }
         const float2 oc = *reinterpret_cast<const float2*>(&s_rec[k][6]);
         const float2 gb = *reinterpret_cast<const float2*>(&s_rec[k][8]);
         if (!(alive && ((mine >> u) & 1u))) continue;
         const float vis = expf(-sigma[u]);
         const float alpha = fminf(kAlphaMax, __fmul_rn(oc.x, vis));
         if (alpha < kAlphaEps) continue;
-        const float after = t_cur * (1.0f - alpha);
-        if (after <= kTEps) {
-          alive = false;
-          continue;
+        float fac;
+        if constexpr (kTrunc) {
+          // The crossing test and T take the batch's truncated prefix,
+          // the carry and T's own term the exact log1p (rasterize_fwd.py
+          // :437-469).
+          const float lom = log1pf(-alpha);
+          lt_scan = __fadd_rn(lt_scan, scan_term(lom, passes));
+          const float after = __fadd_rn(lt_carry, lt_scan);
+          if (!(after > kLogTEps)) {
+            alive = false;
+            continue;
+          }
+          fac = alpha * expf(__fsub_rn(after, lom));
+          lt_exact = __fadd_rn(lt_exact, lom);
+        } else {
+          const float after = t_cur * (1.0f - alpha);
+          if (after <= kTEps) {
+            alive = false;
+            continue;
+          }
+          fac = alpha * t_cur;
+          t_cur = after;
         }
-        const float fac = alpha * t_cur;
         r = fmaf(fac, oc.y, r);
         g = fmaf(fac, gb.x, g);
         b = fmaf(fac, gb.y, b);
-        t_cur = after;
-        fidx = base + (kCells ? s_slot[k] : k);
+        fidx = j;
       }
       warp_live = __any_sync(kFull, alive);
       if (!warp_live) break;
@@ -449,25 +507,53 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 
   const size_t p = static_cast<size_t>(t) * kPixels * tiles_a_cell +
                    static_cast<size_t>(ly) * cell_px + lx;
-  reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - t_cur);
-  log_t_out[p] = logf(t_cur);
+  if constexpr (kTrunc) {
+    const float lt = __fadd_rn(lt_carry, lt_exact);
+    reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - expf(lt));
+    log_t_out[p] = lt;
+  } else {
+    reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - t_cur);
+    log_t_out[p] = logf(t_cur);
+  }
   fidx_out[p] = fidx;
+}
+
+template <bool kTrunc>
+void launch(const int* packed, int pool, const int* order, const int* starts,
+            const int* ends, int num_cells, long long blocks, int tile_base,
+            int cells_x, int cell_w, int cell_h, int passes, int k_lanes,
+            float* img, float* log_t, int* fidx, cudaStream_t s) {
+  if (blocks == num_cells) {
+    rasterize_fwd_kernel<false, kTrunc><<<num_cells, kThreads, 0, s>>>(
+        packed, pool, order, starts, ends, tile_base, cells_x, 1, 1, passes,
+        k_lanes, img, log_t, fidx);
+  } else {
+    rasterize_fwd_kernel<true, kTrunc>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+            packed, pool, order, starts, ends, tile_base, cells_x, cell_w,
+            cell_h, passes, k_lanes, img, log_t, fidx);
+  }
 }
 
 }  // namespace
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
 // tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
-// whole frame). order: num_cells ints of scratch.
+// whole frame). passes 0: the exact scan; 1 or 2: the truncated scan of
+// that many bfloat16 parts over batches of k_lanes slots (a multiple of
+// 128). order: num_cells ints of scratch.
 extern "C" int rasterize_fwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
                                     int num_cells, int tile_base,
                                     int cells_x, int cell_w, int cell_h,
-                                    float* img, float* log_t, int* fidx,
-                                    int* order, void* stream) {
+                                    int passes, int k_lanes, float* img,
+                                    float* log_t, int* fidx, int* order,
+                                    void* stream) {
   if (num_cells <= 0) return 0;
   if (cell_w < 1 || cell_h < 1 || tile_base < 0 ||
-      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL) {
+      static_cast<long long>(tile_base) + num_cells > 0x7FFFFFFFLL ||
+      passes < 0 || passes > 2 ||
+      (passes > 0 && (k_lanes < kLaneAlign || k_lanes % kLaneAlign))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = static_cast<long long>(num_cells) * cell_w * cell_h;
@@ -475,15 +561,14 @@ extern "C" int rasterize_fwd_launch(const int* packed, int pool,
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  if (blocks == num_cells) {
-    rasterize_fwd_kernel<false><<<num_cells, kThreads, 0, s>>>(
-        packed, pool, order, starts, ends, tile_base, cells_x, 1, 1, img,
-        log_t, fidx);
+  if (passes > 0) {
+    launch<true>(packed, pool, order, starts, ends, num_cells, blocks,
+                 tile_base, cells_x, cell_w, cell_h, passes, k_lanes, img,
+                 log_t, fidx, s);
   } else {
-    rasterize_fwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 s>>>(
-            packed, pool, order, starts, ends, tile_base, cells_x, cell_w,
-            cell_h, img, log_t, fidx);
+    launch<false>(packed, pool, order, starts, ends, num_cells, blocks,
+                  tile_base, cells_x, cell_w, cell_h, passes, k_lanes, img,
+                  log_t, fidx, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,8 +31,9 @@ import torch
 from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_fwd import (
-    PLAIN_CHUNK, SIGMA_MARGIN, _check_inputs as _check_pool, cell_lanes,
-    cell_pixels, check_cell, check_tile_base, unpack_record_rows,
+    PLAIN_CHUNK, SIGMA_MARGIN, _check_inputs as _check_pool, bf16_parts,
+    cell_lanes, cell_pixels, check_cell, check_tile_base, scan_batches,
+    scan_mode, unpack_record_rows,
 )
 
 GRAD_ROWS = 9
@@ -51,13 +52,24 @@ def _suffix_excl(v: torch.Tensor) -> torch.Tensor:
 
 def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
                         fidx, cell=(1, 1), tile_base: int = 0,
-                        count_pairs: bool = False, reach=None):
+                        count_pairs: bool = False, reach=None,
+                        scan_passes: int = 3, k_lanes: int | None = None):
     """PyTorch version of csrc/rasterize_bwd.cu: one cell at a time, the
     cell's records swept back to front in chunks of (P pixels x
     PLAIN_CHUNK) block math — the per-pixel log T and the colour "behind"
     sums come from suffix cumsums instead of the kernel's running
     subtraction, so the two agree up to float32 summation order. Local
     cell t is the image's cell tile_base + t, as in rasterize_fwd_plain.
+
+    scan_passes < 3 with k_lanes (default 512) a multiple of 128 is the
+    TPU kernel's truncated scan (rasterize_fwd.scan_mode): the sweep goes
+    back to front over the kernel's batches (rasterize_fwd.scan_batches,
+    from the last one the sweep touches down to the one holding the
+    cell's start, rasterize_bwd.py:99-117); within a batch log T and the
+    colour behind take suffix sums of bf16_parts of m = log1p(-alpha) and
+    of contrib = cw fac, each record's T the exact m; and both carry to the
+    batch in front by the truncated batch totals, as rasterize_bwd.py:
+    345-346 does. Otherwise the scan is exact, as at scan_passes=3.
 
     Returns grads (GRAD_ROWS, pool); with count_pairs also the (pixel,
     record) pairs the sweep evaluates and how many of them are active;
@@ -67,6 +79,7 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
     most the patch's largest final_idx, and `reach` true for the patch's
     rectangle), the pairs a sweep of those lists evaluates.
     """
+    passes, k_lanes = scan_mode(scan_passes, k_lanes)
     dev = packed.device
     pool = packed.shape[1]
     grads = torch.zeros((GRAD_ROWS, pool), dtype=torch.float32, device=dev)
@@ -99,8 +112,10 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
         t_final = torch.exp(lt)[:, None]
         s_behind = torch.zeros(p, dtype=torch.float32, device=dev)
         fi = fidx[t].to(torch.int64)[:, None]
-        for be in range(last, s, -PLAIN_CHUNK):
-            bs = max(s, be - PLAIN_CHUNK)
+        chunks = (scan_batches(s, last, k_lanes)[::-1] if passes else
+                  [(max(s, be - PLAIN_CHUNK), be)
+                   for be in range(last, s, -PLAIN_CHUNK)])
+        for bs, be in chunks:
             x, y, cxx, cxy, cyy, cr, cg, cb, o = unpack_record_rows(
                 packed[:, bs:be])
             dx = x[None, :] - pix_x[:, None]
@@ -124,11 +139,13 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
                                         * npix[None, :]).sum())
             alpha = torch.where(act, alpha, torch.zeros_like(alpha))
             m = torch.log1p(-alpha)
-            t_before = torch.exp(lt[:, None] - _suffix_excl(m) - m)
+            m_scan = bf16_parts(m, passes) if passes else m
+            t_before = torch.exp(lt[:, None] - _suffix_excl(m_scan) - m)
             fac = alpha * t_before
             cw = v_rgb[:, 0:1] * cr + v_rgb[:, 1:2] * cg + v_rgb[:, 2:3] * cb
             contrib = cw * fac
-            behind = s_behind[:, None] + _suffix_excl(contrib)
+            c_scan = bf16_parts(contrib, passes) if passes else contrib
+            behind = s_behind[:, None] + _suffix_excl(c_scan)
             ra = 1.0 / (1.0 - alpha)
             v_alpha = torch.where(
                 act, cw * t_before - behind * ra + t_final * ra * v_a,
@@ -139,8 +156,8 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
                      fac * v_rgb[:, 0:1], fac * v_rgb[:, 1:2],
                      fac * v_rgb[:, 2:3], vis * v_alpha)
             grads[:, bs:be] = torch.stack([g.sum(dim=0) for g in terms])
-            lt = lt - m.sum(dim=1)
-            s_behind = s_behind + contrib.sum(dim=1)
+            lt = lt - m_scan.sum(dim=1)
+            s_behind = s_behind + c_scan.sum(dim=1)
     if count_pairs and reach is not None:
         return grads, swept, active, reach_pairs
     if count_pairs:
@@ -153,8 +170,8 @@ def _launcher():
     """The kernel's C entry, its ctypes signature set once, when the
     library is loaded."""
     fn = build.load("rasterize_bwd").rasterize_bwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                   _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -176,16 +193,21 @@ def _check_inputs(packed, starts, ends, v_out, log_t, fidx, cell):
 
 
 def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
-                  cell=(1, 1), tile_base: int = 0):
+                  cell=(1, 1), tile_base: int = 0, *, scan_passes: int = 3,
+                  k_lanes: int | None = None):
     """Per-record gradient rows (GRAD_ROWS, pool) on the inputs' device:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    cell, tiles_x and tile_base as in rasterize_fwd."""
+    cell, tiles_x and tile_base as in rasterize_fwd; scan_passes and
+    k_lanes are the TPU kernel's (rasterize_bwd_plain says what they
+    compute), the default 3 the exact scan, as rasterize_bwd_pallas's."""
     gw, gh = check_cell(cell)
     tile_base = check_tile_base(tile_base)
     _check_inputs(packed, starts, ends, v_out, log_t, fidx, (gw, gh))
+    passes, k_lanes = scan_mode(scan_passes, k_lanes)
     if packed.device.type == "cpu":
         return rasterize_bwd_plain(packed, starts, ends, tiles_x, v_out,
-                                   log_t, fidx, (gw, gh), tile_base)
+                                   log_t, fidx, (gw, gh), tile_base,
+                                   scan_passes=scan_passes, k_lanes=k_lanes)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_bwd: unsupported device {packed.device}")
     global launches
@@ -208,8 +230,9 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
                 ends.data_ptr(), starts.shape[0], tile_base, tiles_x, gw, gh,
-                v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
-                grads.data_ptr(), order.data_ptr(), partial.data_ptr(), stream)
+                passes, k_lanes, v_out.data_ptr(), log_t.data_ptr(),
+                fidx.data_ptr(), grads.data_ptr(), order.data_ptr(),
+                partial.data_ptr(), stream)
     build.check(rc, "rasterize_bwd")
     launches += 1
     return grads

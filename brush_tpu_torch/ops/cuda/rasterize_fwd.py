@@ -42,6 +42,8 @@ COLOR_HI = 4.0
 COLOR_SCALE = 65535.0 / (COLOR_HI - COLOR_LO)
 OPAC_SCALE = 65535.0
 PLAIN_CHUNK = 1024  # records per block step of the plain rasterizer
+LANE_ALIGN = 128   # the TPU kernels' batches start on this slot boundary
+K_LANES = 512      # the TPU kernels' default batch (rasterize_fwd.py:503)
 SIGMA_MARGIN = 1e-4  # the kernels' pretest: sigma <= log(255 o) + this
 
 # Launches of the CUDA kernel (not of the plain version) in this process.
@@ -153,14 +155,64 @@ def cell_lanes(cells_x: int, cell, c: int, device):
     ], dim=1)
 
 
+def bf16_parts(x: torch.Tensor, passes: int) -> torch.Tensor:
+    """x (float32) as the sum of its first `passes` bfloat16 parts, each
+    rounded to nearest even: c0 = bf16(x), c1 = bf16(x - c0), ... The TPU
+    kernels' MXU scan sums these parts (rasterize_fwd.py:153-197,
+    _cumsum_lanes_mxu); at 2 each term keeps about 16 mantissa bits. Each
+    part lies at least 8 bits below the one before, so their sum is exact
+    in float32 and only the prefix sum's order rounds."""
+    rem = x
+    out = torch.zeros_like(x)
+    for _ in range(passes):
+        c = rem.to(torch.bfloat16).to(torch.float32)
+        rem = rem - c
+        out = out + c
+    return out
+
+
+def scan_mode(scan_passes: int, k_lanes: int | None):
+    """(passes, k_lanes) as the kernels take them: passes 0 for the exact
+    scan, else the bfloat16 parts a term keeps. The TPU kernels truncate
+    at fewer than 3 passes over batches of whole 128-lane blocks and take
+    the exact scan otherwise (rasterize_fwd.py:171-172); k_lanes None is
+    their default 512. Raises on anything but positive ints."""
+    k_lanes = K_LANES if k_lanes is None else k_lanes
+    if int(scan_passes) != scan_passes or scan_passes < 1:
+        raise ValueError(f"scan_passes must be an int >= 1, got "
+                         f"{scan_passes!r}")
+    if int(k_lanes) != k_lanes or k_lanes < 1:
+        raise ValueError(f"k_lanes must be an int >= 1, got {k_lanes!r}")
+    trunc = scan_passes < 3 and k_lanes % LANE_ALIGN == 0
+    return (int(scan_passes) if trunc else 0), int(k_lanes)
+
+
+def scan_batches(s: int, e: int, k_lanes: int):
+    """The TPU kernels' batches of a cell's range [s, e): k_lanes records
+    a batch from the 128-aligned slot at or below s (rasterize_fwd.py:318,
+    rasterize_bwd.py:107-110), each cut to [s, e): (lo, hi) in order."""
+    base = (s // LANE_ALIGN) * LANE_ALIGN
+    return [(max(b, s), min(b + k_lanes, e))
+            for b in range(base, e, k_lanes)]
+
+
 def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
                         tile_base: int = 0, count_pairs: bool = False,
-                        reach=None):
+                        reach=None, scan_passes: int = 3,
+                        k_lanes: int | None = None):
     """PyTorch version of csrc/rasterize_fwd.cu: one cell at a time, each
     cell's records in chunks of (P pixels x PLAIN_CHUNK) block math — the
     transmittance is exp of a cumsum of log1p(-alpha), and the early-out
     stays set once crossed, so the result is the kernel's sequential loop
     up to float32 summation order.
+
+    scan_passes < 3 with k_lanes (default 512) a multiple of 128 is the
+    TPU kernel's truncated scan (scan_mode): the cell's records go in the
+    kernel's batches (scan_batches), and within a batch the crossing test
+    and each record's T take the cumsum of bf16_parts(log1p(-alpha),
+    scan_passes); log T and the early-out carry from batch to batch by the
+    exact terms, as rasterize_fwd.py:437-469 does. Otherwise the scan is
+    exact, as at scan_passes=3.
 
     cell=(gw, gh): starts/ends index raster cells of gw x gh tiles,
     tiles_x is the number of cells a row, and a cell has P = 256 gw gh
@@ -175,6 +227,7 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
     of the pairs whose record `reach` keeps for the pixel's 8x4 warp patch
     of the kernel, the pairs a kernel that culls by that rule evaluates.
     """
+    passes, k_lanes = scan_mode(scan_passes, k_lanes)
     dev = packed.device
     n_cells = starts.shape[0]
     p = cell_pixels(cell)
@@ -198,8 +251,10 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
         rgb = torch.zeros((p, 3), dtype=torch.float32, device=dev)
         alive = torch.ones(p, dtype=torch.bool, device=dev)
         fidx = torch.full((p,), -1, dtype=torch.int64, device=dev)
-        for b in range(s, e, PLAIN_CHUNK):
-            be = min(b + PLAIN_CHUNK, e)
+        chunks = (scan_batches(s, e, k_lanes) if passes else
+                  [(b, min(b + PLAIN_CHUNK, e))
+                   for b in range(s, e, PLAIN_CHUNK)])
+        for b, be in chunks:
             x, y, cxx, cxy, cyy, cr, cg, cb, o = unpack_record_rows(
                 packed[:, b:be])
             alpha = alpha_terms(pix, SplatBlock(
@@ -208,7 +263,8 @@ def rasterize_fwd_plain(packed, starts, ends, tiles_x: int, cell=(1, 1),
                 opac=o, valid=True))
             ok = alpha > 0.0
             lom = torch.log1p(-alpha)
-            after = log_t[:, None] + torch.cumsum(lom, dim=1)
+            scanned = bf16_parts(lom, passes) if passes else lom
+            after = log_t[:, None] + torch.cumsum(scanned, dim=1)
             before = after - lom
             act = alive[:, None] & (after > LOG_T_EPS)
             if count_pairs:
@@ -272,19 +328,27 @@ def _check_inputs(packed, starts, ends):
 
 
 def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
-                  tile_base: int = 0):
+                  tile_base: int = 0, *, scan_passes: int = 3,
+                  k_lanes: int | None = None):
     """Rasterize on the inputs' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. Cell c covers records
     [starts[c], ends[c]) of `packed`; cell=(gw, gh) makes each a raster
     cell of gw x gh tiles, tiles_x then counting cells (a cell of (1, 1) is
     a tile); cell c lies at the image's cell tile_base + c. Returns (img
-    (C, P, 4), log_t (C, P), final_idx (C, P)), P = 256 gw gh."""
+    (C, P, 4), log_t (C, P), final_idx (C, P)), P = 256 gw gh.
+
+    scan_passes and k_lanes are the TPU kernel's (rasterize_fwd_plain
+    says what they compute). The default 3 is the exact scan; JAX's
+    rasterize_fwd_pallas defaults to scan_passes=2 and k_lanes=512, and
+    the record pipeline passes the render's own."""
     _check_inputs(packed, starts, ends)
     gw, gh = check_cell(cell)
     tile_base = check_tile_base(tile_base)
+    passes, k_lanes = scan_mode(scan_passes, k_lanes)
     if packed.device.type == "cpu":
         return rasterize_fwd_plain(packed, starts, ends, tiles_x, (gw, gh),
-                                   tile_base)
+                                   tile_base, scan_passes=scan_passes,
+                                   k_lanes=k_lanes)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_fwd: unsupported device {packed.device}")
     global launches
@@ -299,14 +363,15 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
     order = torch.empty_like(starts)
     lib = build.load("rasterize_fwd")
     fn = lib.rasterize_fwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _P, _P]
     fn.restype = _I
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
                 ends.data_ptr(), n_cells, tile_base, tiles_x, gw, gh,
-                img.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
-                order.data_ptr(), stream)
+                passes, k_lanes, img.data_ptr(), log_t.data_ptr(),
+                fidx.data_ptr(), order.data_ptr(), stream)
     build.check(rc, "rasterize_fwd")
     launches += 1
     return img, log_t, fidx

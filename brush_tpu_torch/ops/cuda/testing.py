@@ -6,7 +6,9 @@ on the card) hold rasterize_fwd and rasterize_bwd to their plain versions
 on these tile layouts (`hand_tiles`) and raster-cell layouts
 (`hand_cells`), expand on these splat layouts (`hand_expand`), and
 segment_sum on these segment layouts (`hand_segments`,
-`hand_small_pool`). `may_reach_f32` is the float32 twin of the rule by
+`hand_small_pool`), and the truncated log-T scan of both rasterizers on
+`scan_edge`, where it and the exact scan give a different final_idx.
+`may_reach_f32` is the float32 twin of the rule by
 which both rasterizers leave records out of a tile's or a warp's work
 (csrc/reach.cuh), `warp_patches` and `fwd_warp_patches` the rectangles
 they apply it to.
@@ -89,6 +91,135 @@ def hand_tiles(case):
                  for t in range(tiles_x * tiles_y)]
     packed, starts, ends = _pack(tiles)
     return packed, starts, ends, tiles_x
+
+
+SCAN_EDGE_LANES = 128   # scan_edge's batches (k_lanes)
+SCAN_EDGE_CROSS = 100   # bulk records of a crossing batch up to the flip
+SCAN_EDGE_MARGIN = 1e-5  # the exact prefix's distance from LOG_T_EPS
+SCAN_EDGE_DEEP = 600    # the deep tile's identical records
+# The named pixels: (tile, pixel index in the tile, the sign of the bulk
+# records' truncation residual); the truncated scan crosses one record
+# later than the exact one at the first, one record earlier at the second.
+SCAN_EDGE_PIXELS = ((0, 8 * 16 + 8, 1), (1, 8 * 16 + 8, -1))
+_LOG_T_EPS = np.log(np.float32(1e-4)).astype(np.float64)
+
+
+def bf16_parts_f32(x, passes):
+    """ops/cuda/rasterize_fwd.bf16_parts in numpy float32 (round to the
+    nearest bfloat16, ties to even, as csrc/scan.cuh's bf16_round)."""
+    rem = np.asarray(x, np.float32)
+    out = np.zeros_like(rem)
+    for _ in range(passes):
+        u = rem.view(np.uint32).astype(np.uint64)
+        u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+        c = u.astype(np.uint32).view(np.float32)
+        rem = (rem - c).astype(np.float32)
+        out = (out + c).astype(np.float32)
+    return out
+
+
+def _lom_f32(o_word, dx, dy, cxx, cyy):
+    """log1p(-alpha) of a record at offset (dx, dy) from a pixel centre,
+    opacity word o_word, axis-aligned conic, in float32 op by op as the
+    plain rasterizer computes it."""
+    f = np.float32
+    dx, dy, cxx, cyy = f(dx), f(dy), f(cxx), f(cyy)
+    sigma = f(0.5) * (cxx * dx * dx + cyy * dy * dy)
+    o = f(o_word) * f(1.0 / 65535.0)
+    alpha = min(f(0.999), o * np.exp(-sigma))
+    return np.log1p(-alpha)
+
+
+def scan_edge():
+    """A tile layout on which scan_passes=2 and the exact scan give a
+    different final_idx (batches of SCAN_EDGE_LANES): (packed, starts,
+    ends, tiles_x) as numpy arrays, 3 x 1 tiles.
+      tiles 0 and 1: one named pixel each (SCAN_EDGE_PIXELS, the tile's
+        pixel (8, 8), near the tile's centre, where the TPU kernel's
+        polynomial sigma hardly cancels). Its records are sharp (radius
+        0.3, 0.1 px off the centre: no other pixel's alpha reaches 1/255
+        but the tuner's neighbour's), in depth order: faint ones filling
+        the tile's first batch, then a tuner, then identical bulk records
+        (log1p(-alpha) about -0.08) whose bfloat16 truncation residual
+        is large and of one sign (positive at tile 0, negative at tile
+        1). The tuner's place is solved so that the exact prefix of log T
+        reaches LOG_T_EPS at the SCAN_EDGE_CROSS-th bulk record, in the
+        second batch, SCAN_EDGE_MARGIN from it: beyond it at tile 0,
+        short of it at tile 1. The truncated sum has moved by some 3e-5
+        there (100 residuals), three times the margin, against a float32
+        summation noise of a few 1e-6 (ulps of 9.2): so the two scans
+        flip by one record, each in its own direction, and no summation
+        order decides either. Tile 1 starts off the 128-slot grid.
+      tile 2: SCAN_EDGE_DEEP identical wide records (radius 6, alpha
+        about 0.014 at the centre, log T -8.44 there at the end): more
+        than four batches, no crossing,
+        and at every pixel the same residual record after record, so the
+        backward's truncated carries drift linearly."""
+    rng = np.random.default_rng(97)
+    f = np.float32
+    radius = 0.3
+    inv = 1.0 / radius ** 2
+    k = SCAN_EDGE_CROSS
+    words = np.arange(4000, 7500)
+    tiles, start = [], 0
+    for tile, _, sign in SCAN_EDGE_PIXELS:
+        px, py = 16.0 * tile + 8.5, 8.5
+        # The offset as the rasterizer sees it: float32 x minus the centre.
+        off = np.float64(f(px + 0.1) - f(px))
+        loms = np.array([_lom_f32(w, off, 0.0, inv, inv) for w in words])
+        res = (bf16_parts_f32(loms, 2).astype(np.float64)
+               - loms.astype(np.float64))
+        fit = (loms > -0.09) & (loms < -0.07)
+        # A residual of 0.7 of its largest (2^-21 here) and of the named
+        # sign: one ulp of log1p(-alpha) more or less (float32 and the TPU
+        # kernel's sigma) moves it little, where near 2^-21 (a tie of
+        # the second part's rounding) it would flip its sign.
+        wb = int(words[fit][np.argmin(np.abs(sign * res[fit]
+                                             - 0.7 * 2.0 ** -21))])
+        lom_b = np.float64(loms[words == wb][0])
+        base = start // SCAN_EDGE_LANES * SCAN_EDGE_LANES
+        n_pre = base + SCAN_EDGE_LANES - start - 1   # the tuner ends it
+        target = _LOG_T_EPS - sign * SCAN_EDGE_MARGIN - k * lom_b
+        # Faint records to some 0.1 short of the target, the tuner the rest.
+        wp = int(round((1.0 - np.exp((target + 0.1) / n_pre)) / 0.946
+                       * 65535.0))
+        lom_p = np.float64(_lom_f32(wp, off, 0.0, inv, inv))
+        want = target - n_pre * lom_p       # the tuner's log1p(-alpha)
+        wt = 13107                          # opacity 0.2
+        dx = np.sqrt(2.0 * np.log(wt / 65535.0 / -np.expm1(want)) / inv)
+        for _ in range(4):   # Newton on the float32 value, in float64
+            got = np.float64(_lom_f32(wt, f(px + dx) - f(px), 0.0, inv,
+                                      inv))
+            h = 1e-4
+            slope = (np.float64(_lom_f32(wt, dx + h, 0.0, inv, inv))
+                     - np.float64(_lom_f32(wt, dx - h, 0.0, inv, inv))) / (
+                         2 * h)
+            dx -= (got - want) / slope
+        n_bulk, n_tail = k + 20, 40
+        count = n_pre + 1 + n_bulk + n_tail
+        x = np.concatenate([np.full(n_pre, px + 0.1), [px + dx],
+                            np.full(n_bulk, px + 0.1),
+                            rng.uniform(16.0 * tile, 16.0 * tile + 16, n_tail)])
+        y = np.concatenate([np.full(n_pre + 1 + n_bulk, py),
+                            rng.uniform(0.0, 16.0, n_tail)])
+        o = np.concatenate([np.full(n_pre, wp), [wt], np.full(n_bulk, wb),
+                            np.round(rng.uniform(0.01, 0.05, n_tail)
+                                     * 65535.0)])
+        conic = np.concatenate([np.full(n_pre + 1 + n_bulk, inv),
+                                np.full(n_tail, 1.0 / 16.0)])
+        tiles.append(dict(x=x, y=y, cxx=conic, cxy=np.zeros(count),
+                          cyy=conic, rgb=rng.integers(30300, 45050,
+                                                      (3, count)), o=o))
+        start += count
+    n = SCAN_EDGE_DEEP
+    tiles.append(dict(x=np.full(n, 40.3), y=np.full(n, 7.8),
+                      cxx=np.full(n, 1.0 / 36.0), cxy=np.zeros(n),
+                      cyy=np.full(n, 1.0 / 36.0),
+                      rgb=np.repeat(rng.integers(30300, 45050, (3, 1)), n,
+                                    axis=1),
+                      o=np.full(n, np.round(0.014 * 65535.0))))
+    packed, starts, ends = _pack(tiles)
+    return packed, starts, ends, 3
 
 
 def _pack(cells, pool=None):

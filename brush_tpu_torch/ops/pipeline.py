@@ -23,9 +23,15 @@ domain: the decode rows come in cell units (render.pack_decode_rows),
 "tiles" are raster cells of gw x gh tiles, cells_x and num_cells replace
 tiles_x and num_tiles, there is one record per (splat, cell), and both
 rasterizers sweep the cell's P = 256 gw gh pixels. expand is cell-agnostic.
-cell (1, 1) is the tile pipeline. The TPU pipeline's cell-dependent knobs
-(the k_lanes VMEM budget, the tiles_per_step shrink) are Mosaic
-scoped-VMEM limits with no counterpart here.
+cell (1, 1) is the tile pipeline. The TPU pipeline's tiles_per_step
+shrink is a Mosaic scoped-VMEM limit with no counterpart here; its k_lanes
+budget (raster_vjp.py:154-162) is kept (scan_lanes), because k_lanes sets
+the batches of the truncated log-T scan.
+
+scan_passes and k_lanes (make_pallas_pipeline's, default 2 and 512) go to
+both rasterizers: below 3 passes, with k_lanes a multiple of 128, each
+batch of k_lanes records scans log T from bf16 parts of its terms, as the
+TPU kernels do (ops/cuda/rasterize_fwd.rasterize_fwd_plain); 3 is exact.
 
 tile_base and raster_tiles (raster_vjp.py:117-125,275-309) make the whole
 pipeline strip-local: the caller passes decode rows restricted to the
@@ -152,12 +158,21 @@ def strip_bins(keys, recs, num_cells: int, tile_base: int,
     return packed, starts, ends
 
 
+def scan_lanes(k_lanes: int, cell=(1, 1)) -> int:
+    """k_lanes under the TPU pipeline's budget for a cell of P = 256 gw gh
+    pixels (raster_vjp.py:154-162): at most max(128, 2^18 / P), rounded
+    down to a power of two."""
+    budget = max(128, (256 * 1024) // (256 * cell[0] * cell[1]))
+    return min(int(k_lanes), 1 << (budget.bit_length() - 1))
+
+
 def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
              max_isects: int, cell=(1, 1), tile_base: int = 0,
-             raster_tiles: int | None = None):
+             raster_tiles: int | None = None, scan_passes: int = 2,
+             k_lanes: int = 512):
     """Stages 1-6 -> (DepthOrder, (packed, starts, ends), (img, log_t,
     final_idx)); the strip's raster_tiles cells from tile_base (default:
-    the whole frame)."""
+    the whole frame); k_lanes as scan_lanes leaves it."""
     # The packed decode rows hold a 10-bit cell x and an 11-bit cell y
     # (raster_vjp.py:146-153, in cell units).
     if cells_x > 1023 or num_cells > cells_x * 2047:
@@ -171,14 +186,16 @@ def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
         raster_tiles = num_cells
     bins = strip_bins(keys, recs, num_cells, tile_base, raster_tiles)
     mark("tile_bins")
-    out = rasterize_fwd(*bins, cells_x, tuple(cell), tile_base)
+    out = rasterize_fwd(*bins, cells_x, tuple(cell), tile_base,
+                        scan_passes=scan_passes, k_lanes=k_lanes)
     mark("rasterize_fwd")
     return d, bins, out
 
 
 def infer_pipeline(attrs9, decode, depth_key, cells_x: int, num_cells: int,
                    max_isects: int, cell=(1, 1), tile_base: int = 0,
-                   raster_tiles: int | None = None):
+                   raster_tiles: int | None = None, scan_passes: int = 2,
+                   k_lanes: int = 512):
     """The whole inference pipeline. Returns (img_cells (C, P, 4), total,
     raw_total): total is the live records clamped to the pool, raw_total
     the unclamped count (raw_total - total were dropped). With a strip, C
@@ -187,9 +204,9 @@ def infer_pipeline(attrs9, decode, depth_key, cells_x: int, num_cells: int,
         raise ValueError(
             "infer_pipeline is inference-only: an input requires grad; "
             "render with needs_grad=True (RecordPipeline) to differentiate")
-    d, _, (img, _, _) = _forward(attrs9, decode, depth_key, cells_x,
-                                 num_cells, max_isects, cell, tile_base,
-                                 raster_tiles)
+    d, _, (img, _, _) = _forward(
+        attrs9, decode, depth_key, cells_x, num_cells, max_isects, cell,
+        tile_base, raster_tiles, scan_passes, scan_lanes(k_lanes, cell))
     return img, d.total[0], d.raw_total
 
 
@@ -235,24 +252,28 @@ class RecordPipeline(torch.autograd.Function):
     are integer bookkeeping.
 
     apply(attrs9, decode, depth_key, cells_x, num_cells, max_isects,
-    pack_grad_sort, cell, tile_base, raster_tiles) -> (img_cells (C, P,
-    4), order (n,) int64, total () int32, raw_total () int32); with a
-    strip (tile_base, raster_tiles) C is raster_tiles.
+    pack_grad_sort, cell, tile_base, raster_tiles, scan_passes, k_lanes) ->
+    (img_cells (C, P, 4), order (n,) int64, total () int32, raw_total ()
+    int32); with a strip (tile_base, raster_tiles) C is raster_tiles;
+    scan_passes and k_lanes (default 2 and 512, make_pallas_pipeline's)
+    reach both rasterizers, k_lanes as scan_lanes leaves it.
     """
 
     @staticmethod
     def forward(ctx, attrs9, decode, depth_key, cells_x, num_cells,
                 max_isects, pack_grad_sort, cell=(1, 1), tile_base=0,
-                raster_tiles=None):
+                raster_tiles=None, scan_passes=2, k_lanes=512):
+        k_lanes = scan_lanes(k_lanes, cell)
         d, (packed, starts, ends), (img, log_t, fidx) = _forward(
             attrs9, decode, depth_key, cells_x, num_cells, max_isects, cell,
-            tile_base, raster_tiles)
+            tile_base, raster_tiles, scan_passes, k_lanes)
         ctx.save_for_backward(packed, starts, ends, log_t, fidx, d.offsets,
                               d.cum, d.total, d.order)
         ctx.cells_x = cells_x
         ctx.cell = tuple(cell)
         ctx.tile_base = tile_base
         ctx.pack_grad_sort = pack_grad_sort
+        ctx.scan = dict(scan_passes=scan_passes, k_lanes=k_lanes)
         total = d.total[0].clone()
         ctx.mark_non_differentiable(d.order, total, d.raw_total)
         return img, d.order, total, d.raw_total
@@ -264,7 +285,7 @@ class RecordPipeline(torch.autograd.Function):
             ctx.saved_tensors
         grads = rasterize_bwd(packed, starts, ends, ctx.cells_x,
                               g_img.contiguous(), log_t, fidx, ctx.cell,
-                              ctx.tile_base)
+                              ctx.tile_base, **ctx.scan)
         mark("rasterize_bwd")
         rows = grad_resort(grads, packed[PACK_ROWS - 1], total,
                            ctx.pack_grad_sort)
@@ -274,7 +295,8 @@ class RecordPipeline(torch.autograd.Function):
         acc = torch.empty_like(per_splat)
         acc[:, order] = per_splat
         mark("to_global")
-        return acc, None, None, None, None, None, None, None, None, None
+        return (acc, None, None, None, None, None, None, None, None, None,
+                None, None)
 
 
 def strip_base(tile_ids: torch.Tensor, num_tiles: int) -> int:
@@ -303,8 +325,12 @@ class AlignedRaster(torch.autograd.Function):
                                    max_isects, k_lanes)
         starts, ends = (t.to(torch.int32).contiguous() for t in (starts,
                                                                  ends))
+        # The forward at rasterize_fwd_pallas's default scan_passes=2 over
+        # batches of this rasterizer's k_lanes, the backward at
+        # rasterize_bwd_pallas's exact 3 (raster_vjp.py:467-470, 491-494).
         img, log_t, fidx = rasterize_fwd(packed, starts, ends, tiles_x,
-                                         (1, 1), tile_base)
+                                         (1, 1), tile_base, scan_passes=2,
+                                         k_lanes=k_lanes)
         ctx.save_for_backward(packed, isect_gid, starts, ends, log_t, fidx)
         ctx.tiles_x, ctx.tile_base, ctx.n = tiles_x, tile_base, xy.shape[0]
         return img
@@ -314,7 +340,7 @@ class AlignedRaster(torch.autograd.Function):
         packed, isect_gid, starts, ends, log_t, fidx = ctx.saved_tensors
         grads = rasterize_bwd(packed, starts, ends, ctx.tiles_x,
                               g.contiguous(), log_t, fidx, (1, 1),
-                              ctx.tile_base)
+                              ctx.tile_base, scan_passes=3)
         acc = aligned_splat_sums(grads, isect_gid, ctx.n).T
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8],
                 None, None, None, None, None, None, None)
@@ -352,9 +378,11 @@ def make_pallas_rasterizer(tiles_x: int, num_tiles: int, max_isects: int,
 
     Runs the CUDA kernels (rasterize_fwd, then rasterize_bwd and
     segment_sum in the backward) on CUDA tensors and their plain versions
-    on CPU tensors; a failed build or launch raises. The forward packs the
-    pool with pack_isect_splats (max_isects + k_lanes slots); the backward
-    sums the per-record gradient rows per splat in slot order
+    on CPU tensors; a failed build or launch raises. As in the reference,
+    the forward truncates its log-T scan (scan_passes=2, batches of
+    k_lanes) and the backward's is exact (scan_passes=3). The forward
+    packs the pool with pack_isect_splats (max_isects + k_lanes slots);
+    the backward sums the per-record gradient rows per splat in slot order
     (aligned_splat_sums: a stable sort by global id, then segment_sum), so
     two backward passes on the card give the same bits. Gradients are
     taken at the quantized colour and opacity and passed straight through.

@@ -174,9 +174,12 @@ def make_sharded_train_step(
             gather_columns(meta_rows(rec, cell), mesh), row_lo,
             row_lo + strip_crows)
         mark("strip_inputs")
+        # make_pallas_pipeline's default scan_passes=2 over batches of
+        # max(128, block_size) (brush_tpu/parallel/train_step.py:107-120).
         img_l, _, total, raw_total = RecordPipeline.apply(
             attrs9, decode, depth_key, cells_x, num_cells, pool,
-            pack_grad_sort, cell, tile_base, cells_per)
+            pack_grad_sort, cell, tile_base, cells_per, 2,
+            max(128, block_size))
         img = assemble_image(GatherStrips.apply(img_l, mesh)[:num_cells],
                              img_size, cells_x, cells_y, cell)
         mark("assemble")

@@ -280,7 +280,8 @@ def render_splats(
       their plain PyTorch versions on CPU tensors. The pool (max_isects,
       default default_max_isects) rounds up to a multiple of lcm(max(128,
       block_size), 512) exactly as the reference's record pipeline does,
-      so num_dropped agrees; block_size has no other effect here. Unlike
+      so num_dropped agrees; block_size also sets the scan's k_lanes
+      (scan_passes below). Unlike
       the reference's "auto", which takes its XLA path on the CPU
       (render.py:236-237), "auto" is the record pipeline on every device:
       on the CPU the kernels' plain versions are what stands for the card.
@@ -290,9 +291,12 @@ def render_splats(
       cell, pack_grad_sort and needs_grad=False's inference pipeline do
       not apply; needs_grad=False runs it without autograd. No backend
       falls back to another.
-    scan_passes and bwd_tiles_per_step are accepted and do nothing: the
-    port computes what scan_passes=3 computes (the log-T scan's truncation
-    at 2 is not reproduced), and the backward takes no tiles-per-step knob.
+    scan_passes (the record pipeline's; "xla" takes none) is the TPU
+    kernels' log-T scan: the default 2, as in the reference, scans each
+    batch of k_lanes = max(128, block_size) records from its terms cut to
+    two bfloat16 parts (about 16 mantissa bits), 3 is exact; both
+    rasterizers follow it (ops/pipeline.py). bwd_tiles_per_step is
+    accepted and does nothing: the backward takes no tiles-per-step knob.
     needs_grad=True renders the record pipeline through the differentiable
     RecordPipeline (pack_grad_sort: the backward's conic and colour
     cotangents ride the grad re-sort as bf16 pairs, the reference's
@@ -306,7 +310,7 @@ def render_splats(
     3-sigma tile bbox, which a cell's bbox (rounded out to whole cells)
     reaches.
     """
-    del scan_passes, bwd_tiles_per_step   # documented no-ops
+    del bwd_tiles_per_step   # a documented no-op
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "xla":
@@ -324,6 +328,7 @@ def render_splats(
     cells_x = -(-tiles_x // cell[0])
     cells_y = -(-tiles_y // cell[1])
     max_isects = pool_size(n, img_size, max_isects, block_size)
+    k_lanes = max(128, block_size)   # render.py:241
 
     rec = record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
                         cam, img_size, xy_dummy=xy_dummy, active=active,
@@ -334,11 +339,12 @@ def render_splats(
     if needs_grad:
         img_cells, order, total, raw_total = RecordPipeline.apply(
             rec.attrs9, rec.decode, rec.depth_key, cells_x, num_cells,
-            max_isects, pack_grad_sort, cell)
+            max_isects, pack_grad_sort, cell, 0, None, scan_passes,
+            k_lanes)
     else:
         img_cells, total, raw_total = infer_pipeline(
             rec.attrs9, rec.decode, rec.depth_key, cells_x, num_cells,
-            max_isects, cell)
+            max_isects, cell, scan_passes=scan_passes, k_lanes=k_lanes)
         order = torch.zeros(n, dtype=torch.int64, device=means.device)
 
     aux = RenderAux(

@@ -87,8 +87,18 @@ result line; each phase prints its seconds):
      must equal SplatTrainer's in every bit, and its 8 warm steps at 4M;
   6. each kernel against its plain version (tolerances as in phase 2) on
      the arguments each training run gave it at the capacity it ends at,
-     the real loss cotangent included; the kernels' times, bounds and
-     errors in the result come from these arguments;
+     the real loss cotangent included, in the run's own log-T scan
+     (scan_passes=2, k_lanes 128: the reference's default); the kernels'
+     times, bounds and errors in the result come from these arguments;
+     then the scan phase: both rasterizers on the same arguments in the
+     exact scan, at k_lanes 512 and on a strip of 512 cells from cell
+     1029, held to their plain versions (log T as T, final_idx flips
+     counted with the others) and timed in turns, at (1, 1) and at CELL,
+     and at scan_passes=2 on every hand layout and scan_edge (its named
+     pixels one record from the exact scan's); the kernels line's "scan"
+     entries. Wherever two layouts of the same records are held
+     bit-equal (strips against the frame, phase 3) both take the exact
+     scan: the truncated scan's batches follow each pool's ranges;
   7. a real model trains: the castle's SH DC coefficients perturbed by
      0.1 N(0, 1), 12 default SplatTrainer steps on its four clean views;
      the eval PSNR must rise;
@@ -243,6 +253,18 @@ PAIR_ALPHA_OPS = 7
 # ~23 multiplies and adds for v_alpha and the nine terms, and the nine
 # terms' share of the pixel reduction.
 BWD_OPS_PER_ACTIVE = 45
+# The truncated log-T scan (scan_passes < 3, csrc/scan.cuh) adds, for every
+# active pair, SCAN_PART_OPS a bfloat16 part of each scanned term (the
+# rounding bias, the add, the mask, the subtraction and the sum), and in
+# rasterize_fwd a log1p, an exp and three adds (the running sums and
+# T's argument), in rasterize_bwd two scanned terms and three adds.
+SCAN_PART_OPS = 5
+SCAN_FWD_OPS = 5
+SCAN_BWD_OPS = 3
+EXACT = dict(scan_passes=3)   # the rasterizers' exact scan, by name
+SCAN_LANES = (128, 512)   # the scan phase's k_lanes at (1, 1)
+SCAN_STRIP_BASE = 1029    # the scan phase's strip: its first cell,
+SCAN_STRIP_CELLS = 512    # and its cells (of the bench's 4096)
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
@@ -311,6 +333,10 @@ QUALITY_ITERS, QUALITY_EVAL_EVERY = 3200, 1500
 QUALITY_RESET_STEP = 3001
 QUALITY_JAX_PSNR = {1500: 30.86, 3000: 31.28}
 QUALITY_GAP_DB = 1.5
+# The same run's eval PSNR with the exact scan (scan_passes=3), measured
+# on an NVIDIA H100 80GB HBM3 at 700 W before the port took the
+# reference's default (PERF.md §6): printed beside this run's, not a gate.
+QUALITY_EXACT_PSNR = {1500: 32.862, 3000: 33.767}
 HARVEST_SCRIPT = os.path.join(ROOT, "scripts", "torch_harvest.py")
 CASTLE_NAMES = ("means", "log_scales", "quats", "sh_coeffs", "raw_opacity")
 ENTRY = dict(n=16384, lo=-2.0, hi=2.0, z=-6.0, size=256, block=64, pool=None)
@@ -497,10 +523,17 @@ def check_expand_hand():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def raster_diff(out, plain, atol=1e-5):
+def raster_diff(out, plain, atol=1e-5, transmittance=False):
     """A rasterizer's (img, log_t, final_idx) against the plain version's.
     A pixel whose img or log T differs by more than atol is a flip: one
     record on the other side of the alpha or the transmittance threshold.
+    With `transmittance` T = exp(log T) stands for log T throughout, and
+    a pixel whose final_idx differs is a flip too: in the truncated scan
+    both sides sum log T in float32, the kernel record by record, the
+    plain version by torch's scans and reductions, some 1e-5 apart on a
+    pixel of hundreds of records, so a crossing within that of
+    LOG_T_EPS can fall one record apart, where the record's alpha near
+    1/255 moves T (~1e-4) by less than atol.
     Returns dict(err=largest img or log T difference on the other pixels,
     flips=flipped pixels, flip_err=largest difference at a flipped pixel,
     of img and of T = exp(log T), fidx=final_idx mismatches on the other
@@ -511,9 +544,12 @@ def raster_diff(out, plain, atol=1e-5):
 
     (img, log_t, fidx), (p_img, p_log_t, p_fidx) = out, plain
     d_img = (img - p_img).abs().amax(dim=-1)
-    d_lt = (log_t - p_log_t).abs()
+    d_lt = (log_t.exp() - p_log_t.exp() if transmittance
+            else log_t - p_log_t).abs()
     d_t = (log_t.exp() - p_log_t.exp()).abs()
     flipped = (d_img > atol) | (d_lt > atol)
+    if transmittance:
+        flipped |= fidx != p_fidx
     zero = torch.zeros_like(d_img)
     return dict(
         err=float(torch.where(flipped, zero,
@@ -524,29 +560,34 @@ def raster_diff(out, plain, atol=1e-5):
         fidx=int(((fidx != p_fidx) & ~flipped).sum()))
 
 
-def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3, reach=False):
+def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3, reach=False,
+                 kw=None):
     """Kernel vs plain, and two launches bit-equal: returns raster_diff's
     dict and pairs=(pixel, record) pairs the sweep evaluates, active=those
     that reach the alpha threshold, plain_ms, out=the kernel's outputs;
     with `reach` also reach_pairs=those of the pairs whose record may
     reach the pixel's 8x4 warp patch (csrc/reach.cuh's rule, by its host
     twin ops/cuda/testing.may_reach_f32, in a second, untimed plain
-    run)."""
+    run). kw: the wrapper's keywords (scan_passes, k_lanes; default the
+    exact scan); in the truncated scan log T is compared as T (raster_diff's
+    `transmittance`)."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         rasterize_fwd, rasterize_fwd_plain,
     )
     from brush_tpu_torch.ops.cuda.testing import may_reach_f32
 
-    img, log_t, fidx = rasterize_fwd(*r_args)
+    kw = kw or {}
+    img, log_t, fidx = rasterize_fwd(*r_args, **kw)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip((img, log_t, fidx),
-                                                 rasterize_fwd(*r_args))):
+    if not all(torch.equal(a, b) for a, b in zip(
+            (img, log_t, fidx), rasterize_fwd(*r_args, **kw))):
         raise AssertionError("rasterize_fwd: two launches on the same "
                              "inputs differ")
     (*plain, (pairs, active)), plain_ms = timed(
-        lambda: rasterize_fwd_plain(*r_args, count_pairs=True))
-    d = raster_diff((img, log_t, fidx), plain)
+        lambda: rasterize_fwd_plain(*r_args, count_pairs=True, **kw))
+    d = raster_diff((img, log_t, fidx), plain,
+                    transmittance=scan_truncates(kw))
     limit = max(1, int(max_flip_frac * fidx.numel()))
     if d["flip_err"] > flip_tol or d["flips"] > limit or d["fidx"]:
         raise AssertionError(
@@ -554,11 +595,19 @@ def check_raster(r_args, flip_tol=0.01, max_flip_frac=2e-3, reach=False):
             f"pixels (limit {limit}, largest {d['flip_err']:.3e}), "
             f"{d['fidx']} final_idx mismatches elsewhere")
     out = dict(d, pairs=pairs, active=active, plain_ms=plain_ms,
-               out=(img, log_t, fidx))
+               out=(img, log_t, fidx), kw=kw)
     if reach:
         *_, (_, _, out["reach_pairs"]) = rasterize_fwd_plain(
-            *r_args, count_pairs=True, reach=may_reach_f32)
+            *r_args, count_pairs=True, reach=may_reach_f32, **kw)
     return out
+
+
+def scan_truncates(kw) -> bool:
+    """Whether the rasterizers' keywords kw ask for the truncated scan."""
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import scan_mode
+
+    kw = kw or {}
+    return scan_mode(kw.get("scan_passes", 3), kw.get("k_lanes"))[0] > 0
 
 
 def check_raster_hand():
@@ -594,7 +643,7 @@ def check_raster_hand():
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def check_bwd(b_args, label, reach=False):
+def check_bwd(b_args, label, reach=False, kw=None):
     """rasterize_bwd vs plain on b_args (packed, starts, ends, tiles_x,
     v_out, log_t, final_idx): returns dict(err=row error, abs=max abs
     error, plain_ms, swept/active=(pixel, record) pairs the sweep
@@ -602,29 +651,31 @@ def check_bwd(b_args, label, reach=False):
     also reach_pairs=the pairs whose record the kernel's per-warp lists
     keep (the 16x4 patch's largest final_idx and csrc/reach.cuh's rule,
     by its host twin ops/cuda/testing.may_reach_f32, in a second, untimed
-    plain run)."""
+    plain run). kw: the wrapper's keywords (scan_passes, k_lanes)."""
     import torch
     from brush_tpu_torch.ops.cuda.rasterize_bwd import (
         rasterize_bwd, rasterize_bwd_plain,
     )
     from brush_tpu_torch.ops.cuda.testing import may_reach_f32
 
-    grads = rasterize_bwd(*b_args)
+    kw = kw or {}
+    grads = rasterize_bwd(*b_args, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(grads, rasterize_bwd(*b_args)):
+    if not torch.equal(grads, rasterize_bwd(*b_args, **kw)):
         raise AssertionError(f"[{label}] rasterize_bwd: two launches on "
                              "the same inputs differ")
     (plain, swept, active), plain_ms = timed(
-        lambda: rasterize_bwd_plain(*b_args, count_pairs=True))
+        lambda: rasterize_bwd_plain(*b_args, count_pairs=True, **kw))
     err = row_error(grads, plain)
     if not torch.isfinite(grads).all() or err > BWD_RTOL:
         raise AssertionError(f"[{label}] rasterize_bwd: row error "
                              f"{err:.3e} > {BWD_RTOL:.0e}")
     out = dict(err=err, abs=float((grads - plain).abs().max()),
-               plain_ms=plain_ms, swept=swept, active=active, grads=grads)
+               plain_ms=plain_ms, swept=swept, active=active, grads=grads,
+               kw=kw)
     if reach:
         *_, out["reach_pairs"] = rasterize_bwd_plain(
-            *b_args, count_pairs=True, reach=may_reach_f32)
+            *b_args, count_pairs=True, reach=may_reach_f32, **kw)
     return out
 
 
@@ -863,6 +914,12 @@ def raster_bounds(live: int, n_cells: int, cell, pool: int, fwd, bwd):
     fwd_o = PAIR_SIGMA_OPS * fwd["pairs"] + PAIR_ALPHA_OPS * fwd["active"]
     bwd_o = PAIR_SIGMA_OPS * bwd["swept"] + (
         PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"]
+    # The truncated scan's extra operations per active pair (each side's
+    # own mode: check_raster's and check_bwd's keywords).
+    fwd_x = scan_ops(fwd.get("kw"), SCAN_FWD_OPS, 1) * fwd["active"]
+    bwd_x = scan_ops(bwd.get("kw"), SCAN_BWD_OPS, 2) * bwd["active"]
+    fwd_o += fwd_x
+    bwd_o += bwd_x
     out = {"rasterize_fwd": _bound(fwd_b, fwd_o),
            "rasterize_bwd": _bound(bwd_b, bwd_o)}
     if "reach_pairs" in fwd:
@@ -872,14 +929,23 @@ def raster_bounds(live: int, n_cells: int, cell, pool: int, fwd, bwd):
         # the cell, also those the culling kernel rightly never evaluates).
         out["rasterize_fwd_reach"] = _bound(
             fwd_b, PAIR_SIGMA_OPS * fwd["reach_pairs"]
-            + PAIR_ALPHA_OPS * fwd["active"])
+            + PAIR_ALPHA_OPS * fwd["active"] + fwd_x)
     if "reach_pairs" in bwd:
         # The backward's: the pairs its per-warp lists keep (the 16x4
         # patch's largest final_idx and reach.cuh's rule).
         out["rasterize_bwd_reach"] = _bound(
             bwd_b, PAIR_SIGMA_OPS * bwd["reach_pairs"] + (
-                PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"])
+                PAIR_ALPHA_OPS + BWD_OPS_PER_ACTIVE) * bwd["active"] + bwd_x)
     return out
+
+
+def scan_ops(kw, extra: int, terms: int) -> int:
+    """The truncated scan's operations per active pair under the
+    rasterizer keywords kw: `terms` scanned terms of scan_passes parts
+    each, and `extra`; 0 for the exact scan."""
+    if not scan_truncates(kw):
+        return 0
+    return terms * kw["scan_passes"] * SCAN_PART_OPS + extra
 
 
 def bounds(k, fwd, bwd):
@@ -1241,17 +1307,20 @@ KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum")
 def kept_kernel_args(armed: list):
     """While armed[0] is true, keep the arguments of the record pipeline's
     calls to the four kernel wrappers (the wrappers still launch and count
-    as before). Yields {wrapper name: last arguments}."""
+    as before). Yields {wrapper name: last arguments, "<wrapper name> kw":
+    its last keyword arguments (the rasterizers' scan_passes and
+    k_lanes)}."""
     from brush_tpu_torch.ops import pipeline
 
     seen = {}
     saved = {name: getattr(pipeline, name) for name in KERNEL_WRAPPERS}
 
     def keep(name, fn):
-        def call(*args):
+        def call(*args, **kw):
             if armed[0]:
                 seen[name] = args
-            return fn(*args)
+                seen[f"{name} kw"] = kw   # the scan mode's keywords
+            return fn(*args, **kw)
         return call
 
     for name, fn in saved.items():
@@ -1261,6 +1330,11 @@ def kept_kernel_args(armed: list):
     finally:
         for name, fn in saved.items():
             setattr(pipeline, name, fn)
+
+
+def kept_names(kept: dict) -> list:
+    """The wrappers whose arguments kept_kernel_args kept, sorted."""
+    return sorted(k for k in kept if not k.endswith(" kw"))
 
 
 def timed_steps(trainer, state, batch, steps: int):
@@ -1347,7 +1421,7 @@ def train_path(cfg, cell=(1, 1)):
     if any(dropped):
         raise AssertionError(f"training dropped records: {dropped}")
     if sorted(kept) != sorted(set(caps)) or any(
-            set(v) != set(KERNEL_WRAPPERS) for v in kept.values()):
+            kept_names(v) != sorted(KERNEL_WRAPPERS) for v in kept.values()):
         raise AssertionError("kernel arguments missing for a capacity")
 
     # The metric: warm steps at the capacity the run ended at. A default
@@ -1368,7 +1442,7 @@ def train_path(cfg, cell=(1, 1)):
     return counts, step_ms, sum(times), kept, records, final
 
 
-def train_kernels(kept, tag="train"):
+def train_kernels(kept, tag="train", reach=True):
     """Phase 6 (and the "cli" phase's check): each kernel against its
     plain version on the arguments a training run gave it, kept = {when:
     the four wrappers' arguments} in the run's order; then the times,
@@ -1383,10 +1457,13 @@ def train_kernels(kept, tag="train"):
         t0 = time.perf_counter()
         label = f"{tag} {when}"
         k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
+        r_kw = args.get("rasterize_fwd kw", {})
+        b_kw = args.get("rasterize_bwd kw", {})
         e_plain = check_expand(k["exp_args"])
         last = when == list(kept)[-1]
-        r = check_raster(k["r_args"], reach=last)
-        b = check_bwd(args["rasterize_bwd"], label, reach=last)
+        r = check_raster(k["r_args"], reach=last and reach, kw=r_kw)
+        b = check_bwd(args["rasterize_bwd"], label, reach=last and reach,
+                      kw=b_kw)
         s = check_segsum(args["segment_sum"], label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
               f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
@@ -1406,8 +1483,8 @@ def train_kernels(kept, tag="train"):
     live_rows = rows[:, :ids.shape[0]].contiguous()
     n = cum.shape[0]
     calls = {"expand": (lambda: expand(*exp_args), 20),
-             "rasterize_fwd": (lambda: rasterize_fwd(*r_args), 20),
-             "rasterize_bwd": (lambda: rasterize_bwd(*b_args), 10),
+             "rasterize_fwd": (lambda: rasterize_fwd(*r_args, **r_kw), 20),
+             "rasterize_bwd": (lambda: rasterize_bwd(*b_args, **b_kw), 10),
              "segment_sum": (lambda: segment_sum(*s_args), 20)}
     ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in calls.items()}
     dev = {name: device_ms(fn, reps) for name, (fn, reps) in calls.items()}
@@ -1423,7 +1500,7 @@ def train_kernels(kept, tag="train"):
         os.makedirs(SAVE_ARGS_DIR, exist_ok=True)
         name = re.sub(r"[^A-Za-z0-9]+", "_", tag).strip("_")
         torch.save({"when": f"{tag}, {when}", "rasterize_bwd": b_args,
-                    "segment_sum": s_args},
+                    "rasterize_bwd kw": b_kw, "segment_sum": s_args},
                    os.path.join(SAVE_ARGS_DIR, f"{name}.pt"))
     print(f"[{tag} kernels] {when}: "
           + "; ".join(f"{name} {t:.4f} ms, device {dev[name]:.4f}"
@@ -1437,7 +1514,173 @@ def train_kernels(kept, tag="train"):
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
-                bound=bounds(k, r, b), library=s_lib, when=when)
+                bound=bounds(k, r, b), library=s_lib, when=when,
+                scan={"rasterize_fwd": r_kw, "rasterize_bwd": b_kw},
+                checks={"rasterize_fwd": {key: v for key, v in r.items()
+                                          if key != "out"},
+                        "rasterize_bwd": {key: v for key, v in b.items()
+                                          if key != "grads"}})
+
+
+def scan_hand():
+    """The truncated scan (scan_passes=2) of both rasterizers against their
+    plain versions on every hand layout (ops/cuda/testing.hand_tiles and
+    scan_edge at k_lanes SCAN_EDGE_LANES, hand_cells at the pipeline's
+    scan_lanes): phase 2's tolerances (log T as T), repeats bit-equal, the
+    backward on the kernel forward's outputs and a seeded cotangent. On
+    scan_edge the kernel's final_idx at the named pixels is the plain
+    version's and one record from the exact scan's, each in its
+    direction."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import (
+        rasterize_fwd, rasterize_fwd_plain,
+    )
+    from brush_tpu_torch.ops.cuda.testing import (
+        HAND_CELL_CASES, HAND_TILE_CASES, SCAN_EDGE_LANES, SCAN_EDGE_PIXELS,
+        hand_cells, hand_tiles, scan_edge,
+    )
+    from brush_tpu_torch.ops.pipeline import scan_lanes
+
+    t0 = time.perf_counter()
+    layouts = [(c, hand_tiles(c) + ((1, 1),)) for c in HAND_TILE_CASES]
+    layouts.append(("scan_edge", scan_edge() + ((1, 1),)))
+    layouts += [(c, hand_cells(c)) for c in HAND_CELL_CASES]
+    seen = {}
+    for case, (packed, starts, ends, cells_x, cell) in layouts:
+        args = (torch.tensor(packed).cuda(), torch.tensor(starts).cuda(),
+                torch.tensor(ends).cuda(), cells_x, cell)
+        kw = dict(scan_passes=2, k_lanes=SCAN_EDGE_LANES if cell == (1, 1)
+                  else scan_lanes(512, cell))
+        r = check_raster(args, kw=kw)
+        _, log_t, fidx = r["out"]
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
+        b = check_bwd((*args[:4], v_out, log_t, fidx, cell), f"scan {case}",
+                      kw=kw)
+        seen[case] = (r["err"], r["flips"], b["err"])
+        if case == "scan_edge":
+            plain = rasterize_fwd_plain(*args, **kw)[2]
+            exact = rasterize_fwd(*args, **EXACT)[2]
+            for tile, pixel, sign in SCAN_EDGE_PIXELS:
+                if int(fidx[tile, pixel] - exact[tile, pixel]) != sign \
+                        or int(plain[tile, pixel]) != int(fidx[tile, pixel]):
+                    raise AssertionError(
+                        f"[scan] scan_edge tile {tile} pixel {pixel}: "
+                        f"final_idx {int(fidx[tile, pixel])}, exact "
+                        f"{int(exact[tile, pixel])}")
+    print(f"[scan hand] both rasterizers at scan_passes=2 against plain "
+          f"(fwd max err, flipped pixels, bwd row error) {seen}; repeats "
+          f"bit-equal; scan_edge's named pixels flip against the exact "
+          f"scan as on the CPU; {time.perf_counter() - t0:.1f} s")
+
+
+def scan_configs(args, label):
+    """The scan phase's configurations on one training run's last kept
+    arguments (args: kept_kernel_args' dict): {tag: (r_args, cotangent,
+    kw)}: the exact scan and, at (1, 1), whichever of k_lanes 128 and 512
+    is not the run's own mode (train_kernels checked and timed that one),
+    and a strip of the frame's cells from SCAN_STRIP_BASE in the run's
+    mode."""
+    r_args = args["rasterize_fwd"]
+    v_out = args["rasterize_bwd"][4]
+    own = args.get("rasterize_fwd kw", {})
+    out = {f"{label} exact": (r_args, v_out, dict(EXACT))}
+    cell = tuple(r_args[4])
+    for k in SCAN_LANES if cell == (1, 1) else ():
+        if k != own["k_lanes"]:   # the run's own: train_kernels' check
+            out[f"{label} k{k}"] = (r_args, v_out,
+                                    dict(scan_passes=2, k_lanes=k))
+    if cell == (1, 1):
+        packed, starts, ends, cells_x = r_args[:4]
+        b, n = SCAN_STRIP_BASE, SCAN_STRIP_CELLS
+        out[f"{label} strip"] = ((packed, starts[b:b + n], ends[b:b + n],
+                                  cells_x, cell, b), v_out[b:b + n],
+                                 dict(own))
+    return out
+
+
+def scan_phase(args, label, tk):
+    """Both rasterizers in each of scan_configs' modes on a training run's
+    own arguments: against their plain versions (phase 2's tolerances,
+    log T as T in the truncated scan), repeats bit-equal, the backward on
+    the kernel forward's outputs of the same mode; timed in turns (the
+    wrapper by cuda_ms, the device by device_ms), with their bounds
+    (raster_bounds: the truncated scan's extra operations counted). The
+    run's own mode takes train_kernels' fields (tk), and its reach bounds
+    the pairs the exact scan's plain versions count here (the sweeps'
+    sets differ by the records whose crossing the truncation moves), which
+    tk's bounds gain. Returns {tag: {kernel: fields}}."""
+    import torch
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+
+    t0 = time.perf_counter()
+    out, calls = {}, {}
+    for tag, (r_args, v_out, kw) in scan_configs(args, label).items():
+        exact = kw == EXACT
+        r = check_raster(r_args, kw=kw, reach=exact)
+        _, log_t, fidx = r["out"]
+        packed, starts, ends, cells_x, cell, base = r_args
+        b_args = (packed, starts, ends, cells_x, v_out, log_t, fidx, cell,
+                  base)
+        b = check_bwd(b_args, tag, kw=kw, reach=exact)
+        live = int((ends - starts).sum())
+        bound = raster_bounds(live, starts.shape[0], cell, packed.shape[1],
+                              r, b)
+        if exact:
+            own = {name: dict(tk["checks"][name],
+                              reach_pairs=res["reach_pairs"])
+                   for name, res in (("rasterize_fwd", r),
+                                     ("rasterize_bwd", b))}
+            tk["bound"].update(raster_bounds(
+                live, starts.shape[0], cell, packed.shape[1],
+                own["rasterize_fwd"], own["rasterize_bwd"]))
+            k_own = tk["scan"]["rasterize_fwd"]["k_lanes"]
+            out[f"{label} k{k_own}"] = {
+                name: dict(tk["scan"][name], ms=tk["ms"][name],
+                           device_ms=tk["device"][name],
+                           plain_ms=tk["plain"][name],
+                           bound_ms=tk["bound"][name][0],
+                           bound_by=tk["bound"][name][1],
+                           reach_bound_ms=tk["bound"][f"{name}_reach"][0],
+                           max_abs_err=tk["err"][name],
+                           timed="train_kernels")
+                for name in ("rasterize_fwd", "rasterize_bwd")}
+        out[tag] = {
+            "rasterize_fwd": dict(
+                kw, plain_ms=r["plain_ms"], bound_ms=bound["rasterize_fwd"][0],
+                bound_by=bound["rasterize_fwd"][1],
+                max_abs_err=max(r["err"], r["flip_err"]), flips=r["flips"]),
+            "rasterize_bwd": dict(
+                kw, plain_ms=b["plain_ms"], bound_ms=bound["rasterize_bwd"][0],
+                bound_by=bound["rasterize_bwd"][1], max_abs_err=b["abs"])}
+        calls[tag] = {
+            "rasterize_fwd": (lambda a=r_args, k=kw: rasterize_fwd(*a, **k),
+                              20),
+            "rasterize_bwd": (lambda a=b_args, k=kw: rasterize_bwd(*a, **k),
+                              10)}
+        del r, b
+    for _ in range(2):   # in turns, every mode once a round
+        for tag, fns in calls.items():
+            for name, (fn, reps) in fns.items():
+                row = out[tag][name]
+                row.setdefault("ms_all", []).append(cuda_ms(fn, reps))
+                row.setdefault("device_ms_all", []).append(
+                    device_ms(fn, reps))
+    for tag, rows in out.items():
+        for row in rows.values():
+            if "ms_all" in row:
+                row["ms"] = statistics.median(row["ms_all"])
+                row["device_ms"] = statistics.median(row["device_ms_all"])
+        print(f"[scan {tag}] " + "; ".join(
+            f"{name} {row['ms']:.4f} ms, device {row['device_ms']:.4f} "
+            f"(rounds {row.get('device_ms_all', row.get('timed'))}; plain "
+            f"{row['plain_ms']:.1f}, "
+            f"bound {row['bound_ms']:.4f} by {row['bound_by']}, max err "
+            f"{row['max_abs_err']:.3e})" for name, row in rows.items()))
+    torch.cuda.empty_cache()
+    print(f"[scan] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def strip_phase(splats, cp, size):
@@ -1451,8 +1694,12 @@ def strip_phase(splats, cp, size):
     gradients of sum(img v) (a seeded v, exact float32 cotangents) summed
     over the strips the frame's within SEG_RTOL of each row's largest
     value. At one strip (tile_base 0) the restriction, the binning and
-    both kernels must give the frame's bits. Returns, for each cell, the
-    per-strip records, pools, times, plain times, bounds and errors."""
+    both kernels must give the frame's bits. Every call here takes the
+    exact scan (EXACT, scan_passes=3): the truncated scan's batches follow
+    each pool's own ranges, so a strip's pool and the frame's would part
+    by its rounding, not by a fault (scan_phase holds the mode to its
+    plain versions on a strip). Returns, for each cell, the per-strip
+    records, pools, times, plain times, bounds and errors."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
@@ -1491,7 +1738,7 @@ def strip_phase(splats, cp, size):
             x = a9.clone().requires_grad_(True)
             img, _, total, raw = RecordPipeline.apply(
                 x, decode, depth_key, cells_x, num, pool_, False, cell, base,
-                k_)
+                k_, EXACT["scan_passes"])
             return torch.autograd.grad(img, x, v[base:base + k_])[0], \
                 int(total), int(raw)
 
@@ -1499,25 +1746,25 @@ def strip_phase(splats, cp, size):
         d = depth_order(a9, rec.decode, rec.depth_key, pool)
         keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num, pool)
         bins = tile_bins(keys, recs, num)
-        fwd_f = rasterize_fwd(*bins, cells_x, cell)
+        fwd_f = rasterize_fwd(*bins, cells_x, cell, **EXACT)
         bwd_args = (*bins, cells_x, v[:num], fwd_f[1], fwd_f[2], cell)
-        bwd_f = rasterize_bwd(*bwd_args)
+        bwd_f = rasterize_bwd(*bwd_args, **EXACT)
         frame_ms = {
             "rasterize_fwd": cuda_ms(lambda: rasterize_fwd(
-                *bins, cells_x, cell), reps=10),
-            "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(*bwd_args),
-                                     reps=5)}
+                *bins, cells_x, cell, **EXACT), reps=10),
+            "rasterize_bwd": cuda_ms(lambda: rasterize_bwd(
+                *bwd_args, **EXACT), reps=5)}
         g_frame, total_f, _ = grads(rec.decode, rec.depth_key, pool, 0, num)
         dec1, key1 = strip_decode(meta, 0, rows * STRIPS)
         bins1 = strip_bins(keys, recs, num, 0, num)
-        fwd1 = rasterize_fwd(*bins1, cells_x, cell, 0)
+        fwd1 = rasterize_fwd(*bins1, cells_x, cell, 0, **EXACT)
         one = (torch.equal(dec1, rec.decode)
                and torch.equal(key1, rec.depth_key)
                and all(torch.equal(a, b) for a, b in zip(bins1, bins))
                and all(torch.equal(a, b) for a, b in zip(fwd1, fwd_f))
                and torch.equal(rasterize_bwd(*bins1, cells_x, v[:num],
-                                             fwd1[1], fwd1[2], cell, 0),
-                               bwd_f))
+                                             fwd1[1], fwd1[2], cell, 0,
+                                             **EXACT), bwd_f))
         if not one:
             raise AssertionError(f"[{tag}] one strip at tile_base 0 differs "
                                  "from the whole frame")
@@ -1537,14 +1784,14 @@ def strip_phase(splats, cp, size):
             bins_s = strip_bins(keys_s, recs_s, num, base, k)
             r_args = (*bins_s, cells_x, cell, base)
             label = f"{tag} strip {s}"
-            r = check_raster(r_args)
+            r = check_raster(r_args, kw=EXACT)
             img_s, log_t_s, fidx_s = r["out"]
             inside = min(k, num - base)
             same &= (torch.equal(img_s[:inside], fwd_f[0][base:base + inside])
                      and torch.equal(log_t_s[:inside],
                                      fwd_f[1][base:base + inside]))
             b = check_bwd((*bins_s, cells_x, v[base:base + k], log_t_s,
-                           fidx_s, cell, base), label)
+                           fidx_s, cell, base), label, kw=EXACT)
             g, total, raw = grads(dec, key, pool_s, base, k)
             if raw > pool_s:
                 raise AssertionError(f"[{label}] {raw} records overflow its "
@@ -1554,10 +1801,11 @@ def strip_phase(splats, cp, size):
                 expand=cuda_ms(lambda: expand(*exp_args), reps=10),
                 tile_bins=cuda_ms(lambda: strip_bins(keys_s, recs_s, num, base,
                                                      k), reps=10),
-                fwd=cuda_ms(lambda: rasterize_fwd(*r_args), reps=10),
+                fwd=cuda_ms(lambda: rasterize_fwd(*r_args, **EXACT),
+                            reps=10),
                 bwd=cuda_ms(lambda: rasterize_bwd(
                     *bins_s, cells_x, v[base:base + k], log_t_s, fidx_s,
-                    cell, base), reps=5))
+                    cell, base, **EXACT), reps=5))
             bound = bounds(dict(exp_args=exp_args, r_args=r_args), r, b)
             per["records"].append(total)
             per["pool"].append(pool_s)
@@ -2615,9 +2863,13 @@ def viewer_phase(data: dict, d: str) -> dict:
     # 4. `cli view` as a user starts it.
     t0 = time.perf_counter()
     port = free_port()
+    # At the in-process viewer's block size (RenderService's default): it
+    # sets the truncated log-T scan's batches (k_lanes), so frames at
+    # another one differ in their last bits.
     proc = subprocess.Popen(
         [sys.executable, "-m", "brush_tpu_torch.cli", "view", "--ply",
-         CASTLE_PLY, "--source", data["nerf"], "--port", str(port)],
+         CASTLE_PLY, "--source", data["nerf"], "--port", str(port),
+         "--block-size", str(vs.RenderService().block_size)],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         base_cli = f"http://127.0.0.1:{port}"
@@ -3254,19 +3506,24 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     img_err = close_image(img_a, img_x, "[aligned] castle image")
     grad_err = grad_errors(g_a, g_x, names, "[aligned] castle", gate=True)
 
-    # The kernels on these records against their plain versions.
+    # The kernels on these records against their plain versions, in the
+    # rasterizer's modes: the forward's truncated scan (scan_passes=2,
+    # k_lanes ALIGN_LANES), the backward's exact one (raster_vjp.py
+    # :467-470, 491-494).
     packed = pack_isect_splats(*leaves, isect.isect_gid, pool, ALIGN_LANES)
     starts, ends = (t.to(torch.int32) for t in (isect.starts, isect.ends))
     r_args = (packed, starts, ends, tiles_x, (1, 1))
-    fwd = check_raster(r_args)
+    r_kw = dict(scan_passes=2, k_lanes=ALIGN_LANES)
+    b_kw = dict(scan_passes=3, k_lanes=ALIGN_LANES)
+    fwd = check_raster(r_args, kw=r_kw)
     if not torch.equal(fwd["out"][0], img_a):
         raise AssertionError("[aligned] make_pallas_rasterizer's image is "
                              "not rasterize_fwd's on its pool")
     b_args = (packed, starts, ends, tiles_x, cot, fwd["out"][1],
               fwd["out"][2], (1, 1))
-    bwd = check_bwd(b_args, "aligned castle")
-    fwd_ms = cuda_ms(lambda: rasterize_fwd(*r_args), reps=20)
-    bwd_ms = cuda_ms(lambda: rasterize_bwd(*b_args), reps=20)
+    bwd = check_bwd(b_args, "aligned castle", kw=b_kw)
+    fwd_ms = cuda_ms(lambda: rasterize_fwd(*r_args, **r_kw), reps=20)
+    bwd_ms = cuda_ms(lambda: rasterize_bwd(*b_args, **b_kw), reps=20)
     bound = raster_bounds(records, num_tiles, (1, 1), packed.shape[1], fwd,
                           bwd)
     castle_row = {
@@ -3456,7 +3713,10 @@ def scale_phase(smi: str) -> dict:
     probe_peak = torch.cuda.max_memory_allocated() / 2**20
     del params, opt
     torch.cuda.empty_cache()
-    tk = train_kernels({"probe step": kept}, "scale")
+    # No reach counts here: at 8.5M records the truncated scan's plain
+    # versions take over a minute a run, and the reach bound of these
+    # arguments stands in PERF.md (counted on the exact scan).
+    tk = train_kernels({"probe step": kept}, "scale", reach=False)
     del kept
     torch.cuda.empty_cache()
 
@@ -3685,7 +3945,8 @@ def quality_phase(smi: str) -> dict:
           f"--init-count 32768 --block-size 512, eval of all "
           f"{QUALITY_VAL} val views every {QUALITY_EVAL_EVERY} and at the "
           f"end): eval PSNR {psnr}, SSIM {ssim} (JAX r5_castle_fixed "
-          f"{QUALITY_JAX_PSNR}); live splats {live.get(last_eval)} at "
+          f"{QUALITY_JAX_PSNR}; the exact scan's {QUALITY_EXACT_PSNR}); "
+          f"live splats {live.get(last_eval)} at "
           f"{last_eval}, {live.get(QUALITY_RESET_STEP + 109)} after the "
           f"prune at {QUALITY_RESET_STEP + 100} ({prune}), "
           f"{live.get(QUALITY_ITERS - 10)} at {QUALITY_ITERS - 10}; refine "
@@ -3725,7 +3986,7 @@ def quality_phase(smi: str) -> dict:
                   "segment_sum": QUALITY_ITERS}:
         raise AssertionError(f"[quality] launches {counts}: not one a step "
                              f"and one an eval render ({len(renders)})")
-    if sorted(kept) != sorted(KERNEL_WRAPPERS):
+    if kept_names(kept) != sorted(KERNEL_WRAPPERS):
         raise AssertionError(f"[quality] kept {sorted(kept)} at "
                              f"{after_reset}")
     tk = train_kernels({f"step {after_reset}, the first after the "
@@ -3835,7 +4096,9 @@ def main() -> int:
     # versions on the arguments of the capacity each run ends at.
     counts, step_ms, window_ms, kept, records, final = train_path(BENCH)
     last = max(kept)
-    tk = train_kernels({f"capacity {last}": kept[last]})
+    tk = train_kernels({f"capacity {last}": kept[last]}, reach=False)
+    scan = scan_phase(kept[last], "T", tk)
+    scan_hand()
     del kept
     torch.cuda.empty_cache()
     shard_counts, shard_ms = sharded_path(BENCH, final)
@@ -3845,7 +4108,8 @@ def main() -> int:
         BENCH, CELL)
     last = max(kept)
     tk_c = train_kernels({f"capacity {last}, cell {CELL}": kept[last]},
-                         f"train cell {CELL}")
+                         f"train cell {CELL}", reach=False)
+    scan.update(scan_phase(kept[last], f"{CELL[0]}x{CELL[1]} T", tk_c))
     print(f"[train cell {CELL}] records a step {records_c} ((1, 1): "
           f"{records}); metric {step_ms_c:.3f} ms ((1, 1): {step_ms:.3f}); "
           f"window {window_ms_c:.3f} ms ((1, 1): {window_ms:.3f})")
@@ -3930,6 +4194,14 @@ def main() -> int:
                 "from": "make_pallas_rasterizer: castle view 0 with "
                         "gradients; bench render inputs, no gradients"}
         if name.startswith("rasterize"):
+            # "scan": the truncated log-T scan (scan_passes=2) beside the
+            # exact one, on the bench training's last arguments (T), at
+            # CELL (its own k_lanes) and on a strip of T's cells; the
+            # fields as above, each timed in turns in the scan phase.
+            out["scan"] = {
+                tag: {key: v for key, v in rows[name].items()
+                      if not key.endswith("_all")}
+                for tag, rows in scan.items()}
             # "cell": the same fields on the bench training's arguments at
             # raster cell CELL; launches: that run's.
             out["cell"] = {"cell": list(CELL), **fields(tk_c),

@@ -318,8 +318,11 @@ def start_build(label, kernel, text):
     """Write text as a source of its own and start nvcc on it. Its C entry
     is "legacy" before the tile order (no scratch argument), takes
     "cells" since the raster-cell mode (cell_w, cell_h; the backward also a
-    state scratch) and a "strip" since the strip mode (tile_base, after the
-    cell count), which run_fwd and run_bwd pass as 0: the whole frame."""
+    state scratch), a "strip" since the strip mode (tile_base, after the
+    cell count), which run_fwd and run_bwd pass as 0: the whole frame, and
+    a "scan" since the truncated log-T scan (passes, k_lanes, after the
+    cell), which they pass as 0 and 512: the exact scan, the path every
+    earlier source computes."""
     os.makedirs(OUT, exist_ok=True)
     stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in label))
     with open(stem + ".cu", "w") as f:
@@ -330,6 +333,7 @@ def start_build(label, kernel, text):
                 legacy=kernel != "segsum" and "int* order" not in text,
                 cells="int cell_w" in text, strip="int tile_base" in text,
                 partial="float* partial" in text,
+                scan="int passes" in text,
                 seg_scratch="segsum_scratch_floats" in text,
                 proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
@@ -360,9 +364,10 @@ def finish_builds(jobs):
 
 def cell_ints(job, cell):
     """The (cell_w, cell_h) arguments of job's C entry: none before the
-    raster-cell mode, which runs cell (1, 1) only."""
+    raster-cell mode, which runs cell (1, 1) only; then, since the
+    truncated scan, (passes, k_lanes) = (0, 512), the exact scan."""
     if job["cells"]:
-        return list(cell)
+        return list(cell) + [0, 512] * job["scan"]
     if tuple(cell) != (1, 1):
         raise SystemExit(f"{job['label']} takes no raster cell")
     return []

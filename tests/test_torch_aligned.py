@@ -44,6 +44,9 @@ from brush_tpu_torch.ops.pipeline import make_pallas_rasterizer
 from brush_tpu_torch.ops.projection import project_splats
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.ops.sh import sh_to_color
+from torch_threads import pin_threads
+
+pin_threads()
 
 MAX_ISECTS = 1024
 K_LANES = 128

@@ -40,6 +40,9 @@ from brush_tpu_torch.datasets.nerf import camera_from_transform
 from brush_tpu_torch.datasets.ply import load_splats_from_ply
 from brush_tpu_torch.ops.rasterize_reference import camera_params, view_colors
 from brush_tpu_torch.render import render_splats
+from torch_threads import pin_threads
+
+pin_threads()
 
 CASTLE_PLY = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "docs", "castle_r5_30k.ply")

@@ -39,6 +39,9 @@ from brush_tpu_torch.render import render_splats
 from test_torch_cli import TRAIN, nerf_zip, read_metrics  # noqa: F401
 from test_torch_ops import _proj_both, _scene
 from test_torch_train import steps_match_reference
+from torch_threads import pin_threads
+
+pin_threads()
 
 CELLS = [(2, 1), (2, 2), (4, 2), (3, 1)]
 CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 3,

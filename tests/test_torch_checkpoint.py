@@ -22,6 +22,9 @@ from brush_tpu_torch.train import SplatTrainer
 from brush_tpu_torch.utils.checkpoint import (
     GENERATOR_KEY, load_checkpoint, save_checkpoint,
 )
+from torch_threads import pin_threads
+
+pin_threads()
 
 
 def port_state(seed=0, n=50, cap=128):

@@ -27,6 +27,9 @@ from brush_tpu_torch import cli
 from brush_tpu_torch.datasets import png
 from brush_tpu_torch.datasets import testing as dt
 from brush_tpu_torch.utils.checkpoint import load_checkpoint
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = ("means", "sh_coeffs", "quats", "raw_opacity", "log_scales")

@@ -27,11 +27,15 @@ from brush_tpu_torch.ops.cuda.testing import (
     HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_SMALL_LIVE, HAND_SMALL_N,
     HAND_SMALL_POOL, HAND_TILE_CASES, cell_pixel_centres, hand_cells,
     fwd_warp_patches, hand_expand, hand_segments, hand_small_pool,
-    hand_tiles, may_reach_f32, sigma_f32, sigma_max_f32, warp_patches,
+    hand_tiles, may_reach_f32, scan_edge, sigma_f32, sigma_max_f32,
+    warp_patches,
 )
-from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
+from brush_tpu_torch.ops.pipeline import depth_order, scan_lanes, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import record_inputs, render_splats
+from torch_threads import pin_threads
+
+pin_threads()
 
 # (n, image, pool, largest scale): a plain scene; large splats so the bbox
 # (> 8x8 tiles) path expands; a pool smaller than the records (overflow).
@@ -755,6 +759,64 @@ def test_cuda_rasterize_bwd_hand_cells_match_plain(case):
     assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
 
 
+# Every hand layout, and scan_edge, for the truncated scan (scan_passes=2).
+SCAN_LAYOUTS = ([("tile", c) for c in HAND_TILE_CASES + ("scan_edge",)]
+                + [("cell", c) for c in HAND_CELL_CASES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", SCAN_LAYOUTS,
+                         ids=[f"{k}-{c}" for k, c in SCAN_LAYOUTS])
+def test_cuda_truncated_scan_matches_plain(layout):
+    """Both kernels at scan_passes=2 (batches of 128 records at tiles, of
+    the pipeline's scan_lanes at cells) against their plain versions on
+    every hand layout, at the tolerances of the exact path's tests; a
+    second launch of each bit-equal. On scan_edge the kernel's final_idx
+    is the plain version's at the named pixels, and differs from the
+    kernel's own at scan_passes=3. log T is held in transmittance space
+    (as the Pallas comparisons hold it): in the mode both sides sum log T
+    in float32, the kernel record by record, the plain version by torch's
+    reductions, which part by some 1e-5 on the 600 records of scan_edge's
+    deep tile (log T -8.4), where T is 2e-4."""
+    _need_cuda()
+    kind, case = layout
+    if case == "scan_edge":
+        packed, starts, ends, tiles_x = scan_edge()
+        cell = (1, 1)
+    elif kind == "tile":
+        packed, starts, ends, tiles_x = hand_tiles(case)
+        cell = (1, 1)
+    else:
+        packed, starts, ends, tiles_x, cell = hand_cells(case)
+    args = (torch.tensor(packed, device="cuda"),
+            torch.tensor(starts, device="cuda"),
+            torch.tensor(ends, device="cuda"), tiles_x, cell)
+    scan = dict(scan_passes=2, k_lanes=scan_lanes(128 if kind == "tile"
+                                                  else 512, cell))
+    img, log_t, fidx = t_raster.rasterize_fwd(*args, **scan)
+    torch.cuda.synchronize()
+    want = t_raster.rasterize_fwd_plain(*args, **scan)
+    flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
+               *(w.cpu().numpy() for w in want), atol=1e-5,
+               transmittance=True)
+    _same_bits((img, log_t, fidx), t_raster.rasterize_fwd(*args, **scan))
+    if case == "scan_edge":
+        from brush_tpu_torch.ops.cuda.testing import SCAN_EDGE_PIXELS
+
+        exact = t_raster.rasterize_fwd(*args)[2]
+        for tile, pixel, sign in SCAN_EDGE_PIXELS:
+            assert int(fidx[tile, pixel]) == int(want[2][tile, pixel])
+            assert int(fidx[tile, pixel] - exact[tile, pixel]) == sign
+    v_out = torch.tensor(np.random.default_rng(29).normal(
+        size=(*log_t.shape, 4)).astype(np.float32), device="cuda")
+    b_args = (*args[:4], v_out, log_t, fidx, cell)
+    got = t_bwd.rasterize_bwd(*b_args, **scan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    rows_close(got, t_bwd.rasterize_bwd_plain(*b_args, **scan), 1e-4, case)
+    assert torch.equal(got, t_bwd.rasterize_bwd(*b_args, **scan))
+
+
 @pytest.mark.cuda
 def test_cuda_rasterize_fwd_hyperbolic_conic_matches_plain():
     _need_cuda()
@@ -1249,7 +1311,8 @@ def test_cuda_strip_pipeline_at_base_0_is_the_frame():
     """At tile_base 0 over all the cells (one rank's strip at world size
     1, and every unsharded pipeline) the strip binning gives the frame's
     bins in every bit, and the pipeline's image, order and counts are
-    those of tile_bins and the forward kernel over the whole frame."""
+    those of tile_bins and the forward kernel over the whole frame, the
+    kernel in the pipeline's default scan (scan_passes=2, k_lanes 512)."""
     _need_cuda()
     from brush_tpu_torch.ops.pipeline import RecordPipeline, strip_bins
 
@@ -1264,7 +1327,7 @@ def test_cuda_strip_pipeline_at_base_0_is_the_frame():
                     tile_bins(keys, recs, 15)):
         assert torch.equal(a, b)
     bins = tile_bins(keys, recs, 15)
-    frame = t_raster.rasterize_fwd(*bins, 5)
+    frame = t_raster.rasterize_fwd(*bins, 5, scan_passes=2, k_lanes=512)
     a9 = rec.attrs9.detach().clone().requires_grad_(True)
     img, order, total, raw = RecordPipeline.apply(
         a9, rec.decode, rec.depth_key, 5, 15, 16384, True)

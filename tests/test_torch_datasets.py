@@ -43,6 +43,9 @@ from brush_tpu_torch.datasets.ply import (
 from brush_tpu_torch.datasets.scene import has_alpha
 from brush_tpu_torch.splats import from_safetensors
 from test_torch_native import reference_native
+from torch_threads import pin_threads
+
+pin_threads()
 
 SH_C0 = 0.28209479177387814
 

@@ -16,6 +16,9 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.convert import splats_from_numpy
 from brush_tpu_torch.eval import eval_stats, eval_view, psnr_from_mse
 from brush_tpu_torch.ssim import Ssim, gaussian_window
+from torch_threads import pin_threads
+
+pin_threads()
 
 
 @pytest.mark.parametrize("window,shape", [(11, (2, 20, 24, 3)),

@@ -33,6 +33,9 @@ from brush_tpu_torch.ops.cuda.testing import (
     HAND_LAYOUTS, HAND_POOL, hand_segments,
 )
 from test_torch_cuda import CAM, SCENES, make_scene, port_records
+from torch_threads import pin_threads
+
+pin_threads()
 
 K_LANES = 128
 K_SEG = 512

@@ -31,6 +31,9 @@ from brush_tpu_torch import native, splats
 from brush_tpu_torch.splats import (
     from_random, knn_extents, knn_mean_distance, knn_route,
 )
+from torch_threads import pin_threads
+
+pin_threads()
 
 
 # reference_native's lock and temporary builds (listed in .gitignore).

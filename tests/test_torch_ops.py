@@ -33,6 +33,9 @@ from brush_tpu_torch.ops.rasterize_reference import (
 )
 from brush_tpu_torch.ops.sh import sh_basis, sh_to_color
 from brush_tpu_torch.render import pack_decode_rows
+from torch_threads import pin_threads
+
+pin_threads()
 
 CAM = dict(position=[0.3, -0.2, -6.0], rotation=[0.99, 0.05, -0.08, 0.03],
            fov_x=1.4, fov_y=1.2)

@@ -22,6 +22,9 @@ from brush_tpu_torch.camera import Camera, rotmat_to_quat
 from brush_tpu_torch.convert import splats_from_numpy
 from brush_tpu_torch.datasets.ply import load_splats_from_ply
 from brush_tpu_torch.splats import from_random, knn_mean_distance
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASTLE = os.path.join(ROOT, "docs", "castle_r5_30k.ply")

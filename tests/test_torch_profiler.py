@@ -13,6 +13,9 @@ from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import render_splats
 from brush_tpu_torch.splats import from_random
 from brush_tpu_torch.utils import profiler
+from torch_threads import pin_threads
+
+pin_threads()
 
 
 def test_sync_spans_record_timings():

@@ -44,6 +44,9 @@ from brush_tpu_torch.ops.rasterize_reference import camera_params, view_colors
 from brush_tpu_torch.train import SplatTrainer
 from brush_tpu_torch.utils.checkpoint import save_checkpoint
 from test_torch_datasets import assert_dataset_equal
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASTLE_PLY = os.path.join(ROOT, "docs", "castle_r5_30k.ply")

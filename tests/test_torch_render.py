@@ -23,6 +23,9 @@ from brush_tpu_torch.convert import splats_from_numpy
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import default_max_isects, pack_rgba_u32
 from brush_tpu_torch.render import render_splats
+from torch_threads import pin_threads
+
+pin_threads()
 
 CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 2,
            fov_y=np.pi / 2)
@@ -144,10 +147,12 @@ def test_render_backend_arguments(monkeypatch):
     """backend selects the path, on CPU and CUDA tensors alike. "pallas"
     and "auto" run the record pipeline through the kernel wrappers (here
     their plain versions) and give the same bits, with gradients too;
-    scan_passes and bwd_tiles_per_step change nothing. "xla" runs the XLA
-    backend (exact binning and the tiled rasterizer): float32 colours and
-    opacities where the pipeline's are u16, so its image is within the
-    quantization bound of the pipeline's but not equal to it. Neither path
+    bwd_tiles_per_step changes nothing; the default is scan_passes=2, as
+    in the reference, and differs from the exact scan_passes=3. "xla"
+    runs the XLA backend (exact binning and the tiled rasterizer): float32
+    colours and opacities where the pipeline's are u16, so its image is
+    within the quantization bound of the pipeline's but not equal to it.
+    Neither path
     falls back to the other: each gives the same bits with the other's
     entry point made to raise. An unknown backend raises."""
     import brush_tpu_torch.render as render_mod
@@ -167,10 +172,12 @@ def test_render_backend_arguments(monkeypatch):
         raise AssertionError("the other backend's path ran")
 
     want = grads()
-    for kw in (dict(backend="pallas"), dict(backend="auto", scan_passes=3),
+    for kw in (dict(backend="pallas"), dict(backend="auto", scan_passes=2),
                dict(backend="pallas", bwd_tiles_per_step=4)):
         for a, b in zip(grads(**kw), want):
             assert torch.equal(a, b), kw
+    exact = grads(scan_passes=3)
+    assert not all(torch.equal(a, b) for a, b in zip(exact, want))
     xla = grads(backend="xla")
     assert not torch.equal(xla[0], want[0])
     assert_close_quantized(xla[0].numpy(), want[0].numpy(),

@@ -25,6 +25,9 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import render_splats
 from test_torch_cuda import CAM, make_scene
+from torch_threads import pin_threads
+
+pin_threads()
 
 NAMES = ["means", "log_scales", "quats", "sh_coeffs", "raw_opacity"]
 SIZE = (64, 48)

@@ -26,6 +26,9 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.convert import splats_from_numpy
 from brush_tpu_torch.datasets import testing as dt
 from brush_tpu_torch.datasets.scene import Scene, SceneView
+from torch_threads import pin_threads
+
+pin_threads()
 
 KINDS = ("Points3D", "Image", "DepthImage", "Pinhole", "Transform3D",
          "Scalar")

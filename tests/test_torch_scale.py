@@ -53,6 +53,9 @@ from brush_tpu_torch.render import pool_size
 from brush_tpu_torch.train import SplatTrainer, StepStats
 from brush_tpu_torch.utils import profiler
 from test_torch_cuda import TRAIN_STAGES
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, SIZE = 2048, 64

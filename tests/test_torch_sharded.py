@@ -35,6 +35,9 @@ from brush_tpu.train import SplatTrainer as JSplatTrainer
 from brush_tpu_torch import cli
 from brush_tpu_torch.parallel import make_mesh, multihost
 from test_torch_cli import TRAIN, nerf_zip, read_metrics  # noqa: F401
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_sharded_worker.py")

@@ -35,6 +35,9 @@ from brush_tpu_torch.parallel.train_step import meta_rows, strip_decode
 from brush_tpu_torch.render import record_inputs
 from test_torch_cuda import CAM, flip_check, make_scene, port_records
 from test_torch_ops import _proj_both, _scene
+from torch_threads import pin_threads
+
+pin_threads()
 
 K_LANES = 128
 u32 = lambda t: t.numpy().view(np.uint32)

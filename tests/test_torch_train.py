@@ -23,6 +23,9 @@ from brush_tpu_torch.convert import PARAM_NAMES, splats_from_numpy
 from brush_tpu_torch.splats import PADDING_RAW_OPACITY, Splats
 from brush_tpu_torch.ssim import Ssim
 from test_e2e_train import make_gt_scene, orbit_camera, render_gt
+from torch_threads import pin_threads
+
+pin_threads()
 
 T = lambda a: torch.tensor(np.asarray(a))
 N = lambda t: t.detach().numpy()

@@ -32,6 +32,9 @@ from brush_tpu_torch.viewer import server as viewer_server
 from brush_tpu_torch.viewer.server import (
     RenderService, TrainWorker, ViewerServer,
 )
+from torch_threads import pin_threads
+
+pin_threads()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME_CAM = dict(position=[0.0, 0.0, -4.0], rotation=[1, 0, 0, 0],

@@ -38,6 +38,9 @@ from brush_tpu_torch.ops.rasterize_reference import (
 )
 from brush_tpu_torch.ops.rasterize_tiled import make_rasterizer
 from brush_tpu_torch.render import render_splats
+from torch_threads import pin_threads
+
+pin_threads()
 
 CAM = dict(position=[0.3, -0.2, -7.0], rotation=[0.99, 0.05, -0.08, 0.03],
            fov_x=1.4, fov_y=1.2)
