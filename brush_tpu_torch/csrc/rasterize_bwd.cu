@@ -131,19 +131,27 @@
 //     past the image have starts == ends and return at once. tile_base 0 is
 //     the whole-frame kernel, bit for bit.
 //   - The TPU kernel's truncated scan (scan_passes < 3 with k_lanes a
-//     multiple of 128; scan.cuh) is a second instantiation (kTrunc);
-//     the exact path's code and bits stay as they were. The TPU kernel
-//     rebuilds log T and the colour behind each batch from suffix sums of
-//     m = log1p(-alpha) and of contrib = cw fac, both cut to `passes`
-//     bfloat16 parts, and carries the truncated batch totals to the batch
-//     in front (rasterize_bwd.py:236-252, 345-346); a deep pixel's
-//     rebuilt log T and colour behind therefore drift from the forward's,
-//     and this path follows that drift. Per pixel it carries the batch's
-//     end log T and colour behind and the truncated sums of the batch's
-//     records swept so far; t_before = expf(end log T - sum - m) with the
-//     exact m. Batch ends come from each passing record's pool index, as
-//     in rasterize_fwd.cu: every block of a cell sweeps the cell's range
-//     from the cell's start, so each tile sees the cell's batches.
+//     multiple of 128; scan.cuh) is an instantiation of its own (kPasses,
+//     as in rasterize_fwd.cu; 0 is the exact path, its code and bits as
+//     they were). The TPU kernel rebuilds log T and the colour behind each
+//     batch from suffix sums of m = log1p(-alpha) and of contrib = cw fac,
+//     both cut to kPasses bfloat16 parts, and carries the cut batch totals
+//     to the batch in front (rasterize_bwd.py:236-252, 345-346). Totals
+//     plus suffix sums add, for each record, the cut terms of every
+//     record behind it in the cell: one running sum from the back, in
+//     another order. So no scan batch enters here (k_lanes is checked and
+//     not read), and each pixel carries what the exact path carries: T
+//     behind the record t_cur, T before it t_cur / (1 - alpha), T in front
+//     of it that times exp(r) = 1 + r, r the rest of m past its parts (a
+//     fused multiply-add), and s_behind, which adds the cut contrib. A
+//     log1pf an active pair remains, for r, and two terms' parts. On the
+//     bench render's inputs (an NVIDIA H100 80GB HBM3 at 700 W,
+//     scripts/torch_kernel_variants.py, in turns; PERF.md §6, row 3):
+//     1.296 ms at k_lanes 128 against 1.800 for the first version (the
+//     batch's end log T and colour behind and both cut sums in the log
+//     domain, a log1pf and an expf a pair; 91 registers, 90 now, five
+//     blocks an SM either way) and the exact path's 1.056; 1.124 without
+//     the log1pf (timing only).
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, row 3;
 // scripts/torch_kernel_variants.py, the last version in the same process):
 // at the bench's training arguments at 4M 1.06 ms against 1.30, 7.6 times
@@ -277,17 +285,16 @@ __device__ __forceinline__ int cell_max_fidx(const int* __restrict__ fidx_in,
   return tmax;
 }
 
-// kTrunc: the TPU kernel's truncated scan (scan.cuh: passes parts a term,
-// batches of k_lanes slots); false compiles the exact path, T carried by
-// division, unchanged by the mode.
-template <bool kTrunc>
+// kPasses > 0: the TPU kernel's truncated scan (scan.cuh: kPasses parts a
+// term); 0 compiles the exact path, unchanged by the mode.
+template <int kPasses>
 __global__ void __launch_bounds__(kThreads)
 rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends, int tile_base,
-                     int cells_x, int cell_w, int cell_h, int passes,
-                     int k_lanes, const float* __restrict__ v_out,
+                     int cells_x, int cell_w, int cell_h,
+                     const float* __restrict__ v_out,
                      const float* __restrict__ log_t_in,
                      const int* __restrict__ fidx_in,
                      float* __restrict__ grads,
@@ -335,16 +342,10 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
   const float px0 = static_cast<float>(tx + lx) + 0.5f;
   const float py0 = static_cast<float>(ty + ly) + 0.5f;
   int fidx[kPix];
+  // t_cur: T behind the record swept; s_behind: the colour behind it. In
+  // the truncated scan both come from the records' terms cut to kPasses
+  // parts (the header says why the scan batches drop out).
   float vr[kPix], vg[kPix], vb[kPix], tfva[kPix], t_cur[kPix], s_behind[kPix];
-  // The truncated scan: t_cur holds the scan batch's end log T and
-  // s_behind its colour behind, each carried to the batch in front by the
-  // batch's truncated totals (rasterize_bwd.py:345-346); sum_m and sum_c
-  // are the truncated sums of m = log1p(-alpha) and of cw fac over the
-  // batch's records swept so far (those behind the record), and
-  // scan_first the batch's first slot (warp-uniform).
-  float sum_m[kPix], sum_c[kPix];
-  const int scan_base = start / kLaneAlign * kLaneAlign;
-  int scan_first = 0x7FFFFFFF;
   int wmax = -1;  // the last record any pixel of the warp composited
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
@@ -357,9 +358,8 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
     vb[q] = v_out[p * 4 + 2];
     const float t_final = expf(log_t_in[p]);
     tfva[q] = t_final * v_out[p * 4 + 3];
-    t_cur[q] = kTrunc ? log_t_in[p] : t_final;  // T behind the record swept
+    t_cur[q] = t_final;
     s_behind[q] = 0.0f;
-    sum_m[q] = sum_c[q] = 0.0f;
     wmax = max(wmax, fidx[q]);
   }
   wmax = __reduce_max_sync(kFull, wmax);
@@ -472,18 +472,6 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
         if (i0 - u < 0) break;
         const int k = ks[u];
         if ((warps >> (u * kPix)) & ((1u << kPix) - 1u)) {  // warp-uniform
-          if constexpr (kTrunc) {
-            const int j = b_start + k;
-            if (j < scan_first) {  // a scan batch in front: fold the sums
-              scan_first = scan_batch_start(j, scan_base, k_lanes);
-#pragma unroll
-              for (int q = 0; q < kPix; ++q) {
-                t_cur[q] = __fsub_rn(t_cur[q], sum_m[q]);
-                s_behind[q] = __fadd_rn(s_behind[q], sum_c[q]);
-                sum_m[q] = sum_c[q] = 0.0f;
-              }
-            }
-          }
           const float4* rec = reinterpret_cast<const float4*>(s_rec[k]);
           const float4 ra4 = rec[0], rb4 = rec[1], rc4 = rec[2];
           const float x = ra4.x, y = ra4.y, cxx = ra4.z, cxy = ra4.w;
@@ -502,21 +490,18 @@ rasterize_bwd_kernel(const int* __restrict__ packed, int pool,
             const float dy = __fsub_rn(y, pixel_y(py0, q));
             const float ra = __fdividef(1.0f, 1.0f - alpha);
             const float cw = cr * vr[q] + cg * vg[q] + cb * vb[q];
-            float t_before, fac, v_alpha;
-            if constexpr (kTrunc) {
-              // log T after the record from the truncated sum of the
-              // batch's records behind it; T before it by the exact m.
-              const float m = log1pf(-alpha);
-              t_before = expf(__fsub_rn(__fsub_rn(t_cur[q], sum_m[q]), m));
-              fac = alpha * t_before;
-              v_alpha = cw * t_before +
-                        ra * (tfva[q] - __fadd_rn(s_behind[q], sum_c[q]));
-              sum_m[q] = __fadd_rn(sum_m[q], scan_term(m, passes));
-              sum_c[q] = __fadd_rn(sum_c[q], scan_term(cw * fac, passes));
+            const float t_before = t_cur[q] * ra;
+            const float fac = alpha * t_before;
+            const float v_alpha = cw * t_before + ra * (tfva[q] - s_behind[q]);
+            if constexpr (kPasses > 0) {
+              // The record's terms cut to kPasses parts: the colour's
+              // added, and T in front of the record is T before it times
+              // exp(rest) of log1p(-alpha) (rasterize_bwd.py:236-252).
+              s_behind[q] = __fadd_rn(
+                  s_behind[q], scan_term<kPasses>(__fmul_rn(cw, fac)));
+              t_cur[q] = times_exp<kPasses>(
+                  t_before, scan_rest<kPasses>(log1pf(-alpha)));
             } else {
-              t_before = t_cur[q] * ra;
-              fac = alpha * t_before;
-              v_alpha = cw * t_before + ra * (tfva[q] - s_behind[q]);
               s_behind[q] += cw * fac;
               t_cur[q] = t_before;
             }
@@ -580,15 +565,23 @@ cell_sum_kernel(int pool, const int* __restrict__ starts, int tiles_a_cell,
   }
 }
 
+// The sweep at passes (0: the exact scan).
+decltype(&rasterize_bwd_kernel<0>) kernel_of(int passes) {
+  return passes == 1   ? &rasterize_bwd_kernel<1>
+         : passes == 2 ? &rasterize_bwd_kernel<2>
+                       : &rasterize_bwd_kernel<0>;
+}
+
 }  // namespace
 
 // num_cells cells of cell_w x cell_h tiles, cells_x a row; (1, 1) for
 // tiles. Local cell t is the image's cell tile_base + t (a strip; 0 for the
 // whole frame). passes 0: the exact scan; 1 or 2: the truncated scan of
 // that many bfloat16 parts over batches of k_lanes slots (a multiple of
-// 128). order: num_cells ints of scratch; partial: with G = cell_w
-// cell_h > 1 tiles a cell, (G - 1) x 9 x pool floats and then num_cells
-// ints of scratch (unread at (1, 1)).
+// 128; checked, though the sums do not depend on it). order: num_cells
+// ints of scratch; partial: with G = cell_w cell_h > 1 tiles a cell,
+// (G - 1) x 9 x pool floats and then num_cells ints of scratch (unread at
+// (1, 1)).
 extern "C" int rasterize_bwd_launch(const int* packed, int pool,
                                     const int* starts, const int* ends,
                                     int num_cells, int tile_base,
@@ -609,20 +602,26 @@ extern "C" int rasterize_bwd_launch(const int* packed, int pool,
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  if (passes > 0) {
-    rasterize_bwd_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 s>>>(
-        packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
-        passes, k_lanes, v_out, log_t, fidx, grads, partial);
-  } else {
-    rasterize_bwd_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                  s>>>(
-        packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
-        passes, k_lanes, v_out, log_t, fidx, grads, partial);
-  }
+  kernel_of(passes)<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
+      v_out, log_t, fidx, grads, partial);
   if (cell_w * cell_h > 1) {
     cell_sum_kernel<<<num_cells * kSumSplit, kSumThreads, 0, s>>>(
         pool, starts, cell_w * cell_h, grads, partial);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled sweep at passes (0: the exact scan): out[0] its registers a
+// thread, out[1] its local memory a thread in bytes (spills), out[2] the
+// blocks an SM can hold.
+extern "C" int rasterize_bwd_attrs(int passes, int* out) {
+  const void* fn = reinterpret_cast<const void*>(kernel_of(passes));
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], fn, kThreads, 0));
 }

@@ -83,25 +83,34 @@
 //     multiplies and three fused multiply-adds and no log1pf (a third
 //     slower with the sum of logs).
 //   - The TPU kernel's truncated scan (its scan_passes < 3 with k_lanes a
-//     multiple of 128; scan.cuh), the reference's shipping default,
-//     is a second instantiation (kTrunc), so the exact path's code and
-//     bits stay as they were. Within each batch of k_lanes pool slots
-//     from the cell's start rounded down to 128, the crossing test and
-//     each record's T take the prefix sum of its log1p(-alpha) terms cut
-//     to `passes` bfloat16 parts; log T carries from batch to batch by
-//     the exact terms (rasterize_fwd.py:437-469). A running product
-//     cannot express a truncated prefix, so this path works in the log
-//     domain: per pixel the carry over the earlier batches, this batch's
-//     exact sum and its truncated sum; T before a record is
-//     expf(carry + truncated - log1p(-alpha)), and the pixel stops where
-//     carry + truncated <= log(1e-4). A batch's end is found from each
-//     passing record's pool index (its slot, at cells), not from the
-//     staging batches of kBatch records, which start at the cell's start
-//     and bear no relation to the TPU kernel's; a record left off a list
-//     or failing the pretest has alpha 0, log1p 0 and bfloat16 parts 0,
-//     so folding the sums at the next passing record's batch is exact.
-//     The log1pf and the second expf cost about a third more per active
-//     pair (PERF.md §6 has the times).
+//     multiple of 128; scan.cuh), the reference's shipping default, is an
+//     instantiation of its own (kPasses, the bfloat16 parts a term keeps,
+//     1 or 2; 0 is the exact path, whose code and bits stay as they
+//     were). Within each batch of k_lanes pool slots from the cell's start
+//     rounded down to 128, the crossing test and each record's T take the
+//     prefix sum of its log1p(-alpha) terms cut to kPasses parts; log T
+//     carries from batch to batch by the exact terms (rasterize_fwd.py
+//     :437-469). As products: a term cut to its parts is the exact term
+//     less its rest r (|r| <= 2^-16 of it at two parts), so a pixel carries
+//     t_cur, T through this batch's cut terms, and t_exact, T through the
+//     exact ones, which t_cur takes at each new batch; T before a record is
+//     t_cur (1 - r), after it that times 1 - alpha, a fused multiply-add
+//     each, and the pixel stops where that is not above exp of the
+//     float32 log(1e-4). A log1pf an active pair remains, for r, and no
+//     exp. A batch's end comes from each passing record's pool index (its
+//     slot, at cells), not from the staging batches of kBatch records,
+//     which start at the cell's start and bear no relation to the TPU
+//     kernel's; a record left off a list or failing the pretest moves
+//     neither product, so taking t_exact at the next passing record's
+//     batch is exact. On the bench render's inputs (the H100 above,
+//     in turns; PERF.md §6, row 2): 0.706 ms at k_lanes 128, against 0.838 for the first version (log T
+//     in the log domain: a log1pf and a second expf an active pair, scan.cuh
+//     's parts in a loop over a runtime count) and the exact path's 0.443.
+//     The log1pf sets the pace: 0.487 without it (timing only). A step that
+//     handed its counted pairs' log1pf to the warp's lanes in turn, a pair
+//     a lane through shared memory, took 0.784: the hand-off cost more
+//     than the idle lanes it saved (about a third of a (warp, record)'s
+//     lanes count).
 //   - The early-out. A pixel that crossed the threshold drops out of the
 //     pretest; a warp whose pixels have all crossed skips its sweeps, and
 //     the block leaves its loop when no pixel of the tile is live. The
@@ -188,9 +197,11 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kAlphaMax = static_cast<float>(0.999);
 constexpr float kAlphaEps = static_cast<float>(1.0 / 255.0);
 constexpr float kTEps = 1e-4f;  // TRANSMITTANCE_EPS
-// log(TRANSMITTANCE_EPS) rounded to float, as the plain version and the
-// TPU kernel compare a float32 log T with it.
-constexpr float kLogTEps = static_cast<float>(-9.210340371976182);
+// The truncated scan's threshold: the plain version and the TPU kernel
+// compare a float32 log T with log(TRANSMITTANCE_EPS) rounded to float
+// (-9.2103405); this is exp of that, rounded to float (one ulp under
+// 1e-4f), which the running product is compared with.
+constexpr float kTEpsScan = 0x1.a36e2cp-14f;
 constexpr float kColorLo = -4.0f;
 constexpr float kColorStep = static_cast<float>(1.0 / (65535.0 / 8.0));
 constexpr float kOpacStep = static_cast<float>(1.0 / 65535.0);
@@ -254,21 +265,22 @@ __device__ __forceinline__ void store_record(float (*s_rec)[kRecFloats],
 
 // kCells: cells of several tiles (cell_w cell_h > 1); false compiles the
 // tile kernel, without the division that maps a block to its cell and
-// without the tile cull. kTrunc: the TPU kernel's truncated scan (scan.cuh,
-// passes parts a term, batches of k_lanes slots); false compiles the exact
-// path, T as a running product, unchanged by the mode. Blocks an SM: four for tiles, three at cells
-// (measured on the bench's inputs in turns, device ms: tiles 0.446 at
+// without the tile cull. kPasses > 0: the TPU kernel's truncated scan
+// (scan.cuh, kPasses parts a term, batches of k_lanes slots); 0 compiles
+// the exact path, unchanged by the mode. Blocks an SM: four for tiles,
+// three at cells (measured on the bench's inputs in turns, device ms: tiles
+// 0.446 at
 // four, 0.478 at three, 0.484 unbounded at 76 registers; (2, 2) 0.649 at
 // three, 0.684 at four, 0.760 unbounded at 98 registers, two blocks;
 // (4, 2) 0.829, 0.802, 0.934).
-template <bool kCells, bool kTrunc>
+template <bool kCells, int kPasses>
 __global__ void __launch_bounds__(kThreads, kCells ? 3 : 4)
 rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
                      const int* __restrict__ order,
                      const int* __restrict__ starts,
                      const int* __restrict__ ends, int tile_base,
-                     int cells_x, int cell_w, int cell_h, int passes,
-                     int k_lanes, float* __restrict__ img,
+                     int cells_x, int cell_w, int cell_h, int k_lanes,
+                     float* __restrict__ img,
                      float* __restrict__ log_t_out,
                      int* __restrict__ fidx_out) {
   __shared__ int s_raw[kRawRows][kBatch];
@@ -311,12 +323,12 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
   const float warp_ya = tile_ya + static_cast<float>((warp >> 1) * 4);
   unsigned short* list = s_list[warp];
 
-  float t_cur = 1.0f;  // T so far (the exact path)
-  // The truncated scan carries log T: lt_carry over the scan batches
-  // before this one (exact terms), lt_exact and lt_scan this batch's
-  // exact and truncated sums so far; scan_end is the slot past this scan
-  // batch (warp-uniform: the list is the warp's, in depth order).
-  float lt_carry = 0.0f, lt_exact = 0.0f, lt_scan = 0.0f;
+  float t_cur = 1.0f;  // T so far
+  // The truncated scan: t_cur is T with this scan batch's terms cut to
+  // kPasses parts, t_exact T by the exact terms, which t_cur takes at each
+  // new batch (the TPU kernel's carry); scan_end is the slot past this
+  // scan batch (warp-uniform: the list is the warp's, in depth order).
+  float t_exact = 1.0f;
   const int scan_base = start / kLaneAlign * kLaneAlign;
   int scan_end = -1;
   float r = 0.0f, g = 0.0f, b = 0.0f;
@@ -458,12 +470,10 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
         if (!((warps >> u) & 1u)) continue;  // warp-uniform
         const int k = ks[u];
         const int j = base + (kCells ? s_slot[k] : k);
-        if constexpr (kTrunc) {
-          if (j >= scan_end) {  // a new scan batch: fold the exact sum
-            const int first = scan_batch_start(j, scan_base, k_lanes);
-            scan_end = first + k_lanes;
-            lt_carry = __fadd_rn(lt_carry, lt_exact);
-            lt_exact = lt_scan = 0.0f;
+        if constexpr (kPasses > 0) {
+          if (j >= scan_end) {  // a new scan batch: the exact T carries
+            scan_end = scan_batch_start(j, scan_base, k_lanes) + k_lanes;
+            t_cur = t_exact;
           }
         }
         const float2 oc = *reinterpret_cast<const float2*>(&s_rec[k][6]);
@@ -473,19 +483,21 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
         const float alpha = fminf(kAlphaMax, __fmul_rn(oc.x, vis));
         if (alpha < kAlphaEps) continue;
         float fac;
-        if constexpr (kTrunc) {
-          // The crossing test and T take the batch's truncated prefix,
-          // the carry and T's own term the exact log1p (rasterize_fwd.py
-          // :437-469).
-          const float lom = log1pf(-alpha);
-          lt_scan = __fadd_rn(lt_scan, scan_term(lom, passes));
-          const float after = __fadd_rn(lt_carry, lt_scan);
-          if (!(after > kLogTEps)) {
+        if constexpr (kPasses > 0) {
+          // T before the record is the batch's truncated prefix before it
+          // plus the record's own exact term, less its truncated term:
+          // t_cur exp(-rest); the crossing test takes the prefix after it,
+          // that T (1 - alpha) (rasterize_fwd.py:437-469).
+          const float before =
+              times_exp<kPasses>(t_cur, -scan_rest<kPasses>(log1pf(-alpha)));
+          const float after = fmaf(-alpha, before, before);
+          if (!(after > kTEpsScan)) {
             alive = false;
             continue;
           }
-          fac = alpha * expf(__fsub_rn(after, lom));
-          lt_exact = __fadd_rn(lt_exact, lom);
+          fac = alpha * before;
+          t_cur = after;
+          t_exact = fmaf(-alpha, t_exact, t_exact);
         } else {
           const float after = t_cur * (1.0f - alpha);
           if (after <= kTEps) {
@@ -507,10 +519,9 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
 
   const size_t p = static_cast<size_t>(t) * kPixels * tiles_a_cell +
                    static_cast<size_t>(ly) * cell_px + lx;
-  if constexpr (kTrunc) {
-    const float lt = __fadd_rn(lt_carry, lt_exact);
-    reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - expf(lt));
-    log_t_out[p] = lt;
+  if constexpr (kPasses > 0) {
+    reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - t_exact);
+    log_t_out[p] = logf(t_exact);
   } else {
     reinterpret_cast<float4*>(img)[p] = make_float4(r, g, b, 1.0f - t_cur);
     log_t_out[p] = logf(t_cur);
@@ -518,20 +529,21 @@ rasterize_fwd_kernel(const int* __restrict__ packed, int pool,
   fidx_out[p] = fidx;
 }
 
-template <bool kTrunc>
-void launch(const int* packed, int pool, const int* order, const int* starts,
-            const int* ends, int num_cells, long long blocks, int tile_base,
-            int cells_x, int cell_w, int cell_h, int passes, int k_lanes,
-            float* img, float* log_t, int* fidx, cudaStream_t s) {
-  if (blocks == num_cells) {
-    rasterize_fwd_kernel<false, kTrunc><<<num_cells, kThreads, 0, s>>>(
-        packed, pool, order, starts, ends, tile_base, cells_x, 1, 1, passes,
-        k_lanes, img, log_t, fidx);
-  } else {
-    rasterize_fwd_kernel<true, kTrunc>
-        <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-            packed, pool, order, starts, ends, tile_base, cells_x, cell_w,
-            cell_h, passes, k_lanes, img, log_t, fidx);
+using FwdKernel = decltype(&rasterize_fwd_kernel<false, 0>);
+
+// The instantiation for cells of several tiles (or for tiles) at passes
+// (0: the exact scan).
+FwdKernel kernel_of(bool cells, int passes) {
+  switch (passes) {
+    case 1:
+      return cells ? &rasterize_fwd_kernel<true, 1>
+                   : &rasterize_fwd_kernel<false, 1>;
+    case 2:
+      return cells ? &rasterize_fwd_kernel<true, 2>
+                   : &rasterize_fwd_kernel<false, 2>;
+    default:
+      return cells ? &rasterize_fwd_kernel<true, 0>
+                   : &rasterize_fwd_kernel<false, 0>;
   }
 }
 
@@ -561,14 +573,23 @@ extern "C" int rasterize_fwd_launch(const int* packed, int pool,
   auto s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, kOrderThreads, 0, s>>>(starts, ends, num_cells,
                                                 order);
-  if (passes > 0) {
-    launch<true>(packed, pool, order, starts, ends, num_cells, blocks,
-                 tile_base, cells_x, cell_w, cell_h, passes, k_lanes, img,
-                 log_t, fidx, s);
-  } else {
-    launch<false>(packed, pool, order, starts, ends, num_cells, blocks,
-                  tile_base, cells_x, cell_w, cell_h, passes, k_lanes, img,
-                  log_t, fidx, s);
-  }
+  kernel_of(blocks != num_cells, passes)<<<static_cast<unsigned>(blocks),
+                                          kThreads, 0, s>>>(
+      packed, pool, order, starts, ends, tile_base, cells_x, cell_w, cell_h,
+      k_lanes, img, log_t, fidx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled kernel of tiles (cells 0) or cells (1) at passes (0: the
+// exact scan): out[0] its registers a thread, out[1] its local memory a
+// thread in bytes (spills), out[2] the blocks an SM can hold.
+extern "C" int rasterize_fwd_attrs(int cells, int passes, int* out) {
+  const void* fn = reinterpret_cast<const void*>(kernel_of(cells, passes));
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], fn, kThreads, 0));
 }

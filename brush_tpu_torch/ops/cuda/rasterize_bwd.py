@@ -236,3 +236,19 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
     build.check(rc, "rasterize_bwd")
     launches += 1
     return grads
+
+
+def kernel_attrs() -> dict:
+    """What nvcc made of each instantiation of the CUDA sweep, read on the
+    card (cudaFuncGetAttributes): {passes: (registers a thread, local
+    memory a thread in bytes, blocks an SM can hold)}; passes 0 is the
+    exact scan."""
+    fn = build.load("rasterize_bwd").rasterize_bwd_attrs
+    fn.argtypes = [_I, _P]
+    fn.restype = _I
+    out = {}
+    for passes in (0, 1, 2):
+        vals = (ctypes.c_int * 3)()
+        build.check(fn(passes, vals), "rasterize_bwd attrs")
+        out[passes] = tuple(vals)
+    return out

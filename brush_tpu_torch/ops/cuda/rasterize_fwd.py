@@ -375,3 +375,20 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
     build.check(rc, "rasterize_fwd")
     launches += 1
     return img, log_t, fidx
+
+
+def kernel_attrs() -> dict:
+    """What nvcc made of each instantiation of the CUDA kernel, read on the
+    card (cudaFuncGetAttributes): {(cells, passes): (registers a thread,
+    local memory a thread in bytes, blocks an SM can hold)}; cells False
+    is the tile kernel, passes 0 the exact scan."""
+    fn = build.load("rasterize_fwd").rasterize_fwd_attrs
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = _I
+    out = {}
+    for cells in (False, True):
+        for passes in (0, 1, 2):
+            vals = (ctypes.c_int * 3)()
+            build.check(fn(int(cells), passes, vals), "rasterize_fwd attrs")
+            out[cells, passes] = tuple(vals)
+    return out

@@ -11,7 +11,10 @@ segment_sum on these segment layouts (`hand_segments`,
 `may_reach_f32` is the float32 twin of the rule by
 which both rasterizers leave records out of a tile's or a warp's work
 (csrc/reach.cuh), `warp_patches` and `fwd_warp_patches` the rectangles
-they apply it to.
+they apply it to. `rasterize_fwd_twin` and `rasterize_bwd_twin` follow
+the CUDA kernels' truncated scan step by step on CPU tensors (T as
+running products, csrc/scan.cuh), where the plain versions follow the
+TPU kernels' log-domain formula.
 """
 
 import numpy as np
@@ -476,6 +479,183 @@ def may_reach_f32(x, y, cxx, cxy, cyy, sigma_max, xa, xb, ya, yb):
         far = least > smax + 1e-5 * (mag + 1.0)   # reach.cuh kReachMargin
     return ~(definite & outside & far)
 
+
+# The truncated scan's crossing threshold as the kernels hold it: T is
+# compared with exp of the float32 log(TRANSMITTANCE_EPS) (-9.2103405),
+# rounded to float32 (csrc/rasterize_fwd.cu kTEpsScan).
+T_EPS_SCAN = float.fromhex("0x1.a36e2cp-14")
+
+
+def fma_f32(a, b, c):
+    """fmaf on float32 tensors (or numbers): a b + c rounded once, through
+    float64, where a b is exact (where the float64 sum falls on a float32
+    tie, the second rounding may differ from fmaf's in the last bit)."""
+    import torch
+
+    a, b, c = (torch.as_tensor(v, dtype=torch.float32).double()
+               for v in (a, b, c))
+    return (a * b + c).float()
+
+
+def scan_rest_f32(x, passes):
+    """csrc/scan.cuh's scan_rest: x less its first `passes` bfloat16 parts,
+    exactly."""
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import bf16_parts
+
+    return x - bf16_parts(x, passes)
+
+
+def times_exp_f32(v, r, passes):
+    """csrc/scan.cuh's times_exp: v exp(r) for a scan rest r, one fmaf at
+    two parts or more, a cubic at one."""
+    if passes >= 2:
+        return fma_f32(v, r, v)
+    sixth = fma_f32(r, 1.0 / 6.0, 0.5)   # 1/6 rounded to float32 first
+    return v * fma_f32(r, fma_f32(r, sixth, 1.0), 1.0)
+
+
+def _twin_records(packed, starts, ends, tiles_x, cell, tile_base, order):
+    """What both twins share: the decoded pool rows (float32, as the
+    kernels decode them), each cell's pixel centres (C, P) x and y, and
+    the pool slot of each cell's record at each step (C, L), -1 past the
+    cell's range: in depth order from starts (order 1) or back to front
+    from ends (order -1)."""
+    import torch
+
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import (
+        cell_lanes, unpack_record_rows,
+    )
+
+    rows = unpack_record_rows(packed)
+    n = starts.shape[0]
+    pix = torch.stack([cell_lanes(tiles_x, cell, tile_base + t, packed.device)
+                       for t in range(n)]) if n else torch.zeros(0, 0, 2)
+    s, e = starts.long(), ends.long()
+    steps = int((e - s).clamp(min=0).max()) if n else 0
+    i = torch.arange(steps)[None, :]
+    slot = s[:, None] + i if order == 1 else e[:, None] - 1 - i
+    slot = torch.where((slot >= s[:, None]) & (slot < e[:, None]), slot, -1)
+    return rows, pix[..., 0], pix[..., 1], slot
+
+
+def _twin_alpha(rows, j, px, py):
+    """The kernels' pair arithmetic for records j (C,) over pixels (C, P):
+    sigma op by op, the pretest (0 <= sigma <= log(255 o) + 1e-4), vis,
+    alpha; returns (fields of j, vis, alpha, active) with active the pairs
+    that count."""
+    import torch
+
+    from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
+
+    f = [r[j.clamp(min=0)][:, None] for r in rows]
+    x, y, cxx, cxy, cyy, _, _, _, o = f
+    dx, dy = x - px, y - py
+    sigma = 0.5 * (cxx * dx * dx + cyy * dy * dy) + cxy * dx * dy
+    smax = torch.log(255.0 * o) + 1e-4
+    vis = torch.exp(-sigma)
+    alpha = torch.clamp(o * vis, max=ALPHA_MAX)
+    active = ((j >= 0)[:, None] & (sigma >= 0.0) & (sigma <= smax)
+              & (alpha >= ALPHA_EPS))
+    return f, dx, dy, vis, alpha, active
+
+
+def rasterize_fwd_twin(packed, starts, ends, tiles_x, cell=(1, 1),
+                       tile_base=0, passes=2, k_lanes=512):
+    """csrc/rasterize_fwd.cu's truncated scan (passes 1 or 2, batches of
+    k_lanes slots from each cell's start rounded down to 128) step by step
+    on CPU tensors, every pixel of every cell at once, a record a step:
+    T carried as a running product t_cur with each record's term cut to
+    `passes` bfloat16 parts (T before the record t_cur exp(-rest), after
+    it that times 1 - alpha, as fmaf(-alpha, before, before)), the crossing
+    test that product against T_EPS_SCAN, t_exact the product of the exact
+    terms, which t_cur takes at each scan batch's first slot. (The kernel
+    takes it at the warp's first record of the batch that passes the
+    pretest; no term of the pixel's moves either product before that.)
+    Returns (img (C, P, 4), log_t (C, P), final_idx (C, P)) as
+    rasterize_fwd_plain does."""
+    import torch
+
+    rows, px, py, slot = _twin_records(packed, starts, ends, tiles_x, cell,
+                                       tile_base, 1)
+    shape = px.shape
+    one = torch.ones(shape)
+    t_cur, t_exact = one.clone(), one.clone()
+    alive = torch.ones(shape, dtype=torch.bool)
+    rgb = [torch.zeros(shape) for _ in range(3)]
+    fidx = torch.full(shape, -1, dtype=torch.int64)
+    base = (starts.long() // 128 * 128)[:, None]
+    for i in range(slot.shape[1]):
+        j = slot[:, i]
+        first = ((j[:, None] - base) % k_lanes == 0) & (j >= 0)[:, None]
+        t_cur = torch.where(first, t_exact, t_cur)
+        f, _, _, _, alpha, active = _twin_alpha(rows, j, px, py)
+        active &= alive
+        rest = scan_rest_f32(torch.log1p(-alpha), passes)
+        before = times_exp_f32(t_cur, -rest, passes)
+        after = fma_f32(-alpha, before, before)
+        cross = active & ~(after > T_EPS_SCAN)
+        alive &= ~cross
+        ok = active & ~cross
+        fac = alpha * before
+        rgb = [torch.where(ok, fma_f32(fac, c, acc), acc)
+               for c, acc in zip(f[5:8], rgb)]
+        t_cur = torch.where(ok, after, t_cur)
+        t_exact = torch.where(ok, fma_f32(-alpha, t_exact, t_exact), t_exact)
+        fidx = torch.where(ok, j[:, None], fidx)
+    img = torch.stack([*rgb, 1.0 - t_exact], dim=-1)
+    return img, torch.log(t_exact), fidx.to(torch.int32)
+
+
+def rasterize_bwd_twin(packed, starts, ends, tiles_x, v_out, log_t, fidx,
+                       cell=(1, 1), tile_base=0, passes=2):
+    """csrc/rasterize_bwd.cu's truncated scan step by step on CPU tensors,
+    every pixel of every cell at once, a record a step back to front from
+    min(end, the cell's largest final_idx + 1) - 1: T behind the record
+    t_cur starts at exp(log_t); T before it t_cur / (1 - alpha); T in front
+    of it that times exp(rest of log1p(-alpha) past its `passes` bfloat16
+    parts), one fmaf; the colour behind adds each record's cw fac cut to
+    its parts. No scan batch enters: the TPU kernel's batch totals and
+    suffix sums add the same cut terms in another order. Returns grads
+    (9, pool), each row summed over the record's cell, as
+    rasterize_bwd_plain does."""
+    import torch
+
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import bf16_parts
+
+    last = torch.minimum(ends.long(), fidx.long().amax(dim=1) + 1)
+    rows, px, py, slot = _twin_records(packed, starts, last, tiles_x, cell,
+                                       tile_base, -1)
+    grads = torch.zeros((9, packed.shape[1]))
+    vr, vg, vb, va = v_out.unbind(-1)
+    t_cur = torch.exp(log_t)
+    tfva = t_cur * va
+    s_behind = torch.zeros(px.shape)
+    fi = fidx.long()
+    for i in range(slot.shape[1]):
+        j = slot[:, i]
+        f, dx, dy, vis, alpha, active = _twin_alpha(rows, j, px, py)
+        active &= j[:, None] <= fi
+        _, _, cxx, cxy, cyy, cr, cg, cb, o = f
+        ra = 1.0 / (1.0 - alpha)
+        cw = cr * vr + cg * vg + cb * vb
+        t_before = t_cur * ra
+        fac = alpha * t_before
+        v_alpha = cw * t_before + ra * (tfva - s_behind)
+        s_behind = torch.where(active, s_behind + bf16_parts(
+            cw * fac, passes), s_behind)
+        t_cur = torch.where(active, times_exp_f32(
+            t_before, scan_rest_f32(torch.log1p(-alpha), passes), passes),
+            t_cur)
+        vs = -o * vis * v_alpha
+        vx, vy = vs * dx, vs * dy
+        terms = (cxx * vx + cxy * vy, cxy * vx + cyy * vy, 0.5 * vx * dx,
+                 vx * dy, 0.5 * vy * dy, fac * vr, fac * vg, fac * vb,
+                 vis * v_alpha)
+        sums = torch.stack([torch.where(active, g, 0.0).sum(dim=1)
+                            for g in terms])
+        live = j >= 0
+        grads[:, j[live]] = sums[:, live]
+    return grads
 
 def hand_cells(case):
     """Backward arguments at raster cells made by hand, which the scenes do

@@ -96,7 +96,10 @@ result line; each phase prints its seconds):
      counted with the others) and timed in turns, at (1, 1) and at CELL,
      and at scan_passes=2 on every hand layout and scan_edge (its named
      pixels one record from the exact scan's); the kernels line's "scan"
-     entries. Wherever two layouts of the same records are held
+     entries; each instantiation's registers, local (spill) bytes and
+     blocks an SM ("[scan attrs]"); truncated against exact device ms,
+     in turns, at T, 2x2 T and the strip, and in phases 12 and 13 at B
+     and Q ("[scan ratio]"). Wherever two layouts of the same records are held
      bit-equal (strips against the frame, phase 3) both take the exact
      scan: the truncated scan's batches follow each pool's ranges;
   7. a real model trains: the castle's SH DC coefficients perturbed by
@@ -529,9 +532,9 @@ def raster_diff(out, plain, atol=1e-5, transmittance=False):
     record on the other side of the alpha or the transmittance threshold.
     With `transmittance` T = exp(log T) stands for log T throughout, and
     a pixel whose final_idx differs is a flip too: in the truncated scan
-    both sides sum log T in float32, the kernel record by record, the
-    plain version by torch's scans and reductions, some 1e-5 apart on a
-    pixel of hundreds of records, so a crossing within that of
+    the kernel carries T as float32 products record by record, the plain
+    version sums log T by torch's scans and reductions, some 1e-5 apart
+    on a pixel of hundreds of records, so a crossing within that of
     LOG_T_EPS can fall one record apart, where the record's alpha near
     1/255 moves T (~1e-4) by less than atol.
     Returns dict(err=largest img or log T difference on the other pixels,
@@ -1499,7 +1502,8 @@ def train_kernels(kept, tag="train", reach=True):
         # scripts/torch_kernel_variants.py --args-file.
         os.makedirs(SAVE_ARGS_DIR, exist_ok=True)
         name = re.sub(r"[^A-Za-z0-9]+", "_", tag).strip("_")
-        torch.save({"when": f"{tag}, {when}", "rasterize_bwd": b_args,
+        torch.save({"when": f"{tag}, {when}", "rasterize_fwd": r_args,
+                    "rasterize_fwd kw": r_kw, "rasterize_bwd": b_args,
                     "rasterize_bwd kw": b_kw, "segment_sum": s_args},
                    os.path.join(SAVE_ARGS_DIR, f"{name}.pt"))
     print(f"[{tag} kernels] {when}: "
@@ -1520,6 +1524,55 @@ def train_kernels(kept, tag="train", reach=True):
                                           if key != "out"},
                         "rasterize_bwd": {key: v for key, v in b.items()
                                           if key != "grads"}})
+
+
+def scan_attrs():
+    """Print what nvcc made of every instantiation of both rasterizers
+    (registers and local memory a thread, blocks an SM), read on the
+    card."""
+    from brush_tpu_torch.ops.cuda import rasterize_bwd, rasterize_fwd
+
+    name = {0: "exact", 1: "truncated 1 part", 2: "truncated 2 parts"}
+    fwd = [f"{'cells' if cells else 'tiles'} {name[p]} {a[0]} registers, "
+           f"{a[1]} local bytes, {a[2]} blocks an SM"
+           for (cells, p), a in rasterize_fwd.kernel_attrs().items()]
+    bwd = [f"{name[p]} {a[0]} registers, {a[1]} local bytes, {a[2]} blocks "
+           f"an SM" for p, a in rasterize_bwd.kernel_attrs().items()]
+    print(f"[scan attrs] rasterize_fwd: {'; '.join(fwd)}. rasterize_bwd: "
+          f"{'; '.join(bwd)}")
+
+
+def scan_ratio(r_args, v_out, kw, label):
+    """Device ms of both rasterizers in the truncated scan (kw) and in the
+    exact scan on the same arguments, in turns (two rounds, the second in
+    the reverse order; device_ms), each backward on its own mode's forward
+    outputs and the cotangent v_out; prints them and their ratios and
+    returns {kernel: (truncated ms, exact ms)}."""
+    from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+
+    calls = {}
+    for mode, k in (("truncated", kw), ("exact", EXACT)):
+        _, log_t, fidx = rasterize_fwd(*r_args, **k)
+        b_args = (*r_args[:4], v_out, log_t, fidx, *r_args[4:])
+        calls[mode] = {
+            "rasterize_fwd": (lambda a=r_args, k=k: rasterize_fwd(*a, **k),
+                              20),
+            "rasterize_bwd": (lambda a=b_args, k=k: rasterize_bwd(*a, **k),
+                              10)}
+    ms = {}
+    for order in (("truncated", "exact"), ("exact", "truncated")):
+        for mode in order:
+            for name, (fn, reps) in calls[mode].items():
+                ms.setdefault((mode, name), []).append(device_ms(fn, reps))
+    out = {name: (statistics.median(ms["truncated", name]),
+                  statistics.median(ms["exact", name]))
+           for name in ("rasterize_fwd", "rasterize_bwd")}
+    print(f"[scan ratio] {label} ({kw}), truncated / exact device ms: "
+          + "; ".join(f"{name} {t:.4f} / {e:.4f} = {t / e:.3f}x (rounds "
+                      f"{ms['truncated', name]} / {ms['exact', name]})"
+                      for name, (t, e) in out.items()))
+    return out
 
 
 def scan_hand():
@@ -1678,6 +1731,13 @@ def scan_phase(args, label, tk):
             f"{row['plain_ms']:.1f}, "
             f"bound {row['bound_ms']:.4f} by {row['bound_by']}, max err "
             f"{row['max_abs_err']:.3e})" for name, row in rows.items()))
+    own_kw = args.get("rasterize_fwd kw", {})
+    if scan_truncates(own_kw):
+        scan_ratio(args["rasterize_fwd"], args["rasterize_bwd"][4], own_kw,
+                   label)
+        for tag, (r_args, v_out, kw) in scan_configs(args, label).items():
+            if tag.endswith("strip"):
+                scan_ratio(r_args, v_out, kw, tag)
     torch.cuda.empty_cache()
     print(f"[scan] {label}: {time.perf_counter() - t0:.1f} s")
     return out
@@ -3717,6 +3777,8 @@ def scale_phase(smi: str) -> dict:
     # versions take over a minute a run, and the reach bound of these
     # arguments stands in PERF.md (counted on the exact scan).
     tk = train_kernels({"probe step": kept}, "scale", reach=False)
+    scan_ratio(kept["rasterize_fwd"], kept["rasterize_bwd"][4],
+               kept["rasterize_fwd kw"], "B (the probe step's arguments)")
     del kept
     torch.cuda.empty_cache()
 
@@ -3991,6 +4053,8 @@ def quality_phase(smi: str) -> dict:
                              f"{after_reset}")
     tk = train_kernels({f"step {after_reset}, the first after the "
                         f"reset": kept}, "quality")
+    scan_ratio(kept["rasterize_fwd"], kept["rasterize_bwd"][4],
+               kept["rasterize_fwd kw"], f"Q (step {after_reset})")
     del kept, seen
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
@@ -4098,6 +4162,7 @@ def main() -> int:
     last = max(kept)
     tk = train_kernels({f"capacity {last}": kept[last]}, reach=False)
     scan = scan_phase(kept[last], "T", tk)
+    scan_attrs()
     scan_hand()
     del kept
     torch.cuda.empty_cache()

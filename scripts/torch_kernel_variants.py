@@ -64,6 +64,7 @@ records:
 
 import argparse
 import ctypes
+import functools
 import os
 import subprocess
 import sys
@@ -314,20 +315,22 @@ TIMELINE_BWD_SUBS = [   # the backward's early return
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
-def start_build(label, kernel, text):
-    """Write text as a source of its own and start nvcc on it. Its C entry
+def start_build(label, kernel, text, include=None):
+    """Write text as a source of its own and start nvcc on it, its headers
+    found first in `include` (an --old-dir's own), then in csrc/. Its C entry
     is "legacy" before the tile order (no scratch argument), takes
     "cells" since the raster-cell mode (cell_w, cell_h; the backward also a
     state scratch), a "strip" since the strip mode (tile_base, after the
     cell count), which run_fwd and run_bwd pass as 0: the whole frame, and
     a "scan" since the truncated log-T scan (passes, k_lanes, after the
-    cell), which they pass as 0 and 512: the exact scan, the path every
-    earlier source computes."""
+    cell), which they pass as the mode asked for (--scan; 0 and 512 is the
+    exact scan, the path every earlier source computes)."""
     os.makedirs(OUT, exist_ok=True)
     stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in label))
     with open(stem + ".cu", "w") as f:
         f.write(text)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", build.CSRC,
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS,
+           *(["-I", include] if include else []), "-I", build.CSRC,
            "-Xptxas", "-v", "-o", stem + ".so", stem + ".cu"]
     return dict(label=label, kernel=kernel, so=stem + ".so",
                 legacy=kernel != "segsum" and "int* order" not in text,
@@ -362,18 +365,36 @@ def finish_builds(jobs):
     return jobs
 
 
-def cell_ints(job, cell):
+EXACT = (0, 512)   # (passes, k_lanes) of the exact scan
+
+
+def scan_kw(mode) -> dict:
+    """(passes, k_lanes) as the wrappers' keywords."""
+    return dict(scan_passes=mode[0] or 3, k_lanes=mode[1])
+
+
+def takes(job, mode) -> bool:
+    """Whether job's source runs the scan mode (passes, k_lanes): every
+    source runs the exact scan, only those since the truncated scan
+    another."""
+    return mode == EXACT or job["scan"]
+
+
+def cell_ints(job, cell, mode=EXACT):
     """The (cell_w, cell_h) arguments of job's C entry: none before the
     raster-cell mode, which runs cell (1, 1) only; then, since the
-    truncated scan, (passes, k_lanes) = (0, 512), the exact scan."""
+    truncated scan, (passes, k_lanes) = mode."""
+    if not takes(job, mode):
+        raise SystemExit(f"{job['label']} takes no truncated scan")
     if job["cells"]:
-        return list(cell) + [0, 512] * job["scan"]
+        return list(cell) + list(mode) * job["scan"]
     if tuple(cell) != (1, 1):
         raise SystemExit(f"{job['label']} takes no raster cell")
     return []
 
 
-def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0):
+def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0,
+            mode=EXACT):
     n_tiles = starts.shape[0]
     px = 256 * cell[0] * cell[1]
     img = torch.empty((n_tiles, px, 4), device="cuda")
@@ -382,7 +403,7 @@ def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0):
     if tile_base and not job["strip"]:
         raise SystemExit(f"{job['label']} takes no strip")
     ints = ([n_tiles] + [tile_base] * job["strip"] + [tiles_x]
-            + cell_ints(job, cell))
+            + cell_ints(job, cell, mode))
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
             ends.data_ptr(), *ints]
     args += [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
@@ -407,10 +428,10 @@ def fwd_rows(out):
 
 
 def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
-            cell=(1, 1)):
+            cell=(1, 1), mode=EXACT):
     grads = torch.zeros((9, packed.shape[1]), device="cuda")
     ints = ([starts.shape[0]] + [0] * job["strip"] + [tiles_x]
-            + cell_ints(job, cell))
+            + cell_ints(job, cell, mode))
     args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
             ends.data_ptr(), *ints]
     args += [v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
@@ -718,22 +739,55 @@ def timeline(kernel, run, k_args):
           f"{ends.min():.0f}/{np.median(ends):.0f}/{ends.max():.0f}")
 
 
+def saved_mode(kw) -> tuple:
+    """The scan mode (passes, k_lanes) of a wrapper's saved keywords."""
+    from brush_tpu_torch.ops.cuda.rasterize_fwd import scan_mode
+
+    return scan_mode(kw.get("scan_passes", 3), kw.get("k_lanes"))
+
+
 def saved_args(path, jobs):
-    """Every rasterize_bwd and segsum job on the arguments saved in path
-    (chip_smoke.py --save-kernel-args): checked against the repository's
-    and timed in turns, index_add_ beside segment_sum."""
+    """Every rasterize_fwd, rasterize_bwd and segsum job on the arguments
+    saved in path (chip_smoke.py --save-kernel-args): checked against the
+    repository's and timed in turns, the rasterizers in the run's own scan
+    mode and in the exact scan (the backward on the repository's forward
+    outputs of that mode where the forward's arguments were saved),
+    index_add_ beside segment_sum."""
     saved = torch.load(path, map_location="cuda")
     tag = saved["when"]
+    fwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_fwd"]
     bwd_jobs = [j for j in jobs if j["kernel"] == "rasterize_bwd"]
-    if bwd_jobs:
-        b_args = saved["rasterize_bwd"]
-        if len(b_args) > 8:   # a tile_base: run_bwd takes the whole frame
-            assert b_args[8] == 0, "a strip's arguments"
-            b_args = b_args[:8]
-        print(f"[{tag}] rasterize_bwd: {b_args[1].shape[0]} cells of "
-              f"{b_args[7]}, {int(b_args[2][-1])} records, pool "
-              f"{b_args[0].shape[1]}")
-        compare(f"rasterize_bwd, {tag}", bwd_jobs, run_bwd, b_args, reps=10)
+    r_args = saved.get("rasterize_fwd")
+    if r_args is not None and len(r_args) > 5:   # a strip: the whole frame
+        assert r_args[5] == 0, "a strip's arguments"
+        r_args = r_args[:5]
+    b_args = saved["rasterize_bwd"]
+    if len(b_args) > 8:   # a tile_base: run_bwd takes the whole frame
+        assert b_args[8] == 0, "a strip's arguments"
+        b_args = b_args[:8]
+    own = saved_mode(saved.get("rasterize_bwd kw", {}))
+    for mode in dict.fromkeys((own, EXACT)):
+        at = f"{tag}, scan {mode}"
+        if r_args is not None and fwd_jobs:
+            print(f"[{at}] rasterize_fwd: {r_args[1].shape[0]} cells of "
+                  f"{r_args[4]}, {int(r_args[2][-1])} records, pool "
+                  f"{r_args[0].shape[1]}")
+            compare(f"rasterize_fwd, {at}",
+                    [j for j in fwd_jobs if takes(j, mode)],
+                    functools.partial(run_fwd, mode=mode), r_args, reps=20,
+                    rows=fwd_rows)
+        if not bwd_jobs:
+            continue
+        m_args = b_args
+        if mode != own and r_args is not None:
+            _, log_t, fidx = rasterize_fwd(*r_args, **scan_kw(mode))
+            m_args = (*b_args[:5], log_t, fidx, b_args[7])
+        print(f"[{at}] rasterize_bwd: {m_args[1].shape[0]} cells of "
+              f"{m_args[7]}, {int(m_args[2][-1])} records, pool "
+              f"{m_args[0].shape[1]}")
+        compare(f"rasterize_bwd, {at}",
+                [j for j in bwd_jobs if takes(j, mode)],
+                functools.partial(run_bwd, mode=mode), m_args, reps=10)
     seg_jobs = [j for j in jobs if j["kernel"] == "segsum"]
     if seg_jobs:
         rows, offsets, cum, total = s_args = saved["segment_sum"]
@@ -776,6 +830,12 @@ def main():
                     "chip_smoke.py --save-kernel-args wrote (a training "
                     "run's last step: T, T at a cell, the CLI's C); every "
                     "rasterize_bwd and segsum source is also timed on them")
+    ap.add_argument("--scan", nargs="+", default=["3"], metavar="MODE",
+                    help="the rasterizers' scan modes on the bench inputs, "
+                    "each timed in turn: 3 the exact scan, P:K the "
+                    "truncated scan of P bfloat16 parts over batches of K "
+                    "slots (sources before it run the exact scan only); "
+                    "--bits and --castle take the exact scan")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=list(KERNELS), help="the kernels to build and "
                     "time (default: all)")
@@ -783,6 +843,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     cells = [tuple(int(v) for v in c.lower().split("x")) for c in opts.cell]
+    modes = [EXACT if m == "3" else tuple(int(v) for v in m.split(":"))
+             for m in opts.scan]
     if cells != [(1, 1)] and opts.timeline:
         raise SystemExit("--timeline times tiles: run it at --cell 1x1")
     variants = [(v[0], v[1], v[2:]) for v in opts.variant] or (
@@ -795,7 +857,8 @@ def main():
             path = os.path.join(old, f"{k}.cu")
             if os.path.exists(path):
                 with open(path) as f:
-                    pending.append(start_build(f"{old}'s {k}", k, f.read()))
+                    pending.append(start_build(f"{old}'s {k}", k, f.read(),
+                                               include=old))
     for label, kernel, subs in variants:
         if kernel not in KERNELS:
             raise SystemExit(f"unknown kernel {kernel!r}: {KERNELS}")
@@ -827,27 +890,34 @@ def main():
             expand_sources(exp_jobs, k["exp_args"], n4, pool4, opts.timeline)
         packed4 = torch.zeros((8, pool4), dtype=torch.int32, device="cuda")
         packed4[:, :packed.shape[1]] = packed
-        for tag, f_args in (
-                ("rasterize_fwd, bench render inputs" + at, k["r_args"]),
-                (f"rasterize_fwd, the same records in a pool of {pool4}"
-                 + at, (packed4, starts, ends, tiles_x, cell))):
-            if fwd_jobs:
-                compare(tag, fwd_jobs, run_fwd, f_args, reps=20,
-                        rows=fwd_rows)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        v_out = torch.randn((starts.shape[0], 256 * cell[0] * cell[1], 4),
+                            generator=gen, device="cuda")
+        for mode in modes:
+            sat = at + ("" if mode == EXACT else f", scan {mode}")
+            run_f = functools.partial(run_fwd, mode=mode)
+            for tag, f_args in (
+                    ("rasterize_fwd, bench render inputs" + sat, k["r_args"]),
+                    (f"rasterize_fwd, the same records in a pool of {pool4}"
+                     + sat, (packed4, starts, ends, tiles_x, cell))):
+                if fwd_jobs:
+                    compare(tag, [j for j in fwd_jobs if takes(j, mode)],
+                            run_f, f_args, reps=20, rows=fwd_rows)
+            _, log_t, fidx = rasterize_fwd(*k["r_args"], **scan_kw(mode))
+            b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
+            if bwd_jobs:
+                compare("rasterize_bwd, bench render inputs" + sat,
+                        [j for j in bwd_jobs if takes(j, mode)],
+                        functools.partial(run_bwd, mode=mode), b_args,
+                        reps=10)
+            if cell == cells[0] and mode == modes[0]:
+                first = dict(k=k, b_args=b_args, gen=gen)
         del packed4
         if opts.timeline:
             timeline("rasterize_fwd", run_fwd, k["r_args"][:4])
-        _, log_t, fidx = rasterize_fwd(*k["r_args"])
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        v_out = torch.randn((*log_t.shape, 4), generator=gen, device="cuda")
-        b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
-        if bwd_jobs:
-            compare("rasterize_bwd, bench render inputs" + at, bwd_jobs,
-                    run_bwd, b_args, reps=10)
-        if opts.timeline:
-            timeline("rasterize_bwd", run_bwd, b_args)
-        if cell == cells[0]:
-            first = dict(k=k, b_args=b_args, gen=gen)
+            _, log_t, fidx = rasterize_fwd(*k["r_args"])
+            timeline("rasterize_bwd", run_bwd, (packed, starts, ends, tiles_x,
+                                                v_out, log_t, fidx, cell))
     if opts.bits and fwd_jobs:
         fwd_bits(fwd_jobs, inputs)
     if opts.castle:

@@ -765,6 +765,22 @@ SCAN_LAYOUTS = ([("tile", c) for c in HAND_TILE_CASES + ("scan_edge",)]
 
 
 @pytest.mark.cuda
+def test_cuda_scan_instantiations_keep_occupancy():
+    """What nvcc made of the rasterizers' instantiations, read on the card:
+    the truncated scan's (one and two bfloat16 parts) hold as many blocks
+    an SM as the exact path's, and the backward's sweeps spill nothing."""
+    _need_cuda()
+    fwd = t_raster.kernel_attrs()
+    for cells in (False, True):
+        for passes in (1, 2):
+            assert fwd[cells, passes][2] == fwd[cells, 0][2] > 0
+    bwd = t_bwd.kernel_attrs()
+    for passes in (1, 2):
+        assert bwd[passes][2] == bwd[0][2] > 0
+    assert all(a[1] == 0 for a in bwd.values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", SCAN_LAYOUTS,
                          ids=[f"{k}-{c}" for k, c in SCAN_LAYOUTS])
 def test_cuda_truncated_scan_matches_plain(layout):
@@ -774,10 +790,10 @@ def test_cuda_truncated_scan_matches_plain(layout):
     second launch of each bit-equal. On scan_edge the kernel's final_idx
     is the plain version's at the named pixels, and differs from the
     kernel's own at scan_passes=3. log T is held in transmittance space
-    (as the Pallas comparisons hold it): in the mode both sides sum log T
-    in float32, the kernel record by record, the plain version by torch's
-    reductions, which part by some 1e-5 on the 600 records of scan_edge's
-    deep tile (log T -8.4), where T is 2e-4."""
+    (as the Pallas comparisons hold it): the kernel carries T as running
+    products (csrc/scan.cuh), the plain version sums log T by torch's
+    reductions, and on the 600 records of scan_edge's deep tile (log T
+    -8.4, T 2e-4) the float32 sums of logs part by some 1e-5."""
     _need_cuda()
     kind, case = layout
     if case == "scan_edge":

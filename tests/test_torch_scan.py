@@ -32,9 +32,12 @@ from brush_tpu.render import render_splats as j_render
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
+from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
 from brush_tpu_torch.ops.cuda.testing import (
-    SCAN_EDGE_DEEP, SCAN_EDGE_LANES, SCAN_EDGE_PIXELS, hand_cells,
-    scan_edge,
+    HAND_CELL_CASES, HAND_TILE_CASES, SCAN_EDGE_DEEP, SCAN_EDGE_LANES,
+    SCAN_EDGE_PIXELS, T_EPS_SCAN, hand_cells, hand_tiles,
+    rasterize_bwd_twin, rasterize_fwd_twin, scan_edge, scan_rest_f32,
+    times_exp_f32,
 )
 from brush_tpu_torch.ops.pipeline import make_pallas_rasterizer, scan_lanes
 from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -339,3 +342,110 @@ def test_trainer_steps_at_default_match_reference():
     at scan_passes=2) against the JAX trainer, at the bounds of
     test_torch_train.steps_match_reference."""
     steps_match_reference(3)
+
+
+# The CUDA kernels' truncated scan carries T as running products (csrc/
+# scan.cuh); ops/cuda/testing's twins follow them step by step. Layouts:
+# (name, passes, k_lanes or None for the pipeline's scan_lanes at 512).
+TWIN_LAYOUTS = ([(f"tile {c}", 2, 128) for c in HAND_TILE_CASES]
+                + [("scan_edge", 2, 128), ("scan_edge", 2, 512),
+                   ("scan_edge", 1, 128), ("tile deep", 1, 512)]
+                + [(f"cell {c}", 2, None) for c in HAND_CELL_CASES]
+                + [("strip", 2, 128)])
+
+
+def twin_layout(name):
+    """(packed, starts, ends, cells_x, cell, tile_base) as numpy arrays
+    and ints for a TWIN_LAYOUTS name."""
+    kind, _, case = name.partition(" ")
+    if kind == "tile":
+        return (*hand_tiles(case), (1, 1), 0)
+    if kind == "cell":
+        return (*hand_cells(case), 0)
+    if kind == "scan_edge":
+        return (*scan_edge(), (1, 1), 0)
+    got = port_records(make_scene(512, seed=21, scale_hi=0.5), (64, 48),
+                       2048)
+    base, k = 5, 6
+    return (got["packed"].numpy(), got["starts"][base:base + k].numpy(),
+            got["ends"][base:base + k].numpy(), got["tiles_x"], (1, 1), base)
+
+
+@pytest.mark.parametrize("layout", TWIN_LAYOUTS,
+                         ids=lambda v: f"{v[0]}-p{v[1]}-k{v[2]}")
+def test_kernel_twin_matches_plain(layout):
+    """The CUDA kernels' truncated scan as their CPU twins compute it
+    (T and the crossing by running products, each record's T by the rest
+    of its term past its bfloat16 parts; the backward's T carried across
+    the scan batches) against rasterize_fwd_plain and rasterize_bwd_plain
+    in the log domain at the same scan_passes, on every hand layout,
+    scan_edge at both k_lanes and at one part, the raster cells and a
+    strip. Tolerances are the card's gates: the image within 1e-5 with at
+    most 2e-3 of the pixels flipped, log T compared as T, final_idx equal
+    elsewhere; the backward (on the plain forward's outputs, a seeded
+    cotangent) within 1e-4 of each row's largest value (measured at two
+    parts: 1.5e-6 on the image, 3.6e-7 on T, no final_idx apart, 1.6e-5
+    on the rows). On scan_edge the named pixels' final_idx is the plain
+    version's."""
+    name, passes, k = layout
+    packed, starts, ends, cells_x, cell, base = twin_layout(name)
+    k = scan_lanes(512, cell) if k is None else k
+    args = (*tensors(packed, starts, ends), cells_x, cell, base)
+    want = t_raster.rasterize_fwd_plain(*args, scan_passes=passes,
+                                        k_lanes=k)
+    got = rasterize_fwd_twin(*args, passes=passes, k_lanes=k)
+    flip_check(*(o.numpy() for o in got), *(w.numpy() for w in want),
+               atol=1e-5, transmittance=True)
+    if name == "scan_edge":
+        for tile, pixel, _ in SCAN_EDGE_PIXELS:
+            assert int(got[2][tile, pixel]) == int(want[2][tile, pixel])
+    v_out = torch.tensor(np.random.default_rng(9).normal(
+        size=(*want[1].shape, 4)).astype(np.float32))
+    b_args = (*args[:4], v_out, want[1], want[2], cell, base)
+    rows_close(rasterize_bwd_twin(*b_args, passes=passes),
+               t_bwd.rasterize_bwd_plain(*b_args, scan_passes=passes,
+                                         k_lanes=k), 1e-4, name)
+
+
+def test_kernel_twin_scan_edge_matches_pallas(edge):
+    """The twins on scan_edge against the Pallas kernels in interpret mode
+    at scan_passes=2: final_idx equal at every pixel (the named ones one
+    record from the exact scan's), the image within 1e-5 and T; the
+    backward on the Pallas forward's outputs within 3e-4 of each row's
+    largest value, as this file holds the plain version to Pallas."""
+    args, fwd, v_out = edge
+    got = rasterize_fwd_twin(*tensors(*args[:3]), args[3], passes=2,
+                             k_lanes=SCAN_EDGE_LANES)
+    img_j, log_t_j, fidx_j = fwd["pallas", 2]
+    np.testing.assert_array_equal(got[2].numpy(), fidx_j)
+    flip_check(*(o.numpy() for o in got), img_j, log_t_j, fidx_j,
+               atol=1e-5, transmittance=True)
+    for tile, pixel, sign in SCAN_EDGE_PIXELS:
+        assert int(got[2][tile, pixel]) - fwd["pallas", 3][2][tile, pixel] \
+            == sign
+    p, s_, e, v, lt, f = tensors(*args[:3], v_out, log_t_j, fidx_j)
+    rows_close(rasterize_bwd_twin(p, s_, e, args[3], v, lt, f, passes=2),
+               torch.tensor(pallas_bwd(*args, v_out, log_t_j, fidx_j, 2,
+                                       SCAN_EDGE_LANES)), 3e-4, "scan_edge")
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_scan_rest_factor_and_threshold(passes):
+    """What the kernels' products rest on, swept over every float32 alpha
+    step of 2^-18 in [ALPHA_EPS, ALPHA_MAX]: the rest of log1p(-alpha)
+    past its bfloat16 parts is at most 2^-16 (two parts) or 2^-8 (one) of
+    the term, and times_exp(1, rest) is exp(rest) within 1e-7 (two
+    parts: 1 + rest) and 1.5e-7 (one: a cubic). T_EPS_SCAN is exp of the
+    float32 log(1e-4) that the plain version compares with, rounded to
+    float32."""
+    alpha = torch.arange(ALPHA_EPS, ALPHA_MAX, 2.0 ** -18,
+                         dtype=torch.float64).float()
+    lom = torch.log1p(-alpha)
+    rest = scan_rest_f32(lom, passes)
+    bound = 2.0 ** -16 if passes == 2 else 2.0 ** -8
+    assert (rest.abs() <= bound * lom.abs()).all()
+    got = times_exp_f32(torch.ones_like(rest), rest, passes).double()
+    err = (got - torch.exp(rest.double())).abs().max()
+    assert err <= (1e-7 if passes == 2 else 1.5e-7), float(err)
+    assert T_EPS_SCAN == float(np.float32(np.exp(np.float64(
+        np.float32(np.log(1e-4))))))
