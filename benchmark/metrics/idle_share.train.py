@@ -1,0 +1,8 @@
+"""The device's idle share over the traced training steps, %: 1 - busy /
+window."""
+
+from benchmark.harness import idle_share
+
+
+def read(run):
+    return idle_share(run)
