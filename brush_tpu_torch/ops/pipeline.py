@@ -80,7 +80,7 @@ from brush_tpu_torch.ops.cuda.rasterize_fwd import (
     rasterize_fwd, to_i32_bits,
 )
 from brush_tpu_torch.ops.cuda.segsum import segment_sum
-from brush_tpu_torch.utils.profiler import mark
+from brush_tpu_torch.utils.profiler import mark, span
 
 
 class DepthOrder(NamedTuple):
@@ -177,18 +177,18 @@ def _forward(attrs9, decode, depth_key, cells_x: int, num_cells: int,
     # (raster_vjp.py:146-153, in cell units).
     if cells_x > 1023 or num_cells > cells_x * 2047:
         raise ValueError("image too large for the packed decode rows")
-    d = depth_order(attrs9, decode, depth_key, max_isects)
-    mark("depth_order")
-    keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num_cells,
-                        max_isects)
-    mark("expand")
+    with span("depth_order"):
+        d = depth_order(attrs9, decode, depth_key, max_isects)
+    with span("expand"):
+        keys, recs = expand(d.f5, d.u5, d.cum, d.total, cells_x, num_cells,
+                            max_isects)
     if raster_tiles is None:
         raster_tiles = num_cells
-    bins = strip_bins(keys, recs, num_cells, tile_base, raster_tiles)
-    mark("tile_bins")
-    out = rasterize_fwd(*bins, cells_x, tuple(cell), tile_base,
-                        scan_passes=scan_passes, k_lanes=k_lanes)
-    mark("rasterize_fwd")
+    with span("tile_bins"):
+        bins = strip_bins(keys, recs, num_cells, tile_base, raster_tiles)
+    with span("rasterize_fwd"):
+        out = rasterize_fwd(*bins, cells_x, tuple(cell), tile_base,
+                            scan_passes=scan_passes, k_lanes=k_lanes)
     return d, bins, out
 
 

@@ -63,7 +63,7 @@ from brush_tpu_torch.ssim import Ssim
 from brush_tpu_torch.train import (
     StepStats, TrainState, image_loss, trainable, update_state,
 )
-from brush_tpu_torch.utils.profiler import mark
+from brush_tpu_torch.utils.profiler import mark, span
 
 def meta_rows(rec, cell) -> torch.Tensor:
     """The six u32 rows a rank gathers, as int32 bits (train_step.py:
@@ -164,11 +164,11 @@ def make_sharded_train_step(
     def render_strips(params, xy_dummy, cam, active):
         """The strip pipeline: (image, producing rows, stats after the
         backward)."""
-        rec = record_inputs(
-            params["means"], params["log_scales"], params["quats"],
-            params["sh_coeffs"], params["raw_opacity"], cam, img_size,
-            xy_dummy=xy_dummy, active=active, cell=cell)
-        mark("record_inputs")
+        with span("record_inputs"):
+            rec = record_inputs(
+                params["means"], params["log_scales"], params["quats"],
+                params["sh_coeffs"], params["raw_opacity"], cam, img_size,
+                xy_dummy=xy_dummy, active=active, cell=cell)
         attrs9 = GatherColumns.apply(rec.attrs9, mesh)
         decode, depth_key = strip_decode(
             gather_columns(meta_rows(rec, cell), mesh), row_lo,
@@ -203,23 +203,26 @@ def make_sharded_train_step(
     def render_xla(params, xy_dummy, cam, active):
         """The reference's _loss_xla: replicated binning, this rank's rows
         of tiles through the tiled rasterizer."""
-        proj, color, opac, xy = project_inputs(
-            params["means"], params["log_scales"], params["quats"],
-            params["sh_coeffs"], params["raw_opacity"], cam, img_size,
-            xy_dummy=xy_dummy, active=active)
-        attrs = GatherColumns.apply(torch.stack([
-            xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
-            proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
-        ]), mesh).t()
-        f = gather_columns(torch.cat([
-            proj.xy.t(), proj.depth[None], proj.conic.t()]).detach(), mesh)
-        i = gather_columns(torch.cat([
-            proj.radius[None], proj.tile_min.t(), proj.tile_max.t(),
-            proj.visible[None].to(torch.int32)]), mesh)
-        proj_f = Projection(xy=f[0:2].t(), depth=f[2], conic=f[3:6].t(),
-                            radius=i[0], tile_min=i[1:3].t(),
-                            tile_max=i[3:5].t(), visible=i[5] > 0)
-        mark("project_inputs")
+        with span("project_inputs"):
+            proj, color, opac, xy = project_inputs(
+                params["means"], params["log_scales"], params["quats"],
+                params["sh_coeffs"], params["raw_opacity"], cam, img_size,
+                xy_dummy=xy_dummy, active=active)
+            attrs = GatherColumns.apply(torch.stack([
+                xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
+                proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2],
+                opac,
+            ]), mesh).t()
+            f = gather_columns(torch.cat([
+                proj.xy.t(), proj.depth[None], proj.conic.t()]).detach(),
+                mesh)
+            i = gather_columns(torch.cat([
+                proj.radius[None], proj.tile_min.t(), proj.tile_max.t(),
+                proj.visible[None].to(torch.int32)]), mesh)
+            proj_f = Projection(xy=f[0:2].t(), depth=f[2],
+                                conic=f[3:6].t(), radius=i[0],
+                                tile_min=i[1:3].t(), tile_max=i[3:5].t(),
+                                visible=i[5] > 0)
         isect = build_intersections(proj_f, attrs[:, 8].detach(),
                                     (tiles_x, tiles_y), max_isects, align=1)
         mark("binning")
@@ -251,8 +254,8 @@ def make_sharded_train_step(
         with full_f32():
             img, producing, stats = render_rows(
                 params, xy_dummy, cam, rows < splats.n_live)
-            loss = image_loss(img, gt, channels, config, ssim)
-            mark("loss")
+            with span("loss"):
+                loss = image_loss(img, gt, channels, config, ssim)
             loss.backward()
             mark("autograd rest")
         num_visible, num_isects, num_dropped, max_strip = stats()

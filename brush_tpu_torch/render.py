@@ -46,7 +46,7 @@ from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
     CameraParams, normalize_quats, view_colors,
 )
-from brush_tpu_torch.utils.profiler import mark
+from brush_tpu_torch.utils.profiler import count, grad_span, mark, span
 
 U32_MAX = 0xFFFFFFFF
 
@@ -147,14 +147,23 @@ def project_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     """The differentiable per-splat stages (render.py:250-273): the
     projection and the SH colour in float32 with TF32 off, the sigmoid
     opacity, and the centres plus xy_dummy. Returns (proj, color, opac,
-    xy)."""
+    xy). Spans `project` and `sh` time the two parts, and while recording
+    `backward/project` and `backward/sh` their backward."""
+    bwd_proj, bwd_sh = grad_span("backward/project"), grad_span("backward/sh")
     with full_f32():
-        proj = project_splats(
-            means, log_scales, normalize_quats(quats),
-            cam.viewmat, cam.focal, cam.pixel_center, img_size,
-            active=active,
-        )
-        color = view_colors(means, sh_coeffs, cam)
+        with span("project"):
+            means_p, scales_p, quats_p = bwd_proj.inputs(
+                means, log_scales, quats)
+            proj = project_splats(
+                means_p, scales_p, normalize_quats(quats_p),
+                cam.viewmat, cam.focal, cam.pixel_center, img_size,
+                active=active,
+            )
+            xy, conic = bwd_proj.outputs(proj.xy, proj.conic)
+            proj = proj._replace(xy=xy, conic=conic)
+        with span("sh"):
+            color = bwd_sh.outputs(view_colors(
+                means, bwd_sh.inputs(sh_coeffs), cam))
     opac = torch.sigmoid(raw_opacity)
     xy = proj.xy if xy_dummy is None else proj.xy + xy_dummy
     return proj, color, opac, xy
@@ -172,23 +181,27 @@ def record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     cell=(gw, gh). Only attrs9 carries gradients: the pretest, the depth
     key and the decode rows see detached tensors (render.py:275-277,
     :168), so autograd records none of the pretest's (8, 8, N) float
-    work."""
+    work. Spans: project_inputs' two, then `tile_pretest` and `pack`."""
     proj, color, opac, xy = project_inputs(
         means, log_scales, quats, sh_coeffs, raw_opacity, cam, img_size,
         xy_dummy=xy_dummy, active=active)
     proj_sg = detached(proj)
-    masks = precompute_tile_masks(proj_sg, opac.detach(), cell=cell)
-    producing = proj_sg.visible & (masks.counts > 0)
-    counts_g = torch.where(producing, masks.counts, 0)
-    # Positive float32 bits order like the floats; int64 keeps the
-    # 0xFFFFFFFF sentinel past every real key (as int32 it would be -1).
-    depth_bits = torch.clamp(proj_sg.depth, min=1e-20).view(torch.int32)
-    depth_key = torch.where(producing, depth_bits.to(torch.int64), U32_MAX)
-    attrs9 = torch.stack([
-        xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
-        proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
-    ])
-    decode = pack_decode_rows(proj_sg, masks, counts_g, cell=cell)
+    with span("tile_pretest"):
+        masks = precompute_tile_masks(proj_sg, opac.detach(), cell=cell)
+    with span("pack"):
+        producing = proj_sg.visible & (masks.counts > 0)
+        counts_g = torch.where(producing, masks.counts, 0)
+        # Positive float32 bits order like the floats; int64 keeps the
+        # 0xFFFFFFFF sentinel past every real key (as int32 it would be
+        # -1).
+        depth_bits = torch.clamp(proj_sg.depth, min=1e-20).view(torch.int32)
+        depth_key = torch.where(producing, depth_bits.to(torch.int64),
+                                U32_MAX)
+        attrs9 = torch.stack([
+            xy[:, 0], xy[:, 1], proj.conic[:, 0], proj.conic[:, 1],
+            proj.conic[:, 2], color[:, 0], color[:, 1], color[:, 2], opac,
+        ])
+        decode = pack_decode_rows(proj_sg, masks, counts_g, cell=cell)
     return RecordInputs(attrs9, decode, depth_key, proj_sg, producing,
                         masks)
 
@@ -224,10 +237,10 @@ def _render_xla(means, log_scales, quats, sh_coeffs, raw_opacity, cam,
     order, the tiled rasterizer, the image."""
     tiles_x = -(-int(img_size[0]) // TILE_WIDTH)
     tiles_y = -(-int(img_size[1]) // TILE_WIDTH)
-    proj, color, opac, xy = project_inputs(
-        means, log_scales, quats, sh_coeffs, raw_opacity, cam, img_size,
-        xy_dummy=xy_dummy, active=active)
-    mark("project_inputs")
+    with span("project_inputs"):
+        proj, color, opac, xy = project_inputs(
+            means, log_scales, quats, sh_coeffs, raw_opacity, cam, img_size,
+            xy_dummy=xy_dummy, active=active)
     isect = build_intersections(detached(proj), opac.detach(),
                                 (tiles_x, tiles_y), max_isects, align=1)
     mark("binning")
@@ -330,10 +343,10 @@ def render_splats(
     max_isects = pool_size(n, img_size, max_isects, block_size)
     k_lanes = max(128, block_size)   # render.py:241
 
-    rec = record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
-                        cam, img_size, xy_dummy=xy_dummy, active=active,
-                        cell=cell)
-    mark("record_inputs")
+    with span("record_inputs"):
+        rec = record_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
+                            cam, img_size, xy_dummy=xy_dummy, active=active,
+                            cell=cell)
     proj, producing = rec.proj, rec.producing
     num_cells = cells_x * cells_y
     if needs_grad:
@@ -347,14 +360,18 @@ def render_splats(
             max_isects, cell, scan_passes=scan_passes, k_lanes=k_lanes)
         order = torch.zeros(n, dtype=torch.int64, device=means.device)
 
-    aux = RenderAux(
-        num_visible=proj.visible.sum().to(torch.int32),
-        num_isects=total,
-        num_dropped=torch.clamp(raw_total - max_isects, min=0),
-        visible=proj.visible,
-        order=order,
-        producing=producing,
-    )
-    img = assemble_image(img_cells, img_size, cells_x, cells_y, cell)
-    mark("assemble")
+    with span("assemble"):
+        aux = RenderAux(
+            num_visible=proj.visible.sum().to(torch.int32),
+            num_isects=total,
+            num_dropped=torch.clamp(raw_total - max_isects, min=0),
+            visible=proj.visible,
+            order=order,
+            producing=producing,
+        )
+        img = assemble_image(img_cells, img_size, cells_x, cells_y, cell)
+    count("rows", n)
+    count("visible", aux.num_visible)
+    count("records", total)
+    count("pool_slots", max_isects)
     return img, aux

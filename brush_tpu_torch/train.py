@@ -41,7 +41,7 @@ from brush_tpu_torch.splats import (
     PADDING_RAW_OPACITY, Splats, inverse_sigmoid, round_up_capacity,
 )
 from brush_tpu_torch.ssim import Ssim
-from brush_tpu_torch.utils.profiler import mark
+from brush_tpu_torch.utils.profiler import mark, span
 
 _log = logging.getLogger(__name__)
 
@@ -147,20 +147,20 @@ class SplatTrainer:
     def step(self, state: TrainState,
              batch: SceneBatch) -> tuple[TrainState, StepStats]:
         cfg = self.config
-        img = np.asarray(batch.gt_image, np.float32)
-        h, w, channels = img.shape
-        img_size = (w, h)
+        with span("upload"):
+            img = np.asarray(batch.gt_image, np.float32)
+            h, w, channels = img.shape
+            img_size = (w, h)
 
-        lr_mean = cfg.lr_mean_at(self.iter)
-        if cfg.scale_mean_lr_by_extent:
-            lr_mean *= batch.scene_extent
+            lr_mean = cfg.lr_mean_at(self.iter)
+            if cfg.scale_mean_lr_by_extent:
+                lr_mean *= batch.scene_extent
 
-        self._respond_to_drops()
-        dev = state.splats.device
-        cam = camera_params(batch.camera, img_size, device=dev)
-        pool = self._pool_size(state.splats.capacity)
-        gt = self._gt_on_device(batch, img, dev)
-        mark("upload")
+            self._respond_to_drops()
+            dev = state.splats.device
+            cam = camera_params(batch.camera, img_size, device=dev)
+            pool = self._pool_size(state.splats.capacity)
+            gt = self._gt_on_device(batch, img, dev)
 
         pre_splats = state.splats
         state, stats = self._train_step(state, gt, cam, lr_mean, self.iter,
@@ -259,8 +259,9 @@ class SplatTrainer:
                 xy_dummy=xy_dummy, active=splats.active_mask(),
                 block_size=self.raster_block_size, max_isects=pool,
                 cell=self.raster_cell, pack_grad_sort=self.pack_grad_sort)
-            loss = image_loss(img, gt, channels, self.config, self._ssim)
-            mark("loss")
+            with span("loss"):
+                loss = image_loss(img, gt, channels, self.config,
+                                  self._ssim)
             loss.backward()
             mark("autograd rest")
         new_state = update_state(self.config, state, params, xy_dummy,
@@ -407,30 +408,32 @@ def update_state(cfg: TrainConfig, state: TrainState, params: dict,
     # Densification statistics (train.rs:284-316): screen-space gradient
     # norms in half-image units, gated past warmup.
     gate = 1.0 if step > cfg.warmup_steps else 0.0
-    xy_g = xy_dummy.grad
-    xys_scaled = torch.stack([xy_g[:, 0] * (w / 2.0),
-                              xy_g[:, 1] * (h / 2.0)], dim=1)
-    norms = torch.sqrt(torch.sum(xys_scaled ** 2, dim=1))
-    grad_accum = state.grad_2d_accum + gate * norms
-    counts = state.xy_grad_counts + int(gate) * producing.to(torch.int32)
-    mark("densify_stats")
+    with span("densify_stats"):
+        xy_g = xy_dummy.grad
+        xys_scaled = torch.stack([xy_g[:, 0] * (w / 2.0),
+                                  xy_g[:, 1] * (h / 2.0)], dim=1)
+        norms = torch.sqrt(torch.sum(xys_scaled ** 2, dim=1))
+        grad_accum = state.grad_2d_accum + gate * norms
+        counts = (state.xy_grad_counts
+                  + int(gate) * producing.to(torch.int32))
 
-    # Per-coefficient SH learning rates: orders > 0 at lr/20
-    # (train.rs:334-348).
-    sh_scale = torch.full((1, splats.sh_count, 1),
-                          1.0 / cfg.lr_coeffs_sh_scale, device=splats.device)
-    sh_scale[:, 0] = 1.0
-    lrs = {
-        "means": lr_mean,
-        "raw_opacity": cfg.lr_opac,
-        "sh_coeffs": cfg.lr_coeffs_dc * sh_scale,
-        "quats": cfg.lr_rotation,
-        "log_scales": cfg.lr_scale,
-    }
-    new_params, opt = adam_step(
-        {k: p.detach() for k, p in params.items()}, grads, state.opt, lrs,
-        eps=cfg.adam_eps)
-    mark("adam")
+    with span("adam"):
+        # Per-coefficient SH learning rates: orders > 0 at lr/20
+        # (train.rs:334-348).
+        sh_scale = torch.full((1, splats.sh_count, 1),
+                              1.0 / cfg.lr_coeffs_sh_scale,
+                              device=splats.device)
+        sh_scale[:, 0] = 1.0
+        lrs = {
+            "means": lr_mean,
+            "raw_opacity": cfg.lr_opac,
+            "sh_coeffs": cfg.lr_coeffs_dc * sh_scale,
+            "quats": cfg.lr_rotation,
+            "log_scales": cfg.lr_scale,
+        }
+        new_params, opt = adam_step(
+            {k: p.detach() for k, p in params.items()}, grads, state.opt,
+            lrs, eps=cfg.adam_eps)
     return TrainState(splats=splats.with_params(new_params), opt=opt,
                       grad_2d_accum=grad_accum, xy_grad_counts=counts)
 

@@ -3033,9 +3033,10 @@ def profiler_check() -> None:
     phase: in this process a torch.profiler trace with CUDA activities
     leaves every later kernel launch slower (ROADMAP Queue 3 #17), so
     nothing timed may follow it. profiler.trace around one bench render
-    in a sync-mode span: the Chrome trace holds the span and the expand
-    and rasterize_fwd kernels; the span's time is at least the render's
-    CUDA-event time."""
+    in a span, recorded (profiler.record): the Chrome trace holds the span,
+    its child `bench render/record_inputs/tile_pretest` and the expand and
+    rasterize_fwd kernels; the span's stage is at least the render's
+    CUDA-event time, and the render's stages are its children."""
     import glob
 
     import torch
@@ -3053,18 +3054,14 @@ def profiler_check() -> None:
     with tempfile.TemporaryDirectory(prefix="brush_trace_") as d:
         tdir = os.path.join(d, "trace")
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        profiler.reset_timings()
-        profiler.set_sync_mode(True)
-        try:
-            with profiler.trace(tdir):
-                with profiler.span("bench render", splats.means):
-                    ev0.record()
-                    go()
-                    ev1.record()
-        finally:
-            profiler.set_sync_mode(False)
+        with profiler.trace(tdir), profiler.record() as stages:
+            with profiler.span("bench render"):
+                ev0.record()
+                go()
+                ev1.record()
         ev_ms = ev0.elapsed_time(ev1)
-        span_ms = profiler.timings()["bench render"] * 1e3
+        span_ms = dict(profiler.chain(stages))["bench render"]
+        children = [k for k, _ in stages if k.startswith("bench render/")]
         (tpath,) = glob.glob(os.path.join(tdir, "*.json"))
         with open(tpath) as f:
             events = json.load(f)["traceEvents"]
@@ -3072,17 +3069,20 @@ def profiler_check() -> None:
         kern = {k: [e.get("dur", 0.0) for e in events
                     if e.get("cat") == "kernel" and k in e.get("name", "")]
                 for k in ("expand_kernel", "rasterize_fwd_kernel")}
-        if "bench render" not in names or not all(kern.values()) or \
-                span_ms < ev_ms:
+        nested = "bench render/record_inputs/tile_pretest"
+        if "bench render" not in names or nested not in names or \
+                not all(kern.values()) or span_ms < ev_ms or \
+                "bench render/rasterize_fwd" not in children:
             raise AssertionError(f"trace: span {'bench render' in names}, "
-                                 f"kernels {kern}; span {span_ms} ms < "
-                                 f"render {ev_ms} ms")
+                                 f"{nested} {nested in names}, kernels "
+                                 f"{kern}; span {span_ms} ms against "
+                                 f"render {ev_ms} ms; children {children}")
         print(f"[profiler] profiler.trace of a bench render: {len(events)} "
               f"events ({os.path.getsize(tpath)} bytes), the span and the "
               f"kernels "
               f"{ {k: [round(x, 1) for x in v] for k, v in kern.items()} } "
-              f"(us); sync-mode span {span_ms:.3f} ms against {ev_ms:.3f} ms "
-              f"of CUDA events")
+              f"(us); the span's stage {span_ms:.3f} ms against "
+              f"{ev_ms:.3f} ms of CUDA events; its children {children}")
     del splats
     torch.cuda.empty_cache()
 
@@ -3348,7 +3348,8 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
           f"peak memory xla {mib_x:.1f} MiB, pipeline {mib_p:.1f} MiB; "
           f"launches xla {counts_x}; {smi}")
     print(f"[xla] bench XLA render stages (ms) "
-          f"{[(k, round(v, 3)) for k, v in stages]}; longest tile range "
+          f"{[(k, round(v, 3)) for k, v in profiler.chain(stages)]}; "
+          f"longest tile range "
           f"{longest} records, {-(-longest // XLA_BLOCK)} rounds of "
           f"{XLA_BLOCK}")
     res.update(bench_ms=ms, bench_peak_mib=(mib_x, mib_p))

@@ -181,7 +181,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
         out["records"].append(int(st.num_isects))
         out["dropped"].append(int(st.num_dropped))
         out["losses"].append(float(st.loss))
-        out["stages"].append(marks)
+        out["stages"].append(profiler.chain(marks))
     out["state"] = state
     return out
 

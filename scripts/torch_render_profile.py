@@ -71,7 +71,7 @@ def stage_medians(fn, reps: int, warm: int) -> dict:
     for _ in range(reps):
         with profiler.record() as stages:
             fn()
-        runs.append(stages)
+        runs.append(profiler.chain(stages))
     names = [name for name, _ in runs[0]]
     if any([name for name, _ in r] != names for r in runs):
         raise RuntimeError("the stages differ between calls")
@@ -214,7 +214,7 @@ def growth_run(splats, batch):
         cap = state.splats.capacity
         with profiler.record() as stages:
             state, _ = trainer.step(state, batch)
-        ms = dict(stages)
+        ms = dict(profiler.chain(stages))
         refine = f", refine {ms['refine']:.3f} ms" if "refine" in ms else ""
         print(f"[growth] step {it} capacity {cap} -> "
               f"{state.splats.capacity}: {sum(ms.values()):.3f} ms{refine}; "

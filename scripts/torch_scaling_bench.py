@@ -198,7 +198,7 @@ def run_world(n: int, rank: int, init: str, device: str, args) -> dict:
             for i in range(args.steps):
                 with profiler.record(host=mesh.device.type != "cuda") as st:
                     state = run(state, args.steps + 1 + i)
-                for name, t in st:
+                for name, t in profiler.chain(st):
                     seen.setdefault(name, []).append(t)
             stages = {k: statistics.median(v) for k, v in seen.items()}
         return {"ms": ms, "stages": stages}

@@ -1234,8 +1234,9 @@ def test_cuda_stage_marks_cover_a_train_step():
     trainer = SplatTrainer()
     state = trainer.init_state(sp)
     batch = SceneBatch(np.zeros((48, 64, 3), np.float32), Camera(**CAM))
-    with profiler.record() as stages:
+    with profiler.record() as entries:
         trainer.step(state, batch)
+    stages = profiler.chain(entries)
     assert [name for name, _ in stages] == TRAIN_STAGES
     assert all(ms >= 0.0 for _, ms in stages)
 
@@ -1451,8 +1452,7 @@ def test_cuda_viewer_frame_is_the_in_process_render():
 @pytest.mark.cuda
 def test_cuda_trace_holds_the_kernels(tmp_path):
     """profiler.trace around a render on the card: the Chrome trace holds
-    the span and the expand and rasterize_fwd kernels; the sync-mode span
-    is timed."""
+    the span and the expand and rasterize_fwd kernels."""
     _need_cuda()
     import glob
     import json
@@ -1466,21 +1466,15 @@ def test_cuda_trace_holds_the_kernels(tmp_path):
                                t["sh_coeffs"], t["raw_opacity"], cam,
                                (64, 48), needs_grad=False)
     go()
-    profiler.reset_timings()
-    profiler.set_sync_mode(True)
-    try:
-        with profiler.trace(str(tmp_path)):
-            with profiler.span("frame", t["means"]):
-                go()
-    finally:
-        profiler.set_sync_mode(False)
+    with profiler.trace(str(tmp_path)):
+        with profiler.span("frame"):
+            go()
     (path,) = glob.glob(str(tmp_path / "*.json"))
     with open(path) as f:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
     assert "frame" in names
     assert any("expand_kernel" in n for n in names)
     assert any("rasterize_fwd_kernel" in n for n in names)
-    assert profiler.timings()["frame"] > 0
 
 
 def test_full_f32_holds_across_threads():

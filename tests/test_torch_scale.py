@@ -249,8 +249,9 @@ def test_host_clock_records_every_stage_of_a_cpu_step():
     batch = SceneBatch(np.zeros((48, 64, 3), np.float32),
                        Camera(position=[0, 0, -5.0], rotation=[1, 0, 0, 0],
                               fov_x=1.0, fov_y=1.0))
-    with profiler.record(host=True) as stages:
+    with profiler.record(host=True) as entries:
         trainer.step(state, batch)
+    stages = profiler.chain(entries)
     assert [name for name, _ in stages] == TRAIN_STAGES
     assert all(ms >= 0.0 for _, ms in stages) and profiler._marks is None
     buckets, other = bench.bucket_ms(dict(stages))
