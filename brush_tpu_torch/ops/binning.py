@@ -3,8 +3,10 @@
 Port of brush_tpu/ops/binning.py. Each splat evaluates the ellipse-vs-box
 test (helpers.wgsl:220-279) densely over its bbox on a fixed 8x8 layout —
 mask bit k covers tile (cmin_x + k % 8, cmin_y + k // 8) — so the
-intersection pool holds only exact hits. Splats whose bbox exceeds 8x8
-fall back to conservative bbox records (`small` False, count = bbox area).
+intersection pool holds only exact hits; on the card one CUDA kernel
+(csrc/tile_pretest.cu) computes it, bit-equal to the plain twin here.
+Splats whose bbox exceeds 8x8 fall back to conservative bbox records
+(`small` False, count = bbox area).
 The record pipeline (ops/pipeline.py) builds its records from these masks
 with the expand kernel; build_intersections builds the XLA backend's
 depth-then-tile ordered records from them in plain PyTorch.
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from brush_tpu_torch.constants import TILE_WIDTH
+from brush_tpu_torch.ops.cuda import tile_pretest as cuda_pretest
 from brush_tpu_torch.ops.projection import Projection
 
 MASK_BITS = 64
@@ -106,7 +109,21 @@ def cell_bbox(proj: Projection, cell=(1, 1)):
 
 def precompute_tile_masks(proj: Projection, opac: torch.Tensor,
                           cell=(1, 1)) -> TileMasks:
-    """Evaluate the exact tile test densely over each splat's 8x8 bbox.
+    """The exact tile test of each splat over its 8x8 bbox window, on the
+    inputs' device: the CUDA kernel (ops/cuda/tile_pretest.py) for CUDA
+    tensors, precompute_tile_masks_plain for CPU tensors. Both give the
+    same bits."""
+    if opac.device.type == "cpu":
+        return precompute_tile_masks_plain(proj, opac, cell)
+    return TileMasks(*cuda_pretest.tile_pretest(
+        proj.xy, proj.conic, opac, proj.tile_min, proj.tile_max,
+        proj.visible, cell))
+
+
+def precompute_tile_masks_plain(proj: Projection, opac: torch.Tensor,
+                                cell=(1, 1)) -> TileMasks:
+    """Evaluate the exact tile test densely over each splat's 8x8 bbox
+    (the CUDA kernel's twin, csrc/tile_pretest.cu).
 
     The per-(kx, ky) quantities of the sign-test form (see
     brush_tpu/ops/binning.py:_edge_hits) factor into (8, N) row and

@@ -853,3 +853,144 @@ def hand_small_pool():
     assert total <= HAND_SMALL_POOL
     return ((cum - counts).astype(np.int32), cum.astype(np.int32),
             np.array([total], np.int32))
+
+
+# The tile pretest's hand layouts (csrc/tile_pretest.cu), each laid out
+# for raster cells of `cell` tiles.
+HAND_PRETEST_CASES = ("edges", "touch", "opacity", "conics", "boxes", "nan",
+                      "empty")
+HAND_PRETEST_CELLS = ((1, 1), (2, 2), (4, 2))
+HAND_TOUCH_ULPS = (-6, -3, -2, -1, 0, 1, 2, 3, 6)   # "touch": conic steps
+
+
+def _conic(sx, sy, theta):
+    """(a, b, c) of a gaussian of standard deviations (sx, sy) px along
+    axes turned by theta: the inverse of its 2x2 covariance."""
+    c, s = np.cos(theta), np.sin(theta)
+    rot = np.array([[c, -s], [s, c]])
+    inv = rot @ np.diag([1.0 / sx ** 2, 1.0 / sy ** 2]) @ rot.T
+    return inv[0, 0], inv[0, 1], inv[1, 1]
+
+
+def hand_pretest(case, cell=(1, 1)):
+    """Tile-pretest arguments made by hand, which the scenes do not reach:
+    a dict of numpy arrays xy (n, 2), conic (n, 3), opac (n,) float32,
+    tile_min, tile_max (n, 2) int32 and visible (n,) bool, for raster cells
+    of cell = (gw, gh) tiles (W = 16 gw by H = 16 gh pixels).
+      edges: centres exactly on cell edges and corners (|dx_c| == ext: the
+        centre test's inclusive edge) and at cell centres (dx_c == 0: sign
+        0), tiny and wide ellipses, over 4x4-cell bboxes;
+      touch: ellipses whose 1/255 level set reaches a neighbouring cell's
+        edge or corner up to rounding (the conic HAND_TOUCH_ULPS ulps
+        either side too);
+      opacity: opacities at float32(1/255), where 255 o rounds to 1 (sig
+        0), and one and two ulps either side (sig < 0, sig just above 0);
+      conics: a <= 0, c <= 0, hyperbolic (b^2 > ac), parabolic (b^2 == ac)
+        and all-zero conics;
+      boxes: cell bboxes of 0 x 0, 0 x 5, 5 x 0, 1x1, 8x8, 9x1, 1x9, 8x9,
+        9x9 and reversed (max < min), on the cell grid and off it (tile
+        bounds inside a cell) and at negative tiles;
+      nan: invisible splats with NaN conics (and NaN centres), visible ones
+        with NaN or infinite conics;
+      empty: no splat.
+    """
+    gw, gh = cell
+    W, H = 16.0 * gw, 16.0 * gh
+    rows = []   # (x, y, (a, b, c), opac, (tx0, ty0, tx1, ty1), visible)
+
+    def box(cx0, cy0, bw, bh):
+        """The tile bbox of the cell bbox [cx0, cx0 + bw) x [cy0, ...)."""
+        return (cx0 * gw, cy0 * gh, (cx0 + bw) * gw, (cy0 + bh) * gh)
+
+    if case == "edges":
+        us = (1.0, 1.5, 2.0, 2.5, 3.0)
+        shapes = ((0.3, 0.3, 0.0), (W / 4, H / 4, 0.0), (W, H / 3, 0.4),
+                  (W / 2, 2 * H, -1.1))
+        for k, (u, v) in enumerate((u, v) for u in us for v in us):
+            cx0, cy0 = 3 + k % 5, 2 + k // 5
+            for sx, sy, th in shapes:
+                rows.append(((cx0 + u) * W, (cy0 + v) * H, _conic(sx, sy, th),
+                             0.6, box(cx0, cy0, 4, 4), True))
+    elif case == "touch":
+        ex, ey = W / 2, H / 2
+        for k, o in enumerate((0.9, 0.35, 0.05)):
+            sig = np.log(np.float32(o) * np.float32(255.0))
+            for fa, fc in ((1.0, 1.0), (0.5, 0.5), (1.0, 0.25), (0.25, 1.0)):
+                base = np.array([2 * sig * fa / ex ** 2, 0.0,
+                                 2 * sig * fc / ey ** 2], np.float32)
+                for j, step in enumerate(HAND_TOUCH_ULPS):
+                    con = base.copy()
+                    for _ in range(abs(step)):
+                        con = np.nextafter(con, np.float32(step * np.inf))
+                    cx0, cy0 = 2 + 4 * k, 3 + 4 * j
+                    rows.append(((cx0 + 1.5) * W, (cy0 + 1.5) * H,
+                                 tuple(con), o, box(cx0, cy0, 3, 3), True))
+    elif case == "opacity":
+        o = np.float32(1 / 255)
+        ops = [o]
+        for direction in (0.0, 1.0):
+            v = o
+            for _ in range(2):
+                v = np.nextafter(v, np.float32(direction))
+                ops.append(v)
+        ops += [np.float32(1.01 / 255), np.float32(0.5)]
+        for k, op in enumerate(ops):
+            for j, (u, v) in enumerate(((1.5, 1.5), (1.0, 1.0), (1.2, 1.7))):
+                rows.append(((4 + u) * W, (2 + 3 * k + v) * H,
+                             _conic(W / 3, H / 5, 0.3 * j), op,
+                             box(4, 2 + 3 * k, 3, 3), True))
+    elif case == "conics":
+        conics = ((0.0, 0.0, 0.02), (-0.01, 0.0, 0.02), (0.02, 0.0, -0.01),
+                  (0.01, 0.05, 0.01), (0.02, -0.03, 0.005),
+                  (0.01, 0.01, 0.01), (0.0, 0.0, 0.0), (1e-6, 0.0, 1e-6),
+                  (-0.01, 0.02, -0.01), (0.0, 0.02, 0.0))
+        for k, con in enumerate(conics):
+            for j, (u, v) in enumerate(((2.0, 2.0), (2.5, 1.5), (1.3, 2.9))):
+                rows.append(((3 * j + u) * W, (4 * k + v) * H, con, 0.8,
+                             box(3 * j, 4 * k, 4, 4), True))
+    elif case == "boxes":
+        sizes = ((0, 0), (0, 5), (5, 0), (1, 1), (8, 8), (9, 1), (1, 9),
+                 (8, 9), (9, 9), (-1, 2), (2, -3))
+        for k, (bw, bh) in enumerate(sizes):
+            for j, r in enumerate((2.0, 0.7 * W, 3.0 * W)):
+                cx0, cy0 = 12 * j, 12 * k
+                x = (cx0 + max(bw, 1) / 2.0) * W
+                y = (cy0 + max(bh, 1) / 2.0) * H
+                con = _conic(r, r * 0.8, 0.5 * k)
+                rows.append((x, y, con, 0.9, box(cx0, cy0, bw, bh), True))
+                # Off the cell grid: tile bounds inside cells.
+                tx0, ty0, tx1, ty1 = box(cx0, cy0, bw, bh)
+                rows.append((x, y, con, 0.9, (tx0 + gw // 2, ty0 + gh - 1,
+                                              tx1 + gw - 1, ty1 + gh // 2),
+                             True))
+        for tx0, ty0 in ((-3, -1), (-1, -5), (-gw, 0)):
+            rows.append((tx0 * 16.0 + 5.0, ty0 * 16.0 + 7.0,
+                         _conic(12.0, 9.0, 0.2), 0.7,
+                         (tx0, ty0, tx0 + 3 * gw, ty0 + 2 * gh), True))
+    elif case == "nan":
+        nan, inf = np.nan, np.inf
+        for k in range(6):
+            b = box(2 + 3 * k, 2, 2, 2) if k % 3 else (0, 0, 0, 0)
+            rows.append((nan, nan, (nan, nan, nan), 0.5, b, False))
+            rows.append(((3 + 3 * k) * W, 3 * H, (nan, nan, nan), 0.5,
+                         box(2 + 3 * k, 2, 2, 2), False))
+        for k, con in enumerate(((nan, nan, nan), (nan, 0.0, 0.01),
+                                 (inf, 0.0, inf), (0.01, -inf, 0.01))):
+            for j, (u, v) in enumerate(((1.5, 1.5), (1.0, 2.0))):
+                rows.append(((3 * k + u) * W, (2 + 3 * j + v) * H, con, 0.5,
+                             box(3 * k, 2 + 3 * j, 3, 3), True))
+    elif case != "empty":
+        raise ValueError(f"unknown case {case}")
+
+    n = len(rows)
+    return {
+        "xy": np.array([(r[0], r[1]) for r in rows], np.float32).reshape(
+            n, 2),
+        "conic": np.array([r[2] for r in rows], np.float32).reshape(n, 3),
+        "opac": np.array([r[3] for r in rows], np.float32).reshape(n),
+        "tile_min": np.array([r[4][:2] for r in rows], np.int32).reshape(
+            n, 2),
+        "tile_max": np.array([r[4][2:] for r in rows], np.int32).reshape(
+            n, 2),
+        "visible": np.array([r[5] for r in rows], bool).reshape(n),
+    }

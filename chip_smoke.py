@@ -10,8 +10,13 @@ result line; each phase prints its seconds):
      source, in parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the entry scene (16384 splats, 256x256) and at the bench scene's
-     render inputs: expand byte-equal (and a second launch bit-equal,
-     wherever it is checked below); rasterize_fwd img and log_t within
+     render inputs: the tile pretest's five outputs equal to its plain
+     twin's in every bit (and a second launch bit-equal, wherever it is
+     checked below: also at CHECK_CELLS, on every castle view and cell,
+     the strip phase's frames, the bench render at CELL and every
+     training run's kept arguments); expand byte-equal (and a second
+     launch bit-equal, wherever it is checked below); rasterize_fwd img
+     and log_t within
      1e-5 with threshold flips counted and bounded (<= 2e-3 of the pixels,
      img and T = exp(log_t) within 0.01 at each) and final_idx equal on
      every other pixel, and a second launch on the same inputs
@@ -42,7 +47,10 @@ result line; each phase prints its seconds):
      splat over three kernel blocks, owners of count 0 inside the live
      range and in a run wider than the kernel's owner window, full 64-bit
      masks and rank 63, ranks in the high word, `total` == pool, `total`
-     0, n 0, owners starting on block starts, pool % 4 != 0);
+     0, n 0, owners starting on block starts, pool % 4 != 0); the tile
+     pretest at the benchmark's bicycle size (pretest_phase: the
+     bicycle-5m scene's 5,242,880 splats in each of its 8 views, at
+     (1, 1) and CELL, bit-equal to its plain twin, timed on two views);
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after; then
@@ -76,9 +84,10 @@ result line; each phase prints its seconds):
   5. the main path of training at full width: SplatTrainer on the bench
      scene against a black ground truth (bench.py:210-231), 6 steps with
      warmup 1 and refine every 3, so refine runs at iterations 1 (through
-     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all four
-     kernels' counters reset just before and read just after; every
-     step's CUDA-event time. The pipeline's calls to the four kernels keep
+     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all five
+     kernels' counters reset just before and read just after (the tile
+     pretest once a step); every step's CUDA-event time. The main path's
+     calls to the five kernels keep
      their arguments on the first step at each capacity; then the train
      step metric: 8 warm steps at the capacity the run ends at; then all
      of it again with SplatTrainer(raster_cell=CELL); between the two,
@@ -112,8 +121,9 @@ result line; each phase prints its seconds):
      its twin with libpng's adaptive row filters (loaded and timed once,
      images equal); `train` 620 steps (eval every 200 on 4 views,
      checkpoints every 200, refines at 501 and 601, PLY export) with all
-     four kernels' counters reset just before and read just after: one
-     launch of each a step and of the forward two one an eval render
+     five kernels' counters reset just before and read just after: one
+     launch of each a step and of the forward three (the tile pretest,
+     expand, rasterize_fwd) one an eval render
      (pool-growth retries counted); the kernels' arguments kept on the
      first step and the first after each refine, and each kernel held to
      its plain version on the first and the last of them (tolerances as
@@ -144,7 +154,8 @@ result line; each phase prints its seconds):
      with gradients and the bench render through render_splats(
      backend="xla") held to the record pipeline's kernels (images within
      assert_close_quantized's defaults, gradients within the castle
-     test's render-grad rule), no kernel launched on the XLA path, both
+     test's render-grad rule), no kernel launched on the XLA path but
+     the tile pretest once a render or step (its binning), both
      paths' times and peak memory; ShardedTrainer(backend="xla") at world
      size 1 over NCCL on the castle's views, its first loss within 1e-3
      relative of the pipeline trainer's;
@@ -165,7 +176,7 @@ result line; each phase prints its seconds):
      10,485,760; one probe step (render with gradients, L1, backward,
      Adam) with the counters reset just before and read just after: one
      launch of each kernel, no record dropped, finite loss and parameters;
-     all four kernels against their plain versions on that step's own
+     all five kernels against their plain versions on that step's own
      arguments (phase 2's tolerances, repeats bit-equal), timed (wrapper
      and device), with bounds (both rasterizers' reach bounds too) and
      index_add_ beside segment_sum; the median of 8 probe steps on fixed
@@ -191,7 +202,7 @@ result line; each phase prints its seconds):
      finite parameters at 3000 and 3200, no record dropped at any eval,
      eval PSNR at 1500 and 3000 no lower than the JAX run's 30.86 and
      31.28 less 1.5 dB, one launch of each kernel a step and of the
-     forward two one an eval render; the four kernels held to their plain
+     forward three one an eval render; the five kernels held to their plain
      versions (phase 2's tolerances, repeats bit-equal) on the arguments
      of step 3002, the first after the reset, and timed there; one
      [quality] line;
@@ -202,7 +213,8 @@ result line; each phase prints its seconds):
      phase's per strip (launches: the sharded training's) and under
      "aligned" the aligned phase's, and for expand and rasterize_fwd
      under "viewer" the viewer's frames' launches and under "render"
-     phase 3's times at (1, 1) and CELL; beside each "ms" (the wrapper's,
+     phase 3's times at (1, 1) and CELL (also for the tile pretest, whose
+     "bicycle" holds pretest_phase's); beside each "ms" (the wrapper's,
      what a host-bound step pays) its "device_ms" (the median of
      DEVICE_REPLAYS replays of a CUDA graph of the calls), and beside
      segment_sum's "library_ms" (index_add_) its "library_device_ms",
@@ -268,6 +280,11 @@ EXACT = dict(scan_passes=3)   # the rasterizers' exact scan, by name
 SCAN_LANES = (128, 512)   # the scan phase's k_lanes at (1, 1)
 SCAN_STRIP_BASE = 1029    # the scan phase's strip: its first cell,
 SCAN_STRIP_CELLS = 512    # and its cells (of the bench's 4096)
+# The tile pretest's bytes a splat: 41 read (xy, conic, opacity, the tile
+# bbox, visible) and 33 written (counts, mask_lo, mask_hi, pc_pack, small).
+PRETEST_BYTES = 41 + 33
+PRETEST_SEED = 3200000321   # pretest_phase's draw of the bicycle scene
+PRETEST_TIMED_VIEWS = 2     # and its views that are timed
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
@@ -452,8 +469,9 @@ def make_scene(cfg, device):
 
 def kernel_inputs(splats, cp, size, pool, cell=(1, 1)):
     """The main path's stages up to each kernel at raster cell `cell`, the
-    kernels on the card: the expand arguments, the rasterize_fwd arguments
-    (packed, starts, ends, cells_x, cell) and the depth order's offsets."""
+    kernels on the card: the tile pretest's arguments, the expand
+    arguments, the rasterize_fwd arguments (packed, starts, ends, cells_x,
+    cell) and the depth order's offsets."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.pipeline import depth_order, tile_bins
     from brush_tpu_torch.render import record_inputs
@@ -466,7 +484,7 @@ def kernel_inputs(splats, cp, size, pool, cell=(1, 1)):
     num_cells = cells_x * -(-size[1] // (16 * cell[1]))
     exp_args = (d.f5, d.u5, d.cum, d.total, cells_x, num_cells, pool)
     packed, starts, ends = tile_bins(*expand(*exp_args), num_cells)
-    return dict(exp_args=exp_args,
+    return dict(pt_args=pretest_args(rec, cell), exp_args=exp_args,
                 r_args=(packed, starts, ends, cells_x, tuple(cell)),
                 offsets=d.offsets, raw_total=int(d.raw_total))
 
@@ -482,6 +500,108 @@ def timed(fn):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1)
+
+
+def pretest_args(rec, cell):
+    """The tile pretest wrapper's arguments in record_inputs' result rec
+    (ops/binning.precompute_tile_masks' call): xy, conic, opacity, the
+    tile bbox, visible and the cell."""
+    p = rec.proj
+    return (p.xy.detach(), p.conic.detach(), rec.attrs9[8].detach(),
+            p.tile_min, p.tile_max, p.visible, tuple(cell))
+
+
+def check_pretest(p_args, label):
+    """The tile pretest kernel against its plain twin on the wrapper's
+    arguments p_args: all five outputs equal in every bit (dtype too), and
+    two launches bit-equal. Returns the twin's ms."""
+    import torch
+    from brush_tpu_torch.ops.binning import precompute_tile_masks_plain
+    from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
+    from brush_tpu_torch.ops.projection import Projection
+
+    got = tile_pretest(*p_args)
+    again = tile_pretest(*p_args)
+    xy, conic, opac, tile_min, tile_max, visible, cell = p_args
+    zeros = torch.zeros_like(opac)
+    proj = Projection(xy, zeros, conic, zeros.int(), tile_min, tile_max,
+                      visible)
+    want, plain_ms = timed(
+        lambda: precompute_tile_masks_plain(proj, opac, cell))
+    for name, g, a, w in zip(want._fields, got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"[{label}] tile_pretest: two launches on "
+                                 f"the same inputs differ in {name}")
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(
+                f"[{label}] tile_pretest: {name} differs from the plain "
+                f"twin's at {int((g != w).sum())} of {g.shape[0]} splats")
+    return plain_ms
+
+
+def pretest_bound(p_args):
+    """The tile pretest's least time (ms) and what bounds it: PRETEST_BYTES
+    a splat at the memory rate (its few tests a splat are far below the
+    float32 rate)."""
+    return _bound(PRETEST_BYTES * p_args[2].shape[0], 0)
+
+
+def pretest_phase(smi: str) -> dict:
+    """The tile pretest at the benchmark's bicycle size: the bicycle-5m
+    configuration's 5,242,880 splats (SH 3) drawn by
+    benchmark/scenes/uniform.py from PRETEST_SEED and projected into each
+    of its 1237x822 views; at (1, 1) and CELL the kernel held bit-equal to
+    its plain twin (check_pretest); on PRETEST_TIMED_VIEWS the wrapper's
+    and the device's ms, the twin's and the bound. Returns {"view v gwxgh":
+    those fields}."""
+    import torch
+    from benchmark.scenes import uniform
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+    from brush_tpu_torch.render import detached, project_inputs
+
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "bicycle-5m.json")) as f:
+        sc = json.load(f)["scene"]
+    p = uniform.params(sc, PRETEST_SEED, "cuda")
+    size = (sc["width"], sc["height"])
+    poses = uniform.ring_poses(sc["views"], sc["distance"],
+                               np.radians(sc["fov_x_deg"]), size)
+    out, records = {}, []
+    for v, pose in enumerate(poses):
+        cam = camera_params(Camera(**pose), size, device="cuda")
+        with torch.no_grad():
+            proj, _, opac, _ = project_inputs(
+                p["means"], p["log_scales"], p["quats"], p["sh_coeffs"],
+                p["raw_opacity"], cam, size)
+        proj = detached(proj)
+        for cell in ((1, 1), CELL):
+            args = (proj.xy, proj.conic, opac, proj.tile_min, proj.tile_max,
+                    proj.visible, cell)
+            label = f"view {v} {cell[0]}x{cell[1]}"
+            plain_ms = check_pretest(args, f"pretest {label}")
+            records.append(int(tile_pretest(*args)[0].sum()))
+            if v < PRETEST_TIMED_VIEWS:
+                fn = lambda: tile_pretest(*args)   # noqa: E731
+                bound = pretest_bound(args)
+                out[label] = {"ms": cuda_ms(fn, reps=50, warm=3),
+                              "device_ms": device_ms(fn, reps=50, warm=3),
+                              "plain_ms": plain_ms, "bound_ms": bound[0],
+                              "bound_by": bound[1]}
+    n = p["means"].shape[0]
+    del p, proj, opac
+    torch.cuda.empty_cache()
+    print(f"[pretest] bicycle-5m draw (seed {PRETEST_SEED}), {n} splats, "
+          f"{len(poses)} views {size[0]}x{size[1]} at (1, 1) and {CELL}: "
+          f"bit-equal to the plain twin in every view; records {records}; "
+          + "; ".join(f"{k} {t['ms']:.4f} ms, device {t['device_ms']:.4f} "
+                      f"(plain {t['plain_ms']:.3f}, bound "
+                      f"{t['bound_ms']:.4f} by {t['bound_by']})"
+                      for k, t in out.items())
+          + f"; {smi}; {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check_expand(exp_args):
@@ -870,9 +990,9 @@ def reach_note(r) -> str:
 
 
 def kernel_phase(cfg, label, backward: bool, reach: bool = False):
-    """Phase 2 at one scene, at the render's pool: expand and
-    rasterize_fwd (with `reach`, its pairs that may reach their warp
-    patch counted too), and with `backward` the backward kernels."""
+    """Phase 2 at one scene, at the render's pool: the tile pretest,
+    expand and rasterize_fwd (with `reach`, its pairs that may reach their
+    warp patch counted too), and with `backward` the backward kernels."""
     t0 = time.perf_counter()
     splats, cp, size = make_scene(cfg, "cuda")
     from brush_tpu_torch.render import pool_size
@@ -880,11 +1000,13 @@ def kernel_phase(cfg, label, backward: bool, reach: bool = False):
     k = kernel_inputs(splats, cp, size,
                       pool_size(splats.capacity, size, cfg["pool"],
                                 cfg["block"]))
+    k["pretest_plain_ms"] = check_pretest(k["pt_args"], label)
     k["expand_plain_ms"] = check_expand(k["exp_args"])
     r = check_raster(k["r_args"], reach=reach)
     total = int(k["exp_args"][3][0])
     print(f"[{label}] n={cfg['n']} {size[0]}x{size[1]} "
-          f"pool={k['exp_args'][6]} records={total}: expand byte-equal; "
+          f"pool={k['exp_args'][6]} records={total}: tile_pretest "
+          f"bit-equal to its plain twin; expand byte-equal; "
           f"rasterize_fwd max err {r['err']:.3e}, flipped pixels "
           f"{r['flips']}, pairs evaluated {r['pairs']}, of them active "
           f"{r['active']}" + reach_note(r))
@@ -954,7 +1076,7 @@ def scan_ops(kw, extra: int, terms: int) -> int:
 def bounds(k, fwd, bwd):
     """Least times (ms) for this run's inputs, with what bounds each:
     expand, rasterize_fwd, rasterize_bwd, segment_sum (raster_bounds for
-    the two rasterizers)."""
+    the two rasterizers), and the tile pretest where k has its arguments."""
     import torch
 
     f5, u5, cum, total = k["exp_args"][:4]
@@ -972,7 +1094,9 @@ def bounds(k, fwd, bwd):
     return {"expand": _bound(exp_b, 0),
             **raster_bounds(live, k["r_args"][1].shape[0], k["r_args"][4],
                             pool, fwd, bwd),
-            "segment_sum": _bound(seg_b, 9 * live)}
+            "segment_sum": _bound(seg_b, 9 * live),
+            **({"tile_pretest": pretest_bound(k["pt_args"])}
+               if "pt_args" in k else {})}
 
 
 def forward_times(k, label):
@@ -982,13 +1106,16 @@ def forward_times(k, label):
     compared with) and their bounds. Returns {kernel: those fields}."""
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
+    from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
 
-    exp_args, r_args = k["exp_args"], k["r_args"]
-    calls = {"expand": lambda: expand(*exp_args),
+    pt_args, exp_args, r_args = k["pt_args"], k["exp_args"], k["r_args"]
+    calls = {"tile_pretest": lambda: tile_pretest(*pt_args),
+             "expand": lambda: expand(*exp_args),
              "rasterize_fwd": lambda: rasterize_fwd(*r_args)}
     # No backward ran on these inputs: its bound is not read.
     bound = bounds(k, k["fwd"], dict(swept=0, active=0))
-    plain = {"expand": k["expand_plain_ms"],
+    plain = {"tile_pretest": k["pretest_plain_ms"],
+             "expand": k["expand_plain_ms"],
              "rasterize_fwd": k["fwd"]["plain_ms"]}
     out = {name: {"ms": cuda_ms(fn, reps=20),
                   "device_ms": device_ms(fn, reps=20),
@@ -1013,7 +1140,6 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
     at raster cell `cell`, then timings. Returns (launch counts, image,
     records, median ms)."""
     import torch
-    from brush_tpu_torch.ops.cuda import expand, rasterize_fwd
     from brush_tpu_torch.render import render_splats
 
     def render():
@@ -1023,14 +1149,14 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
             block_size=cfg["block"], max_isects=cfg["pool"], cell=cell,
             needs_grad=False)
 
-    expand.launches = 0
-    rasterize_fwd.launches = 0
+    reset_launches()
     img, aux = render()
     torch.cuda.synchronize()
-    counts = {"expand": expand.launches,
-              "rasterize_fwd": rasterize_fwd.launches}
-    if min(counts.values()) < 1:
-        raise AssertionError(f"main path skipped a kernel: {counts}")
+    counts = {name: n for name, n in read_launches().items()
+              if name in ("tile_pretest", "expand", "rasterize_fwd")}
+    if counts != {"tile_pretest": 1, "expand": 1, "rasterize_fwd": 1}:
+        raise AssertionError(f"main path: launches {counts}, not one of "
+                             f"each forward kernel")
     dropped = int(aux.num_dropped)
     if dropped != 0:
         raise AssertionError(f"bench render dropped {dropped} records")
@@ -1140,7 +1266,6 @@ def castle_phase():
     import torch
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
     from brush_tpu_torch.eval import eval_stats, eval_view
-    from brush_tpu_torch.ops.cuda import expand, rasterize_fwd
 
     with open(CASTLE_PLY, "rb") as f:
         data = f.read()
@@ -1151,23 +1276,24 @@ def castle_phase():
     blank = np.zeros((CASTLE_SIZE, CASTLE_SIZE, 3), np.float32)
     gts = [eval_view(cpu, c, blank, keep_image=True).rendered for c in cams]
     t_cpu = time.perf_counter() - t0
-    expand.launches = 0
-    rasterize_fwd.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     evals = eval_stats(gpu, list(zip(cams, gts)))
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    counts = (expand.launches, rasterize_fwd.launches)
+    n = read_launches()
+    counts = (n["expand"], n["rasterize_fwd"], n["tile_pretest"])
     psnr = [e.psnr for e in evals]
     ssim = [e.ssim for e in evals]
     print(f"[castle] {gpu.n_live} splats, SH degree 3, {len(cams)} views "
           f"{CASTLE_SIZE}x{CASTLE_SIZE}: PSNR {[round(p, 2) for p in psnr]} "
           f"SSIM {[round(s, 6) for s in ssim]} vs the CPU render; pool "
           f"{evals[-1].pool}; launches expand={counts[0]} "
-          f"rasterize_fwd={counts[1]}; host s: cpu {t_cpu:.1f} "
-          f"gpu {t_gpu:.1f}")
-    if min(counts) < len(cams):
-        raise AssertionError(f"castle eval skipped a kernel: {counts}")
+          f"rasterize_fwd={counts[1]} tile_pretest={counts[2]}; host s: "
+          f"cpu {t_cpu:.1f} gpu {t_gpu:.1f}")
+    if min(counts) < len(cams) or len(set(counts)) != 1:
+        raise AssertionError(f"castle eval: launches {counts}, not one of "
+                             f"each forward kernel a render")
     if min(psnr) < 50.0 or min(ssim) < 0.999:
         raise AssertionError("castle views differ from the CPU render")
     gt_mean = [float(np.mean(g)) for g in gts]
@@ -1179,17 +1305,19 @@ def castle_phase():
 def cell_kernel_phase(splats, cp, size, pool):
     """Both rasterizers at each of CHECK_CELLS on a scene (the entry one),
     held to their plain versions with phase 2's tolerances and repeat
-    launches bit-equal; expand byte-equal and segment_sum on the re-sorted
-    rows as there."""
+    launches bit-equal; the tile pretest bit-equal to its plain twin,
+    expand byte-equal and segment_sum on the re-sorted rows as there."""
     t0 = time.perf_counter()
     for cell in CHECK_CELLS:
         label = f"entry cell {cell}"
         k = kernel_inputs(splats, cp, size, pool, cell)
+        check_pretest(k["pt_args"], label)
         check_expand(k["exp_args"])
         r = check_raster(k["r_args"])
         print(f"[{label}] {k['r_args'][1].shape[0]} cells of "
               f"{256 * cell[0] * cell[1]} pixels, records "
-              f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
+              f"{int(k['exp_args'][3][0])}: tile_pretest bit-equal to its "
+              f"plain twin; expand byte-equal; rasterize_fwd "
               f"max err {r['err']:.3e}, flipped pixels {r['flips']}, pairs "
               f"evaluated {r['pairs']}, of them active {r['active']}")
         check_backward(k, label, seed=1)
@@ -1197,11 +1325,13 @@ def cell_kernel_phase(splats, cp, size, pool):
 
 
 def castle_cells(splats, cams, gts, pool):
-    """The castle at each of CHECK_CELLS: rasterize_fwd held to its plain
-    version on view 0's arguments, and at CELL also the backward kernels
-    (real opacities: saturating pixels, the early-out, a cell's tiles
-    swept in turn); then eval_stats, launches counted, every image held to
-    the (1, 1) one with CELL_IMAGE_TOL, the differing pixels counted."""
+    """The castle at each of CHECK_CELLS: the tile pretest bit-equal to
+    its plain twin and rasterize_fwd held to its plain version on view 0's
+    arguments, and at CELL also the backward kernels (real opacities:
+    saturating pixels, the early-out, a cell's tiles swept in turn); then
+    eval_stats, launches counted (one of each forward kernel a render),
+    every image held to the (1, 1) one with CELL_IMAGE_TOL, the differing
+    pixels counted."""
     import torch
     from brush_tpu_torch.eval import eval_stats
     from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -1214,9 +1344,11 @@ def castle_cells(splats, cams, gts, pool):
     for cell in CHECK_CELLS:
         label = f"castle cell {cell}"
         k = kernel_inputs(splats, cp, size, pool, cell)
+        check_pretest(k["pt_args"], label)
         r = check_raster(k["r_args"])
         print(f"[{label}] view 0, {k['r_args'][1].shape[0]} cells, records "
-              f"{int(k['exp_args'][3][0])}: rasterize_fwd max err "
+              f"{int(k['exp_args'][3][0])}: tile_pretest bit-equal to its "
+              f"plain twin; rasterize_fwd max err "
               f"{r['err']:.3e}, flipped pixels {r['flips']} (largest img or "
               f"T difference there {r['flip_err']:.3e}), pairs evaluated "
               f"{r['pairs']}, active {r['active']}")
@@ -1243,8 +1375,9 @@ def castle_cells(splats, cams, gts, pool):
               f"{[d['flips'] for d in diffs]} of {CASTLE_SIZE ** 2} (largest "
               f"{max(max(d['err'], d['flip_err']) for d in diffs):.3e}); "
               f"launches {counts}")
-        if min(counts["expand"], counts["rasterize_fwd"]) < len(cams):
-            raise AssertionError(f"castle cell {cell} skipped a kernel")
+        if min(counts["expand"], counts["rasterize_fwd"]) < len(cams) or \
+                counts["tile_pretest"] != counts["expand"]:
+            raise AssertionError(f"castle cell {cell}: launches {counts}")
     print(f"[castle cells] {time.perf_counter() - t0:.1f} s")
 
 
@@ -1253,8 +1386,9 @@ def castle_cameras():
 
 
 def castle_kernels(splats, cams, pool):
-    """rasterize_fwd's check on every castle view, and the backward
-    kernels' on view 0: real opacities saturate pixels, so the forward's
+    """The tile pretest's and rasterize_fwd's checks on every castle view,
+    and the backward kernels' on view 0: real opacities saturate pixels,
+    so the forward's
     early-out ends tiles before their last record and each tile's backward
     sweep skips a suffix of records."""
     from brush_tpu_torch.ops.rasterize_reference import camera_params
@@ -1269,9 +1403,11 @@ def castle_kernels(splats, cams, pool):
         if k["raw_total"] > pool:
             raise AssertionError(f"castle view {view} dropped records: pool "
                                  f"{pool}, records {k['raw_total']}")
+        check_pretest(k["pt_args"], f"castle view {view}")
         r = check_raster(k["r_args"])
         live = int(k["exp_args"][3][0])
-        print(f"[castle] rasterize_fwd on view {view}: max err "
+        print(f"[castle] tile_pretest on view {view} bit-equal to its plain "
+              f"twin; rasterize_fwd: max err "
               f"{r['err']:.3e}, flipped pixels {r['flips']} (largest img or "
               f"T difference there {r['flip_err']:.3e}); the early-out "
               f"leaves {r['pairs']} of the {256 * live} pairs to evaluate, "
@@ -1284,39 +1420,45 @@ def castle_kernels(splats, cams, pool):
           f"({n_tiles} tiles)")
 
 
-def reset_launches():
+KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum",
+                   "tile_pretest")
+
+
+def kernel_modules() -> dict:
+    """{wrapper name: its module in ops/cuda, which counts its launches}."""
     from brush_tpu_torch.ops.cuda import (
-        expand, rasterize_bwd, rasterize_fwd, segsum,
+        expand, rasterize_bwd, rasterize_fwd, segsum, tile_pretest,
     )
 
-    for mod in (expand, rasterize_fwd, rasterize_bwd, segsum):
+    return {"expand": expand, "rasterize_fwd": rasterize_fwd,
+            "rasterize_bwd": rasterize_bwd, "segment_sum": segsum,
+            "tile_pretest": tile_pretest}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
         mod.launches = 0
 
 
 def read_launches() -> dict:
-    from brush_tpu_torch.ops.cuda import (
-        expand, rasterize_bwd, rasterize_fwd, segsum,
-    )
-
-    return {"expand": expand.launches, "rasterize_fwd": rasterize_fwd.launches,
-            "rasterize_bwd": rasterize_bwd.launches,
-            "segment_sum": segsum.launches}
-
-
-KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum")
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 @contextlib.contextmanager
 def kept_kernel_args(armed: list):
-    """While armed[0] is true, keep the arguments of the record pipeline's
-    calls to the four kernel wrappers (the wrappers still launch and count
-    as before). Yields {wrapper name: last arguments, "<wrapper name> kw":
-    its last keyword arguments (the rasterizers' scan_passes and
-    k_lanes)}."""
+    """While armed[0] is true, keep the arguments of the main path's calls
+    to the five kernel wrappers: the record pipeline's four and
+    ops/binning's call of the tile pretest (the wrappers still launch and
+    count as before). Yields {wrapper name: last arguments, "<wrapper
+    name> kw": its last keyword arguments (the rasterizers' scan_passes
+    and k_lanes)}."""
     from brush_tpu_torch.ops import pipeline
+    from brush_tpu_torch.ops.cuda import tile_pretest
 
     seen = {}
-    saved = {name: getattr(pipeline, name) for name in KERNEL_WRAPPERS}
+    homes = {name: tile_pretest if name == "tile_pretest" else pipeline
+             for name in KERNEL_WRAPPERS}
+    saved = {name: getattr(homes[name], name) for name in KERNEL_WRAPPERS}
 
     def keep(name, fn):
         def call(*args, **kw):
@@ -1327,12 +1469,12 @@ def kept_kernel_args(armed: list):
         return call
 
     for name, fn in saved.items():
-        setattr(pipeline, name, keep(name, fn))
+        setattr(homes[name], name, keep(name, fn))
     try:
         yield seen
     finally:
         for name, fn in saved.items():
-            setattr(pipeline, name, fn)
+            setattr(homes[name], name, fn)
 
 
 def kept_names(kept: dict) -> list:
@@ -1362,8 +1504,9 @@ def timed_steps(trainer, state, batch, steps: int):
 
 def train_path(cfg, cell=(1, 1)):
     """Phase 5, the main path: SplatTrainer steps on the bench scene
-    against a black ground truth at raster cell `cell`, all four kernels
-    counted, and the kernels' arguments kept on the first step at each
+    against a black ground truth at raster cell `cell`, all five kernels
+    counted (the tile pretest once a step), and the kernels' arguments
+    kept on the first step at each
     capacity. Then the train step metric at the capacity the run ended
     at. Returns (launches, metric ms, window ms, {capacity: arguments},
     records a step, {"losses", "params"} of the run's steps and the state
@@ -1415,8 +1558,8 @@ def train_path(cfg, cell=(1, 1)):
           f"n_live {sp.n_live}, capacity {sp.capacity}, pool {pool}; "
           f"kernel arguments kept at capacities {sorted(kept)}; "
           f"{time.perf_counter() - t_phase:.1f} s")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"training skipped a kernel: {counts}")
+    if min(counts.values()) < 1 or counts["tile_pretest"] != TRAIN_STEPS:
+        raise AssertionError(f"training: launches {counts}")
     if sorted(refines) != [1, 4]:
         raise AssertionError(f"refine ran at {sorted(refines)}, not [1, 4]")
     if not all(np.isfinite(losses)) or not finite:
@@ -1448,20 +1591,23 @@ def train_path(cfg, cell=(1, 1)):
 def train_kernels(kept, tag="train", reach=True):
     """Phase 6 (and the "cli" phase's check): each kernel against its
     plain version on the arguments a training run gave it, kept = {when:
-    the four wrappers' arguments} in the run's order; then the times,
+    the five wrappers' arguments} in the run's order; then the times,
     bounds and errors of the last arguments, as the result reports them."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
     from brush_tpu_torch.ops.cuda.segsum import segment_sum, slot_owners
+    from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
 
     for when, args in kept.items():
         t0 = time.perf_counter()
         label = f"{tag} {when}"
-        k = dict(exp_args=args["expand"], r_args=args["rasterize_fwd"])
+        k = dict(pt_args=args["tile_pretest"], exp_args=args["expand"],
+                 r_args=args["rasterize_fwd"])
         r_kw = args.get("rasterize_fwd kw", {})
         b_kw = args.get("rasterize_bwd kw", {})
+        p_plain = check_pretest(k["pt_args"], label)
         e_plain = check_expand(k["exp_args"])
         last = when == list(kept)[-1]
         r = check_raster(k["r_args"], reach=last and reach, kw=r_kw)
@@ -1469,7 +1615,8 @@ def train_kernels(kept, tag="train", reach=True):
                       kw=b_kw)
         s = check_segsum(args["segment_sum"], label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
-              f"{int(k['exp_args'][3][0])}: expand byte-equal; rasterize_fwd "
+              f"{int(k['exp_args'][3][0])}: tile_pretest bit-equal to its "
+              f"plain twin; expand byte-equal; rasterize_fwd "
               f"max err {r['err']:.3e}, flipped pixels {r['flips']}, pairs "
               f"evaluated {r['pairs']}, active {r['active']}{reach_note(r)}; "
               f"rasterize_bwd row error {b['err']:.3e} (max abs "
@@ -1479,7 +1626,7 @@ def train_kernels(kept, tag="train", reach=True):
               f"{s['abs']:.3e}); {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    exp_args, r_args = k["exp_args"], k["r_args"]
+    pt_args, exp_args, r_args = k["pt_args"], k["exp_args"], k["r_args"]
     b_args, s_args = args["rasterize_bwd"], args["segment_sum"]
     rows, _, cum, total = s_args
     ids = slot_owners(cum, total, rows.shape[1])
@@ -1488,7 +1635,8 @@ def train_kernels(kept, tag="train", reach=True):
     calls = {"expand": (lambda: expand(*exp_args), 20),
              "rasterize_fwd": (lambda: rasterize_fwd(*r_args, **r_kw), 20),
              "rasterize_bwd": (lambda: rasterize_bwd(*b_args, **b_kw), 10),
-             "segment_sum": (lambda: segment_sum(*s_args), 20)}
+             "segment_sum": (lambda: segment_sum(*s_args), 20),
+             "tile_pretest": (lambda: tile_pretest(*pt_args), 20)}
     ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in calls.items()}
     dev = {name: device_ms(fn, reps) for name, (fn, reps) in calls.items()}
 
@@ -1514,10 +1662,11 @@ def train_kernels(kept, tag="train", reach=True):
     return dict(ms=ms, device=dev, library_device=s_lib_dev,
                 plain={"expand": e_plain, "rasterize_fwd": r["plain_ms"],
                        "rasterize_bwd": b["plain_ms"],
-                       "segment_sum": s["plain_ms"]},
+                       "segment_sum": s["plain_ms"], "tile_pretest": p_plain},
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
-                     "rasterize_bwd": b["abs"], "segment_sum": s["abs"]},
+                     "rasterize_bwd": b["abs"], "segment_sum": s["abs"],
+                     "tile_pretest": 0.0},
                 bound=bounds(k, r, b), library=s_lib, when=when,
                 scan={"rasterize_fwd": r_kw, "rasterize_bwd": b_kw},
                 checks={"rasterize_fwd": {key: v for key, v in r.items()
@@ -1754,7 +1903,9 @@ def strip_phase(splats, cp, size):
     gradients of sum(img v) (a seeded v, exact float32 cotangents) summed
     over the strips the frame's within SEG_RTOL of each row's largest
     value. At one strip (tile_base 0) the restriction, the binning and
-    both kernels must give the frame's bits. Every call here takes the
+    both kernels must give the frame's bits. The frame's tile pretest,
+    whose masks the strips restrict, is held bit-equal to its plain twin.
+    Every call here takes the
     exact scan (EXACT, scan_passes=3): the truncated scan's batches follow
     each pool's own ranges, so a strip's pool and the frame's would part
     by its rounding, not by a fault (scan_phase holds the mode to its
@@ -1780,6 +1931,8 @@ def strip_phase(splats, cp, size):
         rec = record_inputs(splats.means, splats.log_scales, splats.quats,
                             splats.sh_coeffs, splats.raw_opacity, cp, size,
                             active=splats.active_mask(), cell=cell)
+        # The strips restrict the frame's pretest masks (meta_rows).
+        check_pretest(pretest_args(rec, cell), tag)
         a9 = rec.attrs9.detach()
         meta = meta_rows(rec, cell)
         cells_x = -(-size[0] // (16 * cell[0]))
@@ -1949,7 +2102,8 @@ def sharded_path(cfg, single):
         if losses != single["losses"] or differ:
             raise AssertionError("sharded training at world size 1 differs "
                                  "from SplatTrainer")
-        if min(counts.values()) < TRAIN_STEPS or sorted(refines) != [1, 4]:
+        if min(counts.values()) < TRAIN_STEPS or sorted(refines) != [1, 4] \
+                or counts["tile_pretest"] != TRAIN_STEPS:
             raise AssertionError(f"sharded training: launches {counts}, "
                                  f"refines {sorted(refines)}")
         del whole
@@ -2329,7 +2483,8 @@ def cli_phase(castle, pool, d):
     if len(renders) != evals + retries or counts != {
             "expand": CLI_ITERS + len(renders),
             "rasterize_fwd": CLI_ITERS + len(renders),
-            "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS}:
+            "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS,
+            "tile_pretest": CLI_ITERS + len(renders)}:
         raise AssertionError(f"cli train: launches {counts} are not "
                              f"one a step and one an eval render "
                              f"({len(renders)} renders, dropped "
@@ -2390,7 +2545,8 @@ def cli_phase(castle, pool, d):
             "expand": CLI_CELL_ITERS + len(c_renders),
             "rasterize_fwd": CLI_CELL_ITERS + len(c_renders),
             "rasterize_bwd": CLI_CELL_ITERS,
-            "segment_sum": CLI_CELL_ITERS}:
+            "segment_sum": CLI_CELL_ITERS,
+            "tile_pretest": CLI_CELL_ITERS + len(c_renders)}:
         raise AssertionError(f"cli train --cell: launches {counts2}, "
                              f"{len(c_renders)} eval renders")
 
@@ -2809,7 +2965,7 @@ def viewer_phase(data: dict, d: str) -> dict:
     serving.start()
     base = f"http://127.0.0.1:{srv.port}"
     served = {}
-    counted = {"expand": 0, "rasterize_fwd": 0}
+    counted = {"expand": 0, "rasterize_fwd": 0, "tile_pretest": 0}
     try:
         wait_http(base, 60)
         drops = []
@@ -2819,7 +2975,8 @@ def viewer_phase(data: dict, d: str) -> dict:
                 body = http(frame_url(base, cam, fs))
                 n = read_launches()
                 if n != {"expand": 1, "rasterize_fwd": 1,
-                         "rasterize_bwd": 0, "segment_sum": 0}:
+                         "rasterize_bwd": 0, "segment_sum": 0,
+                         "tile_pretest": 1}:
                     raise AssertionError(f"frame {view} {fs} launched {n}")
                 for k in counted:
                     counted[k] += n[k]
@@ -2837,7 +2994,8 @@ def viewer_phase(data: dict, d: str) -> dict:
               f"{t_make:.2f} s; {len(served)} frames (4 views at {size[0]}x"
               f"{size[1]} and {PAGE_SIZE[0]}x{PAGE_SIZE[1]}) equal to the "
               f"in-process "
-              f"frames, each 1 expand + 1 rasterize_fwd launch; records "
+              f"frames, each 1 tile_pretest + 1 expand + 1 rasterize_fwd "
+              f"launch; records "
               f"dropped in the default pool {drops}")
 
         # 2. The served-path metric.
@@ -3201,9 +3359,10 @@ def peak_mib(fn) -> tuple:
 def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     """Phase 10, "xla": render_splats(backend="xla") and the sharded step's
     XLA path on the card, an exact float32 render built apart from the
-    record pipeline (no kernel, no quantized record), held to the CUDA
-    kernels' path. Every XLA run resets the launch counts before it and
-    must have launched no kernel.
+    record pipeline (no quantized record, no kernel but the tile pretest
+    of its binning), held to the CUDA kernels' path. Every XLA run resets
+    the launch counts before it and must have launched the tile pretest
+    once a render or step and no other kernel.
     1. the castle at 800x800 on view 0 with gradients of a seeded image
        cotangent, its out-of-range view colours pinned (pinned_castle):
        the XLA image within assert_close_quantized's defaults of the
@@ -3272,7 +3431,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
             raise AssertionError(f"[xla] castle {label} dropped records")
     img_p, g_p, aux_p, counts_p, mib_p = got["pipeline"]
     img_x, g_x, aux_x, counts_x, mib_x = got["xla"]
-    if any(counts_x.values()) or min(counts_p.values()) < 1:
+    if counts_x != pretest_only(1) or min(counts_p.values()) < 1:
         raise AssertionError(f"[xla] castle launches: xla {counts_x}, "
                              f"pipeline {counts_p}")
     img_err = close_image(img_p, img_x, "[xla] castle image")
@@ -3308,7 +3467,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     (img_x, aux_x), mib_x = peak_mib(lambda: render("xla"))
     counts_x = read_launches()
     (img_p, aux_p), mib_p = peak_mib(lambda: render("pallas"))
-    if any(counts_x.values()):
+    if counts_x != pretest_only(1):
         raise AssertionError(f"[xla] bench launches {counts_x}")
     if int(aux_x.num_dropped) or int(aux_x.num_isects) != int(
             aux_p.num_isects):
@@ -3394,13 +3553,23 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
           f"{statistics.median(step_ms[1:]):.3f} after the first); peak "
           f"memory {mib:.1f} MiB; launches {counts}; {smi}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    if not all(np.isfinite(losses)) or rel > 1e-3 or any(counts.values()):
+    if not all(np.isfinite(losses)) or rel > 1e-3 or \
+            counts != pretest_only(XLA_SHARD_STEPS):
         raise AssertionError("[xla] sharded XLA steps: a loss not finite, "
                              "the first too far from the pipeline's, or a "
-                             "kernel launched")
+                             "kernel but the tile pretest's one a step "
+                             "launched")
     res.update(shard_ms=statistics.median(step_ms[1:]), shard_peak_mib=mib,
                seconds=time.perf_counter() - t_phase)
     return res
+
+
+def pretest_only(n: int) -> dict:
+    """The launches of n renders or steps of the XLA backend: its binning
+    (ops/binning.build_intersections) runs the tile pretest kernel once,
+    and no other kernel runs."""
+    return {name: n if name == "tile_pretest" else 0
+            for name in KERNEL_WRAPPERS}
 
 
 def aligned_pool(records: int, num_tiles: int) -> int:
@@ -3517,7 +3686,7 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     res = {}
     names = ("xy", "conic", "color", "opac")
     one_each = {"expand": 0, "rasterize_fwd": 1, "rasterize_bwd": 1,
-                "segment_sum": 1}
+                "segment_sum": 1, "tile_pretest": 0}
 
     # 1. The castle, view 0, with gradients.
     t0 = time.perf_counter()
@@ -4046,7 +4215,8 @@ def quality_phase(smi: str) -> dict:
     if counts != {"expand": QUALITY_ITERS + len(renders),
                   "rasterize_fwd": QUALITY_ITERS + len(renders),
                   "rasterize_bwd": QUALITY_ITERS,
-                  "segment_sum": QUALITY_ITERS}:
+                  "segment_sum": QUALITY_ITERS,
+                  "tile_pretest": QUALITY_ITERS + len(renders)}:
         raise AssertionError(f"[quality] launches {counts}: not one a step "
                              f"and one an eval render ({len(renders)})")
     if kept_names(kept) != sorted(KERNEL_WRAPPERS):
@@ -4114,6 +4284,8 @@ def main() -> int:
     check_raster_hand_cells()
     check_bwd_hand()
     check_expand_hand()
+    pretest = pretest_phase(smi)
+    torch.cuda.empty_cache()
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False,
                                        reach=True)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
@@ -4125,6 +4297,8 @@ def main() -> int:
     # against (1, 1)'s, the median render, the kernels' times and bounds.
     t_c = time.perf_counter()
     kc = dict(kernel_inputs(splats, cp, size, BENCH["pool"], CELL))
+    kc["pretest_plain_ms"] = check_pretest(kc["pt_args"],
+                                           f"bench cell {CELL}")
     kc["expand_plain_ms"] = check_expand(kc["exp_args"])
     kc["fwd"] = check_raster(kc["r_args"], reach=True)
     cell_counts, img_c, records_c, cell_ms = main_path(splats, cp, size,
@@ -4246,6 +4420,12 @@ def main() -> int:
             "from": f"quality phase: cli train on the ray-traced castle "
                     f"({QUALITY_ITERS} steps and its eval renders), "
                     f"arguments of {quality['kernels']['when']}"}
+        if name == "tile_pretest":
+            # "bicycle": the same fields on the bicycle-5m draw's views
+            # (pretest_phase).
+            out["bicycle"] = {**pretest, "from": f"pretest phase: the "
+                              f"bicycle-5m configuration's scene, seed "
+                              f"{PRETEST_SEED}"}
         if name in view_counts:
             out["viewer"] = {
                 "launches": view_counts[name],
@@ -4302,6 +4482,8 @@ def main() -> int:
         row("rasterize_bwd", "rasterize_bwd",
             "brush_tpu/ops/pallas/rasterize_bwd.py:414"),
         row("segment_sum", "segsum", "brush_tpu/ops/pallas/segsum.py:136"),
+        row("tile_pretest", "tile_pretest",
+            "none (brush_tpu/ops/binning.py:186, plain XLA)"),
     ]
     print(f"[summary] render path launches {render_counts}, at cell {CELL} "
           f"{cell_counts}; training path launches {counts}, at cell {CELL} "
@@ -4314,7 +4496,7 @@ def main() -> int:
           f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "
           f"{TRAIN_STEPS}-step window {window_ms:.3f} "
           f"ms, at cell {CELL} {window_ms_c:.3f}; XLA backend (no "
-          f"kernel): bench render {xla['bench_ms']['xla']:.3f} ms against "
+          f"kernel but the tile pretest): bench render {xla['bench_ms']['xla']:.3f} ms against "
           f"the pipeline's {xla['bench_ms']['pallas']:.3f}, peak "
           f"{xla['bench_peak_mib'][0]:.1f} MiB against "
           f"{xla['bench_peak_mib'][1]:.1f}, sharded castle step "

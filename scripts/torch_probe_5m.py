@@ -20,7 +20,7 @@ default TrainConfig (no refine in its first 500 steps) from its own
 default pool, up to DEFAULT_POOL_STEPS steps, showing where the pool's
 doubling on drops ends (ROADMAP Queue 3 #15: at 2^24, which expand
 refuses); and one whose pool is set to the probe's before its first step,
-TRAINER_STEPS steps: each step's launches of the four kernels, records,
+TRAINER_STEPS steps: each step's launches of the five kernels, records,
 drops (none allowed), loss, the median step, the stage medians and the
 peak memory. Last the card's name and power limit.
 
@@ -48,7 +48,7 @@ if ROOT not in sys.path:
 
 from brush_tpu_torch.camera import Camera  # noqa: E402
 from brush_tpu_torch.ops.cuda import (  # noqa: E402
-    expand, rasterize_bwd, rasterize_fwd, segsum,
+    expand, rasterize_bwd, rasterize_fwd, segsum, tile_pretest,
 )
 from brush_tpu_torch.ops.rasterize_reference import camera_params  # noqa: E402
 from brush_tpu_torch.optim import adam_step, init_adam  # noqa: E402
@@ -66,7 +66,8 @@ FIXED_STEPS = 8
 DEFAULT_POOL_STEPS = 4
 TRAINER_STEPS = 5
 KERNELS = {"expand": expand, "rasterize_fwd": rasterize_fwd,
-           "rasterize_bwd": rasterize_bwd, "segment_sum": segsum}
+           "rasterize_bwd": rasterize_bwd, "segment_sum": segsum,
+           "tile_pretest": tile_pretest}
 
 
 def splat_count(n_millions: float) -> int:
@@ -152,7 +153,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
                 stages: bool = False) -> dict:
     """SplatTrainer (default config) steps on one view from the splats,
     with its pool set to `pool` before the first step (None: its own
-    default). Each step's CUDA-event ms, launches of the four kernels, the
+    default). Each step's CUDA-event ms, launches of the five kernels, the
     pool it used, records, drops and loss; a step that raises ends the run
     and is recorded under "error". With `stages` each step's stage marks
     too (profiler.record). Returns those lists and the trainer's last

@@ -22,14 +22,19 @@ from brush_tpu_torch.ops.cuda import expand as t_expand
 from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
+from brush_tpu_torch.ops.cuda import tile_pretest as t_pretest
+from brush_tpu_torch.ops.binning import (
+    precompute_tile_masks, precompute_tile_masks_plain,
+)
 from brush_tpu_torch.ops.cuda.testing import (
     HAND_CELL_CASES, HAND_DEEP, HAND_EDGE_IMAGE, HAND_EXPAND_CASES,
-    HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_SMALL_LIVE, HAND_SMALL_N,
-    HAND_SMALL_POOL, HAND_TILE_CASES, cell_pixel_centres, hand_cells,
-    fwd_warp_patches, hand_expand, hand_segments, hand_small_pool,
-    hand_tiles, may_reach_f32, scan_edge, sigma_f32, sigma_max_f32,
-    warp_patches,
+    HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_PRETEST_CASES,
+    HAND_PRETEST_CELLS, HAND_SMALL_LIVE, HAND_SMALL_N, HAND_SMALL_POOL,
+    HAND_TILE_CASES, cell_pixel_centres, hand_cells, fwd_warp_patches,
+    hand_expand, hand_pretest, hand_segments, hand_small_pool, hand_tiles,
+    may_reach_f32, scan_edge, sigma_f32, sigma_max_f32, warp_patches,
 )
+from brush_tpu_torch.ops.projection import Projection
 from brush_tpu_torch.ops.pipeline import depth_order, scan_lanes, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.render import record_inputs, render_splats
@@ -172,6 +177,45 @@ def test_wrappers_reject_bad_inputs():
         t_seg.segment_sum(rows[:8], r["offsets"], r["cum"], r["total"])
     with pytest.raises(ValueError, match="offsets"):
         t_seg.segment_sum(rows, r["offsets"].long(), r["cum"], r["total"])
+    p = pretest_args("edges", (1, 1), "cpu")
+    bad = {"xy": p["xy"].double(), "conic": p["conic"][:, :2],
+           "opac": p["opac"][:-1], "tile_min": p["tile_min"].long(),
+           "tile_max": p["tile_max"].float(), "visible": p["visible"].int()}
+    for name, t in bad.items():
+        with pytest.raises(ValueError, match=name):
+            t_pretest.tile_pretest(**{**p, name: t})
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_pretest.tile_pretest(**p)
+    with pytest.raises(ValueError, match="several devices"):
+        t_pretest.tile_pretest(**{**p, "opac": p["opac"].to("meta")})
+    for cell in ((0, 1), (2,), (1.5, 1)):
+        with pytest.raises(ValueError, match="cell"):
+            t_pretest.tile_pretest(**p, cell=cell)
+
+
+def pretest_args(case, cell, device):
+    """hand_pretest(case, cell) as the pretest wrapper's arguments."""
+    return {k: torch.tensor(v, device=device)
+            for k, v in hand_pretest(case, cell).items()}
+
+
+def pretest_proj(a) -> Projection:
+    """The wrapper's arguments as a Projection (depth and radius zero)."""
+    n = a["opac"].shape[0]
+    zeros = torch.zeros(n, device=a["opac"].device)
+    return Projection(a["xy"], zeros, a["conic"], zeros.int(),
+                      a["tile_min"], a["tile_max"], a["visible"])
+
+
+def test_cpu_pretest_takes_the_twin():
+    """CPU tensors go to the plain twin, with no launch counted."""
+    a = pretest_args("boxes", (2, 2), "cpu")
+    before = t_pretest.launches
+    got = precompute_tile_masks(pretest_proj(a), a["opac"], (2, 2))
+    want = precompute_tile_masks_plain(pretest_proj(a), a["opac"], (2, 2))
+    assert t_pretest.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got.counts.sum()) > 0
 
 
 def test_expand_plain_canonicalizes_negative_zero():
@@ -593,6 +637,96 @@ def test_cuda_expand_hand_layouts_equal_plain(case):
     assert torch.equal(keys, again[0]) and torch.equal(recs, again[1])
 
 
+def assert_same_masks(got, want):
+    """The pretest's five outputs equal, dtype and bits."""
+    for f, g, w in zip(("counts", "mask_lo", "mask_hi", "pc_pack", "small"),
+                       got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", HAND_PRETEST_CELLS)
+def test_cuda_tile_pretest_scenes_equal_plain(cell):
+    """Random scenes (one with bboxes past 8x8 cells) at each cell size:
+    record_inputs launches the pretest kernel once, its five outputs equal
+    the plain twin's on the card, and a second launch is bit-equal."""
+    _need_cuda()
+    for name in ("small", "bbox_splats"):
+        n, img_size, _, scale_hi = SCENES[name]
+        t = {k: torch.tensor(v, device="cuda")
+             for k, v in make_scene(n, 7, scale_hi).items()}
+        cp = camera_params(Camera(**CAM), img_size, device="cuda")
+        before = t_pretest.launches
+        rec = record_inputs(t["means"], t["log_scales"], t["quats"],
+                            t["sh_coeffs"], t["raw_opacity"], cp, img_size,
+                            cell=cell)
+        assert t_pretest.launches == before + 1
+        opac = rec.attrs9[8].detach()
+        assert_same_masks(rec.masks,
+                          precompute_tile_masks_plain(rec.proj, opac, cell))
+        again = precompute_tile_masks(rec.proj, opac, cell)
+        torch.cuda.synchronize()
+        assert t_pretest.launches == before + 2
+        assert_same_masks(again, rec.masks)
+        assert int(rec.masks.counts.sum()) > 0
+        if name == "bbox_splats" and cell == (1, 1):
+            assert bool((~rec.masks.small & (rec.masks.counts > 0)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", HAND_PRETEST_CELLS)
+@pytest.mark.parametrize("case", HAND_PRETEST_CASES)
+def test_cuda_tile_pretest_hand_layouts_equal_plain(case, cell):
+    """The layouts made by hand (ops/cuda/testing.hand_pretest): the
+    kernel's five outputs equal the plain twin's on the card, and two
+    launches are bit-equal."""
+    _need_cuda()
+    a = pretest_args(case, cell, "cuda")
+    before = t_pretest.launches
+    got = t_pretest.tile_pretest(**a, cell=cell)
+    again = t_pretest.tile_pretest(**a, cell=cell)
+    torch.cuda.synchronize()
+    assert t_pretest.launches == before + 2
+    assert_same_masks(got, precompute_tile_masks_plain(pretest_proj(a),
+                                                       a["opac"], cell))
+    assert_same_masks(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_pretest_bicycle_draw_equal_plain():
+    """A 5,242,880-splat draw of benchmark/scenes/uniform.py at the
+    bicycle configuration's parameters, projected into two of its views:
+    the kernel's five outputs equal the plain twin's, at cells (1, 1) and
+    (2, 2)."""
+    _need_cuda()
+    import json
+
+    from benchmark.scenes import uniform
+    from brush_tpu_torch.render import detached, project_inputs
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "bicycle-5m.json")) as f:
+        sc = json.load(f)["scene"]
+    p = uniform.params(sc, 3200000777, "cuda")
+    size = (sc["width"], sc["height"])
+    poses = uniform.ring_poses(sc["views"], sc["distance"],
+                               np.radians(sc["fov_x_deg"]), size)
+    for pose in poses[:2]:
+        cam = camera_params(Camera(**pose), size, device="cuda")
+        with torch.no_grad():
+            proj, _, opac, _ = project_inputs(
+                p["means"], p["log_scales"], p["quats"], p["sh_coeffs"],
+                p["raw_opacity"], cam, size)
+        proj = detached(proj)
+        for cell in ((1, 1), (2, 2)):
+            got = precompute_tile_masks(proj, opac, cell)
+            want = precompute_tile_masks_plain(proj, opac, cell)
+            assert_same_masks(got, want)
+            del want
+        assert int(got.counts.sum()) > 1_000_000
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_replay_in_a_graph():
     """Each kernel wrapper (and index_add_, segment_sum's library call)
@@ -609,6 +743,7 @@ def test_cuda_wrappers_replay_in_a_graph():
                        generator=torch.Generator("cuda").manual_seed(4))
     ids = t_seg.slot_owners(r["cum"], r["total"], pool)
     n_splats = r["cum"].shape[0]
+    pa = pretest_args("boxes", (2, 2), "cuda")
     calls = {
         "expand": lambda: t_expand.expand(
             r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
@@ -618,6 +753,7 @@ def test_cuda_wrappers_replay_in_a_graph():
             *r_args, v_out, log_t, fidx),),
         "segment_sum": lambda: (t_seg.segment_sum(
             rows, r["offsets"], r["cum"], r["total"]),),
+        "tile_pretest": lambda: t_pretest.tile_pretest(**pa, cell=(2, 2)),
         "index_add_": lambda: (torch.zeros(
             (t_bwd.GRAD_ROWS, n_splats), device="cuda").index_add_(
                 1, ids, rows[:, :ids.shape[0]].contiguous()),)}
@@ -1452,7 +1588,9 @@ def test_cuda_viewer_frame_is_the_in_process_render():
 @pytest.mark.cuda
 def test_cuda_trace_holds_the_kernels(tmp_path):
     """profiler.trace around a render on the card: the Chrome trace holds
-    the span and the expand and rasterize_fwd kernels."""
+    the span and the expand and rasterize_fwd kernels, and the tile
+    pretest kernel inside `record_inputs/tile_pretest` (nested in the
+    span, so entered as `frame/record_inputs/tile_pretest`)."""
     _need_cuda()
     import glob
     import json
@@ -1471,10 +1609,32 @@ def test_cuda_trace_holds_the_kernels(tmp_path):
             go()
     (path,) = glob.glob(str(tmp_path / "*.json"))
     with open(path) as f:
-        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
     assert "frame" in names
     assert any("expand_kernel" in n for n in names)
     assert any("rasterize_fwd_kernel" in n for n in names)
+    # The pretest kernel was launched inside the range of its span: its
+    # launch's correlation id, or the host op it hangs from, lies there.
+    (rng,) = [e for e in events if e.get("ph") == "X"
+              and e.get("name") == "frame/record_inputs/tile_pretest"
+              and e.get("cat") != "gpu_user_annotation"]
+    t0, t1 = rng["ts"], rng["ts"] + rng["dur"]
+    ids = set()
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") not in ("kernel", "gpu_memcpy",
+                                                        "gpu_memset")
+                and t0 <= e.get("ts", -1) <= t1):
+            args = e.get("args", {})
+            ids |= {("c", args.get("correlation")),
+                    ("x", args.get("External id"))}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "tile_pretest_kernel" in e.get("name", "")]
+    assert len(kernels) == 1, [e.get("name") for e in kernels]
+    args = kernels[0].get("args", {})
+    assert ({("c", args.get("correlation")),
+             ("x", args.get("External id"))} - {("c", None), ("x", None)}
+            ) & ids, args
 
 
 def test_full_f32_holds_across_threads():

@@ -17,6 +17,7 @@ from conftest import assert_close_quantized
 from brush_tpu.camera import Camera as JCamera
 from brush_tpu.ops.binning import popcount_u32 as j_popcount
 from brush_tpu.ops.binning import precompute_tile_masks as j_masks
+from brush_tpu.ops.projection import Projection as JProjection
 from brush_tpu.ops.projection import project_splats as j_project
 from brush_tpu.ops.rasterize_reference import camera_params as j_cp
 from brush_tpu.ops.rasterize_reference import pixel_grid as j_pixel_grid
@@ -26,8 +27,13 @@ from brush_tpu.ops.sh import sh_to_color as j_sh_to_color
 from brush_tpu.render import pack_decode_rows as j_decode
 
 from brush_tpu_torch.camera import Camera
-from brush_tpu_torch.ops.binning import popcount_u32, precompute_tile_masks
-from brush_tpu_torch.ops.projection import project_splats
+from brush_tpu_torch.ops.binning import (
+    popcount_u32, precompute_tile_masks, precompute_tile_masks_plain,
+)
+from brush_tpu_torch.ops.cuda.testing import (
+    HAND_PRETEST_CASES, HAND_PRETEST_CELLS, hand_pretest,
+)
+from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
     camera_params, pixel_grid, render_oracle,
 )
@@ -169,6 +175,32 @@ def test_tile_masks_and_decode_rows_match_reference():
     td = pack_decode_rows(tp, tm, torch.where(prod_t, tm.counts, 0))
     np.testing.assert_array_equal(td.numpy(),
                                   np.asarray(jd).astype(np.int64))
+
+
+@pytest.mark.parametrize("cell", HAND_PRETEST_CELLS)
+@pytest.mark.parametrize("case", HAND_PRETEST_CASES)
+def test_hand_pretest_layouts_match_reference(case, cell):
+    """The plain twin of the pretest kernel on the layouts made by hand
+    (ops/cuda/testing.hand_pretest: edges and corners, sign 0, ellipses
+    touching a neighbour up to rounding, opacity at 1/255, degenerate and
+    NaN conics, bboxes of 0 to 9x9 cells): every output equal to the
+    reference's. The card tests hold the kernel to this twin."""
+    d = hand_pretest(case, cell)
+    n = d["opac"].shape[0]
+    rest = dict(depth=np.ones(n, np.float32), radius=np.ones(n, np.int32))
+    keys = ("xy", "depth", "conic", "radius", "tile_min", "tile_max",
+            "visible")
+    jp = JProjection(*(jnp.asarray({**d, **rest}[k]) for k in keys))
+    tp = Projection(*(torch.tensor({**d, **rest}[k]) for k in keys))
+    jm = j_masks(jp, jnp.asarray(d["opac"]), cell=cell)
+    tm = precompute_tile_masks_plain(tp, torch.tensor(d["opac"]), cell=cell)
+    for f in ("counts", "mask_lo", "mask_hi", "pc_pack", "small"):
+        np.testing.assert_array_equal(
+            getattr(tm, f).numpy(),
+            np.asarray(getattr(jm, f)).astype(getattr(tm, f).numpy().dtype),
+            f)
+    if case == "touch":   # the ulp steps cross the boundary
+        assert len(set(tm.counts.tolist())) > 1
 
 
 def test_popcount_u32_wraps_like_reference():
