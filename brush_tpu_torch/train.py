@@ -41,7 +41,7 @@ from brush_tpu_torch.splats import (
     PADDING_RAW_OPACITY, Splats, inverse_sigmoid, round_up_capacity,
 )
 from brush_tpu_torch.ssim import Ssim
-from brush_tpu_torch.utils.profiler import mark, span
+from brush_tpu_torch.utils.profiler import count, mark, span
 
 _log = logging.getLogger(__name__)
 
@@ -158,6 +158,8 @@ class SplatTrainer:
 
             self._respond_to_drops()
             dev = state.splats.device
+            count("live", state.splats.n_live)
+            count("capacity", state.splats.capacity)
             cam = camera_params(batch.camera, img_size, device=dev)
             pool = self._pool_size(state.splats.capacity)
             gt = self._gt_on_device(batch, img, dev)
@@ -178,8 +180,9 @@ class SplatTrainer:
             # Host sync point: also grow the pool before records drop.
             if int(stats.num_isects) > 0.85 * pool:
                 self._isect_pool = pool * 2
-            state, self.last_refine_stats = self._refine(state, pre_splats)
-            mark("refine")
+            with span("refine"):
+                state, self.last_refine_stats = self._refine(state,
+                                                             pre_splats)
 
         self._note_drops(stats, pool)
         mark("step end")
@@ -280,9 +283,10 @@ class SplatTrainer:
         # compaction would truncate appended rows past it.
         n_before = state.splats.n_live
         if 2 * n_before > cap:
-            state = self._grow(state, 2 * n_before)
-            cap = state.splats.capacity
-            pre_splats = self._grow_splats(pre_splats, cap)
+            with span("resize"):
+                state = self._grow(state, 2 * n_before)
+                cap = state.splats.capacity
+                pre_splats = self._grow_splats(pre_splats, cap)
         refine_idx = self.iter // cfg.refine_every
         # refine_idx > 0: with warmup <= 1 the first refine would land on
         # refine_idx 0 and reset every opacity at the start of training.
@@ -294,13 +298,17 @@ class SplatTrainer:
             self._generator.manual_seed(cfg.seed)
         refine_fn = make_refine_fn(cfg, cap, bool(do_reset))
         state, stats = refine_fn(state, pre_splats, generator=self._generator)
+        count("cloned", stats.num_cloned)
+        count("split", stats.num_split)
+        count("pruned", stats.num_pruned_alpha + stats.num_pruned_scale)
         n_live = stats.n_live
-        if 2 * n_live > cap:
-            state = self._grow(state, max(2 * n_live, cap * 2))
-        elif (cfg.shrink_capacity_on_refine
-              and cap > cfg.shrink_factor * max(n_live, 1)):
-            # Compaction puts live rows first, so shrinking is a slice.
-            state = self._shrink(state, 2 * n_live)
+        with span("resize"):
+            if 2 * n_live > cap:
+                state = self._grow(state, max(2 * n_live, cap * 2))
+            elif (cfg.shrink_capacity_on_refine
+                  and cap > cfg.shrink_factor * max(n_live, 1)):
+                # Compaction puts live rows first, so shrinking is a slice.
+                state = self._shrink(state, 2 * n_live)
         return state, stats
 
     def _shrink(self, state: TrainState, new_cap: int) -> TrainState:
@@ -458,118 +466,130 @@ def make_refine_fn(cfg: TrainConfig, capacity: int, do_reset: bool):
         dev = post.device
         draw = lambda: torch.randn((capacity, 3), generator=generator,
                                    device=dev)
-        alive = post.active_mask()
+        # The reference's in-place split modifications target clones that
+        # are then discarded (train.rs:482-520): with faithful_split_bug
+        # originals keep their post-step mean and scale.
+        faithful = cfg.faithful_split_bug
 
-        counts = torch.clamp(state.xy_grad_counts, min=1).to(torch.float32)
-        grads_avg = state.grad_2d_accum / counts
-        big = grads_avg >= cfg.densify_grad_thresh
+        with span("select"):
+            alive = post.active_mask()
+            counts = torch.clamp(state.xy_grad_counts,
+                                 min=1).to(torch.float32)
+            grads_avg = state.grad_2d_accum / counts
+            big = grads_avg >= cfg.densify_grad_thresh
 
-        scales_post = post.scales()
-        max_scale = torch.amax(scales_post, dim=1)
-        small = max_scale < cfg.densify_size_thresh
+            scales_post = post.scales()
+            max_scale = torch.amax(scales_post, dim=1)
+            small = max_scale < cfg.densify_size_thresh
 
-        clone_mask = small & big & alive
-        split_mask = ~small & big & alive
-        append_mask = clone_mask | split_mask
-
-        # Split offset samples (train.rs:494-516): Normal(0, 0.5) in the
-        # splat frame scaled by the post-step scale, rotated by the
-        # post-step quaternion.
-        noise = draw() if noise is None else noise
-        offset = quat_rotate(post.quats, 0.5 * noise * scales_post)
-        split_log_scales = torch.log(torch.clamp(scales_post / 1.6,
-                                                 min=1e-30))
-
-        cm = clone_mask[:, None]
-        app_means = torch.where(cm, pre.means, pre.means + offset)
-        app_quats = torch.where(cm, pre.quats, post.quats)
-        app_sh = torch.where(clone_mask[:, None, None], pre.sh_coeffs,
-                             post.sh_coeffs)
-        app_opac = torch.where(clone_mask, pre.raw_opacity, post.raw_opacity)
-        app_logs = torch.where(cm, pre.log_scales, split_log_scales)
-
-        if cfg.faithful_split_bug:
-            # The reference's in-place split modifications target clones
-            # that are then discarded (train.rs:482-520): originals keep
-            # their post-step mean and scale.
-            orig_means = post.means
-            orig_logs = post.log_scales
-        else:
+            clone_mask = small & big & alive
+            split_mask = ~small & big & alive
+            append_mask = clone_mask | split_mask
+            cm = clone_mask[:, None]
             sm = split_mask[:, None]
-            noise2 = draw() if noise2 is None else noise2
-            offset2 = quat_rotate(post.quats, 0.5 * noise2 * scales_post)
-            orig_means = torch.where(sm, pre.means - offset2, post.means)
-            orig_logs = torch.where(sm, split_log_scales, post.log_scales)
 
-        # Combined candidate set: C originals then C append slots.
-        comb = {
-            "means": torch.cat([orig_means, app_means]),
-            "quats": torch.cat([post.quats, app_quats]),
-            "sh_coeffs": torch.cat([post.sh_coeffs, app_sh]),
-            "raw_opacity": torch.cat([post.raw_opacity, app_opac]),
-            "log_scales": torch.cat([orig_logs, app_logs]),
-        }
-        valid = torch.cat([alive, append_mask])
+            # Both halves of a split take the post-step scale / 1.6
+            # (train.rs:494-516).
+            split_log_scales = torch.log(torch.clamp(scales_post / 1.6,
+                                                     min=1e-30))
+            app_opac = torch.where(clone_mask, pre.raw_opacity,
+                                   post.raw_opacity)
+            app_logs = torch.where(cm, pre.log_scales, split_log_scales)
+            orig_logs = (post.log_scales if faithful else
+                         torch.where(sm, split_log_scales, post.log_scales))
 
-        # Prune (train.rs:543-557) on the combined set.
-        opac_all = torch.sigmoid(comb["raw_opacity"])
-        scale_all = torch.amax(torch.exp(comb["log_scales"]), dim=1)
-        prune_alpha = opac_all < cfg.cull_alpha_thresh
-        prune_scale = scale_all > cfg.cull_scale_thresh
-        keep = valid & ~prune_alpha & ~prune_scale
+            # The combined candidate set: C originals then C append slots.
+            comb_opac = torch.cat([post.raw_opacity, app_opac])
+            comb_logs = torch.cat([orig_logs, app_logs])
+            valid = torch.cat([alive, append_mask])
 
-        # Stable compaction: kept rows first, original order preserved.
-        perm = torch.sort((~keep).to(torch.int32), stable=True).indices
-        perm = perm[:capacity]
-        counted = torch.stack([
-            clone_mask.sum(), split_mask.sum(), (valid & prune_alpha).sum(),
-            (valid & ~prune_alpha & prune_scale).sum(), keep.sum(),
-        ]).tolist()
-        n_live = min(counted[4], capacity)
-        row_live = torch.arange(capacity, device=dev) < n_live
+            # Prune (train.rs:543-557) on the combined set.
+            opac_all = torch.sigmoid(comb_opac)
+            scale_all = torch.amax(torch.exp(comb_logs), dim=1)
+            prune_alpha = opac_all < cfg.cull_alpha_thresh
+            prune_scale = scale_all > cfg.cull_scale_thresh
+            keep = valid & ~prune_alpha & ~prune_scale
+            counted = torch.stack([
+                clone_mask.sum(), split_mask.sum(),
+                (valid & prune_alpha).sum(),
+                (valid & ~prune_alpha & prune_scale).sum(), keep.sum(),
+            ]).tolist()
+            n_live = min(counted[4], capacity)
 
-        def take(x, fill=0.0):
-            out = x[perm]
-            shape = (-1,) + (1,) * (out.dim() - 1)
-            return torch.where(row_live.reshape(shape), out,
-                               torch.full((), fill, dtype=out.dtype,
-                                          device=dev))
+        with span("compact"):
+            # Split offset samples (train.rs:494-516): Normal(0, 0.5) in
+            # the splat frame scaled by the post-step scale, rotated by the
+            # post-step quaternion.
+            noise = draw() if noise is None else noise
+            offset = quat_rotate(post.quats, 0.5 * noise * scales_post)
+            app_means = torch.where(cm, pre.means, pre.means + offset)
+            if faithful:
+                orig_means = post.means
+            else:
+                noise2 = draw() if noise2 is None else noise2
+                offset2 = quat_rotate(post.quats, 0.5 * noise2 * scales_post)
+                orig_means = torch.where(sm, pre.means - offset2, post.means)
 
-        new_opac = take(comb["raw_opacity"], PADDING_RAW_OPACITY)
-        if do_reset:
-            # Opacity reset (train.rs:205-209,559-562).
-            new_opac = torch.where(
-                row_live, torch.full((), inverse_sigmoid(
-                    cfg.reset_alpha_value), device=dev), new_opac)
+            comb = {
+                "means": torch.cat([orig_means, app_means]),
+                "quats": torch.cat([post.quats, torch.where(
+                    cm, pre.quats, post.quats)]),
+                "sh_coeffs": torch.cat([post.sh_coeffs, torch.where(
+                    clone_mask[:, None, None], pre.sh_coeffs,
+                    post.sh_coeffs)]),
+                "raw_opacity": comb_opac,
+                "log_scales": comb_logs,
+            }
 
-        new_quats = take(comb["quats"])
-        new_quats[:, 0] = torch.where(row_live, new_quats[:, 0],
-                                      torch.ones((), device=dev))
-        splats = Splats(
-            means=take(comb["means"]),
-            sh_coeffs=take(comb["sh_coeffs"]),
-            quats=new_quats,
-            raw_opacity=new_opac,
-            log_scales=take(comb["log_scales"], -10.0),
-            n_live=n_live,
-        )
+            # Stable compaction: kept rows first, original order preserved.
+            perm = torch.sort((~keep).to(torch.int32), stable=True).indices
+            perm = perm[:capacity]
+            row_live = torch.arange(capacity, device=dev) < n_live
 
-        # Optimizer state surgery: appended rows (perm >= C) start with
-        # zero moments; survivors keep theirs.
-        if cfg.keep_opt_state_on_refine:
-            is_new = (perm >= capacity) | ~row_live
+            def take(x, fill=0.0):
+                out = x[perm]
+                shape = (-1,) + (1,) * (out.dim() - 1)
+                return torch.where(row_live.reshape(shape), out,
+                                   torch.full((), fill, dtype=out.dtype,
+                                              device=dev))
 
-            def fix(x):
-                padded = torch.cat([x, torch.zeros_like(x)])[perm]
-                shape = (-1,) + (1,) * (x.dim() - 1)
-                return torch.where(is_new.reshape(shape),
-                                   torch.zeros((), device=dev), padded)
+            new_opac = take(comb["raw_opacity"], PADDING_RAW_OPACITY)
+            if do_reset:
+                # Opacity reset (train.rs:205-209,559-562).
+                new_opac = torch.where(
+                    row_live, torch.full((), inverse_sigmoid(
+                        cfg.reset_alpha_value), device=dev), new_opac)
 
-            opt = AdamState(m={k: fix(v) for k, v in state.opt.m.items()},
-                            v={k: fix(v) for k, v in state.opt.v.items()},
-                            count=state.opt.count)
-        else:
-            opt = init_adam(splats.params())
+            new_quats = take(comb["quats"])
+            new_quats[:, 0] = torch.where(row_live, new_quats[:, 0],
+                                          torch.ones((), device=dev))
+            splats = Splats(
+                means=take(comb["means"]),
+                sh_coeffs=take(comb["sh_coeffs"]),
+                quats=new_quats,
+                raw_opacity=new_opac,
+                log_scales=take(comb["log_scales"], -10.0),
+                n_live=n_live,
+            )
+
+        with span("moments"):
+            # Optimizer state surgery: appended rows (perm >= C) start with
+            # zero moments; survivors keep theirs.
+            if cfg.keep_opt_state_on_refine:
+                is_new = (perm >= capacity) | ~row_live
+
+                def fix(x):
+                    padded = torch.cat([x, torch.zeros_like(x)])[perm]
+                    shape = (-1,) + (1,) * (x.dim() - 1)
+                    return torch.where(is_new.reshape(shape),
+                                       torch.zeros((), device=dev), padded)
+
+                opt = AdamState(
+                    m={k: fix(v) for k, v in state.opt.m.items()},
+                    v={k: fix(v) for k, v in state.opt.v.items()},
+                    count=state.opt.count)
+            else:
+                opt = init_adam(splats.params())
 
         stats = RefineStats(num_cloned=counted[0], num_split=counted[1],
                             num_pruned_alpha=counted[2],

@@ -27,7 +27,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECORD_INPUTS_PARTS = ["record_inputs/project", "record_inputs/sh",
                        "record_inputs/tile_pretest", "record_inputs/pack"]
 BACKWARD_PARTS = ["backward/sh", "backward/project"]
-COUNTERS = ["#rows", "#visible", "#records", "#pool_slots"]
+COUNTERS = ["#live", "#capacity", "#rows", "#visible", "#records",
+            "#pool_slots"]
+REFINE_PARTS = ["refine/select", "refine/compact", "refine/moments",
+                "refine/resize"]
+REFINE_COUNTERS = ["#cloned", "#split", "#pruned"]
 CAM = dict(position=[0, 0, -5.0], rotation=[1, 0, 0, 0], fov_x=1.0,
            fov_y=1.0)
 
@@ -145,7 +149,8 @@ def test_recorded_cpu_step_holds_children_and_counters():
     assert all(v[n] >= 0.0 for n in RECORD_INPUTS_PARTS + BACKWARD_PARTS)
     assert sum(v[n] for n in RECORD_INPUTS_PARTS) <= v["record_inputs"]
     assert sum(v[n] for n in BACKWARD_PARTS) <= v["autograd rest"]
-    assert v["#rows"] == state.splats.capacity
+    assert v["#rows"] == v["#capacity"] == state.splats.capacity
+    assert v["#live"] == state.splats.n_live
     assert v["#visible"] == int(stats.num_visible)
     assert v["#records"] == int(stats.num_isects)
     h, w = b.gt_image.shape[:2]
@@ -154,6 +159,62 @@ def test_recorded_cpu_step_holds_children_and_counters():
         trainer._pool_size(state.splats.capacity),
         trainer.raster_block_size)
     assert profiler._marks is None
+
+
+def refining_trainer(count: int = 256):
+    """A trainer that refines after odd iterations (warmup 0, every 2),
+    with a threshold low enough that some rows densify."""
+    from brush_tpu_torch.config import TrainConfig
+
+    sp = from_random(np.random.default_rng(0), [-1] * 3, [1] * 3,
+                     count=count, sh_degree=1, device="cpu")
+    trainer = SplatTrainer(TrainConfig(warmup_steps=0, refine_every=2,
+                                       densify_grad_thresh=1e-6))
+    trainer.iter = 1
+    return trainer, trainer.init_state(sp)
+
+
+def test_recorded_refine_holds_its_children_and_counters():
+    """A recorded CPU step that refines: the stage `refine` after `adam`,
+    its four children before it and summing to at most it, and the
+    counters #cloned, #split and #pruned equal to the refine's own
+    numbers beside #live and #capacity of the rows the step ran over; the
+    next step, which does not refine, has no refine entry and only the
+    per-step counters."""
+    trainer, state = refining_trainer()
+    b = batch()
+    with profiler.record(host=True) as stages:
+        new_state, _ = trainer.step(state, b)
+    names = [name for name, _ in stages]
+    chain = [name for name, _ in profiler.chain(stages)]
+    assert chain == TRAIN_STAGES[:-1] + ["refine", "step end"]
+    # The capacity equals the live count, so `refine/resize` comes twice:
+    # the pre-grow and the grow or shrink after the refine.
+    assert sorted(n for n in names if n.startswith("refine/")) == sorted(
+        REFINE_PARTS + ["refine/resize"])
+    at = {name: i for i, name in enumerate(names)}
+    assert max(at[n] for n in REFINE_PARTS) < at["refine"]
+    assert at["adam"] < min(at[n] for n in REFINE_PARTS)
+    assert sorted(n for n in names if n[0] == "#") == sorted(
+        COUNTERS + REFINE_COUNTERS)
+    v = dict(stages)
+    assert sum(ms for n, ms in stages if n in REFINE_PARTS) <= v["refine"]
+    rs = trainer.last_refine_stats
+    assert rs.num_cloned + rs.num_split > 0
+    assert (v["#cloned"], v["#split"], v["#pruned"]) == (
+        rs.num_cloned, rs.num_split,
+        rs.num_pruned_alpha + rs.num_pruned_scale)
+    assert (v["#live"], v["#capacity"]) == (256, 256)
+
+    with profiler.record(host=True) as stages:
+        trainer.step(new_state, b)
+    names = [name for name, _ in stages]
+    assert trainer.last_refine_stats is None
+    assert not [n for n in names if n.startswith("refine")]
+    assert sorted(n for n in names if n[0] == "#") == sorted(COUNTERS)
+    v = dict(stages)
+    assert (v["#live"], v["#capacity"]) == (
+        new_state.splats.n_live, new_state.splats.capacity)
 
 
 def test_unrecorded_step_makes_no_event_range_or_node(monkeypatch):
@@ -212,6 +273,41 @@ def test_benchmark_reader_reads_two_recorded_steps(metric, entries):
     else:
         want = 100.0 * (sum(s[entries[0]] for s in steps)
                         / sum(s[entries[1]] for s in steps))
+    assert got == pytest.approx(want) and got > 0
+    assert mod.read({}) is None and mod.read({"steps": [{"loss": 1.0}]}) \
+        is None
+
+
+@pytest.mark.parametrize("metric, entry", [
+    ("refine_ms.densify", "refine"),
+    ("refine_compact_ms.densify", "refine/compact"),
+    ("refine_moments_ms.densify", "refine/moments"),
+    ("live_share.densify", None),
+])
+def test_benchmark_refine_reader_reads_recorded_steps(metric, entry):
+    """benchmark/metrics/<metric>.py on three recorded CPU steps of which
+    the first and the third refine: a refine span's ms over the steps that
+    hold it, the live share 100 sum #live / sum #capacity over all three;
+    None on a run without entries."""
+    from benchmark import harness
+
+    trainer, state = refining_trainer()
+    b = batch()
+    with profiler.record(host=True) as stages:
+        for _ in range(3):
+            state, _ = trainer.step(state, b)
+    steps = harness.split_steps(stages, "step end")
+    mod = harness.load_module(
+        os.path.join(ROOT, "benchmark", "metrics", metric + ".py"),
+        "test_metric_" + metric.replace(".", "_"))
+    got = mod.read({"steps": steps})
+    if entry is None:
+        want = 100.0 * (sum(s["#live"] for s in steps)
+                        / sum(s["#capacity"] for s in steps))
+        assert want < 100.0
+    else:
+        assert [entry in s for s in steps] == [True, False, True]
+        want = (steps[0][entry] + steps[2][entry]) / 2
     assert got == pytest.approx(want) and got > 0
     assert mod.read({}) is None and mod.read({"steps": [{"loss": 1.0}]}) \
         is None
