@@ -25,7 +25,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "segsum",
+SOURCES = ("expand", "rasterize_fwd", "rasterize_bwd", "segsum", "sh",
            "tile_pretest")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -15,6 +15,7 @@ import torch
 from brush_tpu_torch.constants import sh_degree_from_coeffs
 from brush_tpu_torch.device import full_f32, resolve_device
 from brush_tpu_torch.ops.compositing import composite_pixels
+from brush_tpu_torch.ops.cuda import sh as cuda_sh
 from brush_tpu_torch.ops.projection import project_splats
 from brush_tpu_torch.ops.sh import sh_to_color
 
@@ -52,11 +53,15 @@ def view_colors(means, sh_coeffs, cam: CameraParams) -> torch.Tensor:
     directions (project_visible.wgsl:232); replicated for parity. The view
     direction is a constant for autograd, as in the reference
     (gather_grads.wgsl): colour gradients reach the SH coefficients only,
-    never the means."""
-    viewdir = means.detach() - cam.viewmat[:3, 3]
+    never the means. CUDA tensors go to the kernels of ops/cuda/sh.py (the
+    colour and its backward), CPU tensors to the plain code below."""
+    degree = sh_degree_from_coeffs(sh_coeffs.shape[1])
+    campos = cam.viewmat[:3, 3]
+    if sh_coeffs.device.type != "cpu":
+        return cuda_sh.sh_color(means, campos, sh_coeffs, degree)
+    viewdir = means.detach() - campos
     viewdir = viewdir / torch.clamp(
         torch.linalg.vector_norm(viewdir, dim=-1, keepdim=True), min=1e-12)
-    degree = sh_degree_from_coeffs(sh_coeffs.shape[1])
     return sh_to_color(degree, viewdir, sh_coeffs)
 
 

@@ -1,5 +1,10 @@
 """Spherical-harmonics colour evaluation, degrees 0-4 (port of
-brush_tpu/ops/sh.py; reference: project_visible.wgsl:51-147)."""
+brush_tpu/ops/sh.py; reference: project_visible.wgsl:51-147).
+
+The CPU path, and the plain twins of the CUDA kernels of
+ops/cuda/sh.py (csrc/sh.cu): `sh_to_color` of the forward and
+`sh_coeffs_grad_plain` of the backward, each at the kernels' view
+directions `view_dirs_plain`."""
 
 from __future__ import annotations
 
@@ -69,3 +74,35 @@ def sh_to_color(degree: int, dirs: torch.Tensor,
     for i in range(1, k):
         color = color + basis[:, i:i + 1] * coeffs[:, i, :]
     return color + 0.5
+
+
+def sh_coeffs_grad_plain(degree: int, dirs: torch.Tensor, g: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """The gradient (N, k, 3) of sh_to_color(degree, dirs, coeffs) with
+    respect to coeffs (N, k, 3), given the colour's gradient g (N, 3):
+    basis_i(dirs) * g, each product as autograd forms it, plus 0 (so a -0
+    product comes out as the +0 that autograd's zero-filled slices add to
+    it when more than one coefficient is used), and zero past
+    (degree+1)^2. The twin of csrc/sh.cu's backward."""
+    kd = sh_coeffs_for_degree(degree)
+    if k < kd:
+        raise ValueError(f"k = {k} coefficients: degree {degree} needs "
+                         f"{kd}")
+    basis = sh_basis(degree, dirs)
+    out = torch.zeros((dirs.shape[0], k, 3), dtype=g.dtype, device=g.device)
+    out[:, :kd, :] = basis[:, :, None] * g[:, None, :] + 0.0
+    return out
+
+
+def view_dirs_plain(means: torch.Tensor, campos: torch.Tensor
+                    ) -> torch.Tensor:
+    """The view directions of csrc/sh.cu: (means - campos) over its norm
+    clamped at 1e-12, the norm as sqrt((dx dx + dz dz) + dy dy), op by op:
+    the order of torch.linalg.vector_norm's CUDA reduction (view_colors'
+    plain path; the CPU's vector_norm may sum the squares in another
+    order). The kernels' twin for the tests and chip_smoke.py: the
+    package itself never calls it."""
+    d = means - campos
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    norm = torch.sqrt((dx * dx + dz * dz) + dy * dy)
+    return d / torch.clamp(norm, min=1e-12)

@@ -51,9 +51,15 @@ result line; each phase prints its seconds):
      pretest at the benchmark's bicycle size (pretest_phase: the
      bicycle-5m scene's 5,242,880 splats in each of its 8 views, at
      (1, 1) and CELL, bit-equal to its plain twin, timed on two views);
+     the SH colour's forward and backward kernels (sh_phase: the bicycle
+     draw's 5,242,880 rows and 8,388,608 drawn rows, 16 coefficients)
+     bit-equal to their plain twins at the kernels' directions, two
+     launches bit-equal, timed against their bound; the render path
+     launches the forward once, a training step each once;
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
-     with the launch counters reset just before and read just after; then
+     with the launch counters reset just before and read just after and
+     the SH forward held to its twin on that call's arguments; then
      the median of 10 CUDA-event-timed renders and the forward kernels'
      times at these inputs (each kernel timed twice, here and in phases 6
      and 8: its wrapper by cuda_ms and the device by device_ms, the calls
@@ -74,7 +80,9 @@ result line; each phase prints its seconds):
      tile_base 0 bit-equal to the frame (restriction, binning, kernels);
   4. a real model: serve docs/castle_r5_30k.ply through eval_stats at
      800x800 on four cameras of its training orbit, against the same
-     views rendered by the port on the CPU (the plain versions);
+     views rendered by the port on the CPU (the plain versions), one
+     launch of each forward kernel a view, the last view's SH forward held
+     to its twin on its arguments;
      rasterize_fwd's check on each of those views and the backward
      kernels' on one (real opacities: saturating pixels, the early-out);
      at each of CHECK_CELLS (800x800 is 50x50 tiles, which (4, 2) does
@@ -84,10 +92,11 @@ result line; each phase prints its seconds):
   5. the main path of training at full width: SplatTrainer on the bench
      scene against a black ground truth (bench.py:210-231), 6 steps with
      warmup 1 and refine every 3, so refine runs at iterations 1 (through
-     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all five
-     kernels' counters reset just before and read just after (the tile
-     pretest once a step); every step's CUDA-event time. The main path's
-     calls to the five kernels keep
+     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all seven
+     kernel wrappers' counters (the five and the SH pair) reset just
+     before and read just after (the tile pretest and each SH kernel once
+     a step); every step's CUDA-event time. The main path's
+     calls to the seven wrappers keep
      their arguments on the first step at each capacity; then the train
      step metric: 8 warm steps at the capacity the run ends at; then all
      of it again with SplatTrainer(raster_cell=CELL); between the two,
@@ -121,9 +130,9 @@ result line; each phase prints its seconds):
      its twin with libpng's adaptive row filters (loaded and timed once,
      images equal); `train` 620 steps (eval every 200 on 4 views,
      checkpoints every 200, refines at 501 and 601, PLY export) with all
-     five kernels' counters reset just before and read just after: one
-     launch of each a step and of the forward three (the tile pretest,
-     expand, rasterize_fwd) one an eval render
+     seven wrappers' counters reset just before and read just after: one
+     launch of each a step and of the forward four (the tile pretest,
+     expand, rasterize_fwd, sh_color_fwd) one an eval render
      (pool-growth retries counted); the kernels' arguments kept on the
      first step and the first after each refine, and each kernel held to
      its plain version on the first and the last of them (tolerances as
@@ -135,14 +144,16 @@ result line; each phase prints its seconds):
      eval PSNR at 600 above 200; `eval --ply` and `eval --ckpt` print the
      run's final PSNR digit for digit; `--resume` from 400 runs 401..419;
      the trained castle saved as a checkpoint at step 29800 and resumed
-     for 200 steps (the step time at a model's real size); `render` writes
+     for 200 steps (the step time at a model's real size; the SH pair's
+     last calls held to their twins at its 90,977 rows); `render` writes
      a non-blank PNG; a 24-view COLMAP castle (RGB on black, the castle's
      90,977 means as points3D, native parser == Python parser) trains 100
      timed steps; `train2d` at 256x256 lowers its loss, and so does
      `train2d --shard`;
   9. "viewer", the served path on the same datasets (viewer_phase): the
      castle served over HTTP by brush_tpu_torch.viewer, every frame equal
-     to the in-process render and launching expand and rasterize_fwd once;
+     to the in-process render and launching the tile pretest, expand,
+     rasterize_fwd and the SH forward once;
      the /api/frame latency at 800x800 and its split (render, copy +
      composite, PNG encode, the rest), idle and while a TrainWorker trains
      the NeRF castle through the API (pause, eval, export, resume, load of
@@ -155,7 +166,8 @@ result line; each phase prints its seconds):
      backend="xla") held to the record pipeline's kernels (images within
      assert_close_quantized's defaults, gradients within the castle
      test's render-grad rule), no kernel launched on the XLA path but
-     the tile pretest once a render or step (its binning), both
+     the tile pretest once a render or step (its binning) and the SH pair
+     (its view colours, the same kernels as the pipeline's), both
      paths' times and peak memory; ShardedTrainer(backend="xla") at world
      size 1 over NCCL on the castle's views, its first loss within 1e-3
      relative of the pipeline trainer's;
@@ -176,7 +188,7 @@ result line; each phase prints its seconds):
      10,485,760; one probe step (render with gradients, L1, backward,
      Adam) with the counters reset just before and read just after: one
      launch of each kernel, no record dropped, finite loss and parameters;
-     all five kernels against their plain versions on that step's own
+     all seven kernels against their plain versions on that step's own
      arguments (phase 2's tolerances, repeats bit-equal), timed (wrapper
      and device), with bounds (both rasterizers' reach bounds too) and
      index_add_ beside segment_sum; the median of 8 probe steps on fixed
@@ -202,7 +214,7 @@ result line; each phase prints its seconds):
      finite parameters at 3000 and 3200, no record dropped at any eval,
      eval PSNR at 1500 and 3000 no lower than the JAX run's 30.86 and
      31.28 less 1.5 dB, one launch of each kernel a step and of the
-     forward three one an eval render; the five kernels held to their plain
+     forward four one an eval render; the seven kernels held to their plain
      versions (phase 2's tolerances, repeats bit-equal) on the arguments
      of step 3002, the first after the reset, and timed there; one
      [quality] line;
@@ -214,7 +226,8 @@ result line; each phase prints its seconds):
      "aligned" the aligned phase's, and for expand and rasterize_fwd
      under "viewer" the viewer's frames' launches and under "render"
      phase 3's times at (1, 1) and CELL (also for the tile pretest, whose
-     "bicycle" holds pretest_phase's); beside each "ms" (the wrapper's,
+     "bicycle" holds pretest_phase's; the SH pair's "bicycle" holds
+     sh_phase's); beside each "ms" (the wrapper's,
      what a host-bound step pays) its "device_ms" (the median of
      DEVICE_REPLAYS replays of a CUDA graph of the calls), and beside
      segment_sum's "library_ms" (index_add_) its "library_device_ms",
@@ -285,6 +298,9 @@ SCAN_STRIP_CELLS = 512    # and its cells (of the bench's 4096)
 PRETEST_BYTES = 41 + 33
 PRETEST_SEED = 3200000321   # pretest_phase's draw of the bicycle scene
 PRETEST_TIMED_VIEWS = 2     # and its views that are timed
+SH_SEED = 3200000323        # sh_phase's draw of the bicycle scene
+SH_ROWS = (5_242_880, 8_388_608)   # B, and the densify cell's capacity
+SH_BYTES = 12 + 192 + 12    # a splat each way at K = 16 (csrc/sh.cu)
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
@@ -1017,6 +1033,174 @@ def kernel_phase(cfg, label, backward: bool, reach: bool = False):
     return splats, cp, size, k
 
 
+def sh_rows(n: int, seed: int):
+    """(means (n, 3), campos, coeffs (n, 16, 3)) on the card: the
+    bicycle-5m draw of benchmark/scenes/uniform.py at n = its 5,242,880
+    splats, else as many rows drawn in [-14, 14]^3 (the densify scene's
+    extent) with normal coefficients; campos: its first view's."""
+    import torch
+    from benchmark.scenes import uniform
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "bicycle-5m.json")) as f:
+        sc = json.load(f)["scene"]
+    size = (sc["width"], sc["height"])
+    pose = uniform.ring_poses(sc["views"], sc["distance"],
+                              np.radians(sc["fov_x_deg"]), size)[0]
+    campos = camera_params(Camera(**pose), size, device="cuda").viewmat[:3, 3]
+    if n == sc["splats"]:
+        p = uniform.params(sc, seed, "cuda")
+        return p["means"], campos, p["sh_coeffs"]
+    gen = torch.Generator("cuda").manual_seed(seed)
+    means = torch.rand((n, 3), generator=gen, device="cuda") * 28.0 - 14.0
+    coeffs = torch.randn((n, 16, 3), generator=gen, device="cuda") * 0.3
+    return means, campos, coeffs
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def sh_bytes(n: int, kd: int, k: int, backward: bool) -> int:
+    """The SH kernels' bytes for n rows of k coefficients, kd of them used
+    (csrc/sh.cu): the means and the colour or its gradient, 24 B a row;
+    the forward reads the used 12 kd B of a row, the backward writes all
+    12 k B. 216 B a row each way at kd = k = 16 (SH_BYTES)."""
+    return n * (24 + 12 * (k if backward else kd))
+
+
+def check_sh(args, label) -> dict:
+    """The SH kernels on the arguments kept_kernel_args kept (args: its
+    dict; either kernel may be absent) against their plain twins at the
+    kernels' directions (ops/sh.view_dirs_plain): the colour and the
+    coefficients' gradient equal in every bit, and two launches
+    bit-equal. Returns {wrapper name: the twin's ms}."""
+    from brush_tpu_torch.ops.cuda import sh
+    from brush_tpu_torch.ops.sh import (
+        sh_coeffs_grad_plain, sh_to_color, view_dirs_plain,
+    )
+
+    plain = {}
+    if "sh_color_fwd" in args:
+        means, campos, coeffs, degree = args["sh_color_fwd"]
+        got = sh.sh_color_fwd(*args["sh_color_fwd"])
+        want, plain["sh_color_fwd"] = timed(lambda: sh_to_color(
+            degree, view_dirs_plain(means, campos), coeffs))
+        if not same_bits(got, want) or not same_bits(
+                got, sh.sh_color_fwd(*args["sh_color_fwd"])):
+            raise AssertionError(
+                f"[{label}] sh_color_fwd: {int((got != want).sum())} of "
+                f"{got.numel()} colour values differ from the twin's, or "
+                f"two launches differ")
+    if "sh_color_bwd" in args:
+        means, campos, g, degree, k = args["sh_color_bwd"]
+        got = sh.sh_color_bwd(*args["sh_color_bwd"])
+        want, plain["sh_color_bwd"] = timed(lambda: sh_coeffs_grad_plain(
+            degree, view_dirs_plain(means, campos), g, k))
+        if not same_bits(got, want) or not same_bits(
+                got, sh.sh_color_bwd(*args["sh_color_bwd"])):
+            raise AssertionError(
+                f"[{label}] sh_color_bwd: {int((got != want).sum())} of "
+                f"{got.numel()} gradient values differ from the twin's, or "
+                f"two launches differ")
+    return plain
+
+
+def sh_bounds(args) -> dict:
+    """{wrapper name: (least ms, what bounds it)} of the SH kernels in
+    args (kept_kernel_args' dict)."""
+    from brush_tpu_torch.constants import sh_coeffs_for_degree
+
+    out = {}
+    for name, backward in (("sh_color_fwd", False), ("sh_color_bwd", True)):
+        if name in args:
+            means, degree = args[name][0], args[name][3]
+            k = args[name][4] if backward else args[name][2].shape[1]
+            out[name] = _bound(sh_bytes(means.shape[0],
+                                        sh_coeffs_for_degree(degree), k,
+                                        backward), 0)
+    return out
+
+
+def sh_phase(smi: str) -> dict:
+    """The SH colour's kernels (ops/cuda/sh.py) at the benchmark's sizes,
+    SH_ROWS rows of 16 coefficients from the first bicycle view: each held
+    bit-equal to its plain twin at the kernels' directions (ops/sh.py),
+    two launches bit-equal, the autograd Function's gradient the backward
+    kernel's; the rows where the plain path's directions
+    (torch.linalg.vector_norm's) and colours equal the kernels' on the
+    card; the wrapper's and the device's ms, the twins' and the bound
+    (SH_BYTES a splat).
+    Returns {"fwd <n>" / "bwd <n>": those fields}."""
+    import torch
+    from brush_tpu_torch.ops.cuda import sh
+    from brush_tpu_torch.ops.sh import sh_to_color, view_dirs_plain
+
+    t0 = time.perf_counter()
+    out = {}
+    for n in SH_ROWS:
+        means, campos, coeffs = sh_rows(n, SH_SEED)
+        gen = torch.Generator("cuda").manual_seed(SH_SEED + 1)
+        g = torch.randn((n, 3), generator=gen, device="cuda")
+        g[::97] = 0.0
+        g[1::89, 1] = -0.0
+        plain = check_sh({"sh_color_fwd": (means, campos, coeffs, 3),
+                          "sh_color_bwd": (means, campos, g, 3, 16)},
+                         f"sh {n}")
+        got_b = sh.sh_color_bwd(means, campos, g, 3, 16)
+        c = coeffs.detach().requires_grad_(True)
+        (auto,) = torch.autograd.grad(sh.sh_color(means, campos, c, 3), c, g)
+        if not same_bits(auto, got_b):
+            raise AssertionError(f"[sh {n}] the Function's gradient is not "
+                                 f"the backward kernel's")
+        del auto, c, got_b
+        # The plain path's directions and colours (view_colors on the CPU's
+        # code, here on the card) against the kernels'.
+        dirs = view_dirs_plain(means, campos)
+        got = sh.sh_color_fwd(means, campos, coeffs, 3)
+        d = means - campos
+        pdirs = d / torch.clamp(torch.linalg.vector_norm(
+            d, dim=-1, keepdim=True), min=1e-12)
+        plain_col = sh_to_color(3, pdirs, coeffs)
+        dirs_eq = int((pdirs == dirs).all(1).sum())
+        col_eq = int((plain_col == got).all(1).sum())
+        col_err = float((plain_col - got).abs().max())
+        rel_err = float(((plain_col - got).abs()
+                         / plain_col.abs().clamp(min=1e-6)).max())
+        del d, pdirs, plain_col, dirs, got
+        bound = _bound(SH_BYTES * n, 0)
+        fwd = lambda: sh.sh_color_fwd(means, campos, coeffs, 3)  # noqa: E731
+        bwd = lambda: sh.sh_color_bwd(means, campos, g, 3, 16)   # noqa: E731
+        for tag, fn, plain_ms in (("fwd", fwd, plain["sh_color_fwd"]),
+                                  ("bwd", bwd, plain["sh_color_bwd"])):
+            out[f"{tag} {n}"] = {
+                "ms": cuda_ms(fn, reps=20, warm=3),
+                "device_ms": device_ms(fn, reps=20, warm=3),
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+        print(f"[sh {n}] rows of 16 coefficients: forward and backward "
+              f"bit-equal to the twins, two launches bit-equal, the "
+              f"Function's gradient the kernel's; directions equal the "
+              f"plain path's at {dirs_eq} of {n} rows, colours at {col_eq} "
+              f"(largest diff "
+              f"{col_err:.3e}, relative {rel_err:.3e}); "
+              + "; ".join(f"{t} {o['ms']:.4f} ms, device "
+                          f"{o['device_ms']:.4f} (plain {o['plain_ms']:.3f}, "
+                          f"bound {bound[0]:.4f} by {bound[1]}, "
+                          f"{100 * bound[0] / o['device_ms']:.1f} % of it)"
+                          for t in ("fwd", "bwd")
+                          for o in (out[f"{t} {n}"],)))
+        del means, campos, coeffs, g
+        torch.cuda.empty_cache()
+    print(f"[sh] {smi}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _bound(nbytes, nops):
     """(least ms, "bytes" or "operations"): the larger of nbytes over the
     memory rate and nops over the float32 rate."""
@@ -1150,13 +1334,18 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
             needs_grad=False)
 
     reset_launches()
-    img, aux = render()
+    with kept_kernel_args([True]) as seen:
+        img, aux = render()
     torch.cuda.synchronize()
-    counts = {name: n for name, n in read_launches().items()
-              if name in ("tile_pretest", "expand", "rasterize_fwd")}
-    if counts != {"tile_pretest": 1, "expand": 1, "rasterize_fwd": 1}:
+    counts = read_launches()
+    if counts != {"tile_pretest": 1, "expand": 1, "rasterize_fwd": 1,
+                  "rasterize_bwd": 0, "segment_sum": 0, "sh_color_fwd": 1,
+                  "sh_color_bwd": 0}:
         raise AssertionError(f"main path: launches {counts}, not one of "
                              f"each forward kernel")
+    tag = "main path" if tuple(cell) == (1, 1) else f"cell {cell}"
+    check_sh(seen, f"{tag} render")
+    del seen
     dropped = int(aux.num_dropped)
     if dropped != 0:
         raise AssertionError(f"bench render dropped {dropped} records")
@@ -1175,10 +1364,10 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     ms = statistics.median(times)
-    tag = "main path" if tuple(cell) == (1, 1) else f"cell {cell}"
     print(f"[{tag}] bench render {size[0]}x{size[1]}, {cfg['n']} splats, "
           f"cell {cell}: visible={int(aux.num_visible)} "
-          f"records={int(aux.num_isects)} dropped={dropped} launches={counts}")
+          f"records={int(aux.num_isects)} dropped={dropped} launches={counts}"
+          f"; sh_color_fwd bit-equal to its twin on its arguments")
     print(f"[{tag}] median of 10 renders {ms:.3f} ms "
           f"({size[0] * size[1] / ms / 1e3:.2f} Mpix/s); all ms "
           f"{[round(t, 3) for t in times]}")
@@ -1278,20 +1467,27 @@ def castle_phase():
     t_cpu = time.perf_counter() - t0
     reset_launches()
     t0 = time.perf_counter()
-    evals = eval_stats(gpu, list(zip(cams, gts)))
+    with kept_kernel_args([True]) as seen:
+        evals = eval_stats(gpu, list(zip(cams, gts)))
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     n = read_launches()
-    counts = (n["expand"], n["rasterize_fwd"], n["tile_pretest"])
+    counts = (n["expand"], n["rasterize_fwd"], n["tile_pretest"],
+              n["sh_color_fwd"])
+    check_sh(seen, "castle eval")
+    del seen
     psnr = [e.psnr for e in evals]
     ssim = [e.ssim for e in evals]
     print(f"[castle] {gpu.n_live} splats, SH degree 3, {len(cams)} views "
           f"{CASTLE_SIZE}x{CASTLE_SIZE}: PSNR {[round(p, 2) for p in psnr]} "
           f"SSIM {[round(s, 6) for s in ssim]} vs the CPU render; pool "
           f"{evals[-1].pool}; launches expand={counts[0]} "
-          f"rasterize_fwd={counts[1]} tile_pretest={counts[2]}; host s: "
+          f"rasterize_fwd={counts[1]} tile_pretest={counts[2]} "
+          f"sh_color_fwd={counts[3]} sh_color_bwd={n['sh_color_bwd']} (the "
+          f"last view's sh_color_fwd bit-equal to its twin); host s: "
           f"cpu {t_cpu:.1f} gpu {t_gpu:.1f}")
-    if min(counts) < len(cams) or len(set(counts)) != 1:
+    if min(counts) < len(cams) or len(set(counts)) != 1 \
+            or n["sh_color_bwd"]:
         raise AssertionError(f"castle eval: launches {counts}, not one of "
                              f"each forward kernel a render")
     if min(psnr) < 50.0 or min(ssim) < 0.999:
@@ -1376,7 +1572,9 @@ def castle_cells(splats, cams, gts, pool):
               f"{max(max(d['err'], d['flip_err']) for d in diffs):.3e}); "
               f"launches {counts}")
         if min(counts["expand"], counts["rasterize_fwd"]) < len(cams) or \
-                counts["tile_pretest"] != counts["expand"]:
+                counts["tile_pretest"] != counts["expand"] or \
+                counts["sh_color_fwd"] != counts["expand"] or \
+                counts["sh_color_bwd"]:
             raise AssertionError(f"castle cell {cell}: launches {counts}")
     print(f"[castle cells] {time.perf_counter() - t0:.1f} s")
 
@@ -1421,42 +1619,49 @@ def castle_kernels(splats, cams, pool):
 
 
 KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum",
-                   "tile_pretest")
+                   "tile_pretest", "sh_color_fwd", "sh_color_bwd")
+# The launch counter of each wrapper in its module (ops/cuda/sh.py counts
+# its two kernels apart); "launches" where not named.
+COUNTERS = {"sh_color_fwd": "fwd_launches", "sh_color_bwd": "bwd_launches"}
 
 
 def kernel_modules() -> dict:
     """{wrapper name: its module in ops/cuda, which counts its launches}."""
     from brush_tpu_torch.ops.cuda import (
-        expand, rasterize_bwd, rasterize_fwd, segsum, tile_pretest,
+        expand, rasterize_bwd, rasterize_fwd, segsum, sh, tile_pretest,
     )
 
     return {"expand": expand, "rasterize_fwd": rasterize_fwd,
             "rasterize_bwd": rasterize_bwd, "segment_sum": segsum,
-            "tile_pretest": tile_pretest}
+            "tile_pretest": tile_pretest, "sh_color_fwd": sh,
+            "sh_color_bwd": sh}
 
 
 def reset_launches():
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for name, mod in kernel_modules().items():
+        setattr(mod, COUNTERS.get(name, "launches"), 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, COUNTERS.get(name, "launches"))
+            for name, mod in kernel_modules().items()}
 
 
 @contextlib.contextmanager
 def kept_kernel_args(armed: list):
     """While armed[0] is true, keep the arguments of the main path's calls
-    to the five kernel wrappers: the record pipeline's four and
-    ops/binning's call of the tile pretest (the wrappers still launch and
-    count as before). Yields {wrapper name: last arguments, "<wrapper
-    name> kw": its last keyword arguments (the rasterizers' scan_passes
-    and k_lanes)}."""
+    to the seven kernel wrappers: the record pipeline's four, ops/binning's
+    call of the tile pretest and the SH colour's autograd Function's calls
+    of its forward and backward (the wrappers still launch and count as
+    before). Yields {wrapper name: last arguments, "<wrapper name> kw":
+    its last keyword arguments (the rasterizers' scan_passes and
+    k_lanes)}."""
     from brush_tpu_torch.ops import pipeline
-    from brush_tpu_torch.ops.cuda import tile_pretest
+    from brush_tpu_torch.ops.cuda import sh, tile_pretest
 
     seen = {}
-    homes = {name: tile_pretest if name == "tile_pretest" else pipeline
+    homes = {name: {"tile_pretest": tile_pretest, "sh_color_fwd": sh,
+                    "sh_color_bwd": sh}.get(name, pipeline)
              for name in KERNEL_WRAPPERS}
     saved = {name: getattr(homes[name], name) for name in KERNEL_WRAPPERS}
 
@@ -1504,8 +1709,9 @@ def timed_steps(trainer, state, batch, steps: int):
 
 def train_path(cfg, cell=(1, 1)):
     """Phase 5, the main path: SplatTrainer steps on the bench scene
-    against a black ground truth at raster cell `cell`, all five kernels
-    counted (the tile pretest once a step), and the kernels' arguments
+    against a black ground truth at raster cell `cell`, all seven kernel
+    wrappers counted (the tile pretest and each SH kernel once a step),
+    and the kernels' arguments
     kept on the first step at each
     capacity. Then the train step metric at the capacity the run ended
     at. Returns (launches, metric ms, window ms, {capacity: arguments},
@@ -1558,7 +1764,9 @@ def train_path(cfg, cell=(1, 1)):
           f"n_live {sp.n_live}, capacity {sp.capacity}, pool {pool}; "
           f"kernel arguments kept at capacities {sorted(kept)}; "
           f"{time.perf_counter() - t_phase:.1f} s")
-    if min(counts.values()) < 1 or counts["tile_pretest"] != TRAIN_STEPS:
+    if min(counts.values()) < 1 or any(
+            counts[name] != TRAIN_STEPS for name in (
+                "tile_pretest", "sh_color_fwd", "sh_color_bwd")):
         raise AssertionError(f"training: launches {counts}")
     if sorted(refines) != [1, 4]:
         raise AssertionError(f"refine ran at {sorted(refines)}, not [1, 4]")
@@ -1591,13 +1799,14 @@ def train_path(cfg, cell=(1, 1)):
 def train_kernels(kept, tag="train", reach=True):
     """Phase 6 (and the "cli" phase's check): each kernel against its
     plain version on the arguments a training run gave it, kept = {when:
-    the five wrappers' arguments} in the run's order; then the times,
+    the seven wrappers' arguments} in the run's order; then the times,
     bounds and errors of the last arguments, as the result reports them."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
     from brush_tpu_torch.ops.cuda.segsum import segment_sum, slot_owners
+    from brush_tpu_torch.ops.cuda.sh import sh_color_bwd, sh_color_fwd
     from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
 
     for when, args in kept.items():
@@ -1614,6 +1823,7 @@ def train_kernels(kept, tag="train", reach=True):
         b = check_bwd(args["rasterize_bwd"], label, reach=last and reach,
                       kw=b_kw)
         s = check_segsum(args["segment_sum"], label)
+        sh_plain = check_sh(args, label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
               f"{int(k['exp_args'][3][0])}: tile_pretest bit-equal to its "
               f"plain twin; expand byte-equal; rasterize_fwd "
@@ -1623,10 +1833,14 @@ def train_kernels(kept, tag="train", reach=True):
               f"{b['abs']:.3e}), pairs swept {b['swept']}, active "
               f"{b['active']}{reach_note(b)}; segment_sum row error "
               f"{s['err']:.3e} (max abs "
-              f"{s['abs']:.3e}); {time.perf_counter() - t0:.1f} s")
+              f"{s['abs']:.3e}); sh_color_fwd and sh_color_bwd "
+              f"bit-equal to their twins at "
+              f"{args['sh_color_fwd'][0].shape[0]} rows, SH degree "
+              f"{args['sh_color_fwd'][3]}; {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pt_args, exp_args, r_args = k["pt_args"], k["exp_args"], k["r_args"]
+    sh_f, sh_b = args["sh_color_fwd"], args["sh_color_bwd"]
     b_args, s_args = args["rasterize_bwd"], args["segment_sum"]
     rows, _, cum, total = s_args
     ids = slot_owners(cum, total, rows.shape[1])
@@ -1636,7 +1850,9 @@ def train_kernels(kept, tag="train", reach=True):
              "rasterize_fwd": (lambda: rasterize_fwd(*r_args, **r_kw), 20),
              "rasterize_bwd": (lambda: rasterize_bwd(*b_args, **b_kw), 10),
              "segment_sum": (lambda: segment_sum(*s_args), 20),
-             "tile_pretest": (lambda: tile_pretest(*pt_args), 20)}
+             "tile_pretest": (lambda: tile_pretest(*pt_args), 20),
+             "sh_color_fwd": (lambda: sh_color_fwd(*sh_f), 20),
+             "sh_color_bwd": (lambda: sh_color_bwd(*sh_b), 20)}
     ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in calls.items()}
     dev = {name: device_ms(fn, reps) for name, (fn, reps) in calls.items()}
 
@@ -1662,12 +1878,15 @@ def train_kernels(kept, tag="train", reach=True):
     return dict(ms=ms, device=dev, library_device=s_lib_dev,
                 plain={"expand": e_plain, "rasterize_fwd": r["plain_ms"],
                        "rasterize_bwd": b["plain_ms"],
-                       "segment_sum": s["plain_ms"], "tile_pretest": p_plain},
+                       "segment_sum": s["plain_ms"], "tile_pretest": p_plain,
+                       **sh_plain},
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"],
-                     "tile_pretest": 0.0},
-                bound=bounds(k, r, b), library=s_lib, when=when,
+                     "tile_pretest": 0.0, "sh_color_fwd": 0.0,
+                     "sh_color_bwd": 0.0},
+                bound={**bounds(k, r, b), **sh_bounds(args)}, library=s_lib,
+                when=when,
                 scan={"rasterize_fwd": r_kw, "rasterize_bwd": b_kw},
                 checks={"rasterize_fwd": {key: v for key, v in r.items()
                                           if key != "out"},
@@ -2103,7 +2322,8 @@ def sharded_path(cfg, single):
             raise AssertionError("sharded training at world size 1 differs "
                                  "from SplatTrainer")
         if min(counts.values()) < TRAIN_STEPS or sorted(refines) != [1, 4] \
-                or counts["tile_pretest"] != TRAIN_STEPS:
+                or any(counts[name] != TRAIN_STEPS for name in (
+                    "tile_pretest", "sh_color_fwd", "sh_color_bwd")):
             raise AssertionError(f"sharded training: launches {counts}, "
                                  f"refines {sorted(refines)}")
         del whole
@@ -2484,7 +2704,9 @@ def cli_phase(castle, pool, d):
             "expand": CLI_ITERS + len(renders),
             "rasterize_fwd": CLI_ITERS + len(renders),
             "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS,
-            "tile_pretest": CLI_ITERS + len(renders)}:
+            "tile_pretest": CLI_ITERS + len(renders),
+            "sh_color_fwd": CLI_ITERS + len(renders),
+            "sh_color_bwd": CLI_ITERS}:
         raise AssertionError(f"cli train: launches {counts} are not "
                              f"one a step and one an eval render "
                              f"({len(renders)} renders, dropped "
@@ -2546,7 +2768,9 @@ def cli_phase(castle, pool, d):
             "rasterize_fwd": CLI_CELL_ITERS + len(c_renders),
             "rasterize_bwd": CLI_CELL_ITERS,
             "segment_sum": CLI_CELL_ITERS,
-            "tile_pretest": CLI_CELL_ITERS + len(c_renders)}:
+            "tile_pretest": CLI_CELL_ITERS + len(c_renders),
+            "sh_color_fwd": CLI_CELL_ITERS + len(c_renders),
+            "sh_color_bwd": CLI_CELL_ITERS}:
         raise AssertionError(f"cli train --cell: launches {counts2}, "
                              f"{len(c_renders)} eval renders")
 
@@ -2583,7 +2807,9 @@ def cli_phase(castle, pool, d):
     if len(losses3) != 11 or not all(same.values()):
         raise AssertionError(f"cli train --shard losses {losses3} differ "
                              "from cli train's")
-    if min(counts3.values()) < CLI_CELL_ITERS:
+    if min(counts3.values()) < CLI_CELL_ITERS or \
+            counts3["sh_color_bwd"] != CLI_CELL_ITERS or \
+            counts3["sh_color_fwd"] != counts3["tile_pretest"]:
         raise AssertionError(f"cli train --shard launches {counts3}")
 
     # eval of the export and of the final checkpoint: the same PSNR.
@@ -2627,12 +2853,17 @@ def cli_phase(castle, pool, d):
         SplatTrainer().init_state(castle), CASTLE_RESUME_STEP)
     c_steps, c_dir = [], os.path.join(d, "castle_run")
     reset_launches()
-    with step_timer(c_steps):
+    with kept_kernel_args([True]) as c_seen, step_timer(c_steps):
         text = run_cli(["train", "--source", nerf_zip, "--iters",
                         str(CASTLE_RESUME_STEP + CASTLE_RESUME_STEPS),
                         "--log-every", "10", "--checkpoint-dir", c_dir,
                         "--resume", castle_ck], log)
     c_counts = read_launches()
+    # The SH pair on its last calls: the final eval's forward, the last
+    # step's backward, at the castle's 90,977 rows.
+    check_sh(c_seen, "cli castle")
+    c_rows = c_seen["sh_color_bwd"][0].shape[0]
+    del c_seen
     c_ms = event_ms(c_steps)
     c_final = text_field(text, r"final eval: PSNR (\S+) SSIM (\S+)")
     c_losses = [r["loss"] for r in read_jsonl(
@@ -2644,13 +2875,16 @@ def cli_phase(castle, pool, d):
           f"{statistics.median(c_ms[-100:]):.3f} ms), "
           f"{len(c_steps) / (c_steps[-1][4] - c_steps[0][1]):.2f} steps/s"
           f" (host clock); refines {sum(s[5] is not None for s in c_steps)}"
-          f"; launches {c_counts}; losses {c_losses[0]:.5f} .. "
+          f"; launches {c_counts} (the last SH calls bit-equal to their "
+          f"twins at {c_rows} rows); losses {c_losses[0]:.5f} .. "
           f"{c_losses[-1]:.5f}; final eval PSNR {c_final[0]} SSIM "
           f"{c_final[1]}; {log[-1][1]:.1f} s")
     if len(c_steps) != CASTLE_RESUME_STEPS or not np.isfinite(
             c_losses).all() or any(
             s[5] is not None for s in c_steps) or min(
-            c_counts.values()) < CASTLE_RESUME_STEPS:
+            c_counts.values()) < CASTLE_RESUME_STEPS or \
+            c_counts["sh_color_bwd"] != c_counts["rasterize_bwd"] or \
+            c_counts["sh_color_fwd"] != c_counts["tile_pretest"]:
         raise AssertionError("the resumed castle did not take its "
                              "steps through the kernels")
 
@@ -2965,7 +3199,8 @@ def viewer_phase(data: dict, d: str) -> dict:
     serving.start()
     base = f"http://127.0.0.1:{srv.port}"
     served = {}
-    counted = {"expand": 0, "rasterize_fwd": 0, "tile_pretest": 0}
+    counted = {"expand": 0, "rasterize_fwd": 0, "tile_pretest": 0,
+               "sh_color_fwd": 0}
     try:
         wait_http(base, 60)
         drops = []
@@ -2976,7 +3211,8 @@ def viewer_phase(data: dict, d: str) -> dict:
                 n = read_launches()
                 if n != {"expand": 1, "rasterize_fwd": 1,
                          "rasterize_bwd": 0, "segment_sum": 0,
-                         "tile_pretest": 1}:
+                         "tile_pretest": 1, "sh_color_fwd": 1,
+                         "sh_color_bwd": 0}:
                     raise AssertionError(f"frame {view} {fs} launched {n}")
                 for k in counted:
                     counted[k] += n[k]
@@ -3360,9 +3596,14 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     """Phase 10, "xla": render_splats(backend="xla") and the sharded step's
     XLA path on the card, an exact float32 render built apart from the
     record pipeline (no quantized record, no kernel but the tile pretest
-    of its binning), held to the CUDA kernels' path. Every XLA run resets
-    the launch counts before it and must have launched the tile pretest
-    once a render or step and no other kernel.
+    of its binning and the SH colour's pair), held to the CUDA kernels'
+    path. Both paths take their view colours from the same SH kernels
+    (render.project_inputs), so this phase does not check the colours
+    apart: sh_phase and every check of kept arguments (check_sh) hold
+    those kernels to their plain twins. Every XLA run resets the launch
+    counts before it and must have launched the tile pretest and the SH
+    forward once a render or step, the SH backward once a step or render
+    with gradients, and no other kernel of the seven it counts.
     1. the castle at 800x800 on view 0 with gradients of a seeded image
        cotangent, its out-of-range view colours pinned (pinned_castle):
        the XLA image within assert_close_quantized's defaults of the
@@ -3431,7 +3672,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
             raise AssertionError(f"[xla] castle {label} dropped records")
     img_p, g_p, aux_p, counts_p, mib_p = got["pipeline"]
     img_x, g_x, aux_x, counts_x, mib_x = got["xla"]
-    if counts_x != pretest_only(1) or min(counts_p.values()) < 1:
+    if counts_x != xla_launches(1, True) or min(counts_p.values()) < 1:
         raise AssertionError(f"[xla] castle launches: xla {counts_x}, "
                              f"pipeline {counts_p}")
     img_err = close_image(img_p, img_x, "[xla] castle image")
@@ -3467,7 +3708,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     (img_x, aux_x), mib_x = peak_mib(lambda: render("xla"))
     counts_x = read_launches()
     (img_p, aux_p), mib_p = peak_mib(lambda: render("pallas"))
-    if counts_x != pretest_only(1):
+    if counts_x != xla_launches(1, False):
         raise AssertionError(f"[xla] bench launches {counts_x}")
     if int(aux_x.num_dropped) or int(aux_x.num_isects) != int(
             aux_p.num_isects):
@@ -3554,7 +3795,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
           f"memory {mib:.1f} MiB; launches {counts}; {smi}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     if not all(np.isfinite(losses)) or rel > 1e-3 or \
-            counts != pretest_only(XLA_SHARD_STEPS):
+            counts != xla_launches(XLA_SHARD_STEPS, True):
         raise AssertionError("[xla] sharded XLA steps: a loss not finite, "
                              "the first too far from the pipeline's, or a "
                              "kernel but the tile pretest's one a step "
@@ -3564,11 +3805,13 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     return res
 
 
-def pretest_only(n: int) -> dict:
+def xla_launches(n: int, backward: bool) -> dict:
     """The launches of n renders or steps of the XLA backend: its binning
     (ops/binning.build_intersections) runs the tile pretest kernel once,
-    and no other kernel runs."""
-    return {name: n if name == "tile_pretest" else 0
+    project_inputs' view colours the SH forward once (and the SH backward
+    once where a gradient flows), and no other kernel runs."""
+    return {name: n if name in ("tile_pretest", "sh_color_fwd") or (
+        backward and name == "sh_color_bwd") else 0
             for name in KERNEL_WRAPPERS}
 
 
@@ -3686,7 +3929,8 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     res = {}
     names = ("xy", "conic", "color", "opac")
     one_each = {"expand": 0, "rasterize_fwd": 1, "rasterize_bwd": 1,
-                "segment_sum": 1, "tile_pretest": 0}
+                "segment_sum": 1, "tile_pretest": 0, "sh_color_fwd": 0,
+                "sh_color_bwd": 0}
 
     # 1. The castle, view 0, with gradients.
     t0 = time.perf_counter()
@@ -4216,7 +4460,9 @@ def quality_phase(smi: str) -> dict:
                   "rasterize_fwd": QUALITY_ITERS + len(renders),
                   "rasterize_bwd": QUALITY_ITERS,
                   "segment_sum": QUALITY_ITERS,
-                  "tile_pretest": QUALITY_ITERS + len(renders)}:
+                  "tile_pretest": QUALITY_ITERS + len(renders),
+                  "sh_color_fwd": QUALITY_ITERS + len(renders),
+                  "sh_color_bwd": QUALITY_ITERS}:
         raise AssertionError(f"[quality] launches {counts}: not one a step "
                              f"and one an eval render ({len(renders)})")
     if kept_names(kept) != sorted(KERNEL_WRAPPERS):
@@ -4286,6 +4532,7 @@ def main() -> int:
     check_expand_hand()
     pretest = pretest_phase(smi)
     torch.cuda.empty_cache()
+    sh_times = sh_phase(smi)
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False,
                                        reach=True)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
@@ -4426,6 +4673,13 @@ def main() -> int:
             out["bicycle"] = {**pretest, "from": f"pretest phase: the "
                               f"bicycle-5m configuration's scene, seed "
                               f"{PRETEST_SEED}"}
+        if name.startswith("sh_color"):
+            # "bicycle": sh_phase's fields at SH_ROWS rows of 16.
+            tag = name[-3:]
+            out["bicycle"] = {
+                **{f"{n}": sh_times[f"{tag} {n}"] for n in SH_ROWS},
+                "from": f"sh phase: the bicycle-5m configuration's draw, "
+                        f"seed {SH_SEED}, and {SH_ROWS[1]} drawn rows"}
         if name in view_counts:
             out["viewer"] = {
                 "launches": view_counts[name],
@@ -4484,6 +4738,8 @@ def main() -> int:
         row("segment_sum", "segsum", "brush_tpu/ops/pallas/segsum.py:136"),
         row("tile_pretest", "tile_pretest",
             "none (brush_tpu/ops/binning.py:186, plain XLA)"),
+        row("sh_color_fwd", "sh", "none (brush_tpu/ops/sh.py, plain XLA)"),
+        row("sh_color_bwd", "sh", "none (brush_tpu/ops/sh.py, plain XLA)"),
     ]
     print(f"[summary] render path launches {render_counts}, at cell {CELL} "
           f"{cell_counts}; training path launches {counts}, at cell {CELL} "
@@ -4496,7 +4752,8 @@ def main() -> int:
           f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "
           f"{TRAIN_STEPS}-step window {window_ms:.3f} "
           f"ms, at cell {CELL} {window_ms_c:.3f}; XLA backend (no "
-          f"kernel but the tile pretest): bench render {xla['bench_ms']['xla']:.3f} ms against "
+          f"kernel but the tile pretest and the SH pair): bench render "
+          f"{xla['bench_ms']['xla']:.3f} ms against "
           f"the pipeline's {xla['bench_ms']['pallas']:.3f}, peak "
           f"{xla['bench_peak_mib'][0]:.1f} MiB against "
           f"{xla['bench_peak_mib'][1]:.1f}, sharded castle step "

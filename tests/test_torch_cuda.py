@@ -22,6 +22,7 @@ from brush_tpu_torch.ops.cuda import expand as t_expand
 from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
+from brush_tpu_torch.ops.cuda import sh as t_sh
 from brush_tpu_torch.ops.cuda import tile_pretest as t_pretest
 from brush_tpu_torch.ops.binning import (
     precompute_tile_masks, precompute_tile_masks_plain,
@@ -36,7 +37,12 @@ from brush_tpu_torch.ops.cuda.testing import (
 )
 from brush_tpu_torch.ops.projection import Projection
 from brush_tpu_torch.ops.pipeline import depth_order, scan_lanes, tile_bins
-from brush_tpu_torch.ops.rasterize_reference import camera_params
+from brush_tpu_torch.ops.rasterize_reference import (
+    camera_params, view_colors,
+)
+from brush_tpu_torch.ops.sh import (
+    sh_coeffs_grad_plain, sh_to_color, view_dirs_plain,
+)
 from brush_tpu_torch.render import record_inputs, render_splats
 from torch_threads import pin_threads
 
@@ -191,6 +197,50 @@ def test_wrappers_reject_bad_inputs():
     for cell in ((0, 1), (2,), (1.5, 1)):
         with pytest.raises(ValueError, match="cell"):
             t_pretest.tile_pretest(**p, cell=cell)
+    means, campos, coeffs = sh_args(2, 16, 0, "cpu")
+    g = torch.zeros((16, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_sh.sh_color_fwd(means, campos, coeffs, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_sh.sh_color_bwd(means, campos, g, 2, coeffs.shape[1])
+    for name, t in (("means", means.double()), ("means", means[:, :2]),
+                    ("campos", campos[:2]), ("campos", campos.half()),
+                    ("coeffs", coeffs[:-1]), ("coeffs", coeffs.double()),
+                    ("coeffs", coeffs[..., :2])):
+        args = {"means": means, "campos": campos, "coeffs": coeffs, name: t}
+        with pytest.raises(ValueError, match=name):
+            t_sh.sh_color_fwd(args["means"], args["campos"], args["coeffs"],
+                              2)
+    with pytest.raises(ValueError, match="g_color"):
+        t_sh.sh_color_bwd(means, campos, g[:, :2], 2, coeffs.shape[1])
+    with pytest.raises(ValueError, match="g_color"):
+        t_sh.sh_color_bwd(means, campos, g.double(), 2, coeffs.shape[1])
+    with pytest.raises(ValueError, match="k = 8"):
+        t_sh.sh_color_fwd(means, campos, coeffs[:, :8], 2)
+    with pytest.raises(ValueError, match="k = 4"):
+        t_sh.sh_color_bwd(means, campos, g, 2, k=4)
+    for degree in (5, -1, 2.0):
+        with pytest.raises(ValueError, match="degree"):
+            t_sh.sh_color_fwd(means, campos, coeffs, degree)
+        with pytest.raises(ValueError, match="degree"):
+            t_sh.sh_color_bwd(means, campos, g, degree, coeffs.shape[1])
+    with pytest.raises(ValueError, match="several devices"):
+        t_sh.sh_color_fwd(means, campos.to("meta"), coeffs, 2)
+
+
+def sh_args(degree, n, extra, device, seed=0):
+    """means (n, 3) about a camera, its campos (the first three entries of
+    a world-to-view matrix's translation column, a strided view) and
+    coefficients (n, (degree+1)^2 + extra, 3), from numpy."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    means[:3] = [0.3, -0.2, -6.0]   # on the camera: |d| = 0, clamped
+    viewmat = np.eye(4, dtype=np.float32)
+    viewmat[:3, 3] = [0.3, -0.2, -6.0]
+    k = (degree + 1) ** 2 + extra
+    coeffs = rng.normal(0, 0.6, (n, k, 3)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=device)   # noqa: E731
+    return t(means), t(viewmat)[:3, 3], t(coeffs)
 
 
 def pretest_args(case, cell, device):
@@ -727,6 +777,113 @@ def test_cuda_tile_pretest_bicycle_draw_equal_plain():
         assert int(got.counts.sum()) > 1_000_000
 
 
+SH_CASES = [(d, extra) for d in range(5) for extra in (0, 2)] + [
+    (0, 3), (2, 3), (3, "unaligned")]
+
+
+def sh_case(degree, extra, device, n=1000, seed=0):
+    """sh_args for a SH_CASES entry (K = 4 and 12 at degrees 0 and 2: a
+    row's used floats end inside a 16-byte word); "unaligned": K = 16 rows
+    that start 4 bytes past a 16-byte boundary (the forward's single-float
+    path)."""
+    if extra != "unaligned":
+        return sh_args(degree, n, extra, device, seed)
+    means, campos, coeffs = sh_args(degree, n, 0, device, seed)
+    flat = torch.empty(coeffs.numel() + 1, device=device)
+    flat[1:] = coeffs.reshape(-1)
+    return means, campos, flat[1:].view(coeffs.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,extra", SH_CASES)
+def test_cuda_sh_fwd_equals_twin(degree, extra):
+    """The forward kernel against sh_to_color at the kernels' directions
+    (ops/sh.view_dirs_plain), bit for bit, over two kernel blocks and a
+    ragged one; a second launch bit-equal."""
+    _need_cuda()
+    means, campos, coeffs = sh_case(degree, extra, "cuda")
+    if extra == "unaligned":
+        assert coeffs.data_ptr() % 16 == 4
+    before = t_sh.fwd_launches
+    got = t_sh.sh_color_fwd(means, campos, coeffs, degree)
+    again = t_sh.sh_color_fwd(means, campos, coeffs, degree)
+    torch.cuda.synchronize()
+    assert t_sh.fwd_launches == before + 2
+    want = sh_to_color(degree, view_dirs_plain(means, campos), coeffs)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,extra", SH_CASES)
+def test_cuda_sh_bwd_equals_twin(degree, extra):
+    """The backward kernel against sh_coeffs_grad_plain at the kernels'
+    directions, bit for bit (zeros of both signs in the colour's
+    gradient); the autograd Function's gradient is the kernel's, and the
+    means get none."""
+    _need_cuda()
+    means, campos, coeffs = sh_case(degree, extra, "cuda")
+    k = coeffs.shape[1]
+    gen = torch.Generator("cuda").manual_seed(degree)
+    g = torch.randn((means.shape[0], 3), device="cuda", generator=gen)
+    g[::7] = 0.0
+    g[1::9, 1] = -0.0
+    got = t_sh.sh_color_bwd(means, campos, g, degree, k)
+    want = sh_coeffs_grad_plain(degree, view_dirs_plain(means, campos), g, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    m = means.clone().requires_grad_(True)
+    c = coeffs.detach().clone().requires_grad_(True)
+    before = (t_sh.fwd_launches, t_sh.bwd_launches)
+    t_sh.sh_color(m, campos, c, degree).backward(g)
+    torch.cuda.synchronize()
+    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert m.grad is None
+    assert torch.equal(c.grad.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_cuda_view_colors_matches_plain(degree):
+    """view_colors on the card (the kernel) against view_colors on the CPU
+    (the plain code) on the same tensors. The one reason for the
+    tolerance: the CPU's torch.linalg.vector_norm may sum the squares in
+    another order than the kernel (which takes the order of its CUDA
+    reduction), so a direction may differ by an ulp; every other operation
+    is the same, correctly rounded."""
+    _need_cuda()
+    means, _, coeffs = sh_args(degree, 2000, 0, "cpu", seed=3)
+    cams = {dev: camera_params(Camera(**CAM), (64, 48), device=dev)
+            for dev in ("cpu", "cuda")}
+    want = view_colors(means, coeffs, cams["cpu"])
+    got = view_colors(means.cuda(), coeffs.cuda(), cams["cuda"]).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_render_launches_sh_once_a_step():
+    """render_splats(needs_grad=True) and its backward launch the SH
+    forward kernel once and the backward kernel once; a render without
+    gradients launches the forward alone."""
+    _need_cuda()
+    sc = make_scene(512, 9, sh_degree=3)
+    names = ["means", "log_scales", "quats", "sh_coeffs", "raw_opacity"]
+    p = [torch.tensor(sc[k], device="cuda", requires_grad=True)
+         for k in names]
+    cp = camera_params(Camera(**CAM), (64, 48), device="cuda")
+    before = (t_sh.fwd_launches, t_sh.bwd_launches)
+    img, _ = render_splats(*p, cp, (64, 48))
+    (img ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert p[0].grad is not None and bool(p[3].grad.abs().sum() > 0)
+    render_splats(*(x.detach() for x in p), cp, (64, 48), needs_grad=False)
+    torch.cuda.synchronize()
+    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 2,
+                                                      before[1] + 1)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_replay_in_a_graph():
     """Each kernel wrapper (and index_add_, segment_sum's library call)
@@ -744,6 +901,9 @@ def test_cuda_wrappers_replay_in_a_graph():
     ids = t_seg.slot_owners(r["cum"], r["total"], pool)
     n_splats = r["cum"].shape[0]
     pa = pretest_args("boxes", (2, 2), "cuda")
+    means, campos, coeffs = sh_args(3, 1000, 0, "cuda")
+    g = torch.randn((1000, 3), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
     calls = {
         "expand": lambda: t_expand.expand(
             r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
@@ -754,6 +914,9 @@ def test_cuda_wrappers_replay_in_a_graph():
         "segment_sum": lambda: (t_seg.segment_sum(
             rows, r["offsets"], r["cum"], r["total"]),),
         "tile_pretest": lambda: t_pretest.tile_pretest(**pa, cell=(2, 2)),
+        "sh_color_fwd": lambda: (t_sh.sh_color_fwd(
+            means, campos, coeffs, 3),),
+        "sh_color_bwd": lambda: (t_sh.sh_color_bwd(means, campos, g, 3, 16),),
         "index_add_": lambda: (torch.zeros(
             (t_bwd.GRAD_ROWS, n_splats), device="cuda").index_add_(
                 1, ids, rows[:, :ids.shape[0]].contiguous()),)}

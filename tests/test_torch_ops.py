@@ -30,14 +30,17 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.binning import (
     popcount_u32, precompute_tile_masks, precompute_tile_masks_plain,
 )
+from brush_tpu_torch.ops.cuda import sh as cuda_sh
 from brush_tpu_torch.ops.cuda.testing import (
     HAND_PRETEST_CASES, HAND_PRETEST_CELLS, hand_pretest,
 )
 from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
-    camera_params, pixel_grid, render_oracle,
+    camera_params, pixel_grid, render_oracle, view_colors,
 )
-from brush_tpu_torch.ops.sh import sh_basis, sh_to_color
+from brush_tpu_torch.ops.sh import (
+    sh_basis, sh_coeffs_grad_plain, sh_to_color, view_dirs_plain,
+)
 from brush_tpu_torch.render import pack_decode_rows
 from torch_threads import pin_threads
 
@@ -105,6 +108,68 @@ def test_sh_matches_reference(degree):
 def test_sh_degree_out_of_range_raises():
     with pytest.raises(ValueError):
         sh_basis(5, torch.zeros(1, 3))
+
+
+@pytest.mark.parametrize("extra", [0, 2])
+@pytest.mark.parametrize("degree", [0, 1, 2, 3, 4])
+def test_sh_coeffs_grad_plain_is_autograds(degree, extra):
+    """The backward kernel's twin against autograd's gradient of
+    sh_to_color with respect to the coefficients, bit for bit (int32
+    views: torch.equal takes -0 for +0), with zeros of both signs in the
+    colour's gradient. At degree 0 autograd's one select adds no zero-filled
+    slice, so its -0 products stay -0 where the twin's + 0 gives +0: the
+    values are compared there."""
+    rng = np.random.default_rng(30 + degree)
+    n, k = 300, (degree + 1) ** 2 + extra
+    d = rng.normal(size=(n, 3))
+    d = torch.tensor((d / np.linalg.norm(d, axis=1, keepdims=True)
+                      ).astype(np.float32))
+    coeffs = torch.tensor(rng.normal(size=(n, k, 3)).astype(np.float32),
+                          requires_grad=True)
+    g = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    g[::7] = 0.0
+    g[1::9, 1] = -0.0
+    (want,) = torch.autograd.grad(sh_to_color(degree, d, coeffs), coeffs, g)
+    got = sh_coeffs_grad_plain(degree, d, g, k)
+    assert got.shape == (n, k, 3)
+    assert not got[:, (degree + 1) ** 2:].any()
+    if degree == 0:
+        assert torch.equal(got, want)
+        assert bool((want.view(torch.int32) != got.view(torch.int32)).any())
+    else:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_view_dirs_plain_within_an_ulp_of_vector_norms():
+    """The kernels' directions (their norm's squares summed as (x x + z z)
+    + y y) against view_colors' CPU path (torch.linalg.vector_norm)."""
+    rng = np.random.default_rng(5)
+    means = torch.tensor(rng.uniform(-4, 4, (2000, 3)).astype(np.float32))
+    campos = torch.tensor([0.3, -0.2, -6.0])
+    d = means - campos
+    want = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                           min=1e-12)
+    got = view_dirs_plain(means, campos)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2.4e-7,
+                               atol=0)
+
+
+def test_view_colors_on_cpu_launches_nothing():
+    """CPU tensors take the plain code: the SH kernels' launch counters
+    stay where they were, and the colour is sh_to_color's at
+    vector_norm's directions."""
+    sc = _scene(n=64)
+    _, tcp = _cams((64, 48))
+    before = (cuda_sh.fwd_launches, cuda_sh.bwd_launches)
+    means = torch.tensor(sc["means"])
+    coeffs = torch.tensor(sc["sh_coeffs"], requires_grad=True)
+    col = view_colors(means, coeffs, tcp)
+    col.sum().backward()
+    assert (cuda_sh.fwd_launches, cuda_sh.bwd_launches) == before
+    d = means - tcp.viewmat[:3, 3]
+    d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                        min=1e-12)
+    assert torch.equal(col, sh_to_color(2, d, coeffs))
 
 
 @pytest.mark.parametrize("thin", [0, 60])
