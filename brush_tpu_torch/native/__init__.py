@@ -11,12 +11,11 @@ The library is built with g++ at first use into native/build/ (listed in
 .gitignore) under a name that carries a hash of the sources, so an edited
 source rebuilds; with OpenMP where the toolchain has it (the k-NN queries
 run in parallel), as the reference builds it. Processes that start at once
-(test workers) build one at a time under a file lock in native/build/, and
-each build lands by an atomic rename, so no process loads a half-written
-library and no build waits on another's compiler past its time limit. Where no compiler is found,
-`available()` is False and each caller takes its other route: the
-brute-force k-NN on the points' device (`splats.knn_route`), Python and
-numpy (`datasets.colmap.read_points3d`, `datasets.png`).
+(test workers) build one at a time (`build_once`, which the CUDA kernels'
+build shares). Where no compiler is found, `available()` is False and
+each caller takes its other route: the brute-force k-NN on the points'
+device (`splats.knn_route`), Python and numpy
+(`datasets.colmap.read_points3d`, `datasets.png`).
 """
 
 from __future__ import annotations
@@ -41,50 +40,63 @@ _lib = None
 _build_failed = False
 
 
-def _lib_path() -> str:
+def library_path(build_dir: str, stem: str, inputs) -> str:
+    """build_dir/lib<stem>-<hash>.so, the hash over the bytes of the files
+    `inputs` in their order: an edited input names another library, so a
+    stale one is never loaded."""
     digest = hashlib.sha1()
-    for source in _SOURCES:
-        with open(source, "rb") as f:
+    for path in inputs:
+        with open(path, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libbrush_native-{digest.hexdigest()[:12]}.so")
+    return os.path.join(build_dir,
+                        f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def _build(path: str) -> bool:
-    """g++ the sources into `path`, with -fopenmp and, where the toolchain
-    has no OpenMP, without; False when there is no compiler or the build
-    fails. -march=native is safe: the library is never shipped, it is
-    built on the machine that loads it."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [gxx, "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", tmp, *_SOURCES]
+def build_once(build_dir: str, paths, compile_missing) -> bool:
+    """Whether the libraries `paths` exist, built by this process or
+    another. One build at a time across processes (an exclusive lock on
+    build_dir/build.lock), each looking for the libraries again once it
+    holds the lock. compile_missing(todo) gets {path: temporary path} of
+    the libraries still missing, writes what it can and returns the paths
+    whose temporary file it wrote; each lands by an atomic rename, so no
+    process loads a half-written library, and the others' temporary files
+    go. The host library and the CUDA kernels (ops/cuda/build.py) build
+    through it."""
+    if all(os.path.exists(p) for p in paths):
+        return True
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            todo = {p: f"{p}.{os.getpid()}.tmp" for p in paths
+                    if not os.path.exists(p)}
+            written = compile_missing(todo) if todo else ()
+            for path, tmp in todo.items():
+                if path in written:
+                    os.replace(tmp, path)
+                elif os.path.exists(tmp):
+                    os.remove(tmp)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return all(os.path.exists(p) for p in paths)
+
+
+def _compile(todo) -> set:
+    """g++ the sources into the one temporary path of todo, with -fopenmp
+    and, where the toolchain has no OpenMP, without. -march=native is
+    safe: the library is never shipped, it is built on the machine that
+    loads it."""
+    (path, tmp), = todo.items()
+    cmd = [shutil.which("g++"), "-O3", "-march=native", "-shared", "-fPIC",
+           "-std=c++17", "-o", tmp, *_SOURCES]
     for flags in (["-fopenmp"], []):
         try:
             subprocess.run(cmd + flags, check=True, capture_output=True,
                            timeout=120)
         except (OSError, subprocess.SubprocessError):
             continue
-        os.replace(tmp, path)
-        return True
-    return False
-
-
-def _build_once(path: str) -> bool:
-    """`path` built, by this process or another: one build at a time
-    across processes (an exclusive lock on a file in BUILD_DIR), each
-    looking for the library again once it holds the lock."""
-    if shutil.which("g++") is None:
-        return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            return os.path.exists(path) or _build(path)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+        return {path}
+    return set()
 
 
 def _load():
@@ -92,8 +104,9 @@ def _load():
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        path = _lib_path()
-        if not os.path.exists(path) and not _build_once(path):
+        path = library_path(BUILD_DIR, "brush_native", _SOURCES)
+        if not (os.path.exists(path) or shutil.which("g++")
+                and build_once(BUILD_DIR, [path], _compile)):
             _build_failed = True
             return None
         lib = ctypes.CDLL(path)

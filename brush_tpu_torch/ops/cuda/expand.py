@@ -21,20 +21,11 @@ Outputs: keys (pool,) int32 tile ids (num_tiles past `total`) and records
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from brush_tpu_torch.ops.binning import select_bit64
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_fwd import PACK_ROWS
-
-# Launches of the CUDA kernel (not of the plain version) in this process.
-launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _u(v: torch.Tensor) -> torch.Tensor:
@@ -81,29 +72,12 @@ def expand_plain(f5, u5, cum, total, tiles_x: int, num_tiles: int,
     return keys, recs
 
 
-@functools.cache
-def _launcher():
-    """The kernel's C entry, its ctypes signature set once, when the
-    library is loaded."""
-    fn = build.load("expand").expand_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-    fn.restype = _I
-    return fn
-
-
 def _check_inputs(f5, u5, cum, total, pool):
     n = f5.shape[1]
-    if f5.dtype != torch.float32 or f5.shape != (5, n):
-        raise ValueError(f"f5 must be (5, n) float32, got {tuple(f5.shape)} "
-                         f"{f5.dtype}")
-    for name, t, shape in (("u5", u5, (5, n)), ("cum", cum, (n,)),
-                           ("total", total, (1,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    devs = {t.device for t in (f5, u5, cum, total)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+    build.check_tensors(("f5", f5, (5, n), torch.float32),
+                        ("u5", u5, (5, n), torch.int32),
+                        ("cum", cum, (n,), torch.int32),
+                        ("total", total, (1,), torch.int32))
     if not 0 <= pool < (1 << 24):
         raise ValueError(f"pool {pool} outside [0, 2^24)")
 
@@ -116,18 +90,12 @@ def expand(f5, u5, cum, total, tiles_x: int, num_tiles: int, pool: int):
         return expand_plain(f5, u5, cum, total, tiles_x, num_tiles, pool)
     if f5.device.type != "cuda":
         raise ValueError(f"expand: unsupported device {f5.device}")
-    global launches
     f5, u5, cum, total = (t.contiguous() for t in (f5, u5, cum, total))
     n = f5.shape[1]
     keys = torch.empty((pool,), dtype=torch.int32, device=f5.device)
     recs = torch.empty((PACK_ROWS, pool), dtype=torch.int32,
                        device=f5.device)
-    fn = _launcher()
-    with torch.cuda.device(f5.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(f5.data_ptr(), u5.data_ptr(), cum.data_ptr(),
-                total.data_ptr(), n, pool, tiles_x, num_tiles,
-                keys.data_ptr(), recs.data_ptr(), stream)
-    build.check(rc, "expand")
-    launches += 1
+    build.launch("expand_launch", f5.device, f5.data_ptr(), u5.data_ptr(),
+                 cum.data_ptr(), total.data_ptr(), n, pool, tiles_x,
+                 num_tiles, keys.data_ptr(), recs.data_ptr())
     return keys, recs

@@ -23,9 +23,6 @@ the P pixels of the record's cell; slots that no sweep reaches are zero.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from brush_tpu_torch.constants import ALPHA_EPS, ALPHA_MAX
@@ -37,12 +34,6 @@ from brush_tpu_torch.ops.cuda.rasterize_fwd import (
 )
 
 GRAD_ROWS = 9
-
-# Launches of the CUDA kernel (not of the plain version) in this process.
-launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _suffix_excl(v: torch.Tensor) -> torch.Tensor:
@@ -165,31 +156,14 @@ def rasterize_bwd_plain(packed, starts, ends, tiles_x: int, v_out, log_t,
     return grads
 
 
-@functools.cache
-def _launcher():
-    """The kernel's C entry, its ctypes signature set once, when the
-    library is loaded."""
-    fn = build.load("rasterize_bwd").rasterize_bwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                   _P, _P, _P, _P]
-    fn.restype = _I
-    return fn
-
-
 def _check_inputs(packed, starts, ends, v_out, log_t, fidx, cell):
     _check_pool(packed, starts, ends)
     t = starts.shape[0]
     p = cell_pixels(cell)
-    for name, x, shape, dtype in (
-            ("v_out", v_out, (t, p, 4), torch.float32),
-            ("log_t", log_t, (t, p), torch.float32),
-            ("final_idx", fidx, (t, p), torch.int32)):
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape} {dtype}, got "
-                             f"{tuple(x.shape)} {x.dtype}")
-        if x.device != packed.device:
-            raise ValueError(f"{name} on {x.device}, packed on "
-                             f"{packed.device}")
+    build.check_tensors(("starts", starts, (t,), torch.int32),
+                        ("v_out", v_out, (t, p, 4), torch.float32),
+                        ("log_t", log_t, (t, p), torch.float32),
+                        ("final_idx", fidx, (t, p), torch.int32))
 
 
 def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
@@ -210,7 +184,6 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
                                    scan_passes=scan_passes, k_lanes=k_lanes)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_bwd: unsupported device {packed.device}")
-    global launches
     args = [x.contiguous() for x in (packed, starts, ends, v_out, log_t,
                                      fidx)]
     packed, starts, ends, v_out, log_t, fidx = args
@@ -225,16 +198,11 @@ def rasterize_bwd(packed, starts, ends, tiles_x: int, v_out, log_t, fidx,
     partial = torch.empty(
         ((gw * gh - 1) * GRAD_ROWS * packed.shape[1] + starts.shape[0]
          if gw * gh > 1 else 1,), dtype=torch.float32, device=dev)
-    fn = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-                ends.data_ptr(), starts.shape[0], tile_base, tiles_x, gw, gh,
-                passes, k_lanes, v_out.data_ptr(), log_t.data_ptr(),
-                fidx.data_ptr(), grads.data_ptr(), order.data_ptr(),
-                partial.data_ptr(), stream)
-    build.check(rc, "rasterize_bwd")
-    launches += 1
+    build.launch("rasterize_bwd_launch", dev, packed.data_ptr(),
+                 packed.shape[1], starts.data_ptr(), ends.data_ptr(),
+                 starts.shape[0], tile_base, tiles_x, gw, gh, passes, k_lanes,
+                 v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
+                 grads.data_ptr(), order.data_ptr(), partial.data_ptr())
     return grads
 
 
@@ -243,12 +211,5 @@ def kernel_attrs() -> dict:
     card (cudaFuncGetAttributes): {passes: (registers a thread, local
     memory a thread in bytes, blocks an SM can hold)}; passes 0 is the
     exact scan."""
-    fn = build.load("rasterize_bwd").rasterize_bwd_attrs
-    fn.argtypes = [_I, _P]
-    fn.restype = _I
-    out = {}
-    for passes in (0, 1, 2):
-        vals = (ctypes.c_int * 3)()
-        build.check(fn(passes, vals), "rasterize_bwd attrs")
-        out[passes] = tuple(vals)
-    return out
+    return {passes: build.read_attrs("rasterize_bwd_attrs", passes)
+            for passes in (0, 1, 2)}

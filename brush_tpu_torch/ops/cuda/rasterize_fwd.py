@@ -25,7 +25,6 @@ Colour quantizes over [COLOR_LO, COLOR_HI] (step ~1.2e-4) and opacity over
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -45,12 +44,6 @@ PLAIN_CHUNK = 1024  # records per block step of the plain rasterizer
 LANE_ALIGN = 128   # the TPU kernels' batches start on this slot boundary
 K_LANES = 512      # the TPU kernels' default batch (rasterize_fwd.py:503)
 SIGMA_MARGIN = 1e-4  # the kernels' pretest: sigma <= log(255 o) + this
-
-# Launches of the CUDA kernel (not of the plain version) in this process.
-launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def to_i32_bits(v: torch.Tensor) -> torch.Tensor:
@@ -312,19 +305,11 @@ def check_tile_base(tile_base) -> int:
 
 
 def _check_inputs(packed, starts, ends):
-    if packed.dtype != torch.int32 or packed.dim() != 2 \
-            or packed.shape[0] != PACK_ROWS:
-        raise ValueError(f"packed must be ({PACK_ROWS}, pool) int32, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    for name, t in (("starts", starts), ("ends", ends)):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name} must be (C,) int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if starts.shape != ends.shape:
-        raise ValueError("starts and ends differ in shape")
-    devs = {t.device for t in (packed, starts, ends)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+    pool = packed.shape[1] if packed.dim() == 2 else -1
+    c = starts.shape[0] if starts.dim() == 1 else -1
+    build.check_tensors(("packed", packed, (PACK_ROWS, pool), torch.int32),
+                        ("starts", starts, (c,), torch.int32),
+                        ("ends", ends, (c,), torch.int32))
 
 
 def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
@@ -351,7 +336,6 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
                                    k_lanes=k_lanes)
     if packed.device.type != "cuda":
         raise ValueError(f"rasterize_fwd: unsupported device {packed.device}")
-    global launches
     packed, starts, ends = (t.contiguous() for t in (packed, starts, ends))
     n_cells = starts.shape[0]
     p = cell_pixels((gw, gh))
@@ -361,19 +345,10 @@ def rasterize_fwd(packed, starts, ends, tiles_x: int, cell=(1, 1),
     fidx = torch.empty((n_cells, p), dtype=torch.int32, device=dev)
     # Scratch for the kernel's own cell order (heaviest cells start first).
     order = torch.empty_like(starts)
-    lib = build.load("rasterize_fwd")
-    fn = lib.rasterize_fwd_launch
-    fn.argtypes = [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                   _P, _P]
-    fn.restype = _I
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-                ends.data_ptr(), n_cells, tile_base, tiles_x, gw, gh,
-                passes, k_lanes, img.data_ptr(), log_t.data_ptr(),
-                fidx.data_ptr(), order.data_ptr(), stream)
-    build.check(rc, "rasterize_fwd")
-    launches += 1
+    build.launch("rasterize_fwd_launch", dev, packed.data_ptr(),
+                 packed.shape[1], starts.data_ptr(), ends.data_ptr(), n_cells,
+                 tile_base, tiles_x, gw, gh, passes, k_lanes, img.data_ptr(),
+                 log_t.data_ptr(), fidx.data_ptr(), order.data_ptr())
     return img, log_t, fidx
 
 
@@ -382,13 +357,6 @@ def kernel_attrs() -> dict:
     card (cudaFuncGetAttributes): {(cells, passes): (registers a thread,
     local memory a thread in bytes, blocks an SM can hold)}; cells False
     is the tile kernel, passes 0 the exact scan."""
-    fn = build.load("rasterize_fwd").rasterize_fwd_attrs
-    fn.argtypes = [_I, _I, _P]
-    fn.restype = _I
-    out = {}
-    for cells in (False, True):
-        for passes in (0, 1, 2):
-            vals = (ctypes.c_int * 3)()
-            build.check(fn(int(cells), passes, vals), "rasterize_fwd attrs")
-            out[cells, passes] = tuple(vals)
-    return out
+    return {(cells, passes): build.read_attrs("rasterize_fwd_attrs",
+                                              int(cells), passes)
+            for cells in (False, True) for passes in (0, 1, 2)}

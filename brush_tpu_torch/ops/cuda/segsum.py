@@ -19,19 +19,10 @@ only the slots below `total`.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.rasterize_bwd import GRAD_ROWS
-
-# Launches of the CUDA kernel (not of the plain version) in this process.
-launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def slot_owners(cum, total, pool: int) -> torch.Tensor:
@@ -53,34 +44,13 @@ def segment_sum_plain(rows, offsets, cum, total):
     return out.index_add_(1, owner, rows[:, :owner.shape[0]])
 
 
-@functools.cache
-def _launcher():
-    """The kernel's C entries, their ctypes signatures set once, when the
-    library is loaded: (launch, scratch floats for a pool)."""
-    lib = build.load("segsum")
-    fn = lib.segsum_launch
-    fn.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P]
-    fn.restype = _I
-    scratch = lib.segsum_scratch_floats
-    scratch.argtypes = [_I]
-    scratch.restype = ctypes.c_longlong
-    return fn, scratch
-
-
 def _check_inputs(rows, offsets, cum, total):
-    if rows.dtype != torch.float32 or rows.dim() != 2 \
-            or rows.shape[0] != GRAD_ROWS:
-        raise ValueError(f"rows must be ({GRAD_ROWS}, pool) float32, got "
-                         f"{tuple(rows.shape)} {rows.dtype}")
+    pool = rows.shape[1] if rows.dim() == 2 else -1
     n = offsets.shape[0]
-    for name, t, shape in (("offsets", offsets, (n,)), ("cum", cum, (n,)),
-                           ("total", total, (1,))):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    devs = {t.device for t in (rows, offsets, cum, total)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+    build.check_tensors(("rows", rows, (GRAD_ROWS, pool), torch.float32),
+                        ("offsets", offsets, (n,), torch.int32),
+                        ("cum", cum, (n,), torch.int32),
+                        ("total", total, (1,), torch.int32))
 
 
 def segment_sum(rows, offsets, cum, total):
@@ -91,21 +61,16 @@ def segment_sum(rows, offsets, cum, total):
         return segment_sum_plain(rows, offsets, cum, total)
     if rows.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {rows.device}")
-    global launches
     rows, offsets, cum, total = (t.contiguous()
                                  for t in (rows, offsets, cum, total))
     n = offsets.shape[0]
     pool = rows.shape[1]
     out = torch.empty((GRAD_ROWS, n), dtype=torch.float32, device=rows.device)
-    fn, scratch_floats = _launcher()
     # Per span of slots: the partial sums of the splats that cross it.
-    scratch = torch.empty((max(1, scratch_floats(pool)),),
-                          dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rows.data_ptr(), pool, offsets.data_ptr(), cum.data_ptr(),
-                total.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
-                stream)
-    build.check(rc, "segsum")
-    launches += 1
+    floats = build.entry("segsum_scratch_floats")(pool)
+    scratch = torch.empty((max(1, floats),), dtype=torch.float32,
+                          device=rows.device)
+    build.launch("segsum_launch", rows.device, rows.data_ptr(), pool,
+                 offsets.data_ptr(), cum.data_ptr(), total.data_ptr(), n,
+                 out.data_ptr(), scratch.data_ptr())
     return out

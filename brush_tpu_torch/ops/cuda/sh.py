@@ -5,7 +5,7 @@ splat's coefficients; backward, the coefficients' gradient.
 Replaces no TPU kernel (brush_tpu/ops/sh.py is plain XLA). The kernels are
 brush_tpu_torch/csrc/sh.cu (one thread a splat, a block's coefficient rows
 staged through shared memory; its header gives the design and the bound).
-ops/rasterize_reference.view_colors calls `sh_color` for CUDA tensors: an
+ops/sh.view_colors calls `sh_color` for CUDA tensors: an
 autograd Function whose forward launches `sh_color_fwd` and whose backward
 launches `sh_color_bwd`. Their plain twins, which run for CPU tensors and
 which the card tests hold them to bit for bit, are ops/sh.sh_to_color and
@@ -20,29 +20,9 @@ gradient (n, k, 3) float32, zero past the (degree + 1)^2 used.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from brush_tpu_torch.ops.cuda import build
-
-# Launches of each CUDA kernel in this process.
-fwd_launches = 0
-bwd_launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.cache
-def _launcher(name: str):
-    """A kernel's C entry (sh_color_fwd_launch or sh_color_bwd_launch), its
-    ctypes signature set once, when the library is loaded."""
-    fn = getattr(build.load("sh"), name)
-    fn.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _P]
-    fn.restype = _I
-    return fn
 
 
 def _check_inputs(means, campos, rows, degree, k, rows_name):
@@ -51,34 +31,18 @@ def _check_inputs(means, campos, rows, degree, k, rows_name):
         raise ValueError(f"degree must be an int in [0, 4], got {degree}")
     n = means.shape[0] if means.dim() == 2 else -1
     rows_shape = (n, 3) if rows_name == "g_color" else (n, k, 3)
-    for name, t, shape in (("means", means, (n, 3)),
-                           ("campos", campos, (3,)),
-                           (rows_name, rows, rows_shape)):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    build.check_tensors(("means", means, (n, 3), torch.float32),
+                        ("campos", campos, (3,), torch.float32),
+                        (rows_name, rows, rows_shape, torch.float32))
     if not (degree + 1) ** 2 <= k < (1 << 16):
         raise ValueError(f"k = {k} coefficients: degree {degree} needs "
                          f"[{(degree + 1) ** 2}, 2^16)")
     if n >= (1 << 30):
         raise ValueError(f"{n} splats: the kernels index fewer than 2^30")
-    devs = {t.device for t in (means, campos, rows)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
     if means.device.type != "cuda":
         raise ValueError(f"sh_color: the kernels take CUDA tensors, got "
                          f"{means.device} (ops/sh.sh_to_color is the "
                          f"CPU's)")
-
-
-def _launch(name, means, campos, rows, degree, k, out):
-    fn = _launcher(name)
-    with torch.cuda.device(means.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(means.data_ptr(), campos.data_ptr(), campos.stride(0),
-                rows.data_ptr(), k, means.shape[0], degree, out.data_ptr(),
-                stream)
-    build.check(rc, name)
 
 
 def sh_color_fwd(means, campos, coeffs, degree: int) -> torch.Tensor:
@@ -86,12 +50,12 @@ def sh_color_fwd(means, campos, coeffs, degree: int) -> torch.Tensor:
     stream."""
     k = coeffs.shape[1] if coeffs.dim() == 3 else -1
     _check_inputs(means, campos, coeffs, degree, k, "coeffs")
-    global fwd_launches
     means, coeffs = means.contiguous(), coeffs.contiguous()
     color = torch.empty((means.shape[0], 3), dtype=torch.float32,
                         device=means.device)
-    _launch("sh_color_fwd_launch", means, campos, coeffs, degree, k, color)
-    fwd_launches += 1
+    build.launch("sh_color_fwd_launch", means.device, means.data_ptr(),
+                 campos.data_ptr(), campos.stride(0), coeffs.data_ptr(), k,
+                 means.shape[0], degree, color.data_ptr())
     return color
 
 
@@ -102,13 +66,12 @@ def sh_color_bwd(means, campos, g_color, degree: int,
     inputs' gradient; it is made contiguous (12 bytes a splat) before the
     launch."""
     _check_inputs(means, campos, g_color, degree, k, "g_color")
-    global bwd_launches
     means, g_color = means.contiguous(), g_color.contiguous()
     g_coeffs = torch.empty((means.shape[0], k, 3), dtype=torch.float32,
                            device=means.device)
-    _launch("sh_color_bwd_launch", means, campos, g_color, degree, k,
-            g_coeffs)
-    bwd_launches += 1
+    build.launch("sh_color_bwd_launch", means.device, means.data_ptr(),
+                 campos.data_ptr(), campos.stride(0), g_color.data_ptr(), k,
+                 means.shape[0], degree, g_coeffs.data_ptr())
     return g_coeffs
 
 

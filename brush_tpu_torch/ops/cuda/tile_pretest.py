@@ -17,51 +17,24 @@ counts, mask_lo, mask_hi, pc_pack (n,) int64 and small (n,) bool.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from brush_tpu_torch.ops.cuda import build
 
-# Launches of the CUDA kernel in this process.
-launches = 0
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-@functools.cache
-def _launcher():
-    """The kernel's C entry, its ctypes signature set once, when the
-    library is loaded."""
-    fn = build.load("tile_pretest").tile_pretest_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                   _P]
-    fn.restype = _I
-    return fn
-
 
 def _check_inputs(xy, conic, opac, tile_min, tile_max, visible, cell):
     n = xy.shape[0] if xy.dim() == 2 else -1
-    for name, t, shape, dtype in (
-            ("xy", xy, (n, 2), torch.float32),
-            ("conic", conic, (n, 3), torch.float32),
-            ("opac", opac, (n,), torch.float32),
-            ("tile_min", tile_min, (n, 2), torch.int32),
-            ("tile_max", tile_max, (n, 2), torch.int32),
-            ("visible", visible, (n,), torch.bool)):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+    build.check_tensors(("xy", xy, (n, 2), torch.float32),
+                        ("conic", conic, (n, 3), torch.float32),
+                        ("opac", opac, (n,), torch.float32),
+                        ("tile_min", tile_min, (n, 2), torch.int32),
+                        ("tile_max", tile_max, (n, 2), torch.int32),
+                        ("visible", visible, (n,), torch.bool))
     if n >= (1 << 30):
         raise ValueError(f"{n} splats: the kernel indexes fewer than 2^30")
     if len(cell) != 2 or any(int(v) != v or not 1 <= v < (1 << 16)
                              for v in cell):
         raise ValueError(f"cell must be two ints in [1, 2^16), got {cell}")
-    devs = {t.device for t in (xy, conic, opac, tile_min, tile_max, visible)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
     if opac.device.type != "cuda":
         raise ValueError(f"tile_pretest: the kernel takes CUDA tensors, got "
                          f"{opac.device} (ops/binning."
@@ -72,7 +45,6 @@ def tile_pretest(xy, conic, opac, tile_min, tile_max, visible, cell=(1, 1)):
     """The pretest's five outputs for CUDA tensors, on the current stream:
     (counts, mask_lo, mask_hi, pc_pack, small)."""
     _check_inputs(xy, conic, opac, tile_min, tile_max, visible, cell)
-    global launches
     xy, conic, opac, tile_min, tile_max, visible = (
         t.contiguous() for t in (xy, conic, opac, tile_min, tile_max,
                                  visible))
@@ -81,14 +53,9 @@ def tile_pretest(xy, conic, opac, tile_min, tile_max, visible, cell=(1, 1)):
     counts, mask_lo, mask_hi, pc_pack = (
         torch.empty((n,), dtype=torch.int64, device=dev) for _ in range(4))
     small = torch.empty((n,), dtype=torch.bool, device=dev)
-    fn = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(xy.data_ptr(), conic.data_ptr(), opac.data_ptr(),
-                tile_min.data_ptr(), tile_max.data_ptr(), visible.data_ptr(),
-                n, int(cell[0]), int(cell[1]), counts.data_ptr(),
-                mask_lo.data_ptr(), mask_hi.data_ptr(), pc_pack.data_ptr(),
-                small.data_ptr(), stream)
-    build.check(rc, "tile_pretest")
-    launches += 1
+    build.launch("tile_pretest_launch", dev, xy.data_ptr(), conic.data_ptr(),
+                 opac.data_ptr(), tile_min.data_ptr(), tile_max.data_ptr(),
+                 visible.data_ptr(), n, int(cell[0]), int(cell[1]),
+                 counts.data_ptr(), mask_lo.data_ptr(), mask_hi.data_ptr(),
+                 pc_pack.data_ptr(), small.data_ptr())
     return counts, mask_lo, mask_hi, pc_pack, small

@@ -29,6 +29,11 @@ class Projection(NamedTuple):
     visible: torch.Tensor   # (N,) bool — survives culling
 
 
+def normalize_quats(quats: torch.Tensor) -> torch.Tensor:
+    return quats / torch.clamp(
+        torch.linalg.vector_norm(quats, dim=-1, keepdim=True), min=1e-12)
+
+
 def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
     """(N, 4) wxyz quaternions -> (N, 3, 3) rotation matrices
     (helpers.wgsl:74)."""

@@ -12,12 +12,10 @@ from typing import NamedTuple
 
 import torch
 
-from brush_tpu_torch.constants import sh_degree_from_coeffs
 from brush_tpu_torch.device import full_f32, resolve_device
 from brush_tpu_torch.ops.compositing import composite_pixels
-from brush_tpu_torch.ops.cuda import sh as cuda_sh
-from brush_tpu_torch.ops.projection import project_splats
-from brush_tpu_torch.ops.sh import sh_to_color
+from brush_tpu_torch.ops.projection import normalize_quats, project_splats
+from brush_tpu_torch.ops.sh import view_colors
 
 
 class CameraParams(NamedTuple):
@@ -45,29 +43,6 @@ def pixel_grid(img_size, device="cpu") -> torch.Tensor:
     ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
-
-
-def view_colors(means, sh_coeffs, cam: CameraParams) -> torch.Tensor:
-    """SH colour per splat. The reference takes the translation column of
-    the world-to-view matrix as the "camera position" for the view
-    directions (project_visible.wgsl:232); replicated for parity. The view
-    direction is a constant for autograd, as in the reference
-    (gather_grads.wgsl): colour gradients reach the SH coefficients only,
-    never the means. CUDA tensors go to the kernels of ops/cuda/sh.py (the
-    colour and its backward), CPU tensors to the plain code below."""
-    degree = sh_degree_from_coeffs(sh_coeffs.shape[1])
-    campos = cam.viewmat[:3, 3]
-    if sh_coeffs.device.type != "cpu":
-        return cuda_sh.sh_color(means, campos, sh_coeffs, degree)
-    viewdir = means.detach() - campos
-    viewdir = viewdir / torch.clamp(
-        torch.linalg.vector_norm(viewdir, dim=-1, keepdim=True), min=1e-12)
-    return sh_to_color(degree, viewdir, sh_coeffs)
-
-
-def normalize_quats(quats: torch.Tensor) -> torch.Tensor:
-    return quats / torch.clamp(
-        torch.linalg.vector_norm(quats, dim=-1, keepdim=True), min=1e-12)
 
 
 def render_oracle(means, log_scales, quats, sh_coeffs, raw_opacity,

@@ -1,8 +1,9 @@
 """Spherical-harmonics colour evaluation, degrees 0-4 (port of
 brush_tpu/ops/sh.py; reference: project_visible.wgsl:51-147).
 
-The CPU path, and the plain twins of the CUDA kernels of
-ops/cuda/sh.py (csrc/sh.cu): `sh_to_color` of the forward and
+`view_colors`, the render's SH colour: the CUDA kernels of ops/cuda/sh.py
+(csrc/sh.cu) for CUDA tensors, the plain code for CPU tensors. That plain
+code is also the kernels' twin: `sh_to_color` of the forward and
 `sh_coeffs_grad_plain` of the backward, each at the kernels' view
 directions `view_dirs_plain`."""
 
@@ -10,7 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from brush_tpu_torch.constants import SH_C0, sh_coeffs_for_degree
+from brush_tpu_torch.constants import (
+    SH_C0, sh_coeffs_for_degree, sh_degree_from_coeffs,
+)
+from brush_tpu_torch.ops.cuda import sh as cuda_sh
 
 
 def sh_basis(degree: int, dirs: torch.Tensor) -> torch.Tensor:
@@ -106,3 +110,22 @@ def view_dirs_plain(means: torch.Tensor, campos: torch.Tensor
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     norm = torch.sqrt((dx * dx + dz * dz) + dy * dy)
     return d / torch.clamp(norm, min=1e-12)
+
+
+def view_colors(means, sh_coeffs, cam) -> torch.Tensor:
+    """SH colour per splat seen by cam (a CameraParams). The reference
+    takes the translation column of the world-to-view matrix as the
+    "camera position" for the view directions (project_visible.wgsl:232);
+    replicated for parity. The view direction is a constant for autograd,
+    as in the reference (gather_grads.wgsl): colour gradients reach the SH
+    coefficients only, never the means. CUDA tensors go to the kernels of
+    ops/cuda/sh.py (the colour and its backward), CPU tensors to the plain
+    code below."""
+    degree = sh_degree_from_coeffs(sh_coeffs.shape[1])
+    campos = cam.viewmat[:3, 3]
+    if sh_coeffs.device.type != "cpu":
+        return cuda_sh.sh_color(means, campos, sh_coeffs, degree)
+    viewdir = means.detach() - campos
+    viewdir = viewdir / torch.clamp(
+        torch.linalg.vector_norm(viewdir, dim=-1, keepdim=True), min=1e-12)
+    return sh_to_color(degree, viewdir, sh_coeffs)

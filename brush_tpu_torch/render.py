@@ -42,10 +42,11 @@ from brush_tpu_torch.ops.binning import (
 )
 from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell
 from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
-from brush_tpu_torch.ops.projection import Projection, project_splats
-from brush_tpu_torch.ops.rasterize_reference import (
-    CameraParams, normalize_quats, view_colors,
+from brush_tpu_torch.ops.projection import (
+    Projection, normalize_quats, project_splats,
 )
+from brush_tpu_torch.ops.rasterize_reference import CameraParams
+from brush_tpu_torch.ops.sh import view_colors
 from brush_tpu_torch.utils.profiler import count, grad_span, mark, span
 
 U32_MAX = 0xFFFFFFFF

@@ -15,8 +15,6 @@ serve frames.
 Threads: each request runs on its own thread (ThreadingHTTPServer) and
 renders on the published splats' device while the worker thread trains on
 it; both use the device's default stream, so their kernels run in turn.
-The kernel wrappers' `launches` counters are plain module globals, which
-two threads may both bump: count launches while the worker is paused.
 
 Endpoints:
   GET  /                   viewer page

@@ -1324,6 +1324,7 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
     at raster cell `cell`, then timings. Returns (launch counts, image,
     records, median ms)."""
     import torch
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.render import render_splats
 
     def render():
@@ -1333,11 +1334,11 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
             block_size=cfg["block"], max_isects=cfg["pool"], cell=cell,
             needs_grad=False)
 
-    reset_launches()
+    build.reset_launch_counts()
     with kept_kernel_args([True]) as seen:
         img, aux = render()
     torch.cuda.synchronize()
-    counts = read_launches()
+    counts = build.launch_counts()
     if counts != {"tile_pretest": 1, "expand": 1, "rasterize_fwd": 1,
                   "rasterize_bwd": 0, "segment_sum": 0, "sh_color_fwd": 1,
                   "sh_color_bwd": 0}:
@@ -1455,6 +1456,7 @@ def castle_phase():
     import torch
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
     from brush_tpu_torch.eval import eval_stats, eval_view
+    from brush_tpu_torch.ops.cuda import build
 
     with open(CASTLE_PLY, "rb") as f:
         data = f.read()
@@ -1465,13 +1467,13 @@ def castle_phase():
     blank = np.zeros((CASTLE_SIZE, CASTLE_SIZE, 3), np.float32)
     gts = [eval_view(cpu, c, blank, keep_image=True).rendered for c in cams]
     t_cpu = time.perf_counter() - t0
-    reset_launches()
+    build.reset_launch_counts()
     t0 = time.perf_counter()
     with kept_kernel_args([True]) as seen:
         evals = eval_stats(gpu, list(zip(cams, gts)))
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    n = read_launches()
+    n = build.launch_counts()
     counts = (n["expand"], n["rasterize_fwd"], n["tile_pretest"],
               n["sh_color_fwd"])
     check_sh(seen, "castle eval")
@@ -1530,6 +1532,7 @@ def castle_cells(splats, cams, gts, pool):
     pixels counted."""
     import torch
     from brush_tpu_torch.eval import eval_stats
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.render import pool_size
 
@@ -1554,9 +1557,9 @@ def castle_cells(splats, cams, gts, pool):
     views = list(zip(cams, gts))
     base = eval_stats(splats, views, keep_images=True)
     for cell in CHECK_CELLS:
-        reset_launches()
+        build.reset_launch_counts()
         evals = eval_stats(splats, views, keep_images=True, cell=cell)
-        counts = read_launches()
+        counts = build.launch_counts()
         diffs = [check_cell_image(torch.as_tensor(e.rendered),
                                   torch.as_tensor(b.rendered),
                                   f"castle cell {cell} view {i}",
@@ -1618,35 +1621,6 @@ def castle_kernels(splats, cams, pool):
           f"({n_tiles} tiles)")
 
 
-KERNEL_WRAPPERS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum",
-                   "tile_pretest", "sh_color_fwd", "sh_color_bwd")
-# The launch counter of each wrapper in its module (ops/cuda/sh.py counts
-# its two kernels apart); "launches" where not named.
-COUNTERS = {"sh_color_fwd": "fwd_launches", "sh_color_bwd": "bwd_launches"}
-
-
-def kernel_modules() -> dict:
-    """{wrapper name: its module in ops/cuda, which counts its launches}."""
-    from brush_tpu_torch.ops.cuda import (
-        expand, rasterize_bwd, rasterize_fwd, segsum, sh, tile_pretest,
-    )
-
-    return {"expand": expand, "rasterize_fwd": rasterize_fwd,
-            "rasterize_bwd": rasterize_bwd, "segment_sum": segsum,
-            "tile_pretest": tile_pretest, "sh_color_fwd": sh,
-            "sh_color_bwd": sh}
-
-
-def reset_launches():
-    for name, mod in kernel_modules().items():
-        setattr(mod, COUNTERS.get(name, "launches"), 0)
-
-
-def read_launches() -> dict:
-    return {name: getattr(mod, COUNTERS.get(name, "launches"))
-            for name, mod in kernel_modules().items()}
-
-
 @contextlib.contextmanager
 def kept_kernel_args(armed: list):
     """While armed[0] is true, keep the arguments of the main path's calls
@@ -1657,13 +1631,13 @@ def kept_kernel_args(armed: list):
     its last keyword arguments (the rasterizers' scan_passes and
     k_lanes)}."""
     from brush_tpu_torch.ops import pipeline
-    from brush_tpu_torch.ops.cuda import sh, tile_pretest
+    from brush_tpu_torch.ops.cuda import build, sh, tile_pretest
 
     seen = {}
     homes = {name: {"tile_pretest": tile_pretest, "sh_color_fwd": sh,
                     "sh_color_bwd": sh}.get(name, pipeline)
-             for name in KERNEL_WRAPPERS}
-    saved = {name: getattr(homes[name], name) for name in KERNEL_WRAPPERS}
+             for name in build.KERNELS}
+    saved = {name: getattr(homes[name], name) for name in build.KERNELS}
 
     def keep(name, fn):
         def call(*args, **kw):
@@ -1720,6 +1694,7 @@ def train_path(cfg, cell=(1, 1)):
     import torch
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.config import TrainConfig
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.train import SceneBatch, SplatTrainer
 
     t_phase = time.perf_counter()
@@ -1735,7 +1710,7 @@ def train_path(cfg, cell=(1, 1)):
     kept, armed = {}, [False]
     times, stats, refines, caps = [], [], {}, []
     with kept_kernel_args(armed) as seen:
-        reset_launches()
+        build.reset_launch_counts()
         for it in range(TRAIN_STEPS):
             cap = state.splats.capacity
             armed[0] = cap not in kept
@@ -1747,7 +1722,7 @@ def train_path(cfg, cell=(1, 1)):
             caps.append(cap)
             if rf:
                 refines[it] = rf[0]
-        counts = read_launches()
+        counts = build.launch_counts()
     losses = [float(st.loss) for st in stats]
     dropped = [int(st.num_dropped) for st in stats]
     records = [int(st.num_isects) for st in stats]
@@ -1775,7 +1750,7 @@ def train_path(cfg, cell=(1, 1)):
     if any(dropped):
         raise AssertionError(f"training dropped records: {dropped}")
     if sorted(kept) != sorted(set(caps)) or any(
-            kept_names(v) != sorted(KERNEL_WRAPPERS) for v in kept.values()):
+            kept_names(v) != sorted(build.KERNELS) for v in kept.values()):
         raise AssertionError("kernel arguments missing for a capacity")
 
     # The metric: warm steps at the capacity the run ended at. A default
@@ -2287,6 +2262,7 @@ def sharded_path(cfg, single):
     import torch
     from brush_tpu_torch.camera import Camera
     from brush_tpu_torch.config import TrainConfig
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.parallel import ShardedTrainer, make_mesh, multihost
     from brush_tpu_torch.parallel.sharding import gather_state
     from brush_tpu_torch.train import SceneBatch
@@ -2303,10 +2279,10 @@ def sharded_path(cfg, single):
                                  raster_block_size=TRAIN_BLOCK)
         state = trainer.init_state(splats)
         del splats
-        reset_launches()
+        build.reset_launch_counts()
         state, times, stats, refines = timed_steps(trainer, state, batch,
                                                    TRAIN_STEPS)
-        counts = read_launches()
+        counts = build.launch_counts()
         losses = [float(st.loss) for st in stats]
         whole = gather_state(state, mesh).splats
         differ = [k for k, v in whole.params().items()
@@ -2544,6 +2520,7 @@ def cli_phase(castle, pool, d):
     from brush_tpu_torch.datasets import testing as dt
     from brush_tpu_torch.datasets.colmap import _read_points3d_bin
     from brush_tpu_torch.native import read_points3d_bin
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.train import SplatTrainer
     from brush_tpu_torch.utils import checkpoint
 
@@ -2642,7 +2619,7 @@ def cli_phase(castle, pool, d):
         last["refined"] = trainer.last_refine_stats is not None
 
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    build.reset_launch_counts()
     with kept_kernel_args(armed) as seen, \
             step_timer(steps, arm, keep), \
             wrapped(eval_mod, "render_splats", lambda *a: None,
@@ -2657,7 +2634,7 @@ def cli_phase(castle, pool, d):
             "--log-every", "20", "--checkpoint-dir", ck,
             "--checkpoint-every", "200", "--export",
             os.path.join(ck, "out.ply")], log)
-    counts = read_launches()
+    counts = build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     ms = event_ms(steps)
     loop_s = steps[-1][4] - steps[0][1]
@@ -2727,7 +2704,7 @@ def cli_phase(castle, pool, d):
     # (1, 1) run's.
     ck2 = os.path.join(d, "ckpt_cell")
     c_renders, t_cells, steps2 = [], [], []
-    reset_launches()
+    build.reset_launch_counts()
     with step_timer(steps2), \
             spied_renders(eval_mod, c_renders, dropped=True), \
             spied_renders(train_mod, t_cells):
@@ -2737,7 +2714,7 @@ def cli_phase(castle, pool, d):
             "10000", "--eval-every", "200", "--eval-views", "4",
             "--log-every", "20", "--checkpoint-dir", ck2, "--cell",
             f"{CELL[0]}x{CELL[1]}"], log)
-    counts2 = read_launches()
+    counts2 = build.launch_counts()
     ms2 = event_ms(steps2)
     rows2 = read_jsonl(os.path.join(ck2, "metrics.jsonl"))
     losses2 = {r["step"]: r["loss"] for r in rows2 if "loss" in r}
@@ -2780,7 +2757,7 @@ def cli_phase(castle, pool, d):
     t0 = time.perf_counter()
     ck3 = os.path.join(d, "ckpt_shard")
     steps3 = []
-    reset_launches()
+    build.reset_launch_counts()
     with step_timer(steps3):
         text = run_cli([
             "train", "--source", nerf_zip, "--iters",
@@ -2788,7 +2765,7 @@ def cli_phase(castle, pool, d):
             "10000", "--eval-every", "200", "--eval-views", "4",
             "--log-every", "20", "--checkpoint-dir", ck3, "--shard"],
             log)
-    counts3 = read_launches()
+    counts3 = build.launch_counts()
     ms3 = event_ms(steps3)
     rows3 = read_jsonl(os.path.join(ck3, "metrics.jsonl"))
     losses3 = {r["step"]: r["loss"] for r in rows3 if "loss" in r}
@@ -2852,13 +2829,13 @@ def cli_phase(castle, pool, d):
         os.path.join(d, "castle", "castle"),
         SplatTrainer().init_state(castle), CASTLE_RESUME_STEP)
     c_steps, c_dir = [], os.path.join(d, "castle_run")
-    reset_launches()
+    build.reset_launch_counts()
     with kept_kernel_args([True]) as c_seen, step_timer(c_steps):
         text = run_cli(["train", "--source", nerf_zip, "--iters",
                         str(CASTLE_RESUME_STEP + CASTLE_RESUME_STEPS),
                         "--log-every", "10", "--checkpoint-dir", c_dir,
                         "--resume", castle_ck], log)
-    c_counts = read_launches()
+    c_counts = build.launch_counts()
     # The SH pair on its last calls: the final eval's forward, the last
     # step's backward, at the castle's 90,977 rows.
     check_sh(c_seen, "cli castle")
@@ -3169,6 +3146,7 @@ def viewer_phase(data: dict, d: str) -> dict:
     from brush_tpu_torch.datasets.ply import (
         load_splats_from_ply, load_splats_from_ply_stream,
     )
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.render import record_inputs, render_splats
     from brush_tpu_torch.utils import rerun_viz
@@ -3206,9 +3184,9 @@ def viewer_phase(data: dict, d: str) -> dict:
         drops = []
         for view, cam in enumerate(cams):
             for fs in (size, PAGE_SIZE):
-                reset_launches()
+                build.reset_launch_counts()
                 body = http(frame_url(base, cam, fs))
-                n = read_launches()
+                n = build.launch_counts()
                 if n != {"expand": 1, "rasterize_fwd": 1,
                          "rasterize_bwd": 0, "segment_sum": 0,
                          "tile_pretest": 1, "sh_color_fwd": 1,
@@ -3554,7 +3532,7 @@ def pinned_castle(splats, cp):
     pipeline stores colours as u16 over [-4, 4], the XLA path keeps them;
     tests/test_torch_castle.py pins them so). Returns (splats, pinned)."""
     from brush_tpu_torch.constants import SH_C0
-    from brush_tpu_torch.ops.rasterize_reference import view_colors
+    from brush_tpu_torch.ops.sh import view_colors
 
     col = view_colors(splats.means, splats.sh_coeffs, cp)
     out = (col.abs() > 3.9).any(dim=1) & splats.active_mask()
@@ -3626,6 +3604,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     import torch
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
     from brush_tpu_torch.ops.binning import build_intersections
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.ops.rasterize_reference import camera_params
     from brush_tpu_torch.parallel import ShardedTrainer, make_mesh, multihost
     from brush_tpu_torch.render import (
@@ -3664,9 +3643,9 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
             (img * cot).sum().backward()
             return img.detach(), aux
 
-        reset_launches()
+        build.reset_launch_counts()
         (img, aux), mib = peak_mib(fwd_bwd)
-        counts = read_launches()
+        counts = build.launch_counts()
         got[label] = (img, [p.grad for p in params], aux, counts, mib)
         if int(aux.num_dropped):
             raise AssertionError(f"[xla] castle {label} dropped records")
@@ -3704,9 +3683,9 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
             block_size=BENCH["block"] if backend == "pallas" else XLA_BLOCK,
             max_isects=BENCH["pool"], needs_grad=False, backend=backend)
 
-    reset_launches()
+    build.reset_launch_counts()
     (img_x, aux_x), mib_x = peak_mib(lambda: render("xla"))
-    counts_x = read_launches()
+    counts_x = build.launch_counts()
     (img_p, aux_p), mib_p = peak_mib(lambda: render("pallas"))
     if counts_x != xla_launches(1, False):
         raise AssertionError(f"[xla] bench launches {counts_x}")
@@ -3768,7 +3747,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
         state = trainer.init_state(castle)
         del castle
         losses, step_ms = [], []
-        reset_launches()
+        build.reset_launch_counts()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3781,7 +3760,7 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
             torch.cuda.synchronize()
             step_ms.append(start.elapsed_time(stop))
             losses.append(float(st.loss))
-        counts = read_launches()
+        counts = build.launch_counts()
         mib = (torch.cuda.max_memory_allocated() - base) / 2**20
         group = torch.distributed.get_backend()
         del state
@@ -3810,9 +3789,11 @@ def xla_launches(n: int, backward: bool) -> dict:
     (ops/binning.build_intersections) runs the tile pretest kernel once,
     project_inputs' view colours the SH forward once (and the SH backward
     once where a gradient flows), and no other kernel runs."""
+    from brush_tpu_torch.ops.cuda import build
+
     return {name: n if name in ("tile_pretest", "sh_color_fwd") or (
         backward and name == "sh_color_bwd") else 0
-            for name in KERNEL_WRAPPERS}
+            for name in build.KERNELS}
 
 
 def aligned_pool(records: int, num_tiles: int) -> int:
@@ -3915,6 +3896,7 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     import torch
     from brush_tpu_torch import native
     from brush_tpu_torch.datasets.ply import load_splats_from_ply
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
     from brush_tpu_torch.ops.cuda.rasterize_fwd import (
         pack_isect_splats, rasterize_fwd,
@@ -3956,16 +3938,16 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
         (img * cot).sum().backward()
         return img.detach(), [p.grad for p in params]
 
-    reset_launches()
+    build.reset_launch_counts()
     img_a, g_a = fwd_bwd(make_pallas_rasterizer(tiles_x, num_tiles, pool,
                                                 ALIGN_LANES))
     torch.cuda.synchronize()
-    counts = read_launches()
-    reset_launches()
+    counts = build.launch_counts()
+    build.reset_launch_counts()
     img_x, g_x = fwd_bwd(make_rasterizer(tiles_x, num_tiles, pool,
                                          XLA_BLOCK))
     torch.cuda.synchronize()
-    counts_x = read_launches()
+    counts_x = build.launch_counts()
     if counts != one_each or any(counts_x.values()):
         raise AssertionError(f"[aligned] castle launches {counts} (want "
                              f"{one_each}), XLA rasterizer {counts_x}")
@@ -4044,11 +4026,11 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     num_tiles = tiles_x * (bsize[1] // 16)
     raster = make_pallas_rasterizer(tiles_x, num_tiles, pool, ALIGN_LANES)
     tile_ids = torch.arange(num_tiles, device="cuda")
-    reset_launches()
+    build.reset_launch_counts()
     img_tiles = raster(*leaves, isect.isect_gid, isect.starts, isect.ends,
                        tile_ids)
     torch.cuda.synchronize()
-    b_counts = read_launches()
+    b_counts = build.launch_counts()
     if b_counts != dict(one_each, rasterize_bwd=0, segment_sum=0):
         raise AssertionError(f"[aligned] bench launches {b_counts}")
     img = assemble_image(img_tiles, bsize, tiles_x, bsize[1] // 16)
@@ -4148,6 +4130,7 @@ def scale_phase(smi: str) -> dict:
     docstring). Returns the kernels' fields (train_kernels on the probe
     step's arguments), launches, the medians and peaks."""
     import torch
+    from brush_tpu_torch.ops.cuda import build
 
     probe = load_script(PROBE_SCRIPT)
     t_phase = time.perf_counter()
@@ -4168,15 +4151,15 @@ def scale_phase(smi: str) -> dict:
     armed = [True]
     with kept_kernel_args(armed) as seen:
         torch.cuda.reset_peak_memory_stats()
-        reset_launches()
+        build.reset_launch_counts()
         new_params, _, loss, records, dropped = step()
         torch.cuda.synchronize()
-        counts = read_launches()
+        counts = build.launch_counts()
         kept = dict(seen)
     loss, records, dropped = float(loss), int(records), int(dropped)
     finite = all(bool(torch.isfinite(v).all()) for v in new_params.values())
     del new_params
-    if counts != {name: 1 for name in KERNEL_WRAPPERS}:
+    if counts != {name: 1 for name in build.KERNELS}:
         raise AssertionError(f"[scale] probe step launches {counts}")
     if dropped or not (finite and np.isfinite(loss)):
         raise AssertionError(f"[scale] probe step dropped {dropped} "
@@ -4218,7 +4201,7 @@ def scale_phase(smi: str) -> dict:
               f"{tk['bound'][k][1]}"
               + (f", reach bound {tk['bound'][k + '_reach'][0]:.4f}"
                  if k + "_reach" in tk["bound"] else "")
-              for k in KERNEL_WRAPPERS)
+              for k in build.KERNELS)
           + f", index_add_ {tk['library']:.4f} / "
           f"{tk['library_device']:.4f}; SplatTrainer ({SCALE_TRAIN_STEPS} "
           f"steps at pool {pool}) step ms "
@@ -4351,6 +4334,7 @@ def quality_phase(smi: str) -> dict:
     and the seconds."""
     import torch
     from brush_tpu_torch import eval as eval_mod
+    from brush_tpu_torch.ops.cuda import build
     from brush_tpu_torch.utils.checkpoint import load_checkpoint
 
     t_phase = time.perf_counter()
@@ -4374,7 +4358,7 @@ def quality_phase(smi: str) -> dict:
                 kept.update(seen)
                 armed[0] = False
 
-        reset_launches()
+        build.reset_launch_counts()
         t_train = time.perf_counter()
         with kept_kernel_args(armed) as seen, \
                 step_timer(steps, arm, keep), \
@@ -4390,7 +4374,7 @@ def quality_phase(smi: str) -> dict:
                 str(QUALITY_EVAL_EVERY), "--checkpoint-dir", ck,
                 "--checkpoint-every", str(last_eval)], log)
         train_s = time.perf_counter() - t_train
-        counts = read_launches()
+        counts = build.launch_counts()
         ms = event_ms(steps)
         rows = read_jsonl(os.path.join(ck, "metrics.jsonl"))
         final = [float(v) for v in text_field(
@@ -4465,7 +4449,7 @@ def quality_phase(smi: str) -> dict:
                   "sh_color_bwd": QUALITY_ITERS}:
         raise AssertionError(f"[quality] launches {counts}: not one a step "
                              f"and one an eval render ({len(renders)})")
-    if kept_names(kept) != sorted(KERNEL_WRAPPERS):
+    if kept_names(kept) != sorted(build.KERNELS):
         raise AssertionError(f"[quality] kept {sorted(kept)} at "
                              f"{after_reset}")
     tk = train_kernels({f"step {after_reset}, the first after the "

@@ -5,7 +5,8 @@ process.
 
 A variant is the repository's source (brush_tpu_torch/csrc/<kernel>.cu)
 with text substitutions applied ("OLD=>NEW": a constant, a line), or
-another source file with the same C entry point, such as an earlier
+another source file with the same C entries (ops/cuda/build.ENTRIES,
+through which every source's library is bound), such as an earlier
 commit's kernel:
 
     mkdir -p runs/parent
@@ -50,8 +51,7 @@ also holds every rasterize_fwd source to the plain version on the four
 castle views of chip_smoke.py, whose pixels saturate, at each --cell,
 and says whether each source's outputs are bit-equal to the
 repository's. --cell GWxGH [GWxGH ...] builds the rasterizers' inputs at
-each raster cell in turn (sources before the cell mode take 1x1 only;
-expand and segsum run at the first). --bits says whether every
+each raster cell in turn (expand and segsum run at the first). --bits says whether every
 rasterize_fwd source's outputs are bit-equal to the repository's on
 ops/cuda/testing.hand_tiles and hand_cells, on chip_smoke.STRIPS strips of
 cell rows of the bench inputs at each cell (tile_base, each strip also
@@ -66,6 +66,7 @@ import argparse
 import ctypes
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -312,19 +313,26 @@ TIMELINE_BWD_SUBS = [   # the backward's early return
     ("  if (last <= start) return;",
      "  if (last <= start) { tl_end(); return; }"),
 ]
-P, I = ctypes.c_void_p, ctypes.c_int
+def same_entries(kernel, text) -> bool:
+    """Whether text declares each C entry that ops/cuda/build.ENTRIES
+    lists for csrc/<kernel>.cu with as many arguments: a library built
+    from it binds through that table."""
+    for name, e in build.ENTRIES.items():
+        m = re.search(rf"\b{name}\(([^)]*)\)", text)
+        if e.source == kernel and (
+                not m or len(m.group(1).split(",")) != len(e.args)):
+            return False
+    return True
 
 
 def start_build(label, kernel, text, include=None):
     """Write text as a source of its own and start nvcc on it, its headers
-    found first in `include` (an --old-dir's own), then in csrc/. Its C entry
-    is "legacy" before the tile order (no scratch argument), takes
-    "cells" since the raster-cell mode (cell_w, cell_h; the backward also a
-    state scratch), a "strip" since the strip mode (tile_base, after the
-    cell count), which run_fwd and run_bwd pass as 0: the whole frame, and
-    a "scan" since the truncated log-T scan (passes, k_lanes, after the
-    cell), which they pass as the mode asked for (--scan; 0 and 512 is the
-    exact scan, the path every earlier source computes)."""
+    found first in `include` (an --old-dir's own), then in csrc/. The
+    source must have the repository's C entries (same_entries): one from
+    before the last change of an entry is timed at its own commit."""
+    if not same_entries(kernel, text):
+        raise SystemExit(f"{label}: its C entries are not those of "
+                         f"ops/cuda/build.ENTRIES")
     os.makedirs(OUT, exist_ok=True)
     stem = os.path.join(OUT, "".join(c if c.isalnum() else "_" for c in label))
     with open(stem + ".cu", "w") as f:
@@ -333,11 +341,6 @@ def start_build(label, kernel, text, include=None):
            *(["-I", include] if include else []), "-I", build.CSRC,
            "-Xptxas", "-v", "-o", stem + ".so", stem + ".cu"]
     return dict(label=label, kernel=kernel, so=stem + ".so",
-                legacy=kernel != "segsum" and "int* order" not in text,
-                cells="int cell_w" in text, strip="int tile_base" in text,
-                partial="float* partial" in text,
-                scan="int passes" in text,
-                seg_scratch="segsum_scratch_floats" in text,
                 proc=subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
 
@@ -361,7 +364,7 @@ def finish_builds(jobs):
         used = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "Used" in ln]
         print(f"[build] {j['label']}: {'; '.join(used)}")
-        j["lib"] = ctypes.CDLL(j["so"])
+        j["lib"] = build.bind(j["so"], j["kernel"])
     return jobs
 
 
@@ -373,26 +376,6 @@ def scan_kw(mode) -> dict:
     return dict(scan_passes=mode[0] or 3, k_lanes=mode[1])
 
 
-def takes(job, mode) -> bool:
-    """Whether job's source runs the scan mode (passes, k_lanes): every
-    source runs the exact scan, only those since the truncated scan
-    another."""
-    return mode == EXACT or job["scan"]
-
-
-def cell_ints(job, cell, mode=EXACT):
-    """The (cell_w, cell_h) arguments of job's C entry: none before the
-    raster-cell mode, which runs cell (1, 1) only; then, since the
-    truncated scan, (passes, k_lanes) = mode."""
-    if not takes(job, mode):
-        raise SystemExit(f"{job['label']} takes no truncated scan")
-    if job["cells"]:
-        return list(cell) + list(mode) * job["scan"]
-    if tuple(cell) != (1, 1):
-        raise SystemExit(f"{job['label']} takes no raster cell")
-    return []
-
-
 def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0,
             mode=EXACT):
     n_tiles = starts.shape[0]
@@ -400,22 +383,12 @@ def run_fwd(job, packed, starts, ends, tiles_x, cell=(1, 1), tile_base=0,
     img = torch.empty((n_tiles, px, 4), device="cuda")
     log_t = torch.empty((n_tiles, px), device="cuda")
     fidx = torch.empty((n_tiles, px), dtype=torch.int32, device="cuda")
-    if tile_base and not job["strip"]:
-        raise SystemExit(f"{job['label']} takes no strip")
-    ints = ([n_tiles] + [tile_base] * job["strip"] + [tiles_x]
-            + cell_ints(job, cell, mode))
-    args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), *ints]
-    args += [img.data_ptr(), log_t.data_ptr(), fidx.data_ptr()]
-    if not job["legacy"]:   # sources before the tile order take no scratch
-        order = torch.empty_like(starts)
-        args.append(order.data_ptr())
-    args.append(torch.cuda.current_stream().cuda_stream)
-    fn = job["lib"].rasterize_fwd_launch
-    fn.argtypes = ([P, I, P, P] + [I] * len(ints)
-                   + [P] * (len(args) - 4 - len(ints)))
-    fn.restype = I
-    build.check(fn(*args), job["label"])
+    order = torch.empty_like(starts)
+    build.check(job["lib"].rasterize_fwd_launch(
+        packed.data_ptr(), packed.shape[1], starts.data_ptr(),
+        ends.data_ptr(), n_tiles, tile_base, tiles_x, *cell, *mode,
+        img.data_ptr(), log_t.data_ptr(), fidx.data_ptr(), order.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), job["label"])
     return img, log_t, fidx
 
 
@@ -430,44 +403,29 @@ def fwd_rows(out):
 def run_bwd(job, packed, starts, ends, tiles_x, v_out, log_t, fidx,
             cell=(1, 1), mode=EXACT):
     grads = torch.zeros((9, packed.shape[1]), device="cuda")
-    ints = ([starts.shape[0]] + [0] * job["strip"] + [tiles_x]
-            + cell_ints(job, cell, mode))
-    args = [packed.data_ptr(), packed.shape[1], starts.data_ptr(),
-            ends.data_ptr(), *ints]
-    args += [v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(),
-             grads.data_ptr()]
-    if not job["legacy"]:   # sources before the tile order take no scratch
-        order = torch.empty_like(starts)
-        args.append(order.data_ptr())
+    order = torch.empty_like(starts)
     tiles = cell[0] * cell[1]
-    if job["partial"]:      # other tiles' partial rows, unread at (1, 1)
-        scratch = torch.empty((tiles - 1) * 9 * packed.shape[1]
-                              + starts.shape[0] if tiles > 1 else 1,
-                              device="cuda")
-        args.append(scratch.data_ptr())
-    elif job["cells"]:      # the state scratch, unread at cell (1, 1)
-        state = torch.empty(2 * log_t.numel() if tiles > 1 else 2,
-                            device="cuda")
-        args.append(state.data_ptr())
-    args.append(torch.cuda.current_stream().cuda_stream)
-    fn = job["lib"].rasterize_bwd_launch
-    fn.argtypes = ([P, I, P, P] + [I] * len(ints)
-                   + [P] * (len(args) - 4 - len(ints)))
-    fn.restype = I
-    build.check(fn(*args), job["label"])
+    # Other tiles' partial rows, unread at (1, 1).
+    partial = torch.empty(
+        (tiles - 1) * 9 * packed.shape[1] + starts.shape[0] if tiles > 1
+        else 1, device="cuda")
+    build.check(job["lib"].rasterize_bwd_launch(
+        packed.data_ptr(), packed.shape[1], starts.data_ptr(),
+        ends.data_ptr(), starts.shape[0], 0, tiles_x, *cell, *mode,
+        v_out.data_ptr(), log_t.data_ptr(), fidx.data_ptr(), grads.data_ptr(),
+        order.data_ptr(), partial.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), job["label"])
     return grads
 
 
 def run_exp(job, f5, u5, cum, total, tiles_x, num_tiles, pool):
     keys = torch.empty((pool,), dtype=torch.int32, device="cuda")
     recs = torch.empty((8, pool), dtype=torch.int32, device="cuda")
-    fn = job["lib"].expand_launch
-    fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
-    fn.restype = I
-    build.check(fn(f5.data_ptr(), u5.data_ptr(), cum.data_ptr(),
-                   total.data_ptr(), f5.shape[1], pool, tiles_x, num_tiles,
-                   keys.data_ptr(), recs.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream), job["label"])
+    build.check(job["lib"].expand_launch(
+        f5.data_ptr(), u5.data_ptr(), cum.data_ptr(), total.data_ptr(),
+        f5.shape[1], pool, tiles_x, num_tiles, keys.data_ptr(),
+        recs.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        job["label"])
     return keys, recs
 
 
@@ -481,19 +439,14 @@ def exp_rows(out):
 def run_seg(job, rows, offsets, cum, total):
     n = offsets.shape[0]
     out = torch.empty((9, n), device="cuda")
-    fn = job["lib"].segsum_launch
-    args = [rows.data_ptr(), rows.shape[1], offsets.data_ptr(),
-            cum.data_ptr(), total.data_ptr(), n, out.data_ptr()]
-    if job["seg_scratch"]:   # the crossing splats' partials, a span each
-        floats = job["lib"].segsum_scratch_floats
-        floats.argtypes = [I]
-        floats.restype = ctypes.c_longlong
-        scratch = torch.empty(max(1, floats(rows.shape[1])), device="cuda")
-        args.append(scratch.data_ptr())
-    args.append(torch.cuda.current_stream().cuda_stream)
-    fn.argtypes = [P, I, P, P, P, I] + [P] * (len(args) - 6)
-    fn.restype = I
-    build.check(fn(*args), job["label"])
+    # The crossing splats' partials, a span each.
+    scratch = torch.empty(
+        max(1, job["lib"].segsum_scratch_floats(rows.shape[1])),
+        device="cuda")
+    build.check(job["lib"].segsum_launch(
+        rows.data_ptr(), rows.shape[1], offsets.data_ptr(), cum.data_ptr(),
+        total.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), job["label"])
     return out
 
 
@@ -657,8 +610,8 @@ def build_timeline(label, kernel, subs):
 def read_timeline(job, size):
     buf = np.zeros(size, np.uint64)
     fn = job["lib"].timeline_read
-    fn.argtypes = [P]
-    fn.restype = I
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     build.check(fn(buf.ctypes.data), "timeline_read")
     return buf
 
@@ -773,8 +726,8 @@ def saved_args(path, jobs):
                   f"{r_args[4]}, {int(r_args[2][-1])} records, pool "
                   f"{r_args[0].shape[1]}")
             compare(f"rasterize_fwd, {at}",
-                    [j for j in fwd_jobs if takes(j, mode)],
-                    functools.partial(run_fwd, mode=mode), r_args, reps=20,
+                    fwd_jobs, functools.partial(run_fwd, mode=mode), r_args,
+                    reps=20,
                     rows=fwd_rows)
         if not bwd_jobs:
             continue
@@ -786,8 +739,8 @@ def saved_args(path, jobs):
               f"{m_args[7]}, {int(m_args[2][-1])} records, pool "
               f"{m_args[0].shape[1]}")
         compare(f"rasterize_bwd, {at}",
-                [j for j in bwd_jobs if takes(j, mode)],
-                functools.partial(run_bwd, mode=mode), m_args, reps=10)
+                bwd_jobs, functools.partial(run_bwd, mode=mode), m_args,
+                reps=10)
     seg_jobs = [j for j in jobs if j["kernel"] == "segsum"]
     if seg_jobs:
         rows, offsets, cum, total = s_args = saved["segment_sum"]
@@ -818,8 +771,7 @@ def main():
                     "--old-dir's (no default variants)")
     ap.add_argument("--cell", nargs="+", default=["1x1"], help="raster "
                     "cells GWxGH of the rasterizers' inputs, each timed in "
-                    "turn (sources before the cell mode run 1x1 only); "
-                    "expand and segsum take the first")
+                    "turn; expand and segsum take the first")
     ap.add_argument("--bits", action="store_true", help="also say whether "
                     "every rasterize_fwd source's outputs are bit-equal to "
                     "the repository's on the hand-made tile and cell "
@@ -834,8 +786,7 @@ def main():
                     help="the rasterizers' scan modes on the bench inputs, "
                     "each timed in turn: 3 the exact scan, P:K the "
                     "truncated scan of P bfloat16 parts over batches of K "
-                    "slots (sources before it run the exact scan only); "
-                    "--bits and --castle take the exact scan")
+                    "slots; --bits and --castle take the exact scan")
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=list(KERNELS), help="the kernels to build and "
                     "time (default: all)")
@@ -901,15 +852,14 @@ def main():
                     (f"rasterize_fwd, the same records in a pool of {pool4}"
                      + sat, (packed4, starts, ends, tiles_x, cell))):
                 if fwd_jobs:
-                    compare(tag, [j for j in fwd_jobs if takes(j, mode)],
-                            run_f, f_args, reps=20, rows=fwd_rows)
+                    compare(tag, fwd_jobs, run_f, f_args, reps=20,
+                            rows=fwd_rows)
             _, log_t, fidx = rasterize_fwd(*k["r_args"], **scan_kw(mode))
             b_args = (packed, starts, ends, tiles_x, v_out, log_t, fidx, cell)
             if bwd_jobs:
                 compare("rasterize_bwd, bench render inputs" + sat,
-                        [j for j in bwd_jobs if takes(j, mode)],
-                        functools.partial(run_bwd, mode=mode), b_args,
-                        reps=10)
+                        bwd_jobs, functools.partial(run_bwd, mode=mode),
+                        b_args, reps=10)
             if cell == cells[0] and mode == modes[0]:
                 first = dict(k=k, b_args=b_args, gen=gen)
         del packed4

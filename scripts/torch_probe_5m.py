@@ -20,7 +20,7 @@ default TrainConfig (no refine in its first 500 steps) from its own
 default pool, up to DEFAULT_POOL_STEPS steps, showing where the pool's
 doubling on drops ends (ROADMAP Queue 3 #15: at 2^24, which expand
 refuses); and one whose pool is set to the probe's before its first step,
-TRAINER_STEPS steps: each step's launches of the five kernels, records,
+TRAINER_STEPS steps: each step's launches of the seven kernels, records,
 drops (none allowed), loss, the median step, the stage medians and the
 peak memory. Last the card's name and power limit.
 
@@ -47,9 +47,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from brush_tpu_torch.camera import Camera  # noqa: E402
-from brush_tpu_torch.ops.cuda import (  # noqa: E402
-    expand, rasterize_bwd, rasterize_fwd, segsum, tile_pretest,
-)
+from brush_tpu_torch.ops.cuda import build  # noqa: E402
 from brush_tpu_torch.ops.rasterize_reference import camera_params  # noqa: E402
 from brush_tpu_torch.optim import adam_step, init_adam  # noqa: E402
 from brush_tpu_torch.render import render_splats  # noqa: E402
@@ -65,9 +63,6 @@ LOG_SCALE = float(np.log(0.01))
 FIXED_STEPS = 8
 DEFAULT_POOL_STEPS = 4
 TRAINER_STEPS = 5
-KERNELS = {"expand": expand, "rasterize_fwd": rasterize_fwd,
-           "rasterize_bwd": rasterize_bwd, "segment_sum": segsum,
-           "tile_pretest": tile_pretest}
 
 
 def splat_count(n_millions: float) -> int:
@@ -117,15 +112,6 @@ def probe_step(params: dict, opt, cp, img_size, gt, max_isects: int):
             aux.num_dropped)
 
 
-def reset_launches():
-    for mod in KERNELS.values():
-        mod.launches = 0
-
-
-def read_launches() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
-
-
 def event_ms(fn):
     """(fn(), the CUDA-event ms around it, ended by a synchronise)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -153,7 +139,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
                 stages: bool = False) -> dict:
     """SplatTrainer (default config) steps on one view from the splats,
     with its pool set to `pool` before the first step (None: its own
-    default). Each step's CUDA-event ms, launches of the five kernels, the
+    default). Each step's CUDA-event ms, launches of the seven kernels, the
     pool it used, records, drops and loss; a step that raises ends the run
     and is recorded under "error". With `stages` each step's stage marks
     too (profiler.record). Returns those lists and the trainer's last
@@ -166,7 +152,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
     out = dict(ms=[], launches=[], pools=[], records=[], dropped=[],
                losses=[], stages=[], error=None)
     for _ in range(steps):
-        reset_launches()
+        build.reset_launch_counts()
         try:
             with (profiler.record() if stages
                   else contextlib.nullcontext([])) as marks:
@@ -177,7 +163,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
             out["error"] = str(e)
             break
         out["ms"].append(ms)
-        out["launches"].append(read_launches())
+        out["launches"].append(build.launch_counts())
         out["pools"].append(trainer._isect_pool)
         out["records"].append(int(st.num_isects))
         out["dropped"].append(int(st.num_dropped))
@@ -190,7 +176,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
 def check_trainer_run(run: dict):
     """The pool-set run's gates: every step one launch of each kernel, no
     record dropped, finite losses and parameters."""
-    one = {name: 1 for name in KERNELS}
+    one = {name: 1 for name in build.KERNELS}
     if run["error"] or any(c != one for c in run["launches"]):
         raise AssertionError(f"trainer steps: launches {run['launches']}, "
                              f"error {run['error']}")
@@ -237,14 +223,14 @@ def main(argv=None) -> int:
     params = splats.params()
     opt = init_adam(params)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    build.reset_launch_counts()
     t0 = time.perf_counter()
     _, _, loss, ni, nd = probe_step(params, opt, cp, img_size, gt,
                                     max_isects)
     loss = float(loss)
     first_s = time.perf_counter() - t0
     print(f"first step {first_s:.1f}s loss={loss:.4f} isects={int(ni)} "
-          f"dropped={int(nd)} launches={read_launches()}", flush=True)
+          f"dropped={int(nd)} launches={build.launch_counts()}", flush=True)
     times = fixed_step_ms(lambda: probe_step(params, opt, cp, img_size, gt,
                                              max_isects))
     dt = statistics.median(times)

@@ -38,7 +38,8 @@ from brush_tpu_torch.constants import SH_C0
 from brush_tpu_torch.datasets import testing as dt
 from brush_tpu_torch.datasets.nerf import camera_from_transform
 from brush_tpu_torch.datasets.ply import load_splats_from_ply
-from brush_tpu_torch.ops.rasterize_reference import camera_params, view_colors
+from brush_tpu_torch.ops.rasterize_reference import camera_params
+from brush_tpu_torch.ops.sh import view_colors
 from brush_tpu_torch.render import render_splats
 from torch_threads import pin_threads
 

@@ -37,11 +37,9 @@ from brush_tpu_torch.ops.cuda.testing import (
 )
 from brush_tpu_torch.ops.projection import Projection
 from brush_tpu_torch.ops.pipeline import depth_order, scan_lanes, tile_bins
-from brush_tpu_torch.ops.rasterize_reference import (
-    camera_params, view_colors,
-)
+from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.ops.sh import (
-    sh_coeffs_grad_plain, sh_to_color, view_dirs_plain,
+    sh_coeffs_grad_plain, sh_to_color, view_colors, view_dirs_plain,
 )
 from brush_tpu_torch.render import record_inputs, render_splats
 from torch_threads import pin_threads
@@ -57,6 +55,13 @@ SCENES = {
 }
 CAM = dict(position=[0, 0, -6.0], rotation=[1, 0, 0, 0], fov_x=np.pi / 2,
            fov_y=np.pi / 2)
+# The record pipeline's kernel wrappers.
+RECORD_KERNELS = ("expand", "rasterize_fwd", "rasterize_bwd", "segment_sum")
+
+
+def launched(name: str) -> int:
+    """The launches counted so far of wrapper `name`'s kernel."""
+    return build.launch_counts()[name]
 
 
 def make_scene(n, seed, scale_hi=0.5, sh_degree=1):
@@ -260,10 +265,10 @@ def pretest_proj(a) -> Projection:
 def test_cpu_pretest_takes_the_twin():
     """CPU tensors go to the plain twin, with no launch counted."""
     a = pretest_args("boxes", (2, 2), "cpu")
-    before = t_pretest.launches
+    before = launched("tile_pretest")
     got = precompute_tile_masks(pretest_proj(a), a["opac"], (2, 2))
     want = precompute_tile_masks_plain(pretest_proj(a), a["opac"], (2, 2))
-    assert t_pretest.launches == before
+    assert launched("tile_pretest") == before
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert int(got.counts.sum()) > 0
 
@@ -635,6 +640,91 @@ def test_library_name_follows_source_and_headers(tmp_path, monkeypatch):
     assert build._lib_path("a") != a
 
 
+def test_build_all_builds_each_library_once(tmp_path, monkeypatch):
+    """build_all through native.build_once, the builder the host library
+    shares, with a stub compiler in nvcc's place: eight threads that start
+    at once compile each missing library once, under the lock, and all
+    find it; a later call compiles nothing; an edited source names a new
+    library; a failed compile raises with its source's name, leaves no
+    temporary file and does not stop the others from landing."""
+    for name in ("a", "b", "bad"):
+        (tmp_path / f"{name}.cu").write_text(f"// {name}")
+    log = tmp_path / "compiles.log"
+    stub = tmp_path / "nvcc"
+    stub.write_text(   # bad.cu: a half-written output, then a failure
+        f"#!{sys.executable}\nimport sys, time\ntime.sleep(0.2)\n"
+        f"with open({str(log)!r}, 'a') as f:\n"
+        "    f.write(sys.argv[-1] + '\\n')\n"
+        "with open(sys.argv[sys.argv.index('-o') + 1], 'w') as f:\n"
+        "    f.write('library')\n"
+        "sys.exit(sys.argv[-1].endswith('bad.cu'))\n")
+    stub.chmod(0o755)
+    out = tmp_path / "build"
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(out))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(stub))
+
+    def compiled():
+        return sorted(os.path.basename(line)
+                      for line in log.read_text().split())
+
+    results = []
+    threads = [threading.Thread(target=lambda: results.append(
+        build.build_all(("a", "b")))) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    paths = {"a": build._lib_path("a"), "b": build._lib_path("b")}
+    assert results == [paths] * 8 and compiled() == ["a.cu", "b.cu"]
+    assert sorted(os.listdir(out)) == sorted(
+        ["build.lock", *(os.path.basename(p) for p in paths.values())])
+    assert build.build_all(("a", "b")) == paths
+    assert compiled() == ["a.cu", "b.cu"]
+    (tmp_path / "a.cu").write_text("// a, edited")
+    with pytest.raises(RuntimeError, match="nvcc failed for bad.cu"):
+        build.build_all(("a", "bad"))
+    assert build._lib_path("a") != paths["a"]
+    assert os.path.exists(build._lib_path("a"))
+    assert compiled() == ["a.cu", "a.cu", "b.cu", "bad.cu"]
+    assert not [f for f in os.listdir(out) if f.endswith(".tmp")]
+
+
+def test_launch_counts_hold_under_threads(monkeypatch):
+    """build.launch counts from many threads at once (the viewer's request
+    threads launch beside its training worker) without losing a launch; a
+    stub entry, device and stream stand in for the card."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(build, "entry", lambda name: lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    before = launched("expand")
+    each, n_threads = 2000, 16
+
+    def launches():
+        for _ in range(each):
+            build.launch("expand_launch", "cpu")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launches)
+                   for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert launched("expand") == before + each * n_threads
+
+
 def test_kernel_sources_find_their_headers():
     """Every header a kernel source includes lies beside it, where nvcc
     looks first and the library's hash covers it."""
@@ -664,10 +754,10 @@ def test_cuda_expand_equals_plain(name):
     r = port_records(make_scene(n, 5, scale_hi), img_size, pool, "cuda")
     args = (r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
             r["num_tiles"], pool)
-    before = t_expand.launches
+    before = launched("expand")
     keys, recs = t_expand.expand(*args)
     torch.cuda.synchronize()
-    assert t_expand.launches == before + 1
+    assert launched("expand") == before + 1
     pk, pr = t_expand.expand_plain(*args)
     assert torch.equal(keys, pk) and torch.equal(recs, pr)
 
@@ -706,17 +796,17 @@ def test_cuda_tile_pretest_scenes_equal_plain(cell):
         t = {k: torch.tensor(v, device="cuda")
              for k, v in make_scene(n, 7, scale_hi).items()}
         cp = camera_params(Camera(**CAM), img_size, device="cuda")
-        before = t_pretest.launches
+        before = launched("tile_pretest")
         rec = record_inputs(t["means"], t["log_scales"], t["quats"],
                             t["sh_coeffs"], t["raw_opacity"], cp, img_size,
                             cell=cell)
-        assert t_pretest.launches == before + 1
+        assert launched("tile_pretest") == before + 1
         opac = rec.attrs9[8].detach()
         assert_same_masks(rec.masks,
                           precompute_tile_masks_plain(rec.proj, opac, cell))
         again = precompute_tile_masks(rec.proj, opac, cell)
         torch.cuda.synchronize()
-        assert t_pretest.launches == before + 2
+        assert launched("tile_pretest") == before + 2
         assert_same_masks(again, rec.masks)
         assert int(rec.masks.counts.sum()) > 0
         if name == "bbox_splats" and cell == (1, 1):
@@ -732,11 +822,11 @@ def test_cuda_tile_pretest_hand_layouts_equal_plain(case, cell):
     launches are bit-equal."""
     _need_cuda()
     a = pretest_args(case, cell, "cuda")
-    before = t_pretest.launches
+    before = launched("tile_pretest")
     got = t_pretest.tile_pretest(**a, cell=cell)
     again = t_pretest.tile_pretest(**a, cell=cell)
     torch.cuda.synchronize()
-    assert t_pretest.launches == before + 2
+    assert launched("tile_pretest") == before + 2
     assert_same_masks(got, precompute_tile_masks_plain(pretest_proj(a),
                                                        a["opac"], cell))
     assert_same_masks(again, got)
@@ -804,11 +894,11 @@ def test_cuda_sh_fwd_equals_twin(degree, extra):
     means, campos, coeffs = sh_case(degree, extra, "cuda")
     if extra == "unaligned":
         assert coeffs.data_ptr() % 16 == 4
-    before = t_sh.fwd_launches
+    before = launched("sh_color_fwd")
     got = t_sh.sh_color_fwd(means, campos, coeffs, degree)
     again = t_sh.sh_color_fwd(means, campos, coeffs, degree)
     torch.cuda.synchronize()
-    assert t_sh.fwd_launches == before + 2
+    assert launched("sh_color_fwd") == before + 2
     want = sh_to_color(degree, view_dirs_plain(means, campos), coeffs)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
@@ -833,11 +923,11 @@ def test_cuda_sh_bwd_equals_twin(degree, extra):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     m = means.clone().requires_grad_(True)
     c = coeffs.detach().clone().requires_grad_(True)
-    before = (t_sh.fwd_launches, t_sh.bwd_launches)
+    before = (launched("sh_color_fwd"), launched("sh_color_bwd"))
     t_sh.sh_color(m, campos, c, degree).backward(g)
     torch.cuda.synchronize()
-    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (launched("sh_color_fwd"), launched("sh_color_bwd")) == (
+        before[0] + 1, before[1] + 1)
     assert m.grad is None
     assert torch.equal(c.grad.view(torch.int32), got.view(torch.int32))
 
@@ -871,17 +961,17 @@ def test_cuda_render_launches_sh_once_a_step():
     p = [torch.tensor(sc[k], device="cuda", requires_grad=True)
          for k in names]
     cp = camera_params(Camera(**CAM), (64, 48), device="cuda")
-    before = (t_sh.fwd_launches, t_sh.bwd_launches)
+    before = (launched("sh_color_fwd"), launched("sh_color_bwd"))
     img, _ = render_splats(*p, cp, (64, 48))
     (img ** 2).sum().backward()
     torch.cuda.synchronize()
-    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (launched("sh_color_fwd"), launched("sh_color_bwd")) == (
+        before[0] + 1, before[1] + 1)
     assert p[0].grad is not None and bool(p[3].grad.abs().sum() > 0)
     render_splats(*(x.detach() for x in p), cp, (64, 48), needs_grad=False)
     torch.cuda.synchronize()
-    assert (t_sh.fwd_launches, t_sh.bwd_launches) == (before[0] + 2,
-                                                      before[1] + 1)
+    assert (launched("sh_color_fwd"), launched("sh_color_bwd")) == (
+        before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -946,10 +1036,10 @@ def test_cuda_rasterize_fwd_matches_plain(name):
     n, img_size, pool, scale_hi = SCENES[name]
     r = port_records(make_scene(n, 6, scale_hi), img_size, pool, "cuda")
     args = (r["packed"], r["starts"], r["ends"], r["tiles_x"])
-    before = t_raster.launches
+    before = launched("rasterize_fwd")
     img, log_t, fidx = t_raster.rasterize_fwd(*args)
     torch.cuda.synchronize()
-    assert t_raster.launches == before + 1
+    assert launched("rasterize_fwd") == before + 1
     want = t_raster.rasterize_fwd_plain(*args)
     flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
                *(w.cpu().numpy() for w in want), atol=1e-5)
@@ -1030,10 +1120,10 @@ def test_cuda_rasterize_fwd_hand_cells_match_plain(case):
     args = (torch.tensor(packed, device="cuda"),
             torch.tensor(starts, device="cuda"),
             torch.tensor(ends, device="cuda"), cells_x, cell)
-    before = t_raster.launches
+    before = launched("rasterize_fwd")
     img, log_t, fidx = t_raster.rasterize_fwd(*args)
     torch.cuda.synchronize()
-    assert t_raster.launches == before + 1
+    assert launched("rasterize_fwd") == before + 1
     assert bool((fidx >= 0).any())
     want = t_raster.rasterize_fwd_plain(*args)
     flip_check(img.cpu().numpy(), log_t.cpu().numpy(), fidx.cpu().numpy(),
@@ -1049,10 +1139,10 @@ def test_cuda_rasterize_bwd_hand_cells_match_plain(case):
     version's rows, one launch counted, and a second launch bit-equal."""
     _need_cuda()
     b_args = hand_cell_args(case, "cuda")
-    before = t_bwd.launches
+    before = launched("rasterize_bwd")
     got = t_bwd.rasterize_bwd(*b_args)
     torch.cuda.synchronize()
-    assert t_bwd.launches == before + 1
+    assert launched("rasterize_bwd") == before + 1
     assert torch.isfinite(got).all() and got.abs().max() > 0
     rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, case)
     assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
@@ -1182,7 +1272,7 @@ def test_cuda_rasterizers_at_cells_match_plain(cell):
     r = port_records(make_scene(n, 12, scale_hi), img_size, pool, "cuda",
                      cell)
     args = (r["packed"], r["starts"], r["ends"], r["tiles_x"], cell)
-    before = (t_raster.launches, t_bwd.launches)
+    before = (launched("rasterize_fwd"), launched("rasterize_bwd"))
     img, log_t, fidx = t_raster.rasterize_fwd(*args)
     torch.cuda.synchronize()
     p = 256 * cell[0] * cell[1]
@@ -1196,8 +1286,8 @@ def test_cuda_rasterizers_at_cells_match_plain(cell):
     b_args = (*args[:4], v_out, log_t, fidx, cell)
     got = t_bwd.rasterize_bwd(*b_args)
     torch.cuda.synchronize()
-    assert (t_raster.launches, t_bwd.launches) == (before[0] + 2,
-                                                   before[1] + 1)
+    assert (launched("rasterize_fwd"), launched("rasterize_bwd")) == (
+        before[0] + 2, before[1] + 1)
     assert torch.isfinite(got).all() and got.abs().max() > 0
     rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, f"{cell}")
     assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
@@ -1283,10 +1373,10 @@ def test_cuda_rasterize_bwd_matches_plain(case):
         assert int((r["ends"] - r["starts"]).max()) > 2 * STAGING_BATCH
     if case == "odd_tiles_x":
         assert r["tiles_x"] % 2 == 1
-    before = t_bwd.launches
+    before = launched("rasterize_bwd")
     got = t_bwd.rasterize_bwd(*args)
     torch.cuda.synchronize()
-    assert t_bwd.launches == before + 1
+    assert launched("rasterize_bwd") == before + 1
     assert torch.isfinite(got).all()
     rows_close(got, t_bwd.rasterize_bwd_plain(*args), 1e-4, case)
     assert torch.equal(got, t_bwd.rasterize_bwd(*args))
@@ -1303,10 +1393,10 @@ def test_cuda_segment_sum_matches_plain(name):
                        device="cuda")
     rows[:, int(r["total"][0]):] = 0.0
     args = (rows, r["offsets"], r["cum"], r["total"])
-    before = t_seg.launches
+    before = launched("segment_sum")
     got = t_seg.segment_sum(*args)
     torch.cuda.synchronize()
-    assert t_seg.launches == before + 1
+    assert launched("segment_sum") == before + 1
     rows_close(got, t_seg.segment_sum_plain(*args), 1e-5, name)
     assert torch.equal(got, t_seg.segment_sum(*args))
 
@@ -1410,16 +1500,14 @@ def test_cuda_render_xla_matches_cpu():
     names = ["means", "log_scales", "quats", "sh_coeffs", "raw_opacity"]
     out = {}
     for dev in ("cpu", "cuda"):
-        for mod in (t_expand, t_raster, t_bwd, t_seg):
-            mod.launches = 0
+        build.reset_launch_counts()
         p = [torch.tensor(sc[k], device=dev, requires_grad=True)
              for k in names]
         img, aux = render_splats(*p, camera_params(Camera(**CAM), (64, 48),
                                                    device=dev), (64, 48),
                                  backend="xla")
         (img ** 2).sum().backward()
-        assert not any(m.launches for m in (t_expand, t_raster, t_bwd,
-                                            t_seg))
+        assert not any(launched(n) for n in RECORD_KERNELS)
         out[dev] = (img.detach().cpu(), [x.grad.cpu() for x in p], aux)
     (img_c, g_c, aux_c), (img_g, g_g, aux_g) = out["cpu"], out["cuda"]
     for f in ("num_visible", "num_isects", "num_dropped"):
@@ -1463,9 +1551,7 @@ def test_cuda_aligned_rasterizer_matches_cpu():
                       generator=torch.Generator().manual_seed(3))
     out = {}
     for dev in ("cpu", "cuda"):
-        mods = (t_expand, t_raster, t_bwd, t_seg)
-        for mod in mods:
-            mod.launches = 0
+        build.reset_launch_counts()
         params = [a.detach().to(dev).requires_grad_(True) for a in leaves]
         records = [t.to(dev) for t in (isect.isect_gid, isect.starts,
                                        isect.ends)]
@@ -1473,7 +1559,7 @@ def test_cuda_aligned_rasterizer_matches_cpu():
         img = raster(*params, *records, torch.arange(num_tiles, device=dev))
         (img * cot.to(dev)).sum().backward()
         want = [0, 1, 1, 1] if dev == "cuda" else [0, 0, 0, 0]
-        assert [mod.launches for mod in mods] == want
+        assert [launched(n) for n in RECORD_KERNELS] == want
         again = [a.detach().to(dev).requires_grad_(True) for a in leaves]
         (raster(*again, *records, torch.arange(num_tiles, device=dev))
          * cot.to(dev)).sum().backward()
@@ -1557,13 +1643,12 @@ def test_cuda_cli_train(tmp_path):
               for split, n, seed in (("train", 8, 1), ("val", 2, 2))}
     source = str(tmp_path / "tiny.zip")
     dt.write_nerf_zip(source, splits)
-    for mod in (t_expand, t_raster, t_bwd, t_seg):
-        mod.launches = 0
+    build.reset_launch_counts()
     cli.main(["--device", "cuda", "train", "--source", source, "--iters",
               "4", "--init-count", "64", "--sh-degree", "1", "--block-size",
               "32", "--log-every", "1", "--checkpoint-dir", str(tmp_path),
               "--export", str(tmp_path / "out.ply")])
-    launches = [mod.launches for mod in (t_expand, t_raster, t_bwd, t_seg)]
+    launches = [launched(n) for n in RECORD_KERNELS]
     assert min(launches) >= 4, launches
     with open(tmp_path / "metrics.jsonl") as f:
         losses = [json.loads(line)["loss"] for line in f]
@@ -1591,7 +1676,7 @@ def test_cuda_strip_kernels_match_plain(cell):
     starts = torch.cat([r["starts"][base:], tail])
     ends = torch.cat([r["ends"][base:], tail])
     args = (r["packed"], starts, ends, r["tiles_x"], cell, base)
-    before = (t_raster.launches, t_bwd.launches)
+    before = (launched("rasterize_fwd"), launched("rasterize_bwd"))
     img, log_t, fidx = t_raster.rasterize_fwd(*args)
     torch.cuda.synchronize()
     want = t_raster.rasterize_fwd_plain(*args)
@@ -1610,8 +1695,8 @@ def test_cuda_strip_kernels_match_plain(cell):
     b_args = (*args[:4], v_out, log_t, fidx, cell, base)
     got = t_bwd.rasterize_bwd(*b_args)
     torch.cuda.synchronize()
-    assert (t_raster.launches, t_bwd.launches) == (before[0] + 3,
-                                                   before[1] + 1)
+    assert (launched("rasterize_fwd"), launched("rasterize_bwd")) == (
+        before[0] + 3, before[1] + 1)
     assert torch.isfinite(got).all() and got.abs().max() > 0
     rows_close(got, t_bwd.rasterize_bwd_plain(*b_args), 1e-4, f"{cell}")
     assert torch.equal(got, t_bwd.rasterize_bwd(*b_args))
@@ -1727,10 +1812,10 @@ def test_cuda_viewer_frame_is_the_in_process_render():
             ("qy", 0), ("qz", 0), ("fovx", np.pi / 2), ("fovy", np.pi / 2),
             ("w", 64), ("h", 48)))
         urllib.request.urlopen(f"{url}/api/frame?{query}", timeout=120)
-        t_expand.launches = t_raster.launches = 0
+        build.reset_launch_counts()
         png = urllib.request.urlopen(f"{url}/api/frame?{query}",
                                      timeout=120).read()
-        counts = (t_expand.launches, t_raster.launches)
+        counts = (launched("expand"), launched("rasterize_fwd"))
     finally:
         srv.shutdown()
         serving.join(timeout=30)

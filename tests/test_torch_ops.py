@@ -30,16 +30,17 @@ from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.binning import (
     popcount_u32, precompute_tile_masks, precompute_tile_masks_plain,
 )
-from brush_tpu_torch.ops.cuda import sh as cuda_sh
+from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda.testing import (
     HAND_PRETEST_CASES, HAND_PRETEST_CELLS, hand_pretest,
 )
 from brush_tpu_torch.ops.projection import Projection, project_splats
 from brush_tpu_torch.ops.rasterize_reference import (
-    camera_params, pixel_grid, render_oracle, view_colors,
+    camera_params, pixel_grid, render_oracle,
 )
 from brush_tpu_torch.ops.sh import (
-    sh_basis, sh_coeffs_grad_plain, sh_to_color, view_dirs_plain,
+    sh_basis, sh_coeffs_grad_plain, sh_to_color, view_colors,
+    view_dirs_plain,
 )
 from brush_tpu_torch.render import pack_decode_rows
 from torch_threads import pin_threads
@@ -155,17 +156,17 @@ def test_view_dirs_plain_within_an_ulp_of_vector_norms():
 
 
 def test_view_colors_on_cpu_launches_nothing():
-    """CPU tensors take the plain code: the SH kernels' launch counters
+    """CPU tensors take the plain code: the SH kernels' launch counts
     stay where they were, and the colour is sh_to_color's at
     vector_norm's directions."""
     sc = _scene(n=64)
     _, tcp = _cams((64, 48))
-    before = (cuda_sh.fwd_launches, cuda_sh.bwd_launches)
+    before = build.launch_counts()
     means = torch.tensor(sc["means"])
     coeffs = torch.tensor(sc["sh_coeffs"], requires_grad=True)
     col = view_colors(means, coeffs, tcp)
     col.sum().backward()
-    assert (cuda_sh.fwd_launches, cuda_sh.bwd_launches) == before
+    assert build.launch_counts() == before
     d = means - tcp.viewmat[:3, 3]
     d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
                         min=1e-12)

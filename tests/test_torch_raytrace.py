@@ -40,7 +40,8 @@ from brush_tpu_torch.datasets.loading import LoadDatasetArgs
 from brush_tpu_torch.datasets.nerf import camera_from_transform
 from brush_tpu_torch.datasets.ply import load_splats_from_ply
 from brush_tpu_torch.eval import eval_view
-from brush_tpu_torch.ops.rasterize_reference import camera_params, view_colors
+from brush_tpu_torch.ops.rasterize_reference import camera_params
+from brush_tpu_torch.ops.sh import view_colors
 from brush_tpu_torch.train import SplatTrainer
 from brush_tpu_torch.utils.checkpoint import save_checkpoint
 from test_torch_datasets import assert_dataset_equal
