@@ -69,6 +69,10 @@ ENTRIES = {
                                  counts="tile_pretest"),
     "sh_color_fwd_launch": Entry("sh", "PPIPIIIPP", counts="sh_color_fwd"),
     "sh_color_bwd_launch": Entry("sh", "PPIPIIIPP", counts="sh_color_bwd"),
+    "project_fwd_launch": Entry("projection", "PPPPPPPIIIIIPPPPPPPP",
+                                counts="project_fwd"),
+    "project_bwd_launch": Entry("projection", "PPPPPPPIIIPPPPPP",
+                                counts="project_bwd"),
 }
 SOURCES = tuple(dict.fromkeys(e.source for e in ENTRIES.values()))
 KERNELS = tuple(e.counts for e in ENTRIES.values() if e.counts)

@@ -6,8 +6,10 @@ on the card) hold rasterize_fwd and rasterize_bwd to their plain versions
 on these tile layouts (`hand_tiles`) and raster-cell layouts
 (`hand_cells`), expand on these splat layouts (`hand_expand`), and
 segment_sum on these segment layouts (`hand_segments`,
-`hand_small_pool`), and the truncated log-T scan of both rasterizers on
-`scan_edge`, where it and the exact scan give a different final_idx.
+`hand_small_pool`), the truncated log-T scan of both rasterizers on
+`scan_edge`, where it and the exact scan give a different final_idx, and
+the projection's kernels and backward twin on `hand_projection`'s rows
+(tests/test_torch_projection.py, tests/test_torch_cuda.py).
 `may_reach_f32` is the float32 twin of the rule by
 which both rasterizers leave records out of a tile's or a warp's work
 (csrc/reach.cuh), `warp_patches` and `fwd_warp_patches` the rectangles
@@ -994,3 +996,119 @@ def hand_pretest(case, cell=(1, 1)):
             n, 2),
         "visible": np.array([r[5] for r in rows], bool).reshape(n),
     }
+
+
+HAND_PROJECTION_CASES = ("thin", "behind", "det_zero", "inactive",
+                         "off_frame", "quat_norms", "culled_xy")
+HAND_PROJECTION_ROWS = 300   # two blocks of the kernels and a ragged one
+HAND_PROJECTION_SPECIAL = 60   # each case's hand-made rows, first
+
+
+def _det_zero_quat():
+    """A quaternion (w, 0, 0, z) near a 45-degree turn about z whose
+    normalised R00 = 1 - 2 z z and R10 = 2 w z are one float32 (float32
+    arithmetic, op by op): a splat with one huge axis along it, seen from
+    the origin along z, has c00 == c01 == c11, so det == 0."""
+    w0 = np.float32(np.cos(np.pi / 8)).view(np.int32)
+    z0 = np.float32(np.sin(np.pi / 8)).view(np.int32)
+    for dw, dz in ((i, j) for i in range(-16, 17) for j in range(-16, 17)):
+        w = np.int32(w0 + dw).view(np.float32)
+        z = np.int32(z0 + dz).view(np.float32)
+        norm = np.sqrt(w * w + z * z)
+        wn, zn = w / norm, z / norm
+        if np.float32(1) - np.float32(2) * (zn * zn) == np.float32(2) * (
+                wn * zn):
+            return np.array([w, 0, 0, z], np.float32)
+    raise AssertionError("no quaternion found")
+
+
+def hand_projection(case):
+    """Projection arguments made by hand, which the scenes do not reach: a
+    dict of numpy arrays means, log_scales (n, 3), quats (n, 4) raw,
+    active (n,) bool or None, the gradients g_xy (n, 2) and g_conic (n, 3)
+    (normal, a few zeros of both signs), the camera's viewmat (4, 4),
+    focal and pixel_center (2,) float32, img_size, and `special`: the
+    indices of the rows made for the case. HAND_PROJECTION_ROWS rows:
+    HAND_PROJECTION_SPECIAL hand-made, the rest a random draw in front of
+    the camera.
+      thin: near-singular splats, two log scales at -12 (the projected
+        covariance cancels in float32);
+      behind: rows behind the near plane, a few just either side of it;
+      det_zero: one huge axis along _det_zero_quat() at (0, 0, z) seen
+        from the origin with fx == fy: the 2D det is exactly 0;
+      inactive: `active` given, a third of the rows False;
+      off_frame: centres beyond the frustum clamp (1.3x the half field of
+        view) and bboxes just off the frame's edges;
+      quat_norms: raw norms from 0 and 1e-13 (under the 1e-12 clamp) to
+        1e6, signs mixed;
+      culled_xy: every special row culled (behind or inactive) with a
+        large xy gradient."""
+    from brush_tpu_torch.camera import Camera
+
+    rng = np.random.default_rng(1000)
+    n, k = HAND_PROJECTION_ROWS, HAND_PROJECTION_SPECIAL
+    img_size = (64, 48)
+    cam = Camera(position=[0.3, -0.2, -6.0],
+                 rotation=np.array([0.99, 0.05, -0.08, 0.03])
+                 / np.linalg.norm([0.99, 0.05, -0.08, 0.03]),
+                 fov_x=1.4, fov_y=1.2)
+    means = rng.uniform(-2.5, 2.5, (n, 3))
+    log_scales = np.log(rng.uniform(0.02, 0.6, (n, 3)))
+    quats = rng.normal(size=(n, 4))
+    active = None
+    g_xy, g_conic = rng.normal(size=(n, 2)), rng.normal(size=(n, 3))
+    sp = slice(0, k)
+    if case == "thin":
+        log_scales[sp, 1:] = -12.0
+        log_scales[:k // 2, 0] = rng.uniform(-1.0, 1.5, k // 2)
+    elif case in ("behind", "culled_xy"):
+        # View depth is about world z + 6: depths from -4 to 0.02.
+        means[sp, 2] = rng.uniform(-10.0, -5.98, k)
+        if case == "behind":
+            # On the camera's axis at view depths about the near plane.
+            vm = cam.world_to_local()
+            depths = np.array([0.0, 0.005, 0.009, 0.0099, 0.0101, 0.011,
+                               0.015, 0.02])
+            means[:8] = np.linalg.solve(vm[:3, :3], np.stack(
+                [np.zeros(8), np.zeros(8), depths]) - vm[:3, 3:]).T
+        else:
+            means[:k // 2, 2] = rng.uniform(-10.0, -6.5, k // 2)
+            active = np.ones(n, bool)
+            active[k // 2:k] = False
+            means[k // 2:k, 2] = rng.uniform(-2.0, 2.0, k - k // 2)
+            g_xy[sp] *= 1e3
+    elif case == "det_zero":
+        img_size = (64, 64)
+        cam = Camera(position=[0.0, 0.0, 0.0], rotation=[1.0, 0.0, 0.0, 0.0],
+                     fov_x=1.2, fov_y=1.2)
+        means[:, 2] += 7.0
+        means[sp] = 0.0
+        means[sp, 2] = rng.uniform(3.0, 8.0, k)
+        quats[sp] = _det_zero_quat()
+        log_scales[sp] = [7.5, -30.0, -30.0]
+        log_scales[sp, 0] += rng.uniform(0.0, 1.0, k)
+    elif case == "inactive":
+        active = rng.uniform(size=n) > 1.0 / 3.0
+    elif case == "off_frame":
+        # View-space x / z from -3 to 3 (the clamp is near +-0.93), and
+        # centres a bbox's width past each edge.
+        means[sp, 0] = rng.uniform(-3.0, 3.0, k) * 6.0
+        means[:k // 2, 1] = rng.choice([-1.0, 1.0], k // 2) * 4.4
+    elif case == "quat_norms":
+        norms = np.array([0.0, 1e-13, 1e-12, 1e-6, 1e-3, 0.5, 1.0, 3.0,
+                          1e3, 1e6])
+        quats[sp] *= (np.resize(norms, k) / np.linalg.norm(
+            quats[sp], axis=1))[:, None]
+        quats[sp] *= rng.choice([-1.0, 1.0], (k, 4))
+    else:
+        raise ValueError(f"unknown case {case}")
+    g_xy[::23] = 0.0
+    g_conic[1::19, 1] = -0.0
+    f32 = lambda a: np.asarray(a, np.float32)   # noqa: E731
+    return {"means": f32(means), "log_scales": f32(log_scales),
+            "quats": f32(quats), "active": active,
+            "g_xy": f32(g_xy), "g_conic": f32(g_conic),
+            "viewmat": f32(cam.world_to_local()),
+            "focal": f32(cam.focal(img_size)),
+            "pixel_center": f32(cam.center(img_size)),
+            "img_size": img_size, "special": np.arange(k)}

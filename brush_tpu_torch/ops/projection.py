@@ -210,3 +210,170 @@ def project_splats(means, log_scales, quats, viewmat, focal, pixel_center,
         xy=xy, depth=depth, conic=conic, radius=radius,
         tile_min=tmin, tile_max=tmax, visible=visible,
     )
+
+
+def quat_norm_plain(quats: torch.Tensor) -> torch.Tensor:
+    """|q| of (N, 4) quaternions as sqrt((w w + y y) + (x x + z z)), op by
+    op: the order in which torch.linalg.vector_norm's CUDA reduction sums
+    four squares (normalize_quats on the card; the CPU's vector_norm may
+    sum them in another order). csrc/projection.cu's norm, for its twin."""
+    sq = quats * quats
+    return torch.sqrt((sq[:, 0] + sq[:, 2]) + (sq[:, 1] + sq[:, 3]))
+
+
+def project_bwd_plain(means, log_scales, quats, viewmat, focal, pixel_center,
+                      img_size, g_xy, g_conic, active=None):
+    """The gradients (means, log_scales, quats) of
+    project_splats(means, log_scales, normalize_quats(quats), ...) from
+    those of xy (N, 2) and conic (N, 3), quats raw: csrc/projection.cu's
+    backward op by op (its twin, for the tests and chip_smoke.py; the
+    package never calls it). The forward is recomputed in project_splats'
+    order, the norm as quat_norm_plain. Autograd's masks: a row culled by
+    the near plane or `active` passes xy's gradient to its means through
+    z = 1; one culled there or by det == 0 gets no conic gradient; tx = z
+    clamp(px / z) passes its gradient to px inside the clamp (inclusive)
+    and to z outside; a norm under the 1e-12 clamp passes none."""
+    zero = torch.zeros((), dtype=means.dtype, device=means.device)
+    w, t = viewmat[:3, :3], viewmat[:3, 3]
+    fx, fy = focal[0], focal[1]
+    img = torch.tensor([float(img_size[0]), float(img_size[1])],
+                       dtype=means.dtype, device=means.device)
+    tan_fov = 0.5 * img / focal
+    hi = (img - pixel_center) / focal + 0.3 * tan_fov
+    lo = -(pixel_center / focal + 0.3 * tan_fov)
+
+    # The forward's terms (project_splats, calc_cov2d, cov_to_conic).
+    norm = quat_norm_plain(quats)
+    den = torch.clamp(norm, min=1e-12)
+    qn = quats / den[:, None]
+    qw, qx, qy, qz = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
+    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
+    px = mx * w[0, 0] + my * w[0, 1] + mz * w[0, 2] + t[0]
+    py = mx * w[1, 0] + my * w[1, 1] + mz * w[1, 2] + t[1]
+    depth = mx * w[2, 0] + my * w[2, 1] + mz * w[2, 2] + t[2]
+    vis0 = depth > NEAR_PLANE_Z
+    if active is not None:
+        vis0 = vis0 & active
+    z = torch.where(vis0, depth, torch.ones_like(depth))
+    s = torch.exp(log_scales)
+    rz = 1.0 / z
+    rz2 = rz * rz
+    vx, vy = px * rz, py * rz
+    vxc = torch.clamp(vx, lo[0], hi[0])
+    vyc = torch.clamp(vy, lo[1], hi[1])
+    tx, ty = z * vxc, z * vyc
+    x2, y2, z2 = qx * qx, qy * qy, qz * qz
+    xy_, xz_, yz_ = qx * qy, qx * qz, qy * qz
+    wx_, wy_, wz_ = qw * qx, qw * qy, qw * qz
+    r = [1.0 - 2.0 * (y2 + z2), 2.0 * (xy_ - wz_), 2.0 * (xz_ + wy_),
+         2.0 * (xy_ + wz_), 1.0 - 2.0 * (x2 + z2), 2.0 * (yz_ - wx_),
+         2.0 * (xz_ - wy_), 2.0 * (yz_ + wx_), 1.0 - 2.0 * (x2 + y2)]
+    m = [r[i] * s[:, i % 3] for i in range(9)]
+
+    def dot3(a0, b0, a1, b1, a2, b2):
+        return a0 * b0 + a1 * b1 + a2 * b2
+
+    v00 = dot3(m[0], m[0], m[1], m[1], m[2], m[2])
+    v01 = dot3(m[0], m[3], m[1], m[4], m[2], m[5])
+    v02 = dot3(m[0], m[6], m[1], m[7], m[2], m[8])
+    v11 = dot3(m[3], m[3], m[4], m[4], m[5], m[5])
+    v12 = dot3(m[3], m[6], m[4], m[7], m[5], m[8])
+    v22 = dot3(m[6], m[6], m[7], m[7], m[8], m[8])
+    ja = fx * rz
+    jc0 = -fx * tx * rz2
+    jb = fy * rz
+    jc1 = -fy * ty * rz2
+    t0 = [ja * w[0, j] + jc0 * w[2, j] for j in range(3)]
+    t1 = [jb * w[1, j] + jc1 * w[2, j] for j in range(3)]
+    u = [dot3(v00, t0[0], v01, t0[1], v02, t0[2]),
+         dot3(v01, t0[0], v11, t0[1], v12, t0[2]),
+         dot3(v02, t0[0], v12, t0[1], v22, t0[2])]
+    q = [dot3(v00, t1[0], v01, t1[1], v02, t1[2]),
+         dot3(v01, t1[0], v11, t1[1], v12, t1[2]),
+         dot3(v02, t1[0], v12, t1[1], v22, t1[2])]
+    cov0 = dot3(t0[0], u[0], t0[1], u[1], t0[2], u[2]) + COV_BLUR
+    cov1 = dot3(t1[0], u[0], t1[1], u[1], t1[2], u[2])
+    cov2 = dot3(t1[0], q[0], t1[1], q[1], t1[2], q[2]) + COV_BLUR
+    vis1 = vis0 & (cov0 * cov2 - cov1 * cov1 != 0.0)
+    cs0 = torch.where(vis1, cov0, torch.ones_like(cov0))
+    cs1 = torch.where(vis1, cov1, zero)
+    cs2 = torch.where(vis1, cov2, torch.ones_like(cov2))
+    inv = 1.0 / (cs0 * cs2 - cs1 * cs1)
+
+    # conic = (cs2, -cs1, cs0) inv: the safe covariance's gradient, zero
+    # where the row is not visible.
+    gx, gy = g_xy[:, 0], g_xy[:, 1]
+    ga, gb, gc = g_conic[:, 0], g_conic[:, 1], g_conic[:, 2]
+    g_inv = (ga * cs2 - gb * cs1) + gc * cs0
+    g_det = -(g_inv * (inv * inv))
+    g00 = torch.where(vis1, gc * inv + g_det * cs2, zero)
+    g01 = torch.where(vis1, -(gb * inv + 2.0 * (g_det * cs1)), zero)
+    g11 = torch.where(vis1, ga * inv + g_det * cs0, zero)
+    # cov = (t0 V t0, t1 V t0, t1 V t1): T's rows; V's through g_u = g00
+    # t0 + g01 t1 and g_q = g11 t1 as H = g_u t0^T + g_q t1^T plus its
+    # transpose, whose gradient of M = R diag(s) is H M.
+    e00, e11 = 2.0 * g00, 2.0 * g11
+    gt0 = [e00 * u[j] + g01 * q[j] for j in range(3)]
+    gt1 = [g01 * u[j] + e11 * q[j] for j in range(3)]
+    gu = [g00 * t0[j] + g01 * t1[j] for j in range(3)]
+    gv = [g11 * t1[j] for j in range(3)]
+    h = [None] * 9
+    for a in range(3):
+        h[4 * a] = 2.0 * (gu[a] * t0[a] + gv[a] * t1[a])
+        for b in range(a + 1, 3):
+            h[3 * a + b] = h[3 * b + a] = (
+                (gu[a] * t0[b] + gu[b] * t0[a])
+                + (gv[a] * t1[b] + gv[b] * t1[a]))
+    gr = [None] * 9
+    gls = []
+    for j in range(3):
+        gs = None
+        for a in range(3):
+            gm = h[4 * a] * m[3 * a + j]
+            for b in range(3):
+                if b != a:
+                    gm = gm + h[3 * a + b] * m[3 * b + j]
+            gs = gm * r[j] if a == 0 else gs + gm * r[3 * a + j]
+            gr[3 * a + j] = gm * s[:, j]
+        gls.append(gs * s[:, j])
+    # R(q), then q / clamp(|q|, 1e-12).
+    d21, d02, d10 = gr[7] - gr[5], gr[2] - gr[6], gr[3] - gr[1]
+    s01, s02, s12 = gr[1] + gr[3], gr[2] + gr[6], gr[5] + gr[7]
+    gqw = 2.0 * ((qx * d21 + qy * d02) + qz * d10)
+    gqx = 2.0 * ((qy * s01 + qz * s02) + qw * d21) - 4.0 * (
+        qx * (gr[4] + gr[8]))
+    gqy = 2.0 * ((qx * s01 + qz * s12) + qw * d02) - 4.0 * (
+        qy * (gr[0] + gr[8]))
+    gqz = 2.0 * ((qx * s02 + qy * s12) + qw * d10) - 4.0 * (
+        qz * (gr[0] + gr[4]))
+    dot = (gqw * qw + gqx * qx) + (gqy * qy + gqz * qz)
+    kd = torch.where(norm >= 1e-12, dot, zero)
+    gq = [(g - qc * kd) / den for g, qc in ((gqw, qw), (gqx, qx), (gqy, qy),
+                                           (gqz, qz))]
+    # T = J W; J from rz and t = z clamp(p rz).
+    gja = dot3(gt0[0], w[0, 0], gt0[1], w[0, 1], gt0[2], w[0, 2])
+    gjc0 = dot3(gt0[0], w[2, 0], gt0[1], w[2, 1], gt0[2], w[2, 2])
+    gjb = dot3(gt1[0], w[1, 0], gt1[1], w[1, 1], gt1[2], w[1, 2])
+    gjc1 = dot3(gt1[0], w[2, 0], gt1[1], w[2, 1], gt1[2], w[2, 2])
+    hx, hy = gjc0 * fx, gjc1 * fy
+    g_tx, g_ty = -(hx * rz2), -(hy * rz2)
+    g_rz = (gja * fx + gjb * fy) - 2.0 * ((hx * tx + hy * ty) * rz)
+    in_x = (vx >= lo[0]) & (vx <= hi[0])
+    in_y = (vy >= lo[1]) & (vy <= hi[1])
+    gz_t = (torch.where(in_x, zero, g_tx * vxc)
+            + torch.where(in_y, zero, g_ty * vyc))
+    gz_c = gz_t - g_rz * rz2
+    gpx_c = torch.where(vis1 & in_x, g_tx, zero)
+    gpy_c = torch.where(vis1 & in_y, g_ty, zero)
+    gz_cv = torch.where(vis1, gz_c, zero)
+    # xy = (p / z) f + c, then p = W m + t.
+    ex, ey = gx * fx, gy * fy
+    gpx = ex / z + gpx_c
+    gpy = ey / z + gpy_c
+    gz = gz_cv - (ex * (px / z) + ey * (py / z)) / z
+    gpz = torch.where(vis0, gz, zero)
+    g_means = torch.stack([dot3(w[0, j], gpx, w[1, j], gpy, w[2, j], gpz)
+                           for j in range(3)], dim=-1)
+    g_scales = torch.stack([torch.where(vis1, g, zero) for g in gls], dim=-1)
+    g_quats = torch.stack([torch.where(vis1, g, zero) for g in gq], dim=-1)
+    return g_means, g_scales, g_quats

@@ -15,8 +15,9 @@ same projection, SH colour and opacity, then exact float32 binning
 its hand-written backward (ops/rasterize_tiled.py), plain PyTorch on any
 device: no quantized records, no colour clamp, no rounded pool.
 
-Differentiation (needs_grad=True): projection and SH are plain autograd;
-the record pipeline is the custom autograd Function RecordPipeline
+Differentiation (needs_grad=True): on the card the projection and the SH
+colour are autograd Functions over their kernels (plain autograd on the
+CPU); the record pipeline is the custom autograd Function RecordPipeline
 (rasterize_bwd and segment_sum kernels), the XLA rasterizer the Function
 rasterize_tiled.TiledRaster. The tile pretest, the depth key, the decode
 rows and the binning are integer bookkeeping built from detached tensors,
@@ -40,6 +41,7 @@ from brush_tpu_torch.ops.binning import (
     Intersections, TileMasks, build_intersections, cell_bbox,
     precompute_tile_masks,
 )
+from brush_tpu_torch.ops.cuda import projection as cuda_projection
 from brush_tpu_torch.ops.cuda.rasterize_fwd import check_cell
 from brush_tpu_torch.ops.pipeline import RecordPipeline, infer_pipeline
 from brush_tpu_torch.ops.projection import (
@@ -148,18 +150,25 @@ def project_inputs(means, log_scales, quats, sh_coeffs, raw_opacity,
     """The differentiable per-splat stages (render.py:250-273): the
     projection and the SH colour in float32 with TF32 off, the sigmoid
     opacity, and the centres plus xy_dummy. Returns (proj, color, opac,
-    xy). Spans `project` and `sh` time the two parts, and while recording
-    `backward/project` and `backward/sh` their backward."""
+    xy). CUDA tensors take the projection's kernels (ops/cuda/
+    projection.project), CPU tensors the plain code. Spans `project` and
+    `sh` time the two parts, and while recording `backward/project` and
+    `backward/sh` their backward."""
     bwd_proj, bwd_sh = grad_span("backward/project"), grad_span("backward/sh")
     with full_f32():
         with span("project"):
             means_p, scales_p, quats_p = bwd_proj.inputs(
                 means, log_scales, quats)
-            proj = project_splats(
-                means_p, scales_p, normalize_quats(quats_p),
-                cam.viewmat, cam.focal, cam.pixel_center, img_size,
-                active=active,
-            )
+            if means.device.type == "cuda":
+                proj = cuda_projection.project(
+                    means_p, scales_p, quats_p, cam.viewmat, cam.focal,
+                    cam.pixel_center, img_size, active=active)
+            else:
+                proj = project_splats(
+                    means_p, scales_p, normalize_quats(quats_p),
+                    cam.viewmat, cam.focal, cam.pixel_center, img_size,
+                    active=active,
+                )
             xy, conic = bwd_proj.outputs(proj.xy, proj.conic)
             proj = proj._replace(xy=xy, conic=conic)
         with span("sh"):

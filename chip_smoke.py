@@ -55,7 +55,14 @@ result line; each phase prints its seconds):
      draw's 5,242,880 rows and 8,388,608 drawn rows, 16 coefficients)
      bit-equal to their plain twins at the kernels' directions, two
      launches bit-equal, timed against their bound; the render path
-     launches the forward once, a training step each once;
+     launches the forward once, a training step each once; the
+     projection's forward and backward kernels (projection_phase: the
+     bicycle draw's 5,242,880 rows and 8,388,608 drawn rows, 43.75 %
+     active) bit-equal to project_splats(normalize_quats(quats)) and to
+     project_bwd_plain, two launches bit-equal, the autograd Function's
+     gradients the kernel's, timed against their bound and the plain
+     chain's forward and backward under autograd; held so on every kept
+     argument set below (check_projection), launched as the SH pair;
   3. the render path at full width: render_splats(needs_grad=False) of the
      bench scene (1M random splats, SH degree 1, 1024x1024, pool 2162688),
      with the launch counters reset just before and read just after and
@@ -92,11 +99,11 @@ result line; each phase prints its seconds):
   5. the main path of training at full width: SplatTrainer on the bench
      scene against a black ground truth (bench.py:210-231), 6 steps with
      warmup 1 and refine every 3, so refine runs at iterations 1 (through
-     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all seven
-     kernel wrappers' counters (the five and the SH pair) reset just
-     before and read just after (the tile pretest and each SH kernel once
-     a step); every step's CUDA-event time. The main path's
-     calls to the seven wrappers keep
+     the pre-grow path, capacity 1M -> 2M) and 4 (2M -> 4M); all nine
+     kernel wrappers' counters (the five, the SH pair and the projection
+     pair) reset just before and read just after (the tile pretest and
+     each SH and projection kernel once a step); every step's CUDA-event
+     time. The main path's calls to the nine wrappers keep
      their arguments on the first step at each capacity; then the train
      step metric: 8 warm steps at the capacity the run ends at; then all
      of it again with SplatTrainer(raster_cell=CELL); between the two,
@@ -130,9 +137,9 @@ result line; each phase prints its seconds):
      its twin with libpng's adaptive row filters (loaded and timed once,
      images equal); `train` 620 steps (eval every 200 on 4 views,
      checkpoints every 200, refines at 501 and 601, PLY export) with all
-     seven wrappers' counters reset just before and read just after: one
-     launch of each a step and of the forward four (the tile pretest,
-     expand, rasterize_fwd, sh_color_fwd) one an eval render
+     nine wrappers' counters reset just before and read just after: one
+     launch of each a step and of the forward five (the tile pretest,
+     expand, rasterize_fwd, sh_color_fwd, project_fwd) one an eval render
      (pool-growth retries counted); the kernels' arguments kept on the
      first step and the first after each refine, and each kernel held to
      its plain version on the first and the last of them (tolerances as
@@ -188,7 +195,7 @@ result line; each phase prints its seconds):
      10,485,760; one probe step (render with gradients, L1, backward,
      Adam) with the counters reset just before and read just after: one
      launch of each kernel, no record dropped, finite loss and parameters;
-     all seven kernels against their plain versions on that step's own
+     all nine kernels against their plain versions on that step's own
      arguments (phase 2's tolerances, repeats bit-equal), timed (wrapper
      and device), with bounds (both rasterizers' reach bounds too) and
      index_add_ beside segment_sum; the median of 8 probe steps on fixed
@@ -214,7 +221,7 @@ result line; each phase prints its seconds):
      finite parameters at 3000 and 3200, no record dropped at any eval,
      eval PSNR at 1500 and 3000 no lower than the JAX run's 30.86 and
      31.28 less 1.5 dB, one launch of each kernel a step and of the
-     forward four one an eval render; the seven kernels held to their plain
+     forward five one an eval render; the nine kernels held to their plain
      versions (phase 2's tolerances, repeats bit-equal) on the arguments
      of step 3002, the first after the reset, and timed there; one
      [quality] line;
@@ -301,6 +308,9 @@ PRETEST_TIMED_VIEWS = 2     # and its views that are timed
 SH_SEED = 3200000323        # sh_phase's draw of the bicycle scene
 SH_ROWS = (5_242_880, 8_388_608)   # B, and the densify cell's capacity
 SH_BYTES = 12 + 192 + 12    # a splat each way at K = 16 (csrc/sh.cu)
+PROJ_SEED = 3200000325      # projection_phase's draw of the bicycle scene
+PROJ_ROWS = SH_ROWS
+PROJ_DENSIFY_LIVE = 0.4375  # the 8.39M rows' live share (bicycle-densify)
 BWD_RTOL = 1e-4   # rasterize_bwd vs plain, per row, relative to the row max
 SEG_RTOL = 1e-5   # segment_sum vs plain, likewise
 TRAIN_STEPS = 6
@@ -1201,6 +1211,192 @@ def sh_phase(smi: str) -> dict:
     return out
 
 
+def same_field(a, b) -> bool:
+    """Two tensors equal in dtype, shape and every bit (floats by their
+    int32 views, so -0 is not +0)."""
+    import torch
+
+    if a.is_floating_point():
+        return same_bits(a, b)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def proj_bytes(n: int, backward: bool, active: bool) -> int:
+    """The projection kernels' bytes for n rows (csrc/projection.cu): 40
+    read a row (means, log_scales, quats), 1 more with `active`; forward
+    45 written (Projection's seven fields); backward 20 more read (xy's
+    and conic's gradients) and 40 written."""
+    return n * ((100 if backward else 85) + int(active))
+
+
+def check_projection(args, label) -> dict:
+    """The projection kernels on the arguments kept_kernel_args kept
+    (args: its dict; either kernel may be absent) against their twins on
+    the card: the forward's seven fields against
+    project_splats(normalize_quats(quats)), the backward's three
+    gradients against project_bwd_plain, every bit, and two launches
+    bit-equal. Returns {wrapper name: the twin's ms (the plain chain's
+    forward; project_bwd_plain)}."""
+    from brush_tpu_torch.ops.cuda import projection
+    from brush_tpu_torch.ops.projection import (
+        normalize_quats, project_bwd_plain, project_splats,
+    )
+
+    plain = {}
+    if "project_fwd" in args:
+        a = args["project_fwd"]
+        got = projection.project_fwd(*a)
+        want, plain["project_fwd"] = timed(lambda: project_splats(
+            a[0], a[1], normalize_quats(a[2]), *a[3:7], active=a[7]))
+        again = projection.project_fwd(*a)
+        bad = [f for f, x, y, z in zip(got._fields, got, want, again)
+               if not (same_field(x, y) and same_field(x, z))]
+        if bad:
+            raise AssertionError(
+                f"[{label}] project_fwd: {bad} differ from the plain "
+                f"chain's at {a[0].shape[0]} rows, or two launches differ")
+    if "project_bwd" in args:
+        a = args["project_bwd"]
+        got = projection.project_bwd(*a)
+        want, plain["project_bwd"] = timed(lambda: project_bwd_plain(*a))
+        again = projection.project_bwd(*a)
+        bad = [f for f, x, y, z in zip(("means", "log_scales", "quats"),
+                                       got, want, again)
+               if not (same_bits(x, y) and same_bits(x, z))]
+        if bad:
+            raise AssertionError(
+                f"[{label}] project_bwd: the gradients of {bad} differ "
+                f"from project_bwd_plain's at {a[0].shape[0]} rows, or two "
+                f"launches differ")
+    return plain
+
+
+def proj_bounds(args) -> dict:
+    """{wrapper name: (least ms, what bounds it)} of the projection
+    kernels in args (kept_kernel_args' dict)."""
+    out = {}
+    for name, backward in (("project_fwd", False), ("project_bwd", True)):
+        if name in args:
+            a = args[name]
+            out[name] = _bound(proj_bytes(a[0].shape[0], backward,
+                                          a[-1] is not None), 0)
+    return out
+
+
+def proj_rows(n: int, seed: int):
+    """The projection's arguments on the card, n rows: the bicycle-5m
+    draw of benchmark/scenes/uniform.py (all live) at its 5,242,880
+    splats, else n rows drawn in [-14, 14]^3 with bicycle-sized log
+    scales and normal quaternions, PROJ_DENSIFY_LIVE of them active; the
+    first bicycle view's camera. Returns (args of project_fwd, (g_xy,
+    g_conic) normal with zeros of both signs)."""
+    import torch
+    from benchmark.scenes import uniform
+    from brush_tpu_torch.camera import Camera
+    from brush_tpu_torch.ops.rasterize_reference import camera_params
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "bicycle-5m.json")) as f:
+        sc = json.load(f)["scene"]
+    size = (sc["width"], sc["height"])
+    pose = uniform.ring_poses(sc["views"], sc["distance"],
+                              np.radians(sc["fov_x_deg"]), size)[0]
+    cp = camera_params(Camera(**pose), size, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if n == sc["splats"]:
+        p = uniform.params(sc, seed, "cuda")
+        rows = (p["means"], p["log_scales"], p["quats"], None)
+        del p
+    else:
+        rows = (torch.rand((n, 3), generator=gen, device="cuda") * 28.0
+                - 14.0,
+                torch.log(torch.rand((n, 3), generator=gen, device="cuda")
+                          * 0.02 + 0.0025),
+                torch.randn((n, 4), generator=gen, device="cuda"),
+                torch.rand(n, generator=gen, device="cuda")
+                < PROJ_DENSIFY_LIVE)
+    g_xy = torch.randn((n, 2), generator=gen, device="cuda")
+    g_conic = torch.randn((n, 3), generator=gen, device="cuda")
+    g_xy[::97] = 0.0
+    g_conic[1::89, 1] = -0.0
+    return (*rows[:3], *cp, size, rows[3]), (g_xy, g_conic)
+
+
+def projection_phase(smi: str) -> dict:
+    """The projection's kernels (ops/cuda/projection.py) at the
+    benchmark's sizes, PROJ_ROWS rows (proj_rows): each bit-equal to its
+    twin (check_projection), the autograd Function's gradients the
+    backward kernel's; the wrapper's and the device's ms, the twins' and
+    the plain chain's ms (its forward, and forward with backward under
+    autograd, the parent's path), and the bound.
+    Returns {"fwd <n>" / "bwd <n>": those fields}."""
+    import torch
+    from brush_tpu_torch.ops.cuda import projection
+    from brush_tpu_torch.ops.projection import normalize_quats, project_splats
+
+    t0 = time.perf_counter()
+    out = {}
+    for n in PROJ_ROWS:
+        args, grads = proj_rows(n, PROJ_SEED)
+        active = args[7]
+        twin = check_projection({"project_fwd": args,
+                                 "project_bwd": (*args[:7], *grads,
+                                                 active)}, f"projection {n}")
+        got = projection.project_bwd(*args[:7], *grads, active)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args[:3]]
+        proj = projection.project(*leaves, *args[3:7], active=active)
+        torch.autograd.backward([proj.xy, proj.conic], list(grads))
+        if not all(same_bits(leaf.grad, g) for leaf, g in zip(leaves, got)):
+            raise AssertionError(f"[projection {n}] the Function's "
+                                 f"gradients are not the backward kernel's")
+        del proj, leaves, got
+
+        def chain(backward):
+            leaves = [a.detach().clone().requires_grad_(backward)
+                      for a in args[:3]]
+            p = project_splats(leaves[0], leaves[1],
+                               normalize_quats(leaves[2]), *args[3:7],
+                               active=active)
+            if backward:
+                torch.autograd.backward([p.xy, p.conic], list(grads))
+            return p
+
+        fwd = lambda: projection.project_fwd(*args)  # noqa: E731
+        bwd = lambda: projection.project_bwd(  # noqa: E731
+            *args[:7], *grads, active)
+        chain_ms = {"fwd": cuda_ms(lambda: chain(False), reps=5),
+                    "bwd": cuda_ms(lambda: chain(True), reps=5)}
+        chain_of = {"fwd": "forward",
+                    "bwd": "forward and backward under autograd"}
+        for tag, fn, backward in (("fwd", fwd, False), ("bwd", bwd, True)):
+            bound = _bound(proj_bytes(n, backward, active is not None), 0)
+            out[f"{tag} {n}"] = {
+                "ms": cuda_ms(fn, reps=20, warm=3),
+                "device_ms": device_ms(fn, reps=20, warm=3),
+                "plain_ms": twin[f"project_{tag}"],
+                "chain_ms": chain_ms[tag],
+                "bound_ms": bound[0], "bound_by": bound[1]}
+        live = ("all live" if active is None
+                else f"{int(active.sum())} active")
+        print(f"[projection {n}] rows ({live}): "
+              f"forward bit-equal to the plain chain on all seven fields, "
+              f"backward to project_bwd_plain, two launches bit-equal, the "
+              f"Function's gradients the kernel's; "
+              + "; ".join(f"{t} {o['ms']:.4f} ms, device "
+                          f"{o['device_ms']:.4f} (twin {o['plain_ms']:.3f}, "
+                          f"the plain chain {o['chain_ms']:.3f} "
+                          f"{chain_of[t]}, "
+                          f"bound {o['bound_ms']:.4f} by {o['bound_by']}, "
+                          f"{100 * o['bound_ms'] / o['device_ms']:.1f} % of "
+                          f"it)"
+                          for t in ("fwd", "bwd")
+                          for o in (out[f"{t} {n}"],)))
+        del args, grads, active
+        torch.cuda.empty_cache()
+    print(f"[projection] {smi}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _bound(nbytes, nops):
     """(least ms, "bytes" or "operations"): the larger of nbytes over the
     memory rate and nops over the float32 rate."""
@@ -1341,11 +1537,12 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
     counts = build.launch_counts()
     if counts != {"tile_pretest": 1, "expand": 1, "rasterize_fwd": 1,
                   "rasterize_bwd": 0, "segment_sum": 0, "sh_color_fwd": 1,
-                  "sh_color_bwd": 0}:
+                  "sh_color_bwd": 0, "project_fwd": 1, "project_bwd": 0}:
         raise AssertionError(f"main path: launches {counts}, not one of "
                              f"each forward kernel")
     tag = "main path" if tuple(cell) == (1, 1) else f"cell {cell}"
     check_sh(seen, f"{tag} render")
+    check_projection(seen, f"{tag} render")
     del seen
     dropped = int(aux.num_dropped)
     if dropped != 0:
@@ -1368,7 +1565,8 @@ def main_path(splats, cp, size, cfg, cell=(1, 1)):
     print(f"[{tag}] bench render {size[0]}x{size[1]}, {cfg['n']} splats, "
           f"cell {cell}: visible={int(aux.num_visible)} "
           f"records={int(aux.num_isects)} dropped={dropped} launches={counts}"
-          f"; sh_color_fwd bit-equal to its twin on its arguments")
+          f"; sh_color_fwd and project_fwd bit-equal to their twins on "
+          f"their arguments")
     print(f"[{tag}] median of 10 renders {ms:.3f} ms "
           f"({size[0] * size[1] / ms / 1e3:.2f} Mpix/s); all ms "
           f"{[round(t, 3) for t in times]}")
@@ -1475,8 +1673,9 @@ def castle_phase():
     t_gpu = time.perf_counter() - t0
     n = build.launch_counts()
     counts = (n["expand"], n["rasterize_fwd"], n["tile_pretest"],
-              n["sh_color_fwd"])
+              n["sh_color_fwd"], n["project_fwd"])
     check_sh(seen, "castle eval")
+    check_projection(seen, "castle eval")
     del seen
     psnr = [e.psnr for e in evals]
     ssim = [e.ssim for e in evals]
@@ -1485,11 +1684,13 @@ def castle_phase():
           f"SSIM {[round(s, 6) for s in ssim]} vs the CPU render; pool "
           f"{evals[-1].pool}; launches expand={counts[0]} "
           f"rasterize_fwd={counts[1]} tile_pretest={counts[2]} "
-          f"sh_color_fwd={counts[3]} sh_color_bwd={n['sh_color_bwd']} (the "
-          f"last view's sh_color_fwd bit-equal to its twin); host s: "
+          f"sh_color_fwd={counts[3]} sh_color_bwd={n['sh_color_bwd']} "
+          f"project_fwd={counts[4]} project_bwd={n['project_bwd']} (the "
+          f"last view's sh_color_fwd and project_fwd bit-equal to their "
+          f"twins); host s: "
           f"cpu {t_cpu:.1f} gpu {t_gpu:.1f}")
     if min(counts) < len(cams) or len(set(counts)) != 1 \
-            or n["sh_color_bwd"]:
+            or n["sh_color_bwd"] or n["project_bwd"]:
         raise AssertionError(f"castle eval: launches {counts}, not one of "
                              f"each forward kernel a render")
     if min(psnr) < 50.0 or min(ssim) < 0.999:
@@ -1577,7 +1778,8 @@ def castle_cells(splats, cams, gts, pool):
         if min(counts["expand"], counts["rasterize_fwd"]) < len(cams) or \
                 counts["tile_pretest"] != counts["expand"] or \
                 counts["sh_color_fwd"] != counts["expand"] or \
-                counts["sh_color_bwd"]:
+                counts["project_fwd"] != counts["expand"] or \
+                counts["sh_color_bwd"] or counts["project_bwd"]:
             raise AssertionError(f"castle cell {cell}: launches {counts}")
     print(f"[castle cells] {time.perf_counter() - t0:.1f} s")
 
@@ -1624,18 +1826,20 @@ def castle_kernels(splats, cams, pool):
 @contextlib.contextmanager
 def kept_kernel_args(armed: list):
     """While armed[0] is true, keep the arguments of the main path's calls
-    to the seven kernel wrappers: the record pipeline's four, ops/binning's
-    call of the tile pretest and the SH colour's autograd Function's calls
-    of its forward and backward (the wrappers still launch and count as
-    before). Yields {wrapper name: last arguments, "<wrapper name> kw":
+    to the nine kernel wrappers: the record pipeline's four, ops/binning's
+    call of the tile pretest and the SH colour's and the projection's
+    autograd Functions' calls of their forward and backward (the wrappers
+    still launch and count as before). Yields {wrapper name: last
+    arguments, "<wrapper name> kw":
     its last keyword arguments (the rasterizers' scan_passes and
     k_lanes)}."""
     from brush_tpu_torch.ops import pipeline
-    from brush_tpu_torch.ops.cuda import build, sh, tile_pretest
+    from brush_tpu_torch.ops.cuda import build, projection, sh, tile_pretest
 
     seen = {}
     homes = {name: {"tile_pretest": tile_pretest, "sh_color_fwd": sh,
-                    "sh_color_bwd": sh}.get(name, pipeline)
+                    "sh_color_bwd": sh, "project_fwd": projection,
+                    "project_bwd": projection}.get(name, pipeline)
              for name in build.KERNELS}
     saved = {name: getattr(homes[name], name) for name in build.KERNELS}
 
@@ -1683,8 +1887,9 @@ def timed_steps(trainer, state, batch, steps: int):
 
 def train_path(cfg, cell=(1, 1)):
     """Phase 5, the main path: SplatTrainer steps on the bench scene
-    against a black ground truth at raster cell `cell`, all seven kernel
-    wrappers counted (the tile pretest and each SH kernel once a step),
+    against a black ground truth at raster cell `cell`, all nine kernel
+    wrappers counted (the tile pretest and each SH and projection kernel
+    once a step),
     and the kernels' arguments
     kept on the first step at each
     capacity. Then the train step metric at the capacity the run ended
@@ -1741,7 +1946,8 @@ def train_path(cfg, cell=(1, 1)):
           f"{time.perf_counter() - t_phase:.1f} s")
     if min(counts.values()) < 1 or any(
             counts[name] != TRAIN_STEPS for name in (
-                "tile_pretest", "sh_color_fwd", "sh_color_bwd")):
+                "tile_pretest", "sh_color_fwd", "sh_color_bwd",
+                "project_fwd", "project_bwd")):
         raise AssertionError(f"training: launches {counts}")
     if sorted(refines) != [1, 4]:
         raise AssertionError(f"refine ran at {sorted(refines)}, not [1, 4]")
@@ -1774,13 +1980,14 @@ def train_path(cfg, cell=(1, 1)):
 def train_kernels(kept, tag="train", reach=True):
     """Phase 6 (and the "cli" phase's check): each kernel against its
     plain version on the arguments a training run gave it, kept = {when:
-    the seven wrappers' arguments} in the run's order; then the times,
+    the nine wrappers' arguments} in the run's order; then the times,
     bounds and errors of the last arguments, as the result reports them."""
     import torch
     from brush_tpu_torch.ops.cuda.expand import expand
     from brush_tpu_torch.ops.cuda.rasterize_bwd import rasterize_bwd
     from brush_tpu_torch.ops.cuda.rasterize_fwd import rasterize_fwd
     from brush_tpu_torch.ops.cuda.segsum import segment_sum, slot_owners
+    from brush_tpu_torch.ops.cuda.projection import project_bwd, project_fwd
     from brush_tpu_torch.ops.cuda.sh import sh_color_bwd, sh_color_fwd
     from brush_tpu_torch.ops.cuda.tile_pretest import tile_pretest
 
@@ -1799,6 +2006,7 @@ def train_kernels(kept, tag="train", reach=True):
                       kw=b_kw)
         s = check_segsum(args["segment_sum"], label)
         sh_plain = check_sh(args, label)
+        proj_plain = check_projection(args, label)
         print(f"[{label}] pool {k['exp_args'][6]}, records "
               f"{int(k['exp_args'][3][0])}: tile_pretest bit-equal to its "
               f"plain twin; expand byte-equal; rasterize_fwd "
@@ -1811,11 +2019,14 @@ def train_kernels(kept, tag="train", reach=True):
               f"{s['abs']:.3e}); sh_color_fwd and sh_color_bwd "
               f"bit-equal to their twins at "
               f"{args['sh_color_fwd'][0].shape[0]} rows, SH degree "
-              f"{args['sh_color_fwd'][3]}; {time.perf_counter() - t0:.1f} s")
+              f"{args['sh_color_fwd'][3]}; project_fwd and project_bwd "
+              f"bit-equal to their twins; "
+              f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     pt_args, exp_args, r_args = k["pt_args"], k["exp_args"], k["r_args"]
     sh_f, sh_b = args["sh_color_fwd"], args["sh_color_bwd"]
+    pr_f, pr_b = args["project_fwd"], args["project_bwd"]
     b_args, s_args = args["rasterize_bwd"], args["segment_sum"]
     rows, _, cum, total = s_args
     ids = slot_owners(cum, total, rows.shape[1])
@@ -1827,7 +2038,9 @@ def train_kernels(kept, tag="train", reach=True):
              "segment_sum": (lambda: segment_sum(*s_args), 20),
              "tile_pretest": (lambda: tile_pretest(*pt_args), 20),
              "sh_color_fwd": (lambda: sh_color_fwd(*sh_f), 20),
-             "sh_color_bwd": (lambda: sh_color_bwd(*sh_b), 20)}
+             "sh_color_bwd": (lambda: sh_color_bwd(*sh_b), 20),
+             "project_fwd": (lambda: project_fwd(*pr_f), 20),
+             "project_bwd": (lambda: project_bwd(*pr_b), 20)}
     ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in calls.items()}
     dev = {name: device_ms(fn, reps) for name, (fn, reps) in calls.items()}
 
@@ -1854,13 +2067,15 @@ def train_kernels(kept, tag="train", reach=True):
                 plain={"expand": e_plain, "rasterize_fwd": r["plain_ms"],
                        "rasterize_bwd": b["plain_ms"],
                        "segment_sum": s["plain_ms"], "tile_pretest": p_plain,
-                       **sh_plain},
+                       **sh_plain, **proj_plain},
                 err={"expand": 0.0,
                      "rasterize_fwd": max(r["err"], r["flip_err"]),
                      "rasterize_bwd": b["abs"], "segment_sum": s["abs"],
                      "tile_pretest": 0.0, "sh_color_fwd": 0.0,
-                     "sh_color_bwd": 0.0},
-                bound={**bounds(k, r, b), **sh_bounds(args)}, library=s_lib,
+                     "sh_color_bwd": 0.0, "project_fwd": 0.0,
+                     "project_bwd": 0.0},
+                bound={**bounds(k, r, b), **sh_bounds(args),
+                       **proj_bounds(args)}, library=s_lib,
                 when=when,
                 scan={"rasterize_fwd": r_kw, "rasterize_bwd": b_kw},
                 checks={"rasterize_fwd": {key: v for key, v in r.items()
@@ -2299,7 +2514,8 @@ def sharded_path(cfg, single):
                                  "from SplatTrainer")
         if min(counts.values()) < TRAIN_STEPS or sorted(refines) != [1, 4] \
                 or any(counts[name] != TRAIN_STEPS for name in (
-                    "tile_pretest", "sh_color_fwd", "sh_color_bwd")):
+                    "tile_pretest", "sh_color_fwd", "sh_color_bwd",
+                    "project_fwd", "project_bwd")):
             raise AssertionError(f"sharded training: launches {counts}, "
                                  f"refines {sorted(refines)}")
         del whole
@@ -2683,7 +2899,9 @@ def cli_phase(castle, pool, d):
             "rasterize_bwd": CLI_ITERS, "segment_sum": CLI_ITERS,
             "tile_pretest": CLI_ITERS + len(renders),
             "sh_color_fwd": CLI_ITERS + len(renders),
-            "sh_color_bwd": CLI_ITERS}:
+            "sh_color_bwd": CLI_ITERS,
+            "project_fwd": CLI_ITERS + len(renders),
+            "project_bwd": CLI_ITERS}:
         raise AssertionError(f"cli train: launches {counts} are not "
                              f"one a step and one an eval render "
                              f"({len(renders)} renders, dropped "
@@ -2747,7 +2965,9 @@ def cli_phase(castle, pool, d):
             "segment_sum": CLI_CELL_ITERS,
             "tile_pretest": CLI_CELL_ITERS + len(c_renders),
             "sh_color_fwd": CLI_CELL_ITERS + len(c_renders),
-            "sh_color_bwd": CLI_CELL_ITERS}:
+            "sh_color_bwd": CLI_CELL_ITERS,
+            "project_fwd": CLI_CELL_ITERS + len(c_renders),
+            "project_bwd": CLI_CELL_ITERS}:
         raise AssertionError(f"cli train --cell: launches {counts2}, "
                              f"{len(c_renders)} eval renders")
 
@@ -2786,7 +3006,9 @@ def cli_phase(castle, pool, d):
                              "from cli train's")
     if min(counts3.values()) < CLI_CELL_ITERS or \
             counts3["sh_color_bwd"] != CLI_CELL_ITERS or \
-            counts3["sh_color_fwd"] != counts3["tile_pretest"]:
+            counts3["sh_color_fwd"] != counts3["tile_pretest"] or \
+            counts3["project_bwd"] != CLI_CELL_ITERS or \
+            counts3["project_fwd"] != counts3["tile_pretest"]:
         raise AssertionError(f"cli train --shard launches {counts3}")
 
     # eval of the export and of the final checkpoint: the same PSNR.
@@ -2836,9 +3058,10 @@ def cli_phase(castle, pool, d):
                         "--log-every", "10", "--checkpoint-dir", c_dir,
                         "--resume", castle_ck], log)
     c_counts = build.launch_counts()
-    # The SH pair on its last calls: the final eval's forward, the last
-    # step's backward, at the castle's 90,977 rows.
+    # The SH and projection pairs on their last calls: the final eval's
+    # forward, the last step's backward, at the castle's 90,977 rows.
     check_sh(c_seen, "cli castle")
+    check_projection(c_seen, "cli castle")
     c_rows = c_seen["sh_color_bwd"][0].shape[0]
     del c_seen
     c_ms = event_ms(c_steps)
@@ -2852,8 +3075,9 @@ def cli_phase(castle, pool, d):
           f"{statistics.median(c_ms[-100:]):.3f} ms), "
           f"{len(c_steps) / (c_steps[-1][4] - c_steps[0][1]):.2f} steps/s"
           f" (host clock); refines {sum(s[5] is not None for s in c_steps)}"
-          f"; launches {c_counts} (the last SH calls bit-equal to their "
-          f"twins at {c_rows} rows); losses {c_losses[0]:.5f} .. "
+          f"; launches {c_counts} (the last SH and projection calls "
+          f"bit-equal to their twins at {c_rows} rows); losses "
+          f"{c_losses[0]:.5f} .. "
           f"{c_losses[-1]:.5f}; final eval PSNR {c_final[0]} SSIM "
           f"{c_final[1]}; {log[-1][1]:.1f} s")
     if len(c_steps) != CASTLE_RESUME_STEPS or not np.isfinite(
@@ -2861,7 +3085,9 @@ def cli_phase(castle, pool, d):
             s[5] is not None for s in c_steps) or min(
             c_counts.values()) < CASTLE_RESUME_STEPS or \
             c_counts["sh_color_bwd"] != c_counts["rasterize_bwd"] or \
-            c_counts["sh_color_fwd"] != c_counts["tile_pretest"]:
+            c_counts["sh_color_fwd"] != c_counts["tile_pretest"] or \
+            c_counts["project_bwd"] != c_counts["rasterize_bwd"] or \
+            c_counts["project_fwd"] != c_counts["tile_pretest"]:
         raise AssertionError("the resumed castle did not take its "
                              "steps through the kernels")
 
@@ -3178,7 +3404,7 @@ def viewer_phase(data: dict, d: str) -> dict:
     base = f"http://127.0.0.1:{srv.port}"
     served = {}
     counted = {"expand": 0, "rasterize_fwd": 0, "tile_pretest": 0,
-               "sh_color_fwd": 0}
+               "sh_color_fwd": 0, "project_fwd": 0}
     try:
         wait_http(base, 60)
         drops = []
@@ -3190,7 +3416,8 @@ def viewer_phase(data: dict, d: str) -> dict:
                 if n != {"expand": 1, "rasterize_fwd": 1,
                          "rasterize_bwd": 0, "segment_sum": 0,
                          "tile_pretest": 1, "sh_color_fwd": 1,
-                         "sh_color_bwd": 0}:
+                         "sh_color_bwd": 0, "project_fwd": 1,
+                         "project_bwd": 0}:
                     raise AssertionError(f"frame {view} {fs} launched {n}")
                 for k in counted:
                     counted[k] += n[k]
@@ -3580,8 +3807,8 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
     apart: sh_phase and every check of kept arguments (check_sh) hold
     those kernels to their plain twins. Every XLA run resets the launch
     counts before it and must have launched the tile pretest and the SH
-    forward once a render or step, the SH backward once a step or render
-    with gradients, and no other kernel of the seven it counts.
+    and projection forwards once a render or step, their backwards once a
+    step or render with gradients, and no other kernel it counts.
     1. the castle at 800x800 on view 0 with gradients of a seeded image
        cotangent, its out-of-range view colours pinned (pinned_castle):
        the XLA image within assert_close_quantized's defaults of the
@@ -3787,12 +4014,14 @@ def xla_phase(gts, castle_pool, bench_img, smi: str) -> dict:
 def xla_launches(n: int, backward: bool) -> dict:
     """The launches of n renders or steps of the XLA backend: its binning
     (ops/binning.build_intersections) runs the tile pretest kernel once,
-    project_inputs' view colours the SH forward once (and the SH backward
-    once where a gradient flows), and no other kernel runs."""
+    project_inputs the projection's and the SH colour's forward once each
+    (and their backward once each where a gradient flows), and no other
+    kernel runs."""
     from brush_tpu_torch.ops.cuda import build
 
-    return {name: n if name in ("tile_pretest", "sh_color_fwd") or (
-        backward and name == "sh_color_bwd") else 0
+    return {name: n if name in ("tile_pretest", "sh_color_fwd",
+                                "project_fwd") or (
+        backward and name in ("sh_color_bwd", "project_bwd")) else 0
             for name in build.KERNELS}
 
 
@@ -3912,7 +4141,7 @@ def aligned_phase(bench_img, bench_records: int, bench_fwd: dict,
     names = ("xy", "conic", "color", "opac")
     one_each = {"expand": 0, "rasterize_fwd": 1, "rasterize_bwd": 1,
                 "segment_sum": 1, "tile_pretest": 0, "sh_color_fwd": 0,
-                "sh_color_bwd": 0}
+                "sh_color_bwd": 0, "project_fwd": 0, "project_bwd": 0}
 
     # 1. The castle, view 0, with gradients.
     t0 = time.perf_counter()
@@ -4446,7 +4675,9 @@ def quality_phase(smi: str) -> dict:
                   "segment_sum": QUALITY_ITERS,
                   "tile_pretest": QUALITY_ITERS + len(renders),
                   "sh_color_fwd": QUALITY_ITERS + len(renders),
-                  "sh_color_bwd": QUALITY_ITERS}:
+                  "sh_color_bwd": QUALITY_ITERS,
+                  "project_fwd": QUALITY_ITERS + len(renders),
+                  "project_bwd": QUALITY_ITERS}:
         raise AssertionError(f"[quality] launches {counts}: not one a step "
                              f"and one an eval render ({len(renders)})")
     if kept_names(kept) != sorted(build.KERNELS):
@@ -4517,6 +4748,8 @@ def main() -> int:
     pretest = pretest_phase(smi)
     torch.cuda.empty_cache()
     sh_times = sh_phase(smi)
+    torch.cuda.empty_cache()
+    proj_times = projection_phase(smi)
     splats, cp, size, k = kernel_phase(BENCH, "bench", backward=False,
                                        reach=True)
     render_counts, img_1, records_1, render_ms = main_path(splats, cp, size,
@@ -4657,6 +4890,14 @@ def main() -> int:
             out["bicycle"] = {**pretest, "from": f"pretest phase: the "
                               f"bicycle-5m configuration's scene, seed "
                               f"{PRETEST_SEED}"}
+        if name.startswith("project"):
+            # "bicycle": projection_phase's fields at PROJ_ROWS rows.
+            tag = name[-3:]
+            out["bicycle"] = {
+                **{f"{n}": proj_times[f"{tag} {n}"] for n in PROJ_ROWS},
+                "from": f"projection phase: the bicycle-5m configuration's "
+                        f"draw, seed {PROJ_SEED}, and {PROJ_ROWS[1]} drawn "
+                        f"rows, {PROJ_DENSIFY_LIVE:.2%} active"}
         if name.startswith("sh_color"):
             # "bicycle": sh_phase's fields at SH_ROWS rows of 16.
             tag = name[-3:]
@@ -4724,6 +4965,10 @@ def main() -> int:
             "none (brush_tpu/ops/binning.py:186, plain XLA)"),
         row("sh_color_fwd", "sh", "none (brush_tpu/ops/sh.py, plain XLA)"),
         row("sh_color_bwd", "sh", "none (brush_tpu/ops/sh.py, plain XLA)"),
+        row("project_fwd", "projection",
+            "none (brush_tpu/ops/projection.py, plain XLA)"),
+        row("project_bwd", "projection",
+            "none (brush_tpu/ops/projection.py, plain XLA)"),
     ]
     print(f"[summary] render path launches {render_counts}, at cell {CELL} "
           f"{cell_counts}; training path launches {counts}, at cell {CELL} "
@@ -4736,7 +4981,8 @@ def main() -> int:
           f"{step_ms_c:.3f}, sharded at world size 1 {shard_ms:.3f}; the "
           f"{TRAIN_STEPS}-step window {window_ms:.3f} "
           f"ms, at cell {CELL} {window_ms_c:.3f}; XLA backend (no "
-          f"kernel but the tile pretest and the SH pair): bench render "
+          f"kernel but the tile pretest, the SH and the projection pairs): "
+          f"bench render "
           f"{xla['bench_ms']['xla']:.3f} ms against "
           f"the pipeline's {xla['bench_ms']['pallas']:.3f}, peak "
           f"{xla['bench_peak_mib'][0]:.1f} MiB against "

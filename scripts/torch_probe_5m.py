@@ -20,7 +20,7 @@ default TrainConfig (no refine in its first 500 steps) from its own
 default pool, up to DEFAULT_POOL_STEPS steps, showing where the pool's
 doubling on drops ends (ROADMAP Queue 3 #15: at 2^24, which expand
 refuses); and one whose pool is set to the probe's before its first step,
-TRAINER_STEPS steps: each step's launches of the seven kernels, records,
+TRAINER_STEPS steps: each step's launches of the nine kernels, records,
 drops (none allowed), loss, the median step, the stage medians and the
 peak memory. Last the card's name and power limit.
 
@@ -139,7 +139,7 @@ def trainer_run(splats, cam, gt_np, steps: int, pool=None,
                 stages: bool = False) -> dict:
     """SplatTrainer (default config) steps on one view from the splats,
     with its pool set to `pool` before the first step (None: its own
-    default). Each step's CUDA-event ms, launches of the seven kernels, the
+    default). Each step's CUDA-event ms, launches of the nine kernels, the
     pool it used, records, drops and loss; a step that raises ends the run
     and is recorded under "error". With `stages` each step's stage marks
     too (profiler.record). Returns those lists and the trainer's last

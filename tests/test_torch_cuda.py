@@ -19,6 +19,7 @@ import torch
 from brush_tpu_torch.camera import Camera
 from brush_tpu_torch.ops.cuda import build
 from brush_tpu_torch.ops.cuda import expand as t_expand
+from brush_tpu_torch.ops.cuda import projection as t_proj
 from brush_tpu_torch.ops.cuda import rasterize_bwd as t_bwd
 from brush_tpu_torch.ops.cuda import rasterize_fwd as t_raster
 from brush_tpu_torch.ops.cuda import segsum as t_seg
@@ -30,12 +31,15 @@ from brush_tpu_torch.ops.binning import (
 from brush_tpu_torch.ops.cuda.testing import (
     HAND_CELL_CASES, HAND_DEEP, HAND_EDGE_IMAGE, HAND_EXPAND_CASES,
     HAND_LAYOUTS, HAND_POISON_FROM, HAND_POOL, HAND_PRETEST_CASES,
-    HAND_PRETEST_CELLS, HAND_SMALL_LIVE, HAND_SMALL_N, HAND_SMALL_POOL,
-    HAND_TILE_CASES, cell_pixel_centres, hand_cells, fwd_warp_patches,
-    hand_expand, hand_pretest, hand_segments, hand_small_pool, hand_tiles,
+    HAND_PRETEST_CELLS, HAND_PROJECTION_CASES, HAND_SMALL_LIVE,
+    HAND_SMALL_N, HAND_SMALL_POOL, HAND_TILE_CASES, cell_pixel_centres,
+    hand_cells, fwd_warp_patches, hand_expand, hand_pretest,
+    hand_projection, hand_segments, hand_small_pool, hand_tiles,
     may_reach_f32, scan_edge, sigma_f32, sigma_max_f32, warp_patches,
 )
-from brush_tpu_torch.ops.projection import Projection
+from brush_tpu_torch.ops.projection import (
+    Projection, normalize_quats, project_bwd_plain, project_splats,
+)
 from brush_tpu_torch.ops.pipeline import depth_order, scan_lanes, tile_bins
 from brush_tpu_torch.ops.rasterize_reference import camera_params
 from brush_tpu_torch.ops.sh import (
@@ -231,6 +235,59 @@ def test_wrappers_reject_bad_inputs():
             t_sh.sh_color_bwd(means, campos, g, degree, coeffs.shape[1])
     with pytest.raises(ValueError, match="several devices"):
         t_sh.sh_color_fwd(means, campos.to("meta"), coeffs, 2)
+
+
+def projection_args(case, device):
+    """hand_projection(case) as the projection wrappers' arguments:
+    (means, log_scales, quats, viewmat, focal, pixel_center, img_size,
+    active) and (g_xy, g_conic)."""
+    a = hand_projection(case)
+    t = {k: torch.tensor(v, device=device) for k, v in a.items()
+         if isinstance(v, np.ndarray) and k != "special"}
+    return ((t["means"], t["log_scales"], t["quats"], t["viewmat"],
+             t["focal"], t["pixel_center"], a["img_size"], t.get("active")),
+            (t["g_xy"], t["g_conic"]))
+
+
+def test_projection_wrappers_reject_bad_inputs():
+    """project_fwd and project_bwd refuse another dtype or shape of each
+    argument, an image size that is not two positive ints, tensors on
+    several devices and CPU tensors (the plain path's), before any
+    launch."""
+    args, (g_xy, g_conic) = projection_args("inactive", "cpu")
+    names = ("means", "log_scales", "quats", "viewmat", "focal",
+             "pixel_center", "img_size", "active")
+    good = dict(zip(names, args))
+    before = build.launch_counts()
+    bad = {"means": [good["means"].double(), good["means"][:, :2]],
+           "log_scales": [good["log_scales"][:-1], good["log_scales"].half()],
+           "quats": [good["quats"][:, :3], good["quats"].double()],
+           "viewmat": [good["viewmat"][:3], good["viewmat"].double()],
+           "focal": [good["focal"][:1], good["focal"].double()],
+           "pixel_center": [good["pixel_center"][None]],
+           "active": [good["active"].int(), good["active"][:-1]]}
+    for name, values in bad.items():
+        for v in values:
+            with pytest.raises(ValueError, match=name):
+                t_proj.project_fwd(**{**good, name: v})
+            with pytest.raises(ValueError, match=name):
+                t_proj.project_bwd(**{**good, name: v}, g_xy=g_xy,
+                                   g_conic=g_conic)
+    for size in ((64,), (64, 0), (64.5, 48), (64, 48, 1)):
+        with pytest.raises(ValueError, match="img_size"):
+            t_proj.project_fwd(**{**good, "img_size": size})
+    for name, g in (("g_xy", g_xy[:, :1]), ("g_xy", g_xy.double()),
+                    ("g_conic", g_conic[:-1]), ("g_conic", g_conic.half())):
+        grads = {"g_xy": g_xy, "g_conic": g_conic, name: g}
+        with pytest.raises(ValueError, match=name):
+            t_proj.project_bwd(**good, **grads)
+    with pytest.raises(ValueError, match="several devices"):
+        t_proj.project_fwd(**{**good, "focal": good["focal"].to("meta")})
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_proj.project_fwd(**good)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_proj.project_bwd(**good, g_xy=g_xy, g_conic=g_conic)
+    assert build.launch_counts() == before
 
 
 def sh_args(degree, n, extra, device, seed=0):
@@ -738,6 +795,30 @@ def test_kernel_sources_find_their_headers():
                 assert os.path.isfile(os.path.join(build.CSRC, header))
 
 
+def test_entries_match_their_c_signatures():
+    """Each row of build.ENTRIES codes its C entry's parameters and result
+    as csrc/<source>.cu declares them (a pointer P, an int I, a long long
+    L; a launch entry's stream is its last P), and every extern "C"
+    entry of the sources has its row: ctypes would pass a 64-bit pointer
+    past the codes as a C int."""
+    import re
+
+    declared = {}
+    for source in build.SOURCES:
+        with open(os.path.join(build.CSRC, f"{source}.cu")) as f:
+            text = f.read()
+        for result, name, params in re.findall(
+                r'extern "C" (int|long long) (\w+)\(([^)]*)\)', text):
+            code = "".join(
+                "P" if "*" in p else "L" if "long long" in p else "I"
+                for p in params.split(","))
+            declared[name] = (source, code, "L" if "long" in result else "I")
+    assert declared == {name: (e.source, e.args, e.result)
+                        for name, e in build.ENTRIES.items()}
+    for name, e in build.ENTRIES.items():
+        assert e.counts is None or e.args.endswith("P"), name
+
+
 # ---- on the card: each CUDA kernel against its plain version ----------
 
 
@@ -974,6 +1055,114 @@ def test_cuda_render_launches_sh_once_a_step():
         before[0] + 2, before[1] + 1)
 
 
+def same_fields(got, want) -> list:
+    """The names of the fields of two Projections whose bits differ."""
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    return [f for f, a, b in zip(Projection._fields, got, want)
+            if not (a.dtype == b.dtype and torch.equal(bits(a), bits(b)))]
+
+
+def plain_projection(args):
+    """project_splats(normalize_quats(quats)) on the card: the forward
+    kernel's twin."""
+    means, log_scales, quats, viewmat, focal, center, img_size, active = args
+    return project_splats(means, log_scales, normalize_quats(quats), viewmat,
+                          focal, center, img_size, active=active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_PROJECTION_CASES + ("draw",))
+def test_cuda_project_fwd_equals_plain(case):
+    """The forward kernel's seven outputs against the plain chain on the
+    card, bit for bit, on each hand-made case (two blocks and a ragged
+    one) and on a random draw of 100,003 splats; a second launch
+    bit-equal."""
+    _need_cuda()
+    if case == "draw":
+        gen = torch.Generator("cuda").manual_seed(7)
+        n = 100_003
+        def r(*shape):
+            return torch.rand(shape, generator=gen, device="cuda")
+
+        args = projection_args("inactive", "cuda")[0]
+        args = ((r(n, 3) - 0.5) * 10.0, torch.log(r(n, 3) * 0.5 + 0.01),
+                torch.randn((n, 4), generator=gen, device="cuda"),
+                *args[3:7], r(n) > 0.1)
+    else:
+        args = projection_args(case, "cuda")[0]
+    before = launched("project_fwd")
+    got = t_proj.project_fwd(*args)
+    again = t_proj.project_fwd(*args)
+    torch.cuda.synchronize()
+    assert launched("project_fwd") == before + 2
+    assert same_fields(got, plain_projection(args)) == []
+    assert same_fields(got, again) == []
+    assert bool(got.visible.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HAND_PROJECTION_CASES)
+def test_cuda_project_bwd_equals_twin(case):
+    """The backward kernel against project_bwd_plain on the card, bit for
+    bit; a second launch bit-equal; the autograd Function's gradients are
+    the kernel's, one launch each way, and its other fields the forward
+    kernel's and carry none."""
+    _need_cuda()
+    args, grads = projection_args(case, "cuda")
+    got = t_proj.project_bwd(*args[:7], *grads, active=args[7])
+    want = project_bwd_plain(*args[:7], *grads, active=args[7])
+    again = t_proj.project_bwd(*args[:7], *grads, active=args[7])
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    leaves = [a.clone().requires_grad_(True) for a in args[:3]]
+    before = (launched("project_fwd"), launched("project_bwd"))
+    proj = t_proj.project(*leaves, *args[3:7], active=args[7])
+    assert same_fields(proj, t_proj.project_fwd(*args)) == []
+    assert not any(getattr(proj, f).requires_grad for f in (
+        "depth", "radius", "tile_min", "tile_max", "visible"))
+    torch.autograd.backward([proj.xy, proj.conic], list(grads))
+    torch.cuda.synchronize()
+    assert (launched("project_fwd"), launched("project_bwd")) == (
+        before[0] + 2, before[1] + 1)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad.view(torch.int32), g.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_projection_once():
+    """A SplatTrainer step launches the projection's forward kernel once
+    and its backward once, a render without gradients the forward alone;
+    the step moves the means and scales (from_random's splats are round,
+    so their rotations get no gradient on any path)."""
+    _need_cuda()
+    from brush_tpu_torch.splats import from_random
+    from brush_tpu_torch.train import SceneBatch, SplatTrainer
+
+    sp = from_random(np.random.default_rng(0), [-1] * 3, [1] * 3, count=512,
+                     sh_degree=1)
+    trainer = SplatTrainer()
+    state = trainer.init_state(sp)
+    batch = SceneBatch(np.full((48, 64, 3), 0.5, np.float32), Camera(**CAM))
+    old = {name: getattr(state.splats, name).clone()
+           for name in ("means", "log_scales")}
+    before = (launched("project_fwd"), launched("project_bwd"))
+    new, _ = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    assert (launched("project_fwd"), launched("project_bwd")) == (
+        before[0] + 1, before[1] + 1)
+    for name, value in old.items():
+        assert bool((getattr(new.splats, name) != value).any()), name
+    render_splats(sp.means, sp.log_scales, sp.quats, sp.sh_coeffs,
+                  sp.raw_opacity, camera_params(Camera(**CAM), (64, 48)),
+                  (64, 48), needs_grad=False)
+    torch.cuda.synchronize()
+    assert (launched("project_fwd"), launched("project_bwd")) == (
+        before[0] + 2, before[1] + 1)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_replay_in_a_graph():
     """Each kernel wrapper (and index_add_, segment_sum's library call)
@@ -994,6 +1183,7 @@ def test_cuda_wrappers_replay_in_a_graph():
     means, campos, coeffs = sh_args(3, 1000, 0, "cuda")
     g = torch.randn((1000, 3), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(5))
+    p_args, p_grads = projection_args("inactive", "cuda")
     calls = {
         "expand": lambda: t_expand.expand(
             r["f5"], r["u5"], r["cum"], r["total"], r["tiles_x"],
@@ -1007,6 +1197,9 @@ def test_cuda_wrappers_replay_in_a_graph():
         "sh_color_fwd": lambda: (t_sh.sh_color_fwd(
             means, campos, coeffs, 3),),
         "sh_color_bwd": lambda: (t_sh.sh_color_bwd(means, campos, g, 3, 16),),
+        "project_fwd": lambda: t_proj.project_fwd(*p_args),
+        "project_bwd": lambda: t_proj.project_bwd(
+            *p_args[:7], *p_grads, active=p_args[7]),
         "index_add_": lambda: (torch.zeros(
             (t_bwd.GRAD_ROWS, n_splats), device="cuda").index_add_(
                 1, ids, rows[:, :ids.shape[0]].contiguous()),)}
